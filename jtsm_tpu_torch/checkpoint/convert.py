@@ -1,0 +1,148 @@
+"""Weights carried across from the JAX package.
+
+``variables_to_state_dict`` takes the JAX package's flax variables (a nested
+dict of numpy arrays with the ``params`` and ``frozen`` collections) and
+returns the detectron2-named state dict that the port's modules load. It
+inverts the JAX package's ``checkpoint/c2_model_loading.py:231-285``
+(``convert_d2_state_dict_to_variables``):
+
+* conv kernels HWIO -> OIHW;
+* the deconv kernel (kh, kw, in, out), stored spatially mirrored, -> torch's
+  (in, out, kh, kw);
+* dense kernels (in, out) -> (out, in);
+* ``fc1`` rows, which the JAX package flattens (P, P, C), -> detectron2's
+  (C, P, P);
+* flax paths -> detectron2 names (``res2_block0`` -> ``res2.0``, the RPN's
+  ``head`` -> ``rpn_head``, ``conv/kernel`` and ``dense/kernel`` ->
+  ``weight``).
+
+``load_gate_ckpt`` reads the committed ``tests/fixtures/gate_ckpts/*.ckpt.gz``
+files: gzip-pickled plain dicts of numpy arrays, float16 on disk, upcast
+here to float32. They unpickle without JAX. Unpickling runs code, so load
+only these first-party files.
+"""
+
+from __future__ import annotations
+
+import gzip
+import logging
+import pickle
+import re
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+logger = logging.getLogger(__name__)
+
+# first fully connected layers that take flattened pooled maps
+_CONV_FLATTEN_FCS = ("fc1", "dan1")
+
+
+def _flatten(tree: Dict, prefix=()) -> Dict[Tuple[str, ...], Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _d2_module_path(path: Tuple[str, ...]) -> list:
+    out = []
+    for p in path:
+        m = re.match(r"^(res\d)_block(\d+)$", p)
+        if m:
+            out.extend(m.groups())
+        elif p == "head" and out == ["proposal_generator"]:
+            out.append("rpn_head")
+        else:
+            out.append(p)
+    return out
+
+
+def _chw_rows_from_hwc(w: np.ndarray) -> np.ndarray:
+    """(out, P*P*C) with columns in (P, P, C) order -> (C, P, P) order. P is
+    inferred as the JAX package's ``_reorder_chw_rows_to_hwc`` infers it."""
+    in_dim = w.shape[1]
+    for p in (7, 14, 28, 3, 2):
+        if in_dim % (p * p) == 0:
+            c = in_dim // (p * p)
+            if c in (32, 64, 96, 128, 256, 512, 1024, 2048):
+                return w.reshape(w.shape[0], p, p, c).transpose(0, 3, 1, 2).reshape(w.shape)
+    logger.warning(f"cannot infer the pooled layout of an fc of in_dim {in_dim}")
+    return w
+
+
+def variables_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``{'params': ..., 'frozen': ...}`` of numpy arrays -> a
+    detectron2-named state dict of float32 CPU tensors."""
+    state = {}
+    for collection in ("params", "frozen"):
+        for path, arr in _flatten(variables.get(collection, {})).items():
+            arr = np.asarray(arr, dtype=np.float32)
+            *module, leaf = path
+            if leaf in ("kernel", "bias") and module and module[-1] in ("conv", "dense"):
+                module = module[:-1]
+            name = ".".join(_d2_module_path(tuple(module)))
+            if collection == "frozen":
+                key = f"{name}.{leaf}"  # FrozenBN: weight, bias, running_mean, running_var
+            elif leaf == "bias":
+                key = f"{name}.bias"
+            elif leaf == "kernel":
+                key = f"{name}.weight"
+                if arr.ndim == 4 and any("deconv" in p for p in module):
+                    arr = np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))
+                elif arr.ndim == 4:
+                    arr = np.transpose(arr, (3, 2, 0, 1))
+                elif arr.ndim == 2:
+                    arr = arr.T
+                    if any(p in _CONV_FLATTEN_FCS for p in module):
+                        arr = _chw_rows_from_hwc(arr)
+            else:
+                raise KeyError(f"no detectron2 name for {collection}/{'/'.join(path)}")
+            state[key] = torch.tensor(np.ascontiguousarray(arr))
+    return state
+
+
+def load_gate_ckpt(path: str) -> Dict[str, Any]:
+    """The flax variables of a committed gate checkpoint, float32."""
+    with gzip.open(path, "rb") as f:
+        data = pickle.load(f)
+    flat = _flatten(data["variables"])
+    out: Dict[str, Any] = {}
+    for p, v in flat.items():
+        node = out
+        for k in p[:-1]:
+            node = node.setdefault(k, {})
+        v = np.asarray(v)
+        node[p[-1]] = v.astype(np.float32) if v.dtype == np.float16 else v
+    return out
+
+
+def random_state_dict(model: torch.nn.Module, seed: int) -> Dict[str, torch.Tensor]:
+    """Seeded random weights for every entry of ``model.state_dict()``, for
+    serving without trained weights: conv and linear weights normal with
+    std 1/sqrt(fan_in), so activations keep their scale through the
+    network; the box-regression outputs (``anchor_deltas``, ``bbox_pred``)
+    with std 0.001 as detectron2 initialises them, so boxes stay near their
+    anchors; biases small and FrozenBN near identity."""
+    rng = np.random.default_rng(seed)
+    state = {}
+    for key, t in model.state_dict().items():
+        shape = tuple(t.shape)
+        if key.endswith("running_var"):
+            a = rng.uniform(0.5, 2.0, shape)
+        elif key.endswith("norm.weight"):
+            a = rng.normal(1.0, 0.1, shape)
+        elif key.endswith("running_mean") or key.endswith("bias"):
+            a = rng.normal(0.0, 0.1, shape)
+        elif key.endswith(("anchor_deltas.weight", "bbox_pred.weight")):
+            a = rng.normal(0.0, 0.001, shape)
+        else:
+            # (out, in, ...) for conv and linear, (in, out, kh, kw) for the deconv
+            fan_in = int(np.prod(shape)) // shape[1 if "deconv" in key else 0]
+            a = rng.normal(0.0, 1.0 / np.sqrt(fan_in), shape)
+        state[key] = torch.from_numpy(a.astype(np.float32))
+    return state

@@ -1,0 +1,423 @@
+"""Default configuration tree.
+
+A copy of the JAX package's ``config/defaults.py``: the same keys and values,
+so every yaml in ``configs/`` merges as it does there (reference:
+detectron2/config/defaults.py:24-624). ``MODEL.DEVICE`` names the card here.
+The keys under ``TPU`` are kept so the shipped yamls load; of them the port
+reads none.
+"""
+
+from .cfgnode import CfgNode as CN
+
+_C = CN()
+
+_C.VERSION = 2
+
+_C.MODEL = CN()
+_C.MODEL.DEVICE = "cuda"
+_C.MODEL.META_ARCHITECTURE = "GeneralizedRCNN"
+_C.MODEL.WEIGHTS = ""
+_C.MODEL.MASK_ON = False
+_C.MODEL.KEYPOINT_ON = False
+_C.MODEL.LOAD_PROPOSALS = False
+# BGR means of the Caffe2-heritage zoo weights (reference defaults.py:61-69)
+_C.MODEL.PIXEL_MEAN = [103.530, 116.280, 123.675]
+_C.MODEL.PIXEL_STD = [1.0, 1.0, 1.0]
+
+# ---------------------------------------------------------------------------
+# Input
+# ---------------------------------------------------------------------------
+_C.INPUT = CN()
+_C.INPUT.MIN_SIZE_TRAIN = (800,)
+_C.INPUT.MIN_SIZE_TRAIN_SAMPLING = "choice"
+_C.INPUT.MAX_SIZE_TRAIN = 1333
+_C.INPUT.MIN_SIZE_TEST = 800
+_C.INPUT.MAX_SIZE_TEST = 1333
+_C.INPUT.RANDOM_FLIP = "horizontal"
+_C.INPUT.CROP = CN()
+_C.INPUT.CROP.ENABLED = False
+_C.INPUT.CROP.TYPE = "relative_range"
+_C.INPUT.CROP.SIZE = [0.9, 0.9]
+# < 1.0 switches to RandomCrop_CategoryAreaConstraint (sem-seg crops must
+# keep category diversity; reference augmentation_impl.py:291)
+_C.INPUT.CROP.SINGLE_CATEGORY_MAX_AREA = 1.0
+_C.INPUT.FORMAT = "BGR"
+_C.INPUT.MASK_FORMAT = "polygon"
+
+# ---------------------------------------------------------------------------
+# Datasets
+# ---------------------------------------------------------------------------
+_C.DATASETS = CN()
+_C.DATASETS.TRAIN = ()
+_C.DATASETS.PROPOSAL_FILES_TRAIN = ()
+_C.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN = 2000
+_C.DATASETS.TEST = ()
+_C.DATASETS.PROPOSAL_FILES_TEST = ()
+_C.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST = 1000
+
+_C.DATALOADER = CN()
+_C.DATALOADER.NUM_WORKERS = 0
+_C.DATALOADER.ASPECT_RATIO_GROUPING = True
+_C.DATALOADER.SAMPLER_TRAIN = "TrainingSampler"
+_C.DATALOADER.REPEAT_THRESHOLD = 0.0
+_C.DATALOADER.FILTER_EMPTY_ANNOTATIONS = True
+
+# ---------------------------------------------------------------------------
+# Backbone
+# ---------------------------------------------------------------------------
+_C.MODEL.BACKBONE = CN()
+_C.MODEL.BACKBONE.NAME = "build_resnet_backbone"
+_C.MODEL.BACKBONE.FREEZE_AT = 2
+
+_C.MODEL.FPN = CN()
+_C.MODEL.FPN.IN_FEATURES = []
+_C.MODEL.FPN.OUT_CHANNELS = 256
+_C.MODEL.FPN.NORM = ""
+_C.MODEL.FPN.FUSE_TYPE = "sum"
+
+_C.MODEL.RESNETS = CN()
+_C.MODEL.RESNETS.DEPTH = 50
+_C.MODEL.RESNETS.OUT_FEATURES = ["res4"]
+_C.MODEL.RESNETS.NUM_GROUPS = 1
+_C.MODEL.RESNETS.NORM = "FrozenBN"
+_C.MODEL.RESNETS.WIDTH_PER_GROUP = 64
+_C.MODEL.RESNETS.STRIDE_IN_1X1 = True
+_C.MODEL.RESNETS.RES5_DILATION = 1
+_C.MODEL.RESNETS.RES2_OUT_CHANNELS = 256
+_C.MODEL.RESNETS.STEM_OUT_CHANNELS = 64
+_C.MODEL.RESNETS.DEFORM_ON_PER_STAGE = [False, False, False, False]
+_C.MODEL.RESNETS.DEFORM_MODULATED = False
+_C.MODEL.RESNETS.DEFORM_NUM_GROUPS = 1
+
+_C.MODEL.VGG = CN()
+_C.MODEL.VGG.DEPTH = 16
+_C.MODEL.VGG.OUT_FEATURES = ["plain5"]
+_C.MODEL.VGG.CONV5_DILATION = 1
+
+# ---------------------------------------------------------------------------
+# Proposal generator / anchors / RPN
+# ---------------------------------------------------------------------------
+_C.MODEL.PROPOSAL_GENERATOR = CN()
+_C.MODEL.PROPOSAL_GENERATOR.NAME = "RPN"
+_C.MODEL.PROPOSAL_GENERATOR.MIN_SIZE = 0
+
+_C.MODEL.ANCHOR_GENERATOR = CN()
+_C.MODEL.ANCHOR_GENERATOR.NAME = "DefaultAnchorGenerator"
+_C.MODEL.ANCHOR_GENERATOR.SIZES = [[32, 64, 128, 256, 512]]
+_C.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS = [[0.5, 1.0, 2.0]]
+_C.MODEL.ANCHOR_GENERATOR.OFFSET = 0.0
+_C.MODEL.ANCHOR_GENERATOR.ANGLES = [[-90, 0, 90]]
+
+_C.MODEL.RPN = CN()
+_C.MODEL.RPN.HEAD_NAME = "StandardRPNHead"
+_C.MODEL.RPN.IN_FEATURES = ["res4"]
+_C.MODEL.RPN.BOUNDARY_THRESH = -1
+_C.MODEL.RPN.IOU_THRESHOLDS = [0.3, 0.7]
+_C.MODEL.RPN.IOU_LABELS = [0, -1, 1]
+_C.MODEL.RPN.BATCH_SIZE_PER_IMAGE = 256
+_C.MODEL.RPN.POSITIVE_FRACTION = 0.5
+_C.MODEL.RPN.BBOX_REG_LOSS_TYPE = "smooth_l1"
+_C.MODEL.RPN.BBOX_REG_LOSS_WEIGHT = 1.0
+_C.MODEL.RPN.BBOX_REG_WEIGHTS = (1.0, 1.0, 1.0, 1.0)
+_C.MODEL.RPN.SMOOTH_L1_BETA = 0.0
+_C.MODEL.RPN.LOSS_WEIGHT = 1.0
+_C.MODEL.RPN.PRE_NMS_TOPK_TRAIN = 12000
+_C.MODEL.RPN.PRE_NMS_TOPK_TEST = 6000
+_C.MODEL.RPN.POST_NMS_TOPK_TRAIN = 2000
+_C.MODEL.RPN.POST_NMS_TOPK_TEST = 1000
+_C.MODEL.RPN.NMS_THRESH = 0.7
+_C.MODEL.RPN.CONV_DIMS = [-1]
+
+# ---------------------------------------------------------------------------
+# ROI heads
+# ---------------------------------------------------------------------------
+_C.MODEL.ROI_HEADS = CN()
+_C.MODEL.ROI_HEADS.NAME = "Res5ROIHeads"
+_C.MODEL.ROI_HEADS.NUM_CLASSES = 80
+_C.MODEL.ROI_HEADS.IN_FEATURES = ["res4"]
+_C.MODEL.ROI_HEADS.IOU_THRESHOLDS = [0.5]
+_C.MODEL.ROI_HEADS.IOU_LABELS = [0, 1]
+_C.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 512
+_C.MODEL.ROI_HEADS.POSITIVE_FRACTION = 0.25
+_C.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.05
+_C.MODEL.ROI_HEADS.NMS_THRESH_TEST = 0.5
+_C.MODEL.ROI_HEADS.PROPOSAL_APPEND_GT = True
+
+_C.MODEL.ROI_BOX_HEAD = CN()
+_C.MODEL.ROI_BOX_HEAD.NAME = ""
+_C.MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE = "smooth_l1"
+_C.MODEL.ROI_BOX_HEAD.BBOX_REG_LOSS_WEIGHT = 1.0
+_C.MODEL.ROI_BOX_HEAD.BBOX_REG_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
+_C.MODEL.ROI_BOX_HEAD.SMOOTH_L1_BETA = 0.0
+_C.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION = 14
+_C.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO = 0
+_C.MODEL.ROI_BOX_HEAD.POOLER_TYPE = "ROIAlignV2"
+_C.MODEL.ROI_BOX_HEAD.NUM_FC = 0
+_C.MODEL.ROI_BOX_HEAD.FC_DIM = 1024
+_C.MODEL.ROI_BOX_HEAD.NUM_CONV = 0
+_C.MODEL.ROI_BOX_HEAD.CONV_DIM = 256
+_C.MODEL.ROI_BOX_HEAD.NORM = ""
+_C.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG = False
+_C.MODEL.ROI_BOX_HEAD.TRAIN_ON_PRED_BOXES = False
+
+_C.MODEL.ROI_BOX_CASCADE_HEAD = CN()
+_C.MODEL.ROI_BOX_CASCADE_HEAD.BBOX_REG_WEIGHTS = (
+    (10.0, 10.0, 5.0, 5.0),
+    (20.0, 20.0, 10.0, 10.0),
+    (30.0, 30.0, 15.0, 15.0),
+)
+_C.MODEL.ROI_BOX_CASCADE_HEAD.IOUS = (0.5, 0.6, 0.7)
+
+_C.MODEL.ROI_MASK_HEAD = CN()
+_C.MODEL.ROI_MASK_HEAD.NAME = "MaskRCNNConvUpsampleHead"
+_C.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION = 14
+_C.MODEL.ROI_MASK_HEAD.POOLER_SAMPLING_RATIO = 0
+_C.MODEL.ROI_MASK_HEAD.NUM_CONV = 0
+_C.MODEL.ROI_MASK_HEAD.CONV_DIM = 256
+_C.MODEL.ROI_MASK_HEAD.NORM = ""
+_C.MODEL.ROI_MASK_HEAD.CLS_AGNOSTIC_MASK = False
+_C.MODEL.ROI_MASK_HEAD.POOLER_TYPE = "ROIAlignV2"
+
+_C.MODEL.ROI_KEYPOINT_HEAD = CN()
+_C.MODEL.ROI_KEYPOINT_HEAD.NAME = "KRCNNConvDeconvUpsampleHead"
+_C.MODEL.ROI_KEYPOINT_HEAD.POOLER_RESOLUTION = 14
+_C.MODEL.ROI_KEYPOINT_HEAD.POOLER_SAMPLING_RATIO = 0
+_C.MODEL.ROI_KEYPOINT_HEAD.CONV_DIMS = tuple(512 for _ in range(8))
+_C.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS = 17
+_C.MODEL.ROI_KEYPOINT_HEAD.MIN_KEYPOINTS_PER_IMAGE = 1
+_C.MODEL.ROI_KEYPOINT_HEAD.NORMALIZE_LOSS_BY_VISIBLE_KEYPOINTS = True
+_C.MODEL.ROI_KEYPOINT_HEAD.LOSS_WEIGHT = 1.0
+_C.MODEL.ROI_KEYPOINT_HEAD.POOLER_TYPE = "ROIAlignV2"
+
+# ---------------------------------------------------------------------------
+# RetinaNet
+# ---------------------------------------------------------------------------
+_C.MODEL.RETINANET = CN()
+_C.MODEL.RETINANET.NUM_CLASSES = 80
+_C.MODEL.RETINANET.IN_FEATURES = ["p3", "p4", "p5", "p6", "p7"]
+_C.MODEL.RETINANET.NUM_CONVS = 4
+_C.MODEL.RETINANET.IOU_THRESHOLDS = [0.4, 0.5]
+_C.MODEL.RETINANET.IOU_LABELS = [0, -1, 1]
+_C.MODEL.RETINANET.PRIOR_PROB = 0.01
+_C.MODEL.RETINANET.SCORE_THRESH_TEST = 0.05
+_C.MODEL.RETINANET.TOPK_CANDIDATES_TEST = 1000
+_C.MODEL.RETINANET.NMS_THRESH_TEST = 0.5
+_C.MODEL.RETINANET.BBOX_REG_WEIGHTS = (1.0, 1.0, 1.0, 1.0)
+_C.MODEL.RETINANET.FOCAL_LOSS_GAMMA = 2.0
+_C.MODEL.RETINANET.FOCAL_LOSS_ALPHA = 0.25
+_C.MODEL.RETINANET.SMOOTH_L1_LOSS_BETA = 0.1
+_C.MODEL.RETINANET.BBOX_REG_LOSS_TYPE = "smooth_l1"
+_C.MODEL.RETINANET.NORM = ""
+
+# ---------------------------------------------------------------------------
+# Semantic segmentation / panoptic
+# ---------------------------------------------------------------------------
+_C.MODEL.SEM_SEG_HEAD = CN()
+_C.MODEL.SEM_SEG_HEAD.NAME = "SemSegFPNHead"
+_C.MODEL.SEM_SEG_HEAD.IN_FEATURES = ["p2", "p3", "p4", "p5"]
+_C.MODEL.SEM_SEG_HEAD.IGNORE_VALUE = 255
+_C.MODEL.SEM_SEG_HEAD.NUM_CLASSES = 54
+_C.MODEL.SEM_SEG_HEAD.CONVS_DIM = 128
+_C.MODEL.SEM_SEG_HEAD.COMMON_STRIDE = 4
+_C.MODEL.SEM_SEG_HEAD.NORM = "GN"
+_C.MODEL.SEM_SEG_HEAD.LOSS_WEIGHT = 1.0
+
+_C.MODEL.PANOPTIC_FPN = CN()
+_C.MODEL.PANOPTIC_FPN.INSTANCE_LOSS_WEIGHT = 1.0
+_C.MODEL.PANOPTIC_FPN.COMBINE = CN()
+_C.MODEL.PANOPTIC_FPN.COMBINE.ENABLED = True
+_C.MODEL.PANOPTIC_FPN.COMBINE.OVERLAP_THRESH = 0.5
+_C.MODEL.PANOPTIC_FPN.COMBINE.STUFF_AREA_LIMIT = 4096
+_C.MODEL.PANOPTIC_FPN.COMBINE.INSTANCES_CONFIDENCE_THRESH = 0.5
+
+# ---------------------------------------------------------------------------
+# Solver
+# ---------------------------------------------------------------------------
+_C.SOLVER = CN()
+_C.SOLVER.MAX_ITER = 40000
+_C.SOLVER.BASE_LR = 0.001
+_C.SOLVER.MOMENTUM = 0.9
+# "SGD" or "ADAM" (Panoptic-DeepLab uses ADAM)
+_C.SOLVER.OPTIMIZER = "SGD"
+_C.SOLVER.NESTEROV = False
+_C.SOLVER.WEIGHT_DECAY = 0.0001
+_C.SOLVER.WEIGHT_DECAY_NORM = 0.0
+_C.SOLVER.GAMMA = 0.1
+_C.SOLVER.STEPS = (30000,)
+_C.SOLVER.LR_SCHEDULER_NAME = "WarmupMultiStepLR"
+_C.SOLVER.WARMUP_FACTOR = 1.0 / 1000
+_C.SOLVER.WARMUP_ITERS = 1000
+_C.SOLVER.WARMUP_METHOD = "linear"
+_C.SOLVER.CHECKPOINT_PERIOD = 5000
+_C.SOLVER.IMS_PER_BATCH = 16
+_C.SOLVER.REFERENCE_WORLD_SIZE = 0
+_C.SOLVER.BIAS_LR_FACTOR = 1.0
+_C.SOLVER.WEIGHT_DECAY_BIAS = 0.0001
+_C.SOLVER.CLIP_GRADIENTS = CN()
+_C.SOLVER.CLIP_GRADIENTS.ENABLED = False
+_C.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "value"
+_C.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 1.0
+_C.SOLVER.CLIP_GRADIENTS.NORM_TYPE = 2.0
+_C.SOLVER.AMP = CN()
+_C.SOLVER.AMP.ENABLED = True  # bf16 compute path on TPU
+
+# ---------------------------------------------------------------------------
+# Test
+# ---------------------------------------------------------------------------
+_C.TEST = CN()
+_C.TEST.EXPECTED_RESULTS = []
+_C.TEST.EVAL_PERIOD = 0
+# Eval images per step. >1 is the TPU-native analog of the reference's
+# 1-image-per-GPU distributed eval: the batch is sharded over the data mesh
+# when its size divides the device count (the final partial batch is padded
+# on device and trimmed host-side before the evaluators see it).
+_C.TEST.IMS_PER_BATCH = 1
+_C.TEST.KEYPOINT_OKS_SIGMAS = []
+_C.TEST.DETECTIONS_PER_IMAGE = 100
+_C.TEST.AUG = CN()
+_C.TEST.AUG.ENABLED = False
+_C.TEST.AUG.MIN_SIZES = (400, 500, 600, 700, 800, 900, 1000, 1100, 1200)
+_C.TEST.AUG.MAX_SIZE = 4000
+_C.TEST.AUG.FLIP = True
+_C.TEST.PRECISE_BN = CN()
+_C.TEST.PRECISE_BN.ENABLED = False
+_C.TEST.PRECISE_BN.NUM_ITER = 200
+
+# ---------------------------------------------------------------------------
+# TPU-specific
+# ---------------------------------------------------------------------------
+_C.TPU = CN()
+# Static padded image buckets (H, W) the compiled graph supports; images are
+# resized by the usual policy then padded to the smallest fitting bucket so
+# XLA compiles a bounded number of programs.
+_C.TPU.IMAGE_BUCKETS = [[800, 1344], [1344, 800], [1024, 1024]]
+# Fixed capacities that replace dynamic shapes (see SURVEY.md §7):
+_C.TPU.MAX_GT_INSTANCES = 100
+# dtype of the compute path: "bfloat16" or "float32"
+_C.TPU.COMPUTE_DTYPE = "bfloat16"
+# mesh axis names and sizes; -1 means "all remaining devices"
+_C.TPU.MESH_AXES = ["data"]
+_C.TPU.MESH_SHAPE = [-1]
+# FSDP / ZeRO-3: shard large params + optimizer buffers over the data axis
+_C.TPU.FSDP = False
+# Activation rematerialization (jax.checkpoint): module scopes whose
+# intermediates are recomputed on the backward pass instead of stored —
+# the HBM lever for larger per-chip train batches. Valid scopes:
+#   "backbone_blocks"  each trainable residual block (fine-grained)
+#   "backbone"         the whole backbone(+FPN) call — only the output
+#                      feature maps are stored
+#   "rpn_head"         the RPN conv tower (res2-resolution activations)
+#   "box_head" / "mask_head" / "keypoint_head"   per-ROI head stacks
+_C.TPU.REMAT = []
+# Post-training int8 inference (jtsm_tpu/export/quantize.py): top-level
+# module scopes whose convs run s8 x s8 -> s32 on the MXU after activation
+# calibration, e.g. ["backbone"]. Empty = full bf16/f32 inference.
+# DefaultPredictor calibrates lazily on the first image; evaluation via
+# DefaultTrainer.test calibrates on the first test batch.
+_C.TPU.INT8_SCOPES = []
+# Persistent XLA compilation cache: compiled programs are keyed by HLO and
+# reused across process invocations, so a second `train_net.py`/demo run on
+# the same config skips the 20-40s TPU compile. "" disables; the
+# JTSM_XLA_CACHE_DIR environment variable overrides the config value.
+_C.TPU.COMPILATION_CACHE_DIR = "/tmp/jtsm_xla_cache"
+
+_C.OUTPUT_DIR = "./output"
+_C.SEED = -1
+# reference-compat key (torch concept): accepted so reference yamls load,
+# intentionally inert on TPU — like MODEL.DEVICE and GLOBAL.HACK below.
+_C.CUDNN_BENCHMARK = False
+_C.VIS_PERIOD = 0
+
+_C.GLOBAL = CN()
+_C.GLOBAL.HACK = 1.0
+
+
+def get_cfg() -> CN:
+    """Return a fresh copy of the default config (reference config.py:84)."""
+    return _C.clone()
+
+
+def mask_rcnn_R_50_FPN_cfg() -> CN:
+    """``configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml`` over
+    ``configs/Base-RCNN-FPN.yaml``, set in Python so that a machine without
+    PyYAML builds the flagship model. A test holds it equal to the merged
+    yaml files."""
+    cfg = get_cfg()
+    m = cfg.MODEL
+    m.META_ARCHITECTURE = "GeneralizedRCNN"
+    m.WEIGHTS = "detectron2://ImageNetPretrained/MSRA/R-50.pkl"
+    m.MASK_ON = True
+    m.BACKBONE.NAME = "build_resnet_fpn_backbone"
+    m.RESNETS.DEPTH = 50
+    m.RESNETS.OUT_FEATURES = ["res2", "res3", "res4", "res5"]
+    m.FPN.IN_FEATURES = ["res2", "res3", "res4", "res5"]
+    m.ANCHOR_GENERATOR.SIZES = [[32], [64], [128], [256], [512]]
+    m.ANCHOR_GENERATOR.ASPECT_RATIOS = [[0.5, 1.0, 2.0]]
+    m.RPN.IN_FEATURES = ["p2", "p3", "p4", "p5", "p6"]
+    m.RPN.PRE_NMS_TOPK_TRAIN = 2000
+    m.RPN.PRE_NMS_TOPK_TEST = 1000
+    m.RPN.POST_NMS_TOPK_TRAIN = 1000
+    m.RPN.POST_NMS_TOPK_TEST = 1000
+    m.ROI_HEADS.NAME = "StandardROIHeads"
+    m.ROI_HEADS.IN_FEATURES = ["p2", "p3", "p4", "p5"]
+    m.ROI_BOX_HEAD.NAME = "FastRCNNConvFCHead"
+    m.ROI_BOX_HEAD.NUM_FC = 2
+    m.ROI_BOX_HEAD.POOLER_RESOLUTION = 7
+    m.ROI_MASK_HEAD.NAME = "MaskRCNNConvUpsampleHead"
+    m.ROI_MASK_HEAD.NUM_CONV = 4
+    m.ROI_MASK_HEAD.POOLER_RESOLUTION = 14
+    cfg.DATASETS.TRAIN = ("coco_2017_train",)
+    cfg.DATASETS.TEST = ("coco_2017_val",)
+    cfg.SOLVER.IMS_PER_BATCH = 16
+    cfg.SOLVER.BASE_LR = 0.02
+    cfg.SOLVER.STEPS = (60000, 80000)
+    cfg.SOLVER.MAX_ITER = 90000
+    cfg.INPUT.MIN_SIZE_TRAIN = (640, 672, 704, 736, 768, 800)
+    cfg.VERSION = 2
+    return cfg
+
+
+def mask_rcnn_gate_cfg() -> CN:
+    """``configs/quick_schedules/mask_rcnn_R_18_FPN_synthetic_inference_acc_test.yaml``
+    (over its training twin and ``Base-RCNN-FPN.yaml``), set in Python: the
+    narrow bottleneck R50 of the committed ``tests/fixtures/gate_ckpts/
+    mask_rcnn.ckpt.gz`` weights. A test holds it equal to the merged yamls."""
+    cfg = mask_rcnn_R_50_FPN_cfg()
+    m = cfg.MODEL
+    m.WEIGHTS = "tests/fixtures/gate_ckpts/mask_rcnn.ckpt.gz"
+    m.BACKBONE.FREEZE_AT = 0
+    m.RESNETS.STEM_OUT_CHANNELS = 32
+    m.RESNETS.RES2_OUT_CHANNELS = 32
+    m.RESNETS.WIDTH_PER_GROUP = 8
+    m.FPN.OUT_CHANNELS = 32
+    m.RPN.PRE_NMS_TOPK_TRAIN = 512
+    m.RPN.POST_NMS_TOPK_TRAIN = 128
+    m.RPN.PRE_NMS_TOPK_TEST = 256
+    m.RPN.POST_NMS_TOPK_TEST = 64
+    m.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 64
+    m.ROI_BOX_HEAD.NUM_FC = 1
+    m.ROI_BOX_HEAD.FC_DIM = 64
+    m.ROI_MASK_HEAD.NUM_CONV = 1
+    m.ROI_MASK_HEAD.CONV_DIM = 32
+    cfg.DATASETS.TRAIN = ("coco_2017_val_100",)
+    cfg.DATASETS.TEST = ("coco_2017_val_100",)
+    cfg.INPUT.MIN_SIZE_TRAIN = (128,)
+    cfg.INPUT.MAX_SIZE_TRAIN = 176
+    cfg.INPUT.MIN_SIZE_TEST = 128
+    cfg.INPUT.MAX_SIZE_TEST = 176
+    cfg.TPU.IMAGE_BUCKETS = [[128, 176], [176, 176]]
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    s = cfg.SOLVER
+    s.IMS_PER_BATCH = 4
+    s.BASE_LR = 0.002
+    s.MAX_ITER = 200
+    s.STEPS = (180,)
+    s.WARMUP_ITERS = 40
+    s.WARMUP_FACTOR = 0.01
+    s.CLIP_GRADIENTS.ENABLED = True
+    s.CLIP_GRADIENTS.CLIP_TYPE = "norm"
+    s.CLIP_GRADIENTS.CLIP_VALUE = 5.0
+    cfg.DATALOADER.NUM_WORKERS = 0
+    cfg.TEST.EXPECTED_RESULTS = [["bbox", "AP", 63.5662, 0.02], ["segm", "AP", 64.9523, 0.02]]
+    cfg.SEED = 42
+    return cfg

@@ -1,0 +1,13 @@
+from .batch_norm import FrozenBatchNorm2d, get_norm
+from .shape_spec import ShapeSpec
+from .wrappers import Conv2d, ConvTranspose2d, Linear, interpolate_nearest
+
+__all__ = [
+    "Conv2d",
+    "ConvTranspose2d",
+    "FrozenBatchNorm2d",
+    "Linear",
+    "ShapeSpec",
+    "get_norm",
+    "interpolate_nearest",
+]

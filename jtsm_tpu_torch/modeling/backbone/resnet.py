@@ -1,0 +1,190 @@
+"""ResNet backbone (reference: detectron2/modeling/backbone/resnet.py:33
+``BasicBlock``, :101 ``BottleneckBlock``, :331 ``BasicStem``, :362
+``ResNet``, :563 ``build_resnet_backbone``; JAX package
+``modeling/backbone/resnet.py``).
+
+NCHW maps; module names follow detectron2 (``stem.conv1``, ``res2.0.conv1``,
+``shortcut``), so ``state_dict()`` keys are detectron2's. Inference only:
+frozen stages are a training matter and FrozenBN has no statistics to
+update. Deformable blocks and the res5 dilation wait for later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...layers import Conv2d, ShapeSpec, get_norm
+
+_DEPTH_TO_BLOCKS = {
+    18: [2, 2, 2, 2],
+    34: [3, 4, 6, 3],
+    50: [3, 4, 6, 3],
+    101: [3, 4, 23, 3],
+    152: [3, 8, 36, 3],
+}
+
+
+class BasicStem(nn.Module):
+    """7x7/2 conv, norm, ReLU, 3x3/2 max pool with padding 1 (JAX :47)."""
+
+    def __init__(self, in_channels: int = 3, out_channels: int = 64, norm: str = "FrozenBN"):
+        super().__init__()
+        self.conv1 = Conv2d(
+            in_channels, out_channels, kernel_size=7, stride=2, padding=3, bias=False,
+            norm=get_norm(norm, out_channels), activation=F.relu,
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.max_pool2d(self.conv1(x), kernel_size=3, stride=2, padding=1)
+
+
+def _shortcut(in_channels, out_channels, stride, norm):
+    if in_channels == out_channels and stride == 1:
+        return None
+    return Conv2d(
+        in_channels, out_channels, kernel_size=1, stride=stride, bias=False,
+        norm=get_norm(norm, out_channels),
+    )
+
+
+class BasicBlock(nn.Module):
+    """Two 3x3 convs (R18/R34)."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1, norm: str = "FrozenBN"):
+        super().__init__()
+        self.shortcut = _shortcut(in_channels, out_channels, stride, norm)
+        self.conv1 = Conv2d(
+            in_channels, out_channels, kernel_size=3, stride=stride, padding=1, bias=False,
+            norm=get_norm(norm, out_channels), activation=F.relu,
+        )
+        self.conv2 = Conv2d(
+            out_channels, out_channels, kernel_size=3, padding=1, bias=False,
+            norm=get_norm(norm, out_channels),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv2(self.conv1(x))
+        shortcut = x if self.shortcut is None else self.shortcut(x)
+        return F.relu(out + shortcut)
+
+
+class BottleneckBlock(nn.Module):
+    """1x1 -> 3x3 -> 1x1, the stride on the 1x1 when ``stride_in_1x1``."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        bottleneck_channels: int,
+        stride: int = 1,
+        num_groups: int = 1,
+        norm: str = "FrozenBN",
+        stride_in_1x1: bool = True,
+    ):
+        super().__init__()
+        stride_1x1, stride_3x3 = (stride, 1) if stride_in_1x1 else (1, stride)
+        self.shortcut = _shortcut(in_channels, out_channels, stride, norm)
+        self.conv1 = Conv2d(
+            in_channels, bottleneck_channels, kernel_size=1, stride=stride_1x1, bias=False,
+            norm=get_norm(norm, bottleneck_channels), activation=F.relu,
+        )
+        self.conv2 = Conv2d(
+            bottleneck_channels, bottleneck_channels, kernel_size=3, stride=stride_3x3,
+            padding=1, groups=num_groups, bias=False,
+            norm=get_norm(norm, bottleneck_channels), activation=F.relu,
+        )
+        self.conv3 = Conv2d(
+            bottleneck_channels, out_channels, kernel_size=1, bias=False,
+            norm=get_norm(norm, out_channels),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv3(self.conv2(self.conv1(x)))
+        shortcut = x if self.shortcut is None else self.shortcut(x)
+        return F.relu(out + shortcut)
+
+
+class ResNet(nn.Module):
+    def __init__(
+        self,
+        depth: int = 50,
+        stem_out_channels: int = 64,
+        res2_out_channels: int = 256,
+        num_groups: int = 1,
+        width_per_group: int = 64,
+        stride_in_1x1: bool = True,
+        norm: str = "FrozenBN",
+        out_features: Sequence[str] = ("res4",),
+    ):
+        super().__init__()
+        if depth not in _DEPTH_TO_BLOCKS:
+            raise ValueError(f"ResNet depth {depth} is not one of {sorted(_DEPTH_TO_BLOCKS)}")
+        self.out_features = tuple(out_features)
+        self.stem = BasicStem(3, stem_out_channels, norm)
+        is_basic = depth in (18, 34)
+        if is_basic and res2_out_channels != 64:
+            raise ValueError("Must set MODEL.RESNETS.RES2_OUT_CHANNELS = 64 for R18/R34")
+        max_stage = max(int(f[3:]) for f in self.out_features if f != "stem")
+
+        in_channels = stem_out_channels
+        out_channels = res2_out_channels
+        bottleneck_channels = num_groups * width_per_group
+        self.stage_names = []
+        self._out_channels = {"stem": stem_out_channels}
+        for idx, stage_idx in enumerate(range(2, max_stage + 1)):
+            blocks = []
+            for b in range(_DEPTH_TO_BLOCKS[depth][idx]):
+                stride = 2 if b == 0 and idx > 0 else 1
+                if is_basic:
+                    block = BasicBlock(in_channels, out_channels, stride, norm)
+                else:
+                    block = BottleneckBlock(
+                        in_channels, out_channels, bottleneck_channels, stride,
+                        num_groups, norm, stride_in_1x1,
+                    )
+                blocks.append(block)
+                in_channels = out_channels
+            name = f"res{stage_idx}"
+            self.add_module(name, nn.Sequential(*blocks))
+            self.stage_names.append(name)
+            self._out_channels[name] = out_channels
+            out_channels *= 2
+            bottleneck_channels *= 2
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        outputs = {}
+        x = self.stem(x)
+        if "stem" in self.out_features:
+            outputs["stem"] = x
+        for name in self.stage_names:
+            x = getattr(self, name)(x)
+            if name in self.out_features:
+                outputs[name] = x
+        return outputs
+
+    def output_shape(self) -> Dict[str, ShapeSpec]:
+        strides = {"stem": 4, "res2": 4, "res3": 8, "res4": 16, "res5": 32}
+        return {
+            f: ShapeSpec(channels=self._out_channels[f], stride=strides[f])
+            for f in self.out_features
+        }
+
+
+def build_resnet_backbone(cfg) -> ResNet:
+    r = cfg.MODEL.RESNETS
+    if r.RES5_DILATION != 1 or any(r.DEFORM_ON_PER_STAGE):
+        raise NotImplementedError("dilated and deformable ResNets are not ported yet")
+    return ResNet(
+        depth=r.DEPTH,
+        stem_out_channels=r.STEM_OUT_CHANNELS,
+        res2_out_channels=r.RES2_OUT_CHANNELS,
+        num_groups=r.NUM_GROUPS,
+        width_per_group=r.WIDTH_PER_GROUP,
+        stride_in_1x1=r.STRIDE_IN_1X1,
+        norm=r.NORM,
+        out_features=tuple(r.OUT_FEATURES),
+    )

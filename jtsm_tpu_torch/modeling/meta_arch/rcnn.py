@@ -1,0 +1,84 @@
+"""GeneralizedRCNN inference (reference:
+detectron2/modeling/meta_arch/rcnn.py:24, :177 ``inference``; JAX package
+``modeling/meta_arch/rcnn.py``).
+
+Input contract, the JAX package's batch dict:
+  image:        (B, H, W, 3) float, raw pixel scale, channel order per cfg
+  image_sizes:  (B, 2) int true (h, w) inside the padded canvas
+  orig_sizes:   (B, 2) int original sizes (boxes are mapped back to them)
+Output: fixed (B, D) detections with a ``valid`` mask: ``boxes`` (B, D, 4),
+``scores`` (B, D), ``classes`` (B, D) int32, ``valid`` (B, D) bool and, with
+MASK_ON, ``masks`` (B, D, S, S) ROI probabilities.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from ..backbone import build_backbone
+from ..postprocessing import detector_postprocess_batched
+from ..proposal_generator.rpn import build_proposal_generator
+from ..roi_heads.roi_heads import build_roi_heads
+
+
+class GeneralizedRCNN(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.backbone = build_backbone(cfg)
+        shapes = self.backbone.output_shape()
+        self.proposal_generator = build_proposal_generator(cfg, shapes)
+        self.roi_heads = build_roi_heads(cfg, shapes)
+        self.register_buffer(
+            "pixel_mean", torch.tensor(cfg.MODEL.PIXEL_MEAN, dtype=torch.float32), persistent=False
+        )
+        self.register_buffer(
+            "pixel_std", torch.tensor(cfg.MODEL.PIXEL_STD, dtype=torch.float32), persistent=False
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.pixel_mean.device
+
+    @torch.no_grad()
+    def inference(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Detections for a batch dict (see the module docstring). Inputs
+        are moved to the model's device."""
+        dev = self.device
+        images = torch.as_tensor(batch["image"], dtype=torch.float32, device=dev)
+        image_sizes = torch.as_tensor(batch["image_sizes"], device=dev)
+        orig_sizes = torch.as_tensor(batch.get("orig_sizes", image_sizes), device=dev)
+        # normalise NHWC, then an NCHW view of it: the backbone runs
+        # channels-last, so the poolers read the maps without a copy
+        x = ((images - self.pixel_mean) / self.pixel_std).permute(0, 3, 1, 2)
+        features = self.backbone(x)
+        proposals, proposal_scores = self.proposal_generator(image_sizes, features)
+        detections = self.roi_heads(features, proposals, proposal_scores, image_sizes)
+        return detector_postprocess_batched(detections, image_sizes, orig_sizes)
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if self.training:
+            raise NotImplementedError("training is not ported yet: call model.eval()")
+        return self.inference(batch)
+
+
+def resolve_device(device) -> torch.device:
+    """The device to run on: the card unless the caller asks for another.
+    Asking for the card on a machine without one raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    return device
+
+
+def build_model(cfg, device="cuda") -> GeneralizedRCNN:
+    """The model named by MODEL.META_ARCHITECTURE, in eval mode, on
+    ``device``. Weights are left at PyTorch's initialisation: load a state
+    dict (``checkpoint.convert``) before serving."""
+    name = cfg.MODEL.META_ARCHITECTURE
+    if name != "GeneralizedRCNN":
+        raise NotImplementedError(f"meta architecture {name!r} is not ported yet")
+    device = resolve_device(device)
+    return GeneralizedRCNN(cfg).to(device).eval()

@@ -1,0 +1,93 @@
+"""Fast R-CNN output layers and fixed-capacity inference (reference:
+detectron2/modeling/roi_heads/fast_rcnn.py:46 ``fast_rcnn_inference``, :369
+``FastRCNNOutputLayers``; JAX package ``roi_heads/fast_rcnn.py`` :99-160).
+
+Inference keeps a fixed budget: the top ``nms_candidates`` of the R x K
+score grid after thresholding go through class-aware NMS, and the result is
+(B, DETECTIONS_PER_IMAGE) detections with a validity mask."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from ...layers import Linear
+from ...ops.box_regression import Box2BoxTransform
+from ...ops.nms import batched_nms_mask
+from ...structures.boxes import clip_boxes, nonempty_boxes
+from ..proposal_generator.proposal_utils import topk_stable
+
+
+class FastRCNNOutputLayers(nn.Module):
+    """(K+1)-way classification and per-class box deltas."""
+
+    def __init__(self, input_size: int, num_classes: int, cls_agnostic_bbox_reg: bool = False, box_dim: int = 4):
+        super().__init__()
+        self.cls_score = Linear(input_size, num_classes + 1)
+        num_bbox_reg_classes = 1 if cls_agnostic_bbox_reg else num_classes
+        self.bbox_pred = Linear(input_size, num_bbox_reg_classes * box_dim)
+
+    def forward(self, x: torch.Tensor):
+        x = x.flatten(1)
+        return self.cls_score(x).float(), self.bbox_pred(x).float()
+
+
+def fast_rcnn_inference(
+    scores: torch.Tensor,  # (B, R, K+1) logits
+    deltas: torch.Tensor,  # (B, R, K*4) or (B, R, 4)
+    proposal_boxes: torch.Tensor,  # (B, R, 4)
+    proposal_valid: torch.Tensor,  # (B, R)
+    image_sizes: torch.Tensor,  # (B, 2)
+    box2box_transform: Box2BoxTransform,
+    num_classes: int,
+    score_thresh: float,
+    nms_thresh: float,
+    topk_per_image: int,
+    nms_candidates: int = 1024,
+) -> Dict[str, torch.Tensor]:
+    """Per image: softmax, decode and clip per class, threshold, top
+    ``nms_candidates``, class-aware NMS, top ``topk_per_image``."""
+    b, r = scores.shape[:2]
+    probs = torch.softmax(scores, dim=-1)[..., :num_classes]  # (B, R, K)
+    size = image_sizes.to(torch.float32)[:, None, None, :]
+    decoded = box2box_transform.apply_deltas(deltas, proposal_boxes)
+    if deltas.shape[-1] == 4:
+        boxes = clip_boxes(decoded, size[:, 0])[:, :, None, :].expand(b, r, num_classes, 4)
+    else:
+        boxes = clip_boxes(decoded.reshape(b, r, num_classes, 4), size)
+
+    flat_scores = probs.reshape(b, -1)  # (B, R*K)
+    flat_boxes = boxes.reshape(b, -1, 4)
+    keepable = (
+        (probs > score_thresh).reshape(b, -1)
+        & proposal_valid.repeat_interleave(num_classes, dim=1)
+        & nonempty_boxes(flat_boxes)
+    )
+    neg_inf = torch.full_like(flat_scores, float("-inf"))
+    flat_scores = torch.where(keepable, flat_scores, neg_inf)
+
+    c = min(nms_candidates, flat_scores.shape[1])
+    cand_scores, cand_idx = topk_stable(flat_scores, c)
+    cand_boxes = torch.gather(flat_boxes, 1, cand_idx[..., None].expand(b, c, 4))
+    cand_classes = (cand_idx % num_classes).to(torch.int32)
+
+    keep = batched_nms_mask(cand_boxes, cand_scores, cand_classes, nms_thresh)
+    final_scores = torch.where(keep, cand_scores, torch.full_like(cand_scores, float("-inf")))
+    k = min(topk_per_image, c)
+    top_scores, top_i = topk_stable(final_scores, k)
+    valid = torch.isfinite(top_scores)
+    out = {
+        "boxes": torch.gather(cand_boxes, 1, top_i[..., None].expand(b, k, 4)),
+        "scores": torch.where(valid, top_scores, torch.zeros_like(top_scores)),
+        "classes": torch.gather(cand_classes, 1, top_i),
+        "valid": valid,
+    }
+    if topk_per_image > k:
+        pad = topk_per_image - k
+        out = {
+            key: torch.cat([v, v.new_zeros((b, pad) + v.shape[2:])], dim=1)
+            for key, v in out.items()
+        }
+    return out
