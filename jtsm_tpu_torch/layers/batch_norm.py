@@ -2,7 +2,7 @@
 ``FrozenBatchNorm2d``, :128 ``get_norm``; JAX package ``layers/batch_norm.py``).
 
 Only the norms of the ported main path are here: FrozenBN and none. The
-others (BN, SyncBN, GN) come with the training slice.
+others (BN, SyncBN, GN) wait for a later slice.
 """
 
 from __future__ import annotations

@@ -4,9 +4,11 @@
 ``modeling/backbone/resnet.py``).
 
 NCHW maps; module names follow detectron2 (``stem.conv1``, ``res2.0.conv1``,
-``shortcut``), so ``state_dict()`` keys are detectron2's. Inference only:
-frozen stages are a training matter and FrozenBN has no statistics to
-update. Deformable blocks and the res5 dilation wait for later slices.
+``shortcut``), so ``state_dict()`` keys are detectron2's. FREEZE_AT detaches
+the stem (1) and the stages up to res{FREEZE_AT} from the graph, as the JAX
+package's ``stop_gradient`` does (``backbone/resnet.py:388-407``): their
+parameters get no gradient. FrozenBN has no statistics to update.
+Deformable blocks and the res5 dilation wait for later slices.
 """
 
 from __future__ import annotations
@@ -119,8 +121,10 @@ class ResNet(nn.Module):
         stride_in_1x1: bool = True,
         norm: str = "FrozenBN",
         out_features: Sequence[str] = ("res4",),
+        freeze_at: int = 0,
     ):
         super().__init__()
+        self.freeze_at = freeze_at
         if depth not in _DEPTH_TO_BLOCKS:
             raise ValueError(f"ResNet depth {depth} is not one of {sorted(_DEPTH_TO_BLOCKS)}")
         self.out_features = tuple(out_features)
@@ -158,10 +162,14 @@ class ResNet(nn.Module):
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         outputs = {}
         x = self.stem(x)
+        if self.freeze_at >= 1:
+            x = x.detach()
         if "stem" in self.out_features:
             outputs["stem"] = x
-        for name in self.stage_names:
+        for i, name in enumerate(self.stage_names):
             x = getattr(self, name)(x)
+            if self.freeze_at >= i + 2:
+                x = x.detach()
             if name in self.out_features:
                 outputs[name] = x
         return outputs
@@ -187,4 +195,5 @@ def build_resnet_backbone(cfg) -> ResNet:
         stride_in_1x1=r.STRIDE_IN_1X1,
         norm=r.NORM,
         out_features=tuple(r.OUT_FEATURES),
+        freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
     )

@@ -3,8 +3,9 @@ detectron2/modeling/poolers.py:22 ``assign_boxes_to_levels``, :98
 ``ROIPooler``; JAX package ``modeling/poolers.py``).
 
 Every ROI carries its level into one ROIAlign call over the whole pyramid:
-on the card that is one launch of the CUDA kernel, for one level as for
-several; on the CPU it is the plain version. There is no other path.
+on the card that is one launch of the CUDA forward kernel, and in training
+one of the backward kernel, for one level as for several; on the CPU it is
+the plain versions. There is no other path.
 """
 
 from __future__ import annotations

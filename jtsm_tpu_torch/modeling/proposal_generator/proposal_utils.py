@@ -64,3 +64,19 @@ def find_top_rpn_proposals(
         top_boxes = torch.cat([top_boxes, top_boxes.new_zeros((b, pad, 4))], dim=1)
         top_scores = torch.cat([top_scores, top_scores.new_full((b, pad), float("-inf"))], dim=1)
     return top_boxes, top_scores
+
+
+def add_ground_truth_to_proposals(
+    gt_boxes: torch.Tensor,  # (B, G, 4)
+    gt_valid: torch.Tensor,  # (B, G)
+    proposals: torch.Tensor,  # (B, K, 4)
+    scores: torch.Tensor,  # (B, K)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Appends the ground truth boxes as proposals of logit 10 (JAX
+    ``proposal_utils.py:76``); padded rows score -inf, so they count as
+    padding downstream."""
+    gt_logit = torch.where(
+        gt_valid.bool(), torch.full_like(gt_valid, 10.0, dtype=scores.dtype),
+        torch.full_like(gt_valid, float("-inf"), dtype=scores.dtype),
+    )
+    return torch.cat([proposals, gt_boxes.to(proposals.dtype)], dim=1), torch.cat([scores, gt_logit], dim=1)

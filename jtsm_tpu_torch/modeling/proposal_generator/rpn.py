@@ -1,14 +1,16 @@
-"""Region Proposal Network, inference (reference:
+"""Region Proposal Network (reference:
 detectron2/modeling/proposal_generator/rpn.py:68 ``StandardRPNHead``, :143
 ``RPN``; JAX package ``proposal_generator/rpn.py``).
 
 Module names follow detectron2 (``rpn_head.conv``,
-``rpn_head.objectness_logits``, ``rpn_head.anchor_deltas``). The training
-branch (anchor matching, sampling, losses) comes with the training slice."""
+``rpn_head.objectness_logits``, ``rpn_head.anchor_deltas``). In training
+the RPN also matches anchors to the padded ground truth, samples them with
+uniform draws from the caller's generator and returns its two losses; the
+proposals carry no gradient."""
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -16,6 +18,10 @@ from torch import nn
 
 from ...layers import Conv2d, ShapeSpec
 from ...ops.box_regression import Box2BoxTransform
+from ...ops.losses import binary_cross_entropy_with_logits, smooth_l1_loss
+from ...ops.matcher import Matcher
+from ...ops.sampling import subsample_labels
+from ...structures.boxes import pairwise_iou
 from ..anchor_generator import build_anchor_generator
 from .proposal_utils import find_top_rpn_proposals, topk_stable
 
@@ -56,35 +62,111 @@ class RPN(nn.Module):
             shapes[0].channels, num_anchors[0], self.anchor_generator.box_dim,
             tuple(cfg.MODEL.RPN.CONV_DIMS),
         )
-        self.box2box_transform = Box2BoxTransform(weights=cfg.MODEL.RPN.BBOX_REG_WEIGHTS)
-        self.pre_nms_topk = cfg.MODEL.RPN.PRE_NMS_TOPK_TEST
-        self.post_nms_topk = cfg.MODEL.RPN.POST_NMS_TOPK_TEST
-        self.nms_thresh = cfg.MODEL.RPN.NMS_THRESH
+        r = cfg.MODEL.RPN
+        self.box2box_transform = Box2BoxTransform(weights=r.BBOX_REG_WEIGHTS)
+        self.pre_nms_topk, self.post_nms_topk = r.PRE_NMS_TOPK_TEST, r.POST_NMS_TOPK_TEST
+        self.pre_nms_topk_train, self.post_nms_topk_train = r.PRE_NMS_TOPK_TRAIN, r.POST_NMS_TOPK_TRAIN
+        self.nms_thresh = r.NMS_THRESH
         self.min_box_size = float(cfg.MODEL.PROPOSAL_GENERATOR.MIN_SIZE)
+        self.anchor_matcher = Matcher(r.IOU_THRESHOLDS, r.IOU_LABELS, allow_low_quality_matches=True)
+        self.batch_size_per_image = r.BATCH_SIZE_PER_IMAGE
+        self.positive_fraction = r.POSITIVE_FRACTION
+        self.boundary_threshold = float(r.BOUNDARY_THRESH)
+        self.loss_weight = r.LOSS_WEIGHT
+        self.box_reg_loss_weight = r.BBOX_REG_LOSS_WEIGHT
+        self.smooth_l1_beta = r.SMOOTH_L1_BETA
+        if r.BBOX_REG_LOSS_TYPE != "smooth_l1":
+            raise NotImplementedError(f"RPN box loss {r.BBOX_REG_LOSS_TYPE!r} is not ported yet")
 
-    def forward(self, image_sizes: torch.Tensor, features: Dict[str, torch.Tensor]):
+    def forward(
+        self,
+        image_sizes: torch.Tensor,
+        features: Dict[str, torch.Tensor],
+        gt_boxes: Optional[torch.Tensor] = None,
+        gt_valid: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
         """(B, 2) true image sizes and the feature maps -> (B, K, 4)
-        proposals and (B, K) objectness logits, -inf on padding."""
+        proposals and (B, K) objectness logits, -inf on padding, and in
+        training the loss dict (``gt_boxes`` (B, G, 4) and ``gt_valid``
+        (B, G) then required); in eval the dict is empty."""
         feats = [features[f] for f in self.in_features]
         logits, deltas = self.rpn_head(feats)
         anchors = self.anchor_generator([tuple(f.shape[-2:]) for f in feats], feats[0].device)
         b = feats[0].shape[0]
+        # (B, A, H, W) -> (B, H*W*A); (B, A*4, H, W) -> (B, H*W*A, 4):
+        # location-major like the anchors
+        logits = [lg.permute(0, 2, 3, 1).reshape(b, -1).float() for lg in logits]
+        deltas = [dl.permute(0, 2, 3, 1).reshape(b, -1, 4).float() for dl in deltas]
+        losses = {}
+        if self.training:
+            if gt_boxes is None or gt_valid is None:
+                raise ValueError("training the RPN needs gt_boxes and gt_valid")
+            n = sum(a.shape[0] for a in anchors)
+            dev = feats[0].device
+            u_pos, u_neg = (torch.rand((b, n), generator=generator, device=dev) for _ in range(2))
+            losses = self.losses(
+                torch.cat(anchors), torch.cat(logits, dim=1), torch.cat(deltas, dim=1),
+                gt_boxes, gt_valid, image_sizes, u_pos, u_neg,
+            )
+        proposals, scores = self.predict_proposals(anchors, logits, deltas, image_sizes)
+        return proposals, scores, losses
+
+    def predict_proposals(self, anchors, logits, deltas, image_sizes):
+        """Top-k on the raw objectness of each level, then decode only the
+        survivors, then ``find_top_rpn_proposals``; gradients are cut, the
+        proposals are data to the second stage."""
+        pre_k = self.pre_nms_topk_train if self.training else self.pre_nms_topk
+        post_k = self.post_nms_topk_train if self.training else self.post_nms_topk
+        b = image_sizes.shape[0]
         boxes_lvls, score_lvls = [], []
         for anc, lg, dl in zip(anchors, logits, deltas):
-            # (B, A, H, W) -> (B, H*W*A); (B, A*4, H, W) -> (B, H*W*A, 4):
-            # location-major like the anchors
-            lg = lg.permute(0, 2, 3, 1).reshape(b, -1).float()
-            dl = dl.permute(0, 2, 3, 1).reshape(b, -1, 4).float()
-            # top-k on the raw objectness first, then decode only the survivors
-            k = min(self.pre_nms_topk, lg.shape[1])
+            lg, dl = lg.detach(), dl.detach()
+            k = min(pre_k, lg.shape[1])
             topv, topi = topk_stable(lg, k)
             sel = torch.gather(dl, 1, topi[..., None].expand(b, k, 4))
             boxes_lvls.append(self.box2box_transform.apply_deltas(sel, anc[topi]))
             score_lvls.append(topv)
         return find_top_rpn_proposals(
             boxes_lvls, score_lvls, image_sizes, self.nms_thresh,
-            self.pre_nms_topk, self.post_nms_topk, self.min_box_size,
+            pre_k, post_k, self.min_box_size,
         )
+
+    def losses(self, anchors, logits, deltas, gt_boxes, gt_valid, image_sizes, u_pos, u_neg):
+        """``loss_rpn_cls`` and ``loss_rpn_loc`` of anchors (N, 4), logits
+        (B, N) and deltas (B, N, 4) against the padded ground truth (JAX
+        ``rpn.py:246``): match, ignore anchors past ``BOUNDARY_THRESH``,
+        sample with the uniform draws ``u_pos`` and ``u_neg`` (B, N),
+        objectness BCE over the sampled anchors and L1 on the positives'
+        deltas, both over ``BATCH_SIZE_PER_IMAGE * B``."""
+        b, n = logits.shape
+        gt_boxes = gt_boxes.to(torch.float32)
+        iou = pairwise_iou(gt_boxes, anchors)  # (B, G, N)
+        matched_idx, match_labels = self.anchor_matcher(iou, gt_valid=gt_valid.bool())
+        if self.boundary_threshold >= 0:
+            t = self.boundary_threshold
+            h = image_sizes[:, 0:1].to(torch.float32)
+            w = image_sizes[:, 1:2].to(torch.float32)
+            inside = (
+                (anchors[:, 0] >= -t) & (anchors[:, 1] >= -t)
+                & (anchors[:, 2] < w + t) & (anchors[:, 3] < h + t)
+            )
+            match_labels = torch.where(inside, match_labels, torch.full_like(match_labels, -1))
+        pos_mask, neg_mask = subsample_labels(
+            match_labels.to(torch.int32), self.batch_size_per_image, self.positive_fraction, 0,
+            u_pos, u_neg,
+        )
+        sampled = (pos_mask | neg_mask).to(torch.float32)
+        obj_loss = (binary_cross_entropy_with_logits(logits, pos_mask.to(torch.float32)) * sampled).sum()
+        matched_gt = torch.gather(gt_boxes, 1, matched_idx[..., None].expand(b, n, 4))
+        target = self.box2box_transform.get_deltas(anchors, matched_gt)
+        reg = smooth_l1_loss(deltas, target, self.smooth_l1_beta)
+        reg_loss = (reg * pos_mask[..., None].to(torch.float32)).sum()
+        normalizer = self.batch_size_per_image * b
+        return {
+            "loss_rpn_cls": obj_loss / normalizer * self.loss_weight,
+            "loss_rpn_loc": reg_loss / normalizer * self.loss_weight * self.box_reg_loss_weight,
+        }
 
 
 def build_proposal_generator(cfg, input_shape: Dict[str, ShapeSpec]) -> RPN:

@@ -1,6 +1,7 @@
-"""Fast R-CNN output layers and fixed-capacity inference (reference:
-detectron2/modeling/roi_heads/fast_rcnn.py:46 ``fast_rcnn_inference``, :369
-``FastRCNNOutputLayers``; JAX package ``roi_heads/fast_rcnn.py`` :99-160).
+"""Fast R-CNN output layers, losses and fixed-capacity inference
+(reference: detectron2/modeling/roi_heads/fast_rcnn.py:46
+``fast_rcnn_inference``, :144 the losses, :369 ``FastRCNNOutputLayers``; JAX
+package ``roi_heads/fast_rcnn.py`` :58-160).
 
 Inference keeps a fixed budget: the top ``nms_candidates`` of the R x K
 score grid after thresholding go through class-aware NMS, and the result is
@@ -15,6 +16,7 @@ from torch import nn
 
 from ...layers import Linear
 from ...ops.box_regression import Box2BoxTransform
+from ...ops.losses import smooth_l1_loss, softmax_cross_entropy
 from ...ops.nms import batched_nms_mask
 from ...structures.boxes import clip_boxes, nonempty_boxes
 from ..proposal_generator.proposal_utils import topk_stable
@@ -32,6 +34,37 @@ class FastRCNNOutputLayers(nn.Module):
     def forward(self, x: torch.Tensor):
         x = x.flatten(1)
         return self.cls_score(x).float(), self.bbox_pred(x).float()
+
+
+def fast_rcnn_losses(
+    scores: torch.Tensor,  # (N, K+1) logits
+    deltas: torch.Tensor,  # (N, K*4) or (N, 4)
+    proposal_boxes: torch.Tensor,  # (N, 4)
+    gt_classes: torch.Tensor,  # (N,) in [0, K]; K is background
+    gt_boxes: torch.Tensor,  # (N, 4) matched ground truth box of each slot
+    valid: torch.Tensor,  # (N,) sampled slots
+    box2box_transform: Box2BoxTransform,
+    num_classes: int,
+    smooth_l1_beta: float = 0.0,
+) -> Dict[str, torch.Tensor]:
+    """Softmax cross entropy over the valid slots and smooth-L1 on the
+    foreground slots' deltas of their class, both over the number of valid
+    slots (JAX ``fast_rcnn.py:58``)."""
+    valid_f = valid.to(torch.float32)
+    normalizer = valid_f.sum().clamp(min=1.0)
+    loss_cls = (softmax_cross_entropy(scores, gt_classes) * valid_f).sum() / normalizer
+
+    fg = valid & (gt_classes >= 0) & (gt_classes < num_classes)
+    if deltas.shape[-1] == 4:
+        sel = deltas
+    else:
+        d = deltas.reshape(deltas.shape[0], -1, 4)
+        cls = gt_classes.long().clamp(0, d.shape[1] - 1)
+        sel = torch.gather(d, 1, cls[:, None, None].expand(-1, 1, 4))[:, 0]
+    target = box2box_transform.get_deltas(proposal_boxes, gt_boxes)
+    reg = smooth_l1_loss(sel, target, smooth_l1_beta).sum(dim=-1)
+    loss_box = (reg * fg.to(torch.float32)).sum() / normalizer
+    return {"loss_cls": loss_cls, "loss_box_reg": loss_box}
 
 
 def fast_rcnn_inference(

@@ -1,25 +1,32 @@
-"""Second stage, inference (reference:
-detectron2/modeling/roi_heads/roi_heads.py:520 ``StandardROIHeads``; JAX
-package ``roi_heads/roi_heads.py`` :197 onward).
+"""Second stage (reference: detectron2/modeling/roi_heads/roi_heads.py:520
+``StandardROIHeads``; JAX package ``roi_heads/roi_heads.py`` :197 onward).
 
 Proposals are fixed (B, K, 4) with -inf-score padding; detections are fixed
 (B, D) with a validity mask. The box pooler pools all B*K proposals and the
 mask pooler all B*D detections, padding included, as the JAX package does.
-The training branch comes with the training slice."""
+
+In training the heads sample ``BATCH_SIZE_PER_IMAGE`` slots per image and
+pick up to ``mask_fg_capacity`` foreground slots of them for the mask
+branch, with uniform draws from the caller's generator; the ROIs of each
+branch are image-major, so each pooler runs once per step, and the heads
+return the losses ``loss_cls``, ``loss_box_reg`` and ``loss_mask``."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from ...layers import ShapeSpec
 from ...ops.box_regression import Box2BoxTransform
+from ...ops.matcher import Matcher
 from ..poolers import ROIPooler
+from ..proposal_generator.proposal_utils import topk_stable
 from .box_head import build_box_head
-from .fast_rcnn import FastRCNNOutputLayers, fast_rcnn_inference
-from .mask_head import build_mask_head, mask_rcnn_inference
+from .fast_rcnn import FastRCNNOutputLayers, fast_rcnn_inference, fast_rcnn_losses
+from .mask_head import build_mask_head, mask_rcnn_inference, mask_rcnn_loss, mask_targets_from_crops
+from .proposal_sampling import sample_proposals
 
 
 class StandardROIHeads(nn.Module):
@@ -42,6 +49,16 @@ class StandardROIHeads(nn.Module):
             self.box_head.output_size, self.num_classes, bh.CLS_AGNOSTIC_BBOX_REG
         )
         self.box2box_transform = Box2BoxTransform(weights=bh.BBOX_REG_WEIGHTS)
+        rh = cfg.MODEL.ROI_HEADS
+        self.proposal_matcher = Matcher(rh.IOU_THRESHOLDS, rh.IOU_LABELS, allow_low_quality_matches=False)
+        self.batch_size_per_image = rh.BATCH_SIZE_PER_IMAGE
+        self.positive_fraction = rh.POSITIVE_FRACTION
+        self.proposal_append_gt = rh.PROPOSAL_APPEND_GT
+        self.smooth_l1_beta = bh.SMOOTH_L1_BETA
+        if bh.BBOX_REG_LOSS_TYPE != "smooth_l1":
+            raise NotImplementedError(f"box loss {bh.BBOX_REG_LOSS_TYPE!r} is not ported yet")
+        if bh.TRAIN_ON_PRED_BOXES:
+            raise NotImplementedError("TRAIN_ON_PRED_BOXES is not ported yet")
         self.score_thresh = cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST
         self.nms_thresh = cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST
         self.detections_per_image = cfg.TEST.DETECTIONS_PER_IMAGE
@@ -54,6 +71,10 @@ class StandardROIHeads(nn.Module):
             self.mask_head = build_mask_head(
                 cfg, ShapeSpec(channels=in_channels, height=mh.POOLER_RESOLUTION, width=mh.POOLER_RESOLUTION)
             )
+            self.mask_size = 2 * mh.POOLER_RESOLUTION
+            # foreground slots per image that train the mask head (the JAX
+            # package's field of the same name, roi_heads.py:93)
+            self.mask_fg_capacity = 128
 
     def forward(
         self,
@@ -61,7 +82,16 @@ class StandardROIHeads(nn.Module):
         proposals: torch.Tensor,  # (B, K, 4)
         proposal_scores: torch.Tensor,  # (B, K)
         image_sizes: torch.Tensor,  # (B, 2)
+        targets: Optional[Dict[str, torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
+        """Detections in eval mode; in training the loss dict, from the
+        ``targets`` (the batch's ``gt_*`` fields) and uniform draws from
+        ``generator``."""
+        if self.training:
+            if targets is None:
+                raise ValueError("training the ROI heads needs the gt_* targets")
+            return self._forward_train(features, proposals, proposal_scores, targets, generator)
         feats = [features[f] for f in self.in_features]
         b, k = proposals.shape[:2]
         batch_idx = torch.arange(b, dtype=torch.int32, device=proposals.device)
@@ -87,6 +117,56 @@ class StandardROIHeads(nn.Module):
             probs = mask_rcnn_inference(self.mask_head(mask_feats), detections["classes"].reshape(-1))
             detections["masks"] = probs.reshape((b, d) + probs.shape[-2:])
         return detections
+
+
+    def _forward_train(self, features, proposals, proposal_scores, targets, generator):
+        feats = [features[f] for f in self.in_features]
+        b, k = proposals.shape[:2]
+        dev = proposals.device
+        n = k + targets["gt_boxes"].shape[1] if self.proposal_append_gt else k
+        u_pos, u_neg, u_tie = (torch.rand((b, n), generator=generator, device=dev) for _ in range(3))
+        sampled = sample_proposals(
+            proposals, proposal_scores, targets["gt_boxes"], targets["gt_classes"],
+            targets["gt_valid"], u_pos, u_neg, u_tie,
+            num_classes=self.num_classes, batch_size_per_image=self.batch_size_per_image,
+            positive_fraction=self.positive_fraction, matcher=self.proposal_matcher,
+            append_gt=self.proposal_append_gt,
+        )
+        s = self.batch_size_per_image
+        flat_boxes = sampled["boxes"].reshape(b * s, 4)
+        batch_idx = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(s)
+        scores, deltas = self.box_predictor(self.box_head(self.box_pooler(feats, flat_boxes, batch_idx)))
+        losses = fast_rcnn_losses(
+            scores, deltas, flat_boxes, sampled["gt_classes"].reshape(-1),
+            sampled["gt_boxes"].reshape(-1, 4), sampled["valid"].reshape(-1),
+            self.box2box_transform, self.num_classes, self.smooth_l1_beta,
+        )
+        if self.mask_on:
+            losses["loss_mask"] = self._forward_mask_train(feats, sampled, targets, generator)
+        return losses
+
+    def _forward_mask_train(self, feats, sampled, targets, generator):
+        """Up to ``mask_fg_capacity`` random foreground slots per image,
+        pooled at 14x14, BCE against the resampled crops (JAX
+        ``roi_heads.py:347``)."""
+        fg = sampled["fg"]  # (B, S)
+        b, s = fg.shape
+        sm = min(self.mask_fg_capacity, s)
+        u = torch.rand((b, s), generator=generator, device=fg.device)
+        priority = torch.where(fg, 1.0 + u, torch.full_like(u, float("-inf")))
+        vals, idx = topk_stable(priority, sm)
+        boxes = torch.gather(sampled["boxes"], 1, idx[..., None].expand(b, sm, 4))
+        classes = torch.gather(sampled["gt_classes"], 1, idx)
+        matched = torch.gather(sampled["matched_idx"], 1, idx)
+        mask_targets = mask_targets_from_crops(
+            targets["gt_mask_crops"], targets["gt_boxes"], matched, boxes, self.mask_size
+        )
+        batch_idx = torch.arange(b, dtype=torch.int32, device=fg.device).repeat_interleave(sm)
+        logits = self.mask_head(self.mask_pooler(feats, boxes.reshape(b * sm, 4), batch_idx))
+        return mask_rcnn_loss(
+            logits, classes.reshape(-1), mask_targets.reshape(b * sm, self.mask_size, self.mask_size),
+            torch.isfinite(vals).reshape(-1),
+        )
 
 
 def build_roi_heads(cfg, input_shape: Dict[str, ShapeSpec]) -> StandardROIHeads:

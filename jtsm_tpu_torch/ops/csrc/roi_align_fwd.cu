@@ -26,28 +26,22 @@
 // L1 and the 50 MB L2. Staging the ROI's window in shared memory and vector
 // loads are later work.
 //
-// Numerics: positions, fractions and weights are computed with the same
-// float operations in the same order as the plain version, and the file is
-// built with -fmad=false so that nvcc does not contract them into fused
-// multiply-adds; only the order of the sum over samples differs.
+// Numerics: positions, fractions and weights come from roi_align_geometry.cuh,
+// which K2 shares, with the same float operations in the same order as the
+// plain version, and the file is built with -fmad=false so that nvcc does not
+// contract them into fused multiply-adds; only the order of the sum over
+// samples differs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "roi_align_geometry.cuh"
+
 namespace {
 
-constexpr int kMaxLevels = 5;
-
-struct Pyramid {
-  const void* data[kMaxLevels];  // (B, H, W, C) channels-last, per level
-  int height[kMaxLevels];
-  int width[kMaxLevels];
-  float scale[kMaxLevels];
-  int num_levels;
-  int batch;
-  int channels;
-};
+using jtsm::Pyramid;
+using jtsm::RoiGeometry;
 
 __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) {
@@ -56,26 +50,6 @@ __device__ __forceinline__ float load(const __nv_bfloat16* p) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
-}
-
-// One sample coordinate along one axis, with the plain version's boundary
-// rules. Returns false when the sample counts as zero.
-__device__ __forceinline__ bool axis_tap(float pos, int size, int* lo, int* hi,
-                                         float* frac) {
-  if (pos < -1.0f || pos > (float)size) return false;
-  pos = fmaxf(pos, 0.0f);
-  float f = floorf(pos);
-  int l = (int)f;
-  float fr = pos - f;
-  if (l >= size - 1) {
-    l = size - 2;
-    fr = 1.0f;
-  }
-  l = max(min(l, size - 2), 0);
-  *lo = l;
-  *hi = min(l + 1, size - 1);  // a map of one row or column has no l + 1
-  *frac = fr;
-  return true;
 }
 
 template <typename T>
@@ -90,48 +64,26 @@ __global__ void roi_align_fwd_kernel(Pyramid pyr, const float* __restrict__ boxe
   const int py = bin / pooled_w;
   const int px = bin - py * pooled_w;
 
-  const int lvl = min(max(levels[r], 0), pyr.num_levels - 1);
-  const int b = min(max(batch_idx[r], 0), pyr.batch - 1);
-  const int h = pyr.height[lvl];
-  const int w = pyr.width[lvl];
+  const RoiGeometry g = jtsm::roi_geometry(pyr, boxes, batch_idx, levels, r, pooled_h,
+                                           pooled_w, sampling_ratio, max_ratio, aligned);
+  const int w = g.w;
   const int c_total = pyr.channels;
-  const T* feat = static_cast<const T*>(pyr.data[lvl]) + (size_t)b * h * w * c_total;
-
-  const float sc = pyr.scale[lvl];
-  const float offset = aligned ? 0.5f : 0.0f;
-  const float x0 = boxes[4 * r + 0] * sc - offset;
-  const float y0 = boxes[4 * r + 1] * sc - offset;
-  const float x1 = boxes[4 * r + 2] * sc - offset;
-  const float y1 = boxes[4 * r + 3] * sc - offset;
-  float roi_w = x1 - x0;
-  float roi_h = y1 - y0;
-  if (!aligned) {
-    roi_w = fmaxf(roi_w, 1.0f);
-    roi_h = fmaxf(roi_h, 1.0f);
-  }
-  const float bin_w = roi_w / (float)pooled_w;
-  const float bin_h = roi_h / (float)pooled_h;
-  int ry = sampling_ratio, rx = sampling_ratio;
-  if (sampling_ratio <= 0) {
-    ry = (int)fminf(fmaxf(ceilf(bin_h), 1.0f), (float)max_ratio);
-    rx = (int)fminf(fmaxf(ceilf(bin_w), 1.0f), (float)max_ratio);
-  }
-  const float count = (float)(ry * rx);
+  const T* feat = static_cast<const T*>(pyr.data[g.lvl]) + (size_t)g.b * g.h * w * c_total;
 
   T* out_bin = out + ((size_t)r * bins + bin) * c_total;
   for (int c = threadIdx.x; c < c_total; c += blockDim.x) {
     const T* fc = feat + c;
     float acc = 0.0f;
-    for (int iy = 0; iy < ry; ++iy) {
-      const float y = y0 + ((float)py + ((float)iy + 0.5f) / (float)ry) * bin_h;
+    for (int iy = 0; iy < g.ry; ++iy) {
+      const float y = jtsm::sample_pos(g.y0, py, iy, g.ry, g.bin_h);
       int ylo, yhi;
       float wy;
-      if (!axis_tap(y, h, &ylo, &yhi, &wy)) continue;
-      for (int ix = 0; ix < rx; ++ix) {
-        const float x = x0 + ((float)px + ((float)ix + 0.5f) / (float)rx) * bin_w;
+      if (!jtsm::axis_tap(y, g.h, &ylo, &yhi, &wy)) continue;
+      for (int ix = 0; ix < g.rx; ++ix) {
+        const float x = jtsm::sample_pos(g.x0, px, ix, g.rx, g.bin_w);
         int xlo, xhi;
         float wx;
-        if (!axis_tap(x, w, &xlo, &xhi, &wx)) continue;
+        if (!jtsm::axis_tap(x, w, &xlo, &xhi, &wx)) continue;
         const float v00 = load(fc + ((size_t)ylo * w + xlo) * c_total);
         const float v01 = load(fc + ((size_t)ylo * w + xhi) * c_total);
         const float v10 = load(fc + ((size_t)yhi * w + xlo) * c_total);
@@ -140,7 +92,7 @@ __global__ void roi_align_fwd_kernel(Pyramid pyr, const float* __restrict__ boxe
                v10 * wy * (1.0f - wx) + v11 * wy * wx;
       }
     }
-    store(out_bin + c, acc / count);
+    store(out_bin + c, acc / g.count);
   }
 }
 
@@ -151,7 +103,7 @@ __global__ void roi_align_fwd_kernel(Pyramid pyr, const float* __restrict__ boxe
 // widths and scales are host arrays of num_levels entries. out is
 // (num_rois, pooled_h, pooled_w, channels) in the features' dtype. Launches on
 // `stream` and returns the CUDA error code of the launch (0 on success).
-extern "C" int jtsm_roi_align_fwd(int dtype, const void* const* level_data,
+extern "C" int jtsm_roi_align_fwd(int dtype, void* const* level_data,
                                   const int* heights, const int* widths,
                                   const float* scales, int num_levels, int batch,
                                   int channels, const void* boxes,
@@ -159,24 +111,15 @@ extern "C" int jtsm_roi_align_fwd(int dtype, const void* const* level_data,
                                   int num_rois, int pooled_h, int pooled_w,
                                   int sampling_ratio, int max_ratio, int aligned,
                                   void* out, void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels || batch < 1 || channels < 1 ||
+  if (num_levels < 1 || num_levels > jtsm::kMaxLevels || batch < 1 || channels < 1 ||
       num_rois < 1 || pooled_h < 1 || pooled_w < 1 || max_ratio < 1 ||
       (long long)num_rois * pooled_h * pooled_w > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   Pyramid pyr;
-  for (int i = 0; i < kMaxLevels; ++i) {
-    const bool used = i < num_levels;
-    pyr.data[i] = used ? level_data[i] : nullptr;
-    pyr.height[i] = used ? heights[i] : 0;
-    pyr.width[i] = used ? widths[i] : 0;
-    pyr.scale[i] = used ? scales[i] : 0.0f;
-  }
-  pyr.num_levels = num_levels;
-  pyr.batch = batch;
-  pyr.channels = channels;
+  jtsm::fill_pyramid(&pyr, level_data, heights, widths, scales, num_levels, batch, channels);
 
-  const int threads = channels >= 256 ? 256 : ((channels + 31) / 32) * 32;
   const dim3 grid(num_rois * pooled_h * pooled_w);
+  const int threads = jtsm::threads_for(channels);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bx = static_cast<const float*>(boxes);
   const int* bi = static_cast<const int*>(batch_idx);

@@ -1,0 +1,29 @@
+"""Elementwise losses of the detectors (reference: fvcore's
+``smooth_l1_loss`` as detectron2's RPN and Fast R-CNN use it; JAX package
+``ops/losses.py`` :17, :65, :74). Each returns per-element (or per-row)
+losses; the callers mask and normalise."""
+
+from __future__ import annotations
+
+import torch
+
+
+def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor, beta: float) -> torch.Tensor:
+    """Huber loss per element; beta below 1e-5 is the L1 loss, as in fvcore."""
+    diff = (pred - target).abs()
+    if beta < 1e-5:
+        return diff
+    return torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
+
+
+def binary_cross_entropy_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Binary cross entropy per element, in the JAX package's stable form."""
+    return logits.clamp(min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Cross entropy per row of (..., K) logits for integer labels; labels
+    out of range are clamped into it, so the caller masks those rows."""
+    logz = torch.logsumexp(logits, dim=-1)
+    idx = labels.long().clamp(0, logits.shape[-1] - 1)
+    return logz - torch.gather(logits, -1, idx[..., None])[..., 0]

@@ -1,5 +1,5 @@
-"""Multilevel ROIAlign forward: the plain PyTorch version and the dispatch to
-the CUDA kernel.
+"""Multilevel ROIAlign, forward and backward: the plain PyTorch versions and
+the dispatch to the CUDA kernels.
 
 Semantics: the JAX package's ``ops/roi_align.py`` (:236
 ``roi_align_multilevel``, :204 ``roi_align_batched``), which is detectron2's
@@ -19,14 +19,18 @@ half-pixel offset) with one difference kept on purpose:
 Layout follows the JAX package: features are a list of channels-last maps
 (B, Hi, Wi, C), fine to coarse; the result is (R, P, P, C).
 
-:func:`roi_align_multilevel` runs the plain version for tensors on the CPU
-and launches the kernel (``roi_align_cuda``) for tensors on the card; there
-is no fallback from one to the other.
+The backward is the transpose of the forward (ROIAlign is linear in the
+features): every live sample spreads its bin's cotangent, divided by the
+ROI's count, onto its four taps with the forward's weights.
+
+:func:`roi_align_multilevel` runs the plain versions for tensors on the CPU
+and launches the kernels (``roi_align_cuda``: K1 forward, K2 backward) for
+tensors on the card; there is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 
@@ -62,38 +66,26 @@ def _axis_samples(p: int, s: int, bin_size, origin, ratio, size):
     return lo, frac, dead
 
 
-def roi_align_multilevel_plain(
-    features: Sequence[torch.Tensor],
-    spatial_scales: Sequence[float],
-    boxes: torch.Tensor,
-    batch_indices: torch.Tensor,
-    levels: torch.Tensor,
-    output_size,
-    sampling_ratio: int = 0,
-    aligned: bool = True,
-) -> torch.Tensor:
-    """The plain PyTorch version: gathers the four taps of every sample from
-    one flattened pyramid and averages in float32. Returns (R, P, P, C) in
-    the features' dtype. Runs on any device; the CUDA kernel is held
-    against it."""
-    ph, pw = _pair(output_size)
+def _level_geometry(feature_shapes, spatial_scales, boxes, batch_indices, levels, ph, pw,
+                    sampling_ratio, aligned):
+    """Per-ROI sample geometry shared by the forward and the backward: the
+    flat row offset of each ROI's image on its level, the row stride, the
+    taps of both axes and the averaging divisor. ``feature_shapes`` are the
+    (B, Hi, Wi, C) shapes of the levels."""
     dev = boxes.device
     r = boxes.shape[0]
-    c = features[0].shape[-1]
     adaptive = int(sampling_ratio) == 0
     s = ADAPTIVE_MAX_RATIO if adaptive else max(int(sampling_ratio), 1)
-
-    flat = torch.cat([f.reshape(-1, c) for f in features], dim=0)
     starts, acc = [], 0
-    for f in features:
+    for shp in feature_shapes:
         starts.append(acc)
-        acc += f.shape[0] * f.shape[1] * f.shape[2]
+        acc += shp[0] * shp[1] * shp[2]
     starts = torch.tensor(starts, dtype=torch.int64, device=dev)
-    hs = torch.tensor([f.shape[1] for f in features], dtype=torch.int64, device=dev)
-    ws = torch.tensor([f.shape[2] for f in features], dtype=torch.int64, device=dev)
+    hs = torch.tensor([shp[1] for shp in feature_shapes], dtype=torch.int64, device=dev)
+    ws = torch.tensor([shp[2] for shp in feature_shapes], dtype=torch.int64, device=dev)
     scales = torch.tensor(list(spatial_scales), dtype=torch.float32, device=dev)
 
-    lvl = levels.to(torch.int64).clamp(0, len(features) - 1)
+    lvl = levels.to(torch.int64).clamp(0, len(feature_shapes) - 1)
     h, w = hs[lvl], ws[lvl]
     base = starts[lvl] + batch_indices.to(torch.int64) * h * w
 
@@ -117,9 +109,34 @@ def roi_align_multilevel_plain(
         rx = ry
     ylo, yfrac, ydead = _axis_samples(ph, s, bin_h, bx[:, 1], ry, h)
     xlo, xfrac, xdead = _axis_samples(pw, s, bin_w, bx[:, 0], rx, w)
+    count = (ry * rx).to(torch.float32)
+    return s, acc, base, w, (ylo, yfrac, ydead), (xlo, xfrac, xdead), count
 
-    count = (ry * rx).to(torch.float32)[:, None, None, None]
-    out = torch.empty((r, ph, pw, c), dtype=features[0].dtype, device=dev)
+
+def roi_align_multilevel_plain(
+    features: Sequence[torch.Tensor],
+    spatial_scales: Sequence[float],
+    boxes: torch.Tensor,
+    batch_indices: torch.Tensor,
+    levels: torch.Tensor,
+    output_size,
+    sampling_ratio: int = 0,
+    aligned: bool = True,
+) -> torch.Tensor:
+    """The plain PyTorch version: gathers the four taps of every sample from
+    one flattened pyramid and averages in float32. Returns (R, P, P, C) in
+    the features' dtype. Runs on any device; the CUDA kernel is held
+    against it."""
+    ph, pw = _pair(output_size)
+    r = boxes.shape[0]
+    c = features[0].shape[-1]
+    s, _, base, w, (ylo, yfrac, ydead), (xlo, xfrac, xdead), count = _level_geometry(
+        [f.shape for f in features], spatial_scales, boxes, batch_indices, levels, ph, pw,
+        sampling_ratio, aligned,
+    )
+    flat = torch.cat([f.reshape(-1, c) for f in features], dim=0)
+    count = count[:, None, None, None]
+    out = torch.empty((r, ph, pw, c), dtype=features[0].dtype, device=boxes.device)
     # ROIs in chunks, so the (R, ph, s, pw, s, C) tap tensors stay small
     step = max(1, _PLAIN_CHUNK_ELEMENTS // (ph * pw * s * s * c))
     for i in range(0, r, step):
@@ -149,6 +166,118 @@ def roi_align_multilevel_plain(
     return out
 
 
+def roi_align_multilevel_backward_plain(
+    grad: torch.Tensor,
+    feature_shapes: Sequence[Sequence[int]],
+    spatial_scales: Sequence[float],
+    boxes: torch.Tensor,
+    batch_indices: torch.Tensor,
+    levels: torch.Tensor,
+    output_size,
+    sampling_ratio: int = 0,
+    aligned: bool = True,
+) -> List[torch.Tensor]:
+    """The transpose of :func:`roi_align_multilevel_plain`: each ROI's
+    (P, P, C) cotangent ``grad`` spreads back through the forward's own
+    taps and weights, ``grad / count * wy * wx`` per live sample and tap,
+    and is summed with ``index_add_`` into one flat float32 pyramid.
+    Returns per level the (B, Hi, Wi, C) gradient, contiguous, in the
+    cotangent's dtype (the features' dtype). Runs on any device; the CUDA
+    kernel K2 is held against it."""
+    ph, pw = _pair(output_size)
+    r = boxes.shape[0]
+    c = grad.shape[-1]
+    s, total, base, w, (ylo, yfrac, ydead), (xlo, xfrac, xdead), count = _level_geometry(
+        feature_shapes, spatial_scales, boxes, batch_indices, levels, ph, pw,
+        sampling_ratio, aligned,
+    )
+    acc = torch.zeros((total, c), dtype=torch.float32, device=grad.device)
+    # (R * ph * pw, C): the cotangent of each bin, divided by its ROI's count
+    gc = (grad.to(torch.float32) / count[:, None, None, None]).reshape(-1, c)
+    dev = boxes.device
+    py = torch.arange(ph, device=dev)[None, :, None, None, None]
+    px = torch.arange(pw, device=dev)[None, None, None, :, None]
+    step = max(1, _PLAIN_CHUNK_ELEMENTS // (ph * pw * s * s * c))
+    for i in range(0, r, step):
+        j = slice(i, i + step)
+        rois = torch.arange(i, min(i + step, r), device=dev)[:, None, None, None, None]
+        live = ~(ydead[j, :, :, None, None] | xdead[j, None, None, :, :])
+        idx = (
+            base[j, None, None, None, None]
+            + ylo[j, :, :, None, None] * w[j, None, None, None, None]
+            + xlo[j, None, None, :, :]
+        )
+        w_b = w[j, None, None, None, None].expand_as(idx)
+        bins = (rois * ph + py) * pw + px
+        g = gc[bins.expand_as(idx)[live]]
+        wy = yfrac[j, :, :, None, None].expand_as(idx)[live]
+        wx = xfrac[j, None, None, :, :].expand_as(idx)[live]
+        rows, w_b = idx[live], w_b[live]
+        for k, weight in (
+            (rows, (1 - wy) * (1 - wx)),
+            (rows + 1, (1 - wy) * wx),
+            (rows + w_b, wy * (1 - wx)),
+            (rows + w_b + 1, wy * wx),
+        ):
+            acc.index_add_(0, k, g * weight[:, None])
+    out, start = [], 0
+    for shp in feature_shapes:
+        n = shp[0] * shp[1] * shp[2]
+        out.append(acc[start : start + n].reshape(tuple(shp[:3]) + (c,)).to(grad.dtype))
+        start += n
+    return out
+
+
+class _RoIAlignPlain(torch.autograd.Function):
+    """The plain forward with the plain backward, on any device."""
+
+    @staticmethod
+    def forward(ctx, boxes, batch_indices, levels, geometry, *features):
+        scales, ph, pw, sampling_ratio, aligned = geometry
+        ctx.geometry = geometry
+        ctx.feature_shapes = [tuple(f.shape) for f in features]
+        ctx.save_for_backward(boxes, batch_indices, levels)
+        return roi_align_multilevel_plain(
+            features, scales, boxes, batch_indices, levels, (ph, pw), sampling_ratio, aligned
+        )
+
+    @staticmethod
+    def backward(ctx, grad):
+        scales, ph, pw, sampling_ratio, aligned = ctx.geometry
+        boxes, batch_indices, levels = ctx.saved_tensors
+        grads = roi_align_multilevel_backward_plain(
+            grad, ctx.feature_shapes, scales, boxes, batch_indices, levels, (ph, pw),
+            sampling_ratio, aligned,
+        )
+        return (None, None, None, None, *grads)
+
+
+def roi_align_geometry(spatial_scales, output_size, sampling_ratio, aligned) -> tuple:
+    """The non-tensor arguments of the autograd Functions, normalised: 0 is
+    the adaptive grid, any other ratio a fixed grid of at least 1."""
+    ph, pw = _pair(output_size)
+    ratio = 0 if int(sampling_ratio) == 0 else max(int(sampling_ratio), 1)
+    return (tuple(float(s) for s in spatial_scales), ph, pw, ratio, bool(aligned))
+
+
+def roi_align_multilevel_plain_autograd(
+    features: Sequence[torch.Tensor],
+    spatial_scales: Sequence[float],
+    boxes: torch.Tensor,
+    batch_indices: torch.Tensor,
+    levels: torch.Tensor,
+    output_size,
+    sampling_ratio: int = 0,
+    aligned: bool = True,
+) -> torch.Tensor:
+    """:func:`roi_align_multilevel_plain` whose gradient is
+    :func:`roi_align_multilevel_backward_plain`, on any device: the CPU path
+    of :func:`roi_align_multilevel`, and the plain path that the kernels are
+    held against on the card."""
+    geometry = roi_align_geometry(spatial_scales, output_size, sampling_ratio, aligned)
+    return _RoIAlignPlain.apply(boxes, batch_indices, levels, geometry, *features)
+
+
 def roi_align_multilevel(
     features: Sequence[torch.Tensor],
     spatial_scales: Sequence[float],
@@ -160,10 +289,11 @@ def roi_align_multilevel(
     aligned: bool = True,
 ) -> torch.Tensor:
     """ROIAlign of each box (R, 4), in image coordinates, on its level
-    ``levels`` (R,) of image ``batch_indices`` (R,). Returns (R, P, P, C).
+    ``levels`` (R,) of image ``batch_indices`` (R,). Returns (R, P, P, C),
+    differentiable in the features.
 
-    Tensors on the card go through the CUDA kernel, tensors on the CPU
-    through the plain version."""
+    Tensors on the card go through the CUDA kernels (K1 forward, K2
+    backward), tensors on the CPU through the plain versions."""
     if boxes.device.type == "cuda":
         from .roi_align_cuda import roi_align_multilevel_cuda
 
@@ -173,7 +303,7 @@ def roi_align_multilevel(
         )
     if boxes.device.type != "cpu":
         raise NotImplementedError(f"ROIAlign has no path for device {boxes.device}")
-    return roi_align_multilevel_plain(
+    return roi_align_multilevel_plain_autograd(
         features, spatial_scales, boxes, batch_indices, levels,
         output_size, sampling_ratio, aligned,
     )

@@ -113,8 +113,9 @@ def test_rpn_proposals_match_jax_rank_for_rank(name):
         )(variables, jnp.asarray(sizes), feats)
     tfeats = {k: torch.from_numpy(np.array(v)).permute(0, 3, 1, 2) for k, v in feats.items()}
     with torch.no_grad():
-        tp, ts = tm.proposal_generator(torch.from_numpy(sizes), tfeats)
+        tp, ts, losses = tm.proposal_generator(torch.from_numpy(sizes), tfeats)
     jp, js = np.asarray(jp), np.asarray(js)
+    assert losses == {}  # eval mode
     post_k = tm.proposal_generator.post_nms_topk
     assert tp.shape == (2, post_k, 4) and ts.shape == (2, post_k)
     assert np.isfinite(js).sum() > post_k // 2
