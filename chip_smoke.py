@@ -1,41 +1,49 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``jtsm_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR]
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
-1. device: the card's name and power limit; TF32 off for matmul and cuDNN;
-2. build: every CUDA kernel of the served path, compiled with nvcc from the
-   sources in this checkout;
-3. kernels: each kernel against its plain PyTorch version at the shapes the
-   served path gives it, with the stated tolerance, timed with CUDA events
-   beside its bound;
+1. device: the card's name and power limit;
+2. build: every CUDA kernel of the served and trained paths, compiled with
+   nvcc from the sources in this checkout (and, with ``--baseline DIR``, the
+   same C interface from the sources in DIR, an earlier version of
+   ``jtsm_tpu_torch/ops/csrc``, to time beside them);
+3. kernels: K1 against its plain PyTorch version at the shapes the served
+   path gives it, in float32 and bfloat16, with the stated tolerance, timed
+   with CUDA events beside its bound (and beside the baseline, in turns);
 4. serve: Mask R-CNN R50-FPN at full width (random weights from a seed)
-   answers 4 requests of one 800x1344 image each; every kernel's launch
-   count is set to 0 before and read after, and each must have run;
-5. trained weights: the committed gate checkpoint (a narrow R50) on one
-   seeded image, through the kernel and through the plain version on the
-   card, must give the same detections;
+   answers 4 requests of one 800x1344 image each, first at its configured
+   TPU.COMPUTE_DTYPE (bfloat16), then in float32; every kernel's launch
+   count is set to 0 before and read after, and K1 must run twice a request
+   in each;
+5. trained weights: the committed gate checkpoint (a narrow R50, float32) on
+   one seeded image, through the kernel and through the plain version on
+   the card, must give the same detections;
 6. training kernels: K1 and K2 (the ROIAlign backward) against their plain
    versions at the flagship's training shapes (B=2 at 800x1344, 1024 box
-   ROIs at P=7 and 256 mask ROIs at P=14), K2 in float32 and bfloat16,
-   timed beside their bounds;
+   ROIs at P=7 and 256 mask ROIs at P=14) in float32 and bfloat16, timed
+   beside their bounds (and the baseline); then both kernels against their
+   plain versions on the edge cases of ``tests/test_torch_kernels.py``;
 7. train: the flagship at full width (random weights from a seed) takes 5
-   SGD steps on a seeded synthetic batch of 2 images at 800x1344; every
-   loss must be finite, and K1 and K2 must each launch 2 times a step;
-8. train, kernel against plain: one step from the gate checkpoint through
-   K1/K2 and through the plain forward and backward on the card must give
-   the same losses and gradients.
+   SGD steps on a seeded synthetic batch of 2 images at 800x1344, in
+   bfloat16 and in float32; every loss must be finite, and K1 and K2 must
+   each launch 2 times a step in each;
+8. train, kernel against plain: one float32 step from the gate checkpoint
+   through K1/K2 and through the plain forward and backward on the card must
+   give the same losses and gradients.
 
-The last three lines are {"kernels": [...]}, the card's name and power
-limit as nvidia-smi gives them, and {"ok": true, "device": {...}}. Needs one
-card, torch and numpy; imports nothing of JAX. Without a card, or outside a
-checkout of the repository, it exits with 2 and prints no result.
+The last three lines are {"kernels": [...]} (times of the flagship's
+compute dtype), the card's name and power limit as nvidia-smi gives them,
+and {"ok": true, "device": {...}}. Needs one card, torch, numpy and pytest;
+imports nothing of JAX. Without a card, or outside a checkout of the
+repository, it exits with 2 and prints no result.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -60,6 +68,7 @@ FLAGSHIP_HW = (800, 1344)
 LEVEL_STRIDES = (4, 8, 16, 32)
 TRAIN_BATCH = 2  # the per-card batch of the reference's 8-card IMS_PER_BATCH 16
 TRAIN_STEPS = 5
+DTYPE_NAMES = {"bfloat16": "bf16", "float32": "f32"}
 
 
 def log(msg: str) -> None:
@@ -67,17 +76,31 @@ def log(msg: str) -> None:
 
 
 def cuda_time_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls, from CUDA
+    events. The stream first sleeps a few milliseconds, so the host has
+    queued every call before the first starts and the time is the device's,
+    not the host's launch overhead."""
     import torch
 
     fn()  # warm-up
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(5_000_000)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_in_turns(fns: dict, reps: int = 20) -> dict:
+    """``cuda_time_ms`` of each callable twice, in turns (a, b, b, a), and
+    the mean of its two: versions compared on one card in one run."""
+    times = {k: [] for k in fns}
+    for k in list(fns) + list(reversed(fns)):
+        times[k].append(cuda_time_ms(fns[k], reps))
+    return {k: sum(v) / len(v) for k, v in times.items()}
 
 
 def roi_align_counts(features, scales, boxes, batch_indices, levels, p, sampling_ratio):
@@ -177,22 +200,114 @@ def spread_boxes(gen, r):
     return torch.cat([xy, xy + size], dim=1).contiguous()
 
 
-def phase_kernels(gen):
+def dtype_tag(t) -> str:
     import torch
 
-    from jtsm_tpu_torch.modeling.poolers import assign_boxes_to_levels
+    return "bf16" if t.dtype == torch.bfloat16 else "f32"
+
+
+def check_and_time_fwd(tag, feats, scales, boxes, bidx, levels, p, baseline, phase="kernels"):
+    """K1 against its plain version at these inputs, then its time (in turns
+    with the baseline's K1 when there is one), the plain version's, and the
+    bound. Returns the row's numbers."""
+    import torch
+
     from jtsm_tpu_torch.ops.roi_align import roi_align_multilevel_plain
     from jtsm_tpu_torch.ops.roi_align_cuda import roi_align_multilevel_cuda
 
+    args = (feats, scales, boxes, bidx, levels, p, 0, True)
+    got = roi_align_multilevel_cuda(*args)
+    want = roi_align_multilevel_plain(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(1.0, want.float().abs().max().item())
+    tol = (TOL_BF16 if feats[0].dtype == torch.bfloat16 else TOL_F32) * scale
+    fns = {"new": lambda: roi_align_multilevel_cuda(*args)}
+    if baseline:
+        old = baseline[0]
+        fns["baseline"] = lambda: old.launch(feats, scales, boxes, bidx, levels, p, p, 0, True)
+        if not (old.launch(feats, scales, boxes, bidx, levels, p, p, 0, True).float() - want.float()).abs().max().item() <= tol:
+            raise AssertionError(f"roi_align_fwd {tag}: the baseline kernel disagrees with the plain version")
+    times = time_in_turns(fns)
+    p_ms = cuda_time_ms(lambda: roi_align_multilevel_plain(*args), 3)
+    nbytes, flops = roi_align_work(feats, scales, boxes, bidx, levels, p, 0)
+    b_ms, b_by = bound(nbytes, flops)
+    per_level = [int((levels == i).sum()) for i in range(len(feats))]
+    old_ms = times.get("baseline")
+    log(f"[{phase}] roi_align_fwd {tag}: R={boxes.shape[0]} P={p} C={feats[0].shape[-1]} rois/level={per_level} "
+        f"max_abs_err={err:.3e} max_rel_err={err / scale:.3e} (tol {tol:.3e} abs, {tol / scale:.3e} of the "
+        f"output's scale {scale:.3f}) kernel_ms={times['new']:.4f} baseline_ms="
+        f"{'not measured' if old_ms is None else f'{old_ms:.4f}'} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} "
+        f"({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP) kernel/bound={times['new'] / b_ms:.2f}")
+    if not err <= tol:
+        raise AssertionError(f"roi_align_fwd {tag}: max_abs_err {err} > {tol}")
+    return dict(err=err, ms=times["new"], baseline_ms=old_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                nbytes=nbytes, flops=flops)
+
+
+def check_and_time_bwd(tag, feats, scales, boxes, bidx, levels, p, gen, baseline):
+    """K2 against its plain version, as ``check_and_time_fwd``."""
+    import torch
+
+    from jtsm_tpu_torch.ops.roi_align import roi_align_multilevel_backward_plain
+    from jtsm_tpu_torch.ops.roi_align_cuda import roi_align_multilevel_backward_cuda
+
+    dtype = feats[0].dtype
+    shapes = [tuple(f.shape) for f in feats]
+    grad = torch.randn((boxes.shape[0], p, p, shapes[0][3]), generator=gen, device=DEVICE).to(dtype)
+    args = (grad, shapes, scales, boxes, bidx, levels, p, 0, True)
+    got = roi_align_multilevel_backward_cuda(*args)
+    want = roi_align_multilevel_backward_plain(*args)
+    torch.cuda.synchronize()
+    contiguous = all(g.is_contiguous() and tuple(g.shape) == s for g, s in zip(got, shapes))
+    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    scale = max(1.0, max(w.float().abs().max().item() for w in want))
+    tol = (TOL_BF16 if dtype == torch.bfloat16 else TOL_F32) * scale
+    fns = {"new": lambda: roi_align_multilevel_backward_cuda(*args)}
+    if baseline:
+        old = baseline[1]
+        fns["baseline"] = lambda: old.launch(grad, shapes, scales, boxes, bidx, levels, 0, True)
+        old_err = max((g.float() - w.float()).abs().max().item() for g, w in zip(fns["baseline"](), want))
+        if not old_err <= tol:
+            raise AssertionError(f"roi_align_bwd {tag}: the baseline kernel disagrees with the plain version")
+    times = time_in_turns(fns)
+    p_ms = cuda_time_ms(lambda: roi_align_multilevel_backward_plain(*args), 3)
+    nbytes, flops, touched_bytes = roi_align_bwd_work(feats, scales, boxes, bidx, levels, p, 0)
+    b_ms, b_by = bound(nbytes, flops)
+    old_ms = times.get("baseline")
+    log(f"[train_kernels] roi_align_bwd {tag}: R={boxes.shape[0]} P={p} max_abs_err={err:.3e} "
+        f"max_rel_err={err / scale:.3e} (tol {tol:.3e} abs, {tol / scale:.3e} of the gradient's scale "
+        f"{scale:.3f}) kernel_ms={times['new']:.4f} baseline_ms="
+        f"{'not measured' if old_ms is None else f'{old_ms:.4f}'} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} "
+        f"({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP; touched cells read and written once: "
+        f"{touched_bytes / 1e6:.1f} MB, {touched_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms) "
+        f"kernel/bound={times['new'] / b_ms:.2f} contiguous (B, H, W, C) gradients: {contiguous}")
+    if not err <= tol:
+        raise AssertionError(f"roi_align_bwd {tag}: max_abs_err {err} > {tol}")
+    if not contiguous:
+        raise AssertionError(f"roi_align_bwd {tag}: gradients not contiguous (B, H, W, C)")
+    return dict(err=err, ms=times["new"], baseline_ms=old_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                nbytes=nbytes, flops=flops)
+
+
+def phase_kernels(gen, baseline):
+    """K1 at the served path's shapes, in float32 and bfloat16, and the
+    single-level case (K1b's shape)."""
+    import torch
+
+    from jtsm_tpu_torch.modeling.poolers import assign_boxes_to_levels
+
     scales = [1.0 / s for s in LEVEL_STRIDES]
     pyr32 = flagship_pyramid(gen, dtype=torch.float32)
+    pyr16 = [f.to(torch.bfloat16) for f in pyr32]
+    single = [torch.randn((2, 50, 84, 256), generator=gen, device=DEVICE)]
     cases = [
         # name, features, scales, R, P, batch
         ("box pooler f32", pyr32, scales, 1000, 7, 1),
         ("mask pooler f32", pyr32, scales, 100, 14, 1),
-        ("box pooler bf16", [f.to(torch.bfloat16) for f in pyr32], scales, 1000, 7, 1),
-        ("single level f32 (L=1, B=2)", [torch.randn((2, 50, 84, 256), generator=gen, device=DEVICE)],
-         [1.0 / 16], 512, 14, 2),
+        ("box pooler bf16", pyr16, scales, 1000, 7, 1),
+        ("mask pooler bf16", pyr16, scales, 100, 14, 1),
+        ("single level f32 (L=1, B=2)", single, [1.0 / 16], 512, 14, 2),
     ]
     results = {}
     for name, feats, scs, r, p, batch in cases:
@@ -202,26 +317,7 @@ def phase_kernels(gen):
         else:
             levels = torch.zeros(r, dtype=torch.int32, device=DEVICE)
         bidx = torch.randint(0, batch, (r,), generator=gen, device=DEVICE, dtype=torch.int32)
-        args = (feats, scs, boxes, bidx, levels, p, 0, True)
-        got = roi_align_multilevel_cuda(*args)
-        want = roi_align_multilevel_plain(*args)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        scale = max(1.0, want.float().abs().max().item())
-        tol = (TOL_BF16 if feats[0].dtype == torch.bfloat16 else TOL_F32) * scale
-        k_ms = cuda_time_ms(lambda: roi_align_multilevel_cuda(*args), 20)
-        p_ms = cuda_time_ms(lambda: roi_align_multilevel_plain(*args), 3)
-        nbytes, flops = roi_align_work(feats, scs, boxes, bidx, levels, p, 0)
-        b_ms, b_by = bound(nbytes, flops)
-        per_level = [int((levels == i).sum()) for i in range(len(feats))]
-        log(f"[kernels] roi_align_fwd {name}: R={r} P={p} C={feats[0].shape[-1]} rois/level={per_level} "
-            f"max_abs_err={err:.3e} max_rel_err={err / scale:.3e} (tol {tol:.3e} abs, "
-            f"{tol / scale:.3e} of the output's scale {scale:.3f}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
-        if not err <= tol:
-            raise AssertionError(f"roi_align_fwd {name}: max_abs_err {err} > {tol}")
-        results[name] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                             nbytes=nbytes, flops=flops)
+        results[name] = check_and_time_fwd(name, feats, scs, boxes, bidx, levels, p, baseline)
     return results
 
 
@@ -250,18 +346,26 @@ def check_detections(out, d, s):
             raise AssertionError(f"{k} holds non-finite values")
 
 
-def phase_serve(kernel):
+def tf32_flags():
+    import torch
+
+    return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+
+def phase_serve(kernel, dtype, state):
+    """The flagship at ``dtype`` answers 4 requests after a warm-up; then
+    one request split by stage. Returns K1's launches."""
     import numpy as np
     import torch
 
-    from jtsm_tpu_torch.checkpoint import random_state_dict
     from jtsm_tpu_torch.config import mask_rcnn_R_50_FPN_cfg
     from jtsm_tpu_torch.engine import Predictor
-    from jtsm_tpu_torch.modeling import build_model
+    from jtsm_tpu_torch.layers import exact_float32
 
     cfg = mask_rcnn_R_50_FPN_cfg()
-    state = random_state_dict(build_model(cfg, device="cpu"), seed=0)
+    cfg.TPU.COMPUTE_DTYPE = dtype
     predictor = Predictor(cfg, state)
+    tag = DTYPE_NAMES[dtype]
     rng = np.random.default_rng(0)
     h, w = FLAGSHIP_HW
     warm = request(rng, (h, w), (h, w), (h, w))
@@ -271,6 +375,7 @@ def phase_serve(kernel):
         request(rng, (h, w), (h - 50, w - 11), (h - 50, w - 11)),  # content smaller than the canvas
         request(rng, (h, w), (h, w), (h, w)),
     ]
+    flags = tf32_flags()
     predictor(warm)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -284,17 +389,19 @@ def phase_serve(kernel):
         lat.append((time.perf_counter() - t0) * 1e3)
         check_detections(out, cfg.TEST.DETECTIONS_PER_IMAGE, 2 * cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION)
         if kernel.launches - before != 2:
-            raise AssertionError(f"request {i}: roi_align_fwd launched {kernel.launches - before} times, not 2")
+            raise AssertionError(f"{tag} request {i}: roi_align_fwd launched {kernel.launches - before} times, not 2")
         bh, bw = req["orig_sizes"][0]
         boxes = out["boxes"][0]
         if (boxes[:, 2] > bw).any() or (boxes[:, 3] > bh).any() or (boxes < 0).any():
-            raise AssertionError(f"request {i}: boxes leave the original image")
+            raise AssertionError(f"{tag} request {i}: boxes leave the original image")
         valid.append(int(out["valid"].sum()))
     launches = kernel.launches
     if launches == 0:
         raise AssertionError("roi_align_fwd was not launched on the served path")
+    if tf32_flags() != flags:
+        raise AssertionError(f"serving changed the caller's TF32 flags {flags} to {tf32_flags()}")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[serve] R50-FPN Mask R-CNN 800x1344, 4 requests: latency_ms={[round(x, 3) for x in lat]} "
+    log(f"[serve] R50-FPN Mask R-CNN 800x1344 {tag}, 4 requests: latency_ms={[round(x, 3) for x in lat]} "
         f"mean_ms={sum(lat) / len(lat):.3f} valid_detections={valid} roi_align_fwd_launches={launches} "
         f"peak_mem_gib={peak:.3f}")
 
@@ -302,12 +409,10 @@ def phase_serve(kernel):
     # ended by a synchronize (host clock, mean of 3 runs of the first request)
     model, req = predictor.model, reqs[0]
     stage_ms = {"backbone": 0.0, "rpn": 0.0, "roi_heads": 0.0}
-    with torch.no_grad():
+    with torch.no_grad(), exact_float32(model.compute_dtype == torch.float32):
         for _ in range(3):
             t0 = time.perf_counter()
-            images = torch.as_tensor(req["image"], device=DEVICE)
-            sizes = torch.as_tensor(req["image_sizes"], device=DEVICE)
-            feats = model.backbone(((images - model.pixel_mean) / model.pixel_std).permute(0, 3, 1, 2))
+            feats, sizes = model._features(req)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             proposals, scores, _ = model.proposal_generator(sizes, feats)
@@ -319,8 +424,11 @@ def phase_serve(kernel):
             for k, dt in zip(stage_ms, (t1 - t0, t2 - t1, t3 - t2)):
                 stage_ms[k] += dt * 1e3 / 3
     channels_last = all(f.is_contiguous(memory_format=torch.channels_last) for f in feats.values())
-    log("[serve] stages_ms " + " ".join(f"{k}={v:.3f}" for k, v in stage_ms.items())
-        + f" | FPN maps channels-last (free NHWC views for the poolers): {channels_last}")
+    map_dtypes = sorted({str(f.dtype) for f in feats.values()})
+    log(f"[serve] {tag} stages_ms " + " ".join(f"{k}={v:.3f}" for k, v in stage_ms.items())
+        + f" | FPN maps {map_dtypes}, channels-last (free NHWC views for the poolers): {channels_last}")
+    if not channels_last:
+        raise AssertionError(f"{tag}: the FPN maps are not channels-last")
     return launches
 
 
@@ -367,7 +475,7 @@ def phase_trained():
         raise AssertionError("kernel and plain paths disagree on valid detections or classes")
     errs = {n: (k[n] - p[n]).abs().max().item() for n in ("boxes", "scores", "masks")}
     tols = {"boxes": 1e-3 * max(h, w), "scores": 1e-4, "masks": 1e-4}
-    log(f"[trained] gate checkpoint, 1 image {h}x{w}: valid_detections={n_valid} "
+    log(f"[trained] gate checkpoint ({cfg.TPU.COMPUTE_DTYPE}), 1 image {h}x{w}: valid_detections={n_valid} "
         f"classes={kernel_out['classes'][0][kernel_out['valid'][0]].tolist()[:10]} "
         f"max_abs_err={errs} tol={tols}")
     for n in errs:
@@ -375,20 +483,13 @@ def phase_trained():
             raise AssertionError(f"kernel vs plain {n}: {errs[n]} > {tols[n]}")
 
 
-def phase_train_kernels(gen):
+def phase_train_kernels(gen, baseline):
     """K1 and K2 against their plain versions at the training shapes: B=2,
-    the flagship pyramid, 1024 box ROIs (P=7) and 256 mask ROIs (P=14)."""
+    the flagship pyramid, 1024 box ROIs (P=7) and 256 mask ROIs (P=14), in
+    float32 and bfloat16; then the edge cases of the card-only tests."""
     import torch
 
     from jtsm_tpu_torch.modeling.poolers import assign_boxes_to_levels
-    from jtsm_tpu_torch.ops.roi_align import (
-        roi_align_multilevel_backward_plain,
-        roi_align_multilevel_plain,
-    )
-    from jtsm_tpu_torch.ops.roi_align_cuda import (
-        roi_align_multilevel_backward_cuda,
-        roi_align_multilevel_cuda,
-    )
 
     scales = [1.0 / s for s in LEVEL_STRIDES]
     pyr32 = flagship_pyramid(gen, dtype=torch.float32, batch=TRAIN_BATCH)
@@ -398,54 +499,32 @@ def phase_train_kernels(gen):
         levels = assign_boxes_to_levels(boxes, 2, 5)
         # image-major, as the train step pools them
         bidx = torch.arange(TRAIN_BATCH, dtype=torch.int32, device=DEVICE).repeat_interleave(r // TRAIN_BATCH)
-        per_level = [int((levels == i).sum()) for i in range(len(pyr32))]
-
-        # K1
-        args = (pyr32, scales, boxes, bidx, levels, p, 0, True)
-        got = roi_align_multilevel_cuda(*args)
-        want = roi_align_multilevel_plain(*args)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        scale = max(1.0, want.abs().max().item())
-        k_ms = cuda_time_ms(lambda: roi_align_multilevel_cuda(*args), 20)
-        p_ms = cuda_time_ms(lambda: roi_align_multilevel_plain(*args), 3)
-        nbytes, flops = roi_align_work(pyr32, scales, boxes, bidx, levels, p, 0)
-        b_ms, b_by = bound(nbytes, flops)
-        log(f"[train_kernels] roi_align_fwd {pooler} pooler f32 B={TRAIN_BATCH}: R={r} P={p} rois/level={per_level} "
-            f"max_abs_err={err:.3e} max_rel_err={err / scale:.3e} (tol {TOL_F32 * scale:.3e}) kernel_ms={k_ms:.4f} "
-            f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
-        if not err <= TOL_F32 * scale:
-            raise AssertionError(f"roi_align_fwd {pooler} pooler B={TRAIN_BATCH}: max_abs_err {err}")
-        results[f"fwd {pooler}"] = dict(err=err, ms=k_ms, plain_ms=p_ms, nbytes=nbytes, flops=flops)
-
-        # K2, in float32 and bfloat16
-        for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        for dtype in (torch.float32, torch.bfloat16):
             feats = [f.to(dtype) for f in pyr32]
-            shapes = [tuple(f.shape) for f in feats]
-            grad = torch.randn((r, p, p, 256), generator=gen, device=DEVICE).to(dtype)
-            args = (grad, shapes, scales, boxes, bidx, levels, p, 0, True)
-            got = roi_align_multilevel_backward_cuda(*args)
-            want = roi_align_multilevel_backward_plain(*args)
-            torch.cuda.synchronize()
-            contiguous = all(g.is_contiguous() and tuple(g.shape) == s for g, s in zip(got, shapes))
-            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
-            scale = max(1.0, max(w.float().abs().max().item() for w in want))
-            k_ms = cuda_time_ms(lambda: roi_align_multilevel_backward_cuda(*args), 20)
-            p_ms = cuda_time_ms(lambda: roi_align_multilevel_backward_plain(*args), 3)
-            nbytes, flops, touched_bytes = roi_align_bwd_work(feats, scales, boxes, bidx, levels, p, 0)
-            b_ms, b_by = bound(nbytes, flops)
-            name = f"{pooler} pooler {'bf16' if dtype == torch.bfloat16 else 'f32'}"
-            log(f"[train_kernels] roi_align_bwd {name} B={TRAIN_BATCH}: R={r} P={p} max_abs_err={err:.3e} "
-                f"max_rel_err={err / scale:.3e} (tol {tol * scale:.3e} abs, {tol:.3e} of the gradient's scale "
-                f"{scale:.3f}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}: "
-                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP; touched cells read and written once: "
-                f"{touched_bytes / 1e6:.1f} MB, {touched_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms) "
-                f"contiguous (B, H, W, C) gradients: {contiguous}")
-            if not err <= tol * scale:
-                raise AssertionError(f"roi_align_bwd {name}: max_abs_err {err} > {tol * scale}")
-            if not contiguous:
-                raise AssertionError(f"roi_align_bwd {name}: gradients not contiguous (B, H, W, C)")
-            results[f"bwd {name}"] = dict(err=err, ms=k_ms, plain_ms=p_ms, nbytes=nbytes, flops=flops)
+            name = f"{pooler} pooler {dtype_tag(feats[0])}"
+            results[f"fwd {name}"] = check_and_time_fwd(
+                f"{name} B={TRAIN_BATCH}", feats, scales, boxes, bidx, levels, p, baseline, "train_kernels"
+            )
+            results[f"bwd {name}"] = check_and_time_bwd(
+                f"{name} B={TRAIN_BATCH}", feats, scales, boxes, bidx, levels, p, gen, baseline
+            )
+    del pyr32
+
+    # both kernels on the edge cases their vector and table paths could get
+    # wrong, with the card-only tests' own inputs and tolerances (the file is
+    # loaded by its path: another package named "tests" may be installed)
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "card_tests", os.path.join(REPO, "tests", "test_torch_kernels.py")
+    )
+    card_tests = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(card_tests)
+    for name in card_tests.EDGE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            card_tests.test_roi_align_kernels_edge_cases_match_plain(name, dtype)
+    log(f"[train_kernels] K1 and K2 match their plain versions on the edge cases {card_tests.EDGE_CASES} "
+        "in float32 and bfloat16")
     return results
 
 
@@ -473,20 +552,22 @@ def synthetic_train_batch(seed, b, hw, g=100, valid=8, crop=56):
     }
 
 
-def phase_train(kernels):
-    """The flagship takes TRAIN_STEPS steps at full width; then one more
-    step split by stage."""
+def phase_train(kernels, dtype, state_dict):
+    """The flagship at ``dtype`` takes TRAIN_STEPS steps at full width; then
+    one more step split by stage."""
     import torch
 
-    from jtsm_tpu_torch.checkpoint import random_state_dict
     from jtsm_tpu_torch.config import mask_rcnn_R_50_FPN_cfg
     from jtsm_tpu_torch.engine import create_train_state, make_train_step
+    from jtsm_tpu_torch.layers import exact_float32
     from jtsm_tpu_torch.modeling import build_model
     from jtsm_tpu_torch.solver import build_lr_schedule, build_optimizer
 
     cfg = mask_rcnn_R_50_FPN_cfg()
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    tag = DTYPE_NAMES[dtype]
     model = build_model(cfg)
-    model.load_state_dict(random_state_dict(build_model(cfg, device="cpu"), seed=0))
+    model.load_state_dict(state_dict)
     optimizer = build_optimizer(cfg, model)
     state = create_train_state(model, optimizer, seed=0)
     train_step = make_train_step(model, optimizer, build_lr_schedule(cfg))
@@ -505,19 +586,22 @@ def phase_train(kernels):
         times.append((time.perf_counter() - t0) * 1e3)
         values = {k: v.item() for k, v in metrics.items()}
         if sorted(values) != sorted(keys + ["total_loss"]):
-            raise AssertionError(f"step {i}: loss keys {sorted(values)}")
+            raise AssertionError(f"{tag} step {i}: loss keys {sorted(values)}")
         if not all(math.isfinite(v) for v in values.values()):
-            raise AssertionError(f"step {i}: non-finite losses {values}")
+            raise AssertionError(f"{tag} step {i}: non-finite losses {values}")
         per_step = [k.launches - b for k, b in zip(kernels, before)]
         if per_step != [2] * len(kernels):
-            raise AssertionError(f"step {i}: launches {dict(zip([k.name for k in kernels], per_step))}, not 2 each")
-        log(f"[train] step {i}: ms={times[-1]:.3f} " + " ".join(f"{k}={values[k]:.6g}" for k in keys + ["total_loss"]))
+            raise AssertionError(f"{tag} step {i}: launches {dict(zip([k.name for k in kernels], per_step))}, not 2 each")
+        log(f"[train] {tag} step {i}: ms={times[-1]:.3f} " + " ".join(f"{k}={values[k]:.6g}" for k in keys + ["total_loss"]))
     launches = {k.name: k.launches for k in kernels}
     if any(n == 0 for n in launches.values()):
         raise AssertionError(f"a kernel was not launched on the train path: {launches}")
+    if {p.dtype for p in model.parameters()} != {torch.float32}:
+        raise AssertionError("training moved parameters off float32")
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = sorted(times[1:])[len(times[1:]) // 2]
-    log(f"[train] R50-FPN Mask R-CNN, {TRAIN_BATCH} images 800x1344 per step, f32 (TF32 off): {TRAIN_STEPS} steps "
+    log(f"[train] R50-FPN Mask R-CNN, {TRAIN_BATCH} images 800x1344 per step, {tag}"
+        f"{' (TF32 off)' if dtype == 'float32' else ''}: {TRAIN_STEPS} steps "
         f"step_ms={[round(t, 3) for t in times]} median_after_first_ms={med:.3f} launches={launches} "
         f"peak_mem_gib={peak:.3f}")
 
@@ -527,41 +611,42 @@ def phase_train(kernels):
     stage = {}
     grad_layout = {}
     dev = model.device
-    t0 = time.perf_counter()
-    features, sizes = model._features(batch)
-    for name in ("p2", "p3", "p4", "p5"):
-        features[name].register_hook(
-            lambda g, name=name: grad_layout.__setitem__(name, g.is_contiguous(memory_format=torch.channels_last))
+    with exact_float32(model.compute_dtype == torch.float32):
+        t0 = time.perf_counter()
+        features, sizes = model._features(batch)
+        for name in ("p2", "p3", "p4", "p5"):
+            features[name].register_hook(
+                lambda g, name=name: grad_layout.__setitem__(name, g.is_contiguous(memory_format=torch.channels_last))
+            )
+        targets = {k: torch.as_tensor(v, device=dev) for k, v in batch.items() if k.startswith("gt_")}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        proposals, scores, losses = model.proposal_generator(
+            sizes, features, targets["gt_boxes"], targets["gt_valid"], state.generator
         )
-    targets = {k: torch.as_tensor(v, device=dev) for k, v in batch.items() if k.startswith("gt_")}
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    proposals, scores, losses = model.proposal_generator(
-        sizes, features, targets["gt_boxes"], targets["gt_valid"], state.generator
-    )
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    losses.update(model.roi_heads(features, proposals, scores, sizes, targets, state.generator))
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    optimizer.zero_grad(set_to_none=True)
-    sum(losses.values()).backward()
-    torch.cuda.synchronize()
-    t4 = time.perf_counter()
-    for group in optimizer.param_groups:
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-    optimizer.step()
-    torch.cuda.synchronize()
-    t5 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        losses.update(model.roi_heads(features, proposals, scores, sizes, targets, state.generator))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        optimizer.zero_grad(set_to_none=True)
+        sum(losses.values()).backward()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        optimizer.step()
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
     for k, (a, b) in {"backbone": (t0, t1), "rpn": (t1, t2), "roi_heads": (t2, t3), "backward": (t3, t4),
                       "optimizer": (t4, t5)}.items():
         stage[k] = (b - a) * 1e3
-    log("[train] stages_ms " + " ".join(f"{k}={v:.3f}" for k, v in stage.items())
+    log(f"[train] {tag} stages_ms " + " ".join(f"{k}={v:.3f}" for k, v in stage.items())
         + f" | FPN map gradients channels-last (no copy to another format): {grad_layout}")
-    if len(grad_layout) != 4:
-        raise AssertionError(f"gradients reached only {sorted(grad_layout)} of the FPN maps")
+    if len(grad_layout) != 4 or not all(grad_layout.values()):
+        raise AssertionError(f"{tag}: FPN map gradients {grad_layout}, not channels-last on all four")
     return launches, med
 
 
@@ -606,8 +691,8 @@ def phase_train_trained():
         ((kernel_grads[n] - plain_grads[n]).abs().max() / plain_grads[n].abs().max().clamp(min=1e-12)).item()
         for n in plain_grads
     )
-    log(f"[train_trained] gate checkpoint, 2 images 128x176, one step: losses={kernel_losses} "
-        f"max_rel_loss_err={loss_err:.3e} (tol 1e-5) max_rel_grad_err={grad_err:.3e} over "
+    log(f"[train_trained] gate checkpoint ({cfg.TPU.COMPUTE_DTYPE}), 2 images 128x176, one step: "
+        f"losses={kernel_losses} max_rel_loss_err={loss_err:.3e} (tol 1e-5) max_rel_grad_err={grad_err:.3e} over "
         f"{len(plain_grads)} parameters (tol 1e-4 of each parameter's gradient scale)")
     if not all(math.isfinite(v) for v in kernel_losses.values()):
         raise AssertionError(f"non-finite losses {kernel_losses}")
@@ -617,8 +702,32 @@ def phase_train_trained():
         raise AssertionError(f"kernel vs plain gradients differ by {grad_err}")
 
 
-def main() -> int:
+def kernel_line(kernel, launches, rows, key):
+    """One entry of the kernels JSON line: the kernel's box and mask pooler
+    rows of ``key``'s dtype summed (time, bound over the summed work)."""
+    box, mask = rows[f"box pooler {key}"], rows[f"mask pooler {key}"]
+    b_ms, b_by = bound(box["nbytes"] + mask["nbytes"], box["flops"] + mask["flops"])
+    return {
+        "name": kernel.name,
+        "route": "cuda",
+        "source": kernel.source,
+        "replaces": kernel.replaces,
+        "launches": launches,
+        "max_abs_err": max(box["err"], mask["err"]),
+        "ms": box["ms"] + mask["ms"],
+        "plain_ms": box["plain_ms"] + mask["plain_ms"],
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }
+
+
+def main(argv=None) -> int:
     t_run = time.perf_counter()
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--baseline", metavar="DIR", help="sources of an earlier "
+                        "jtsm_tpu_torch/ops/csrc to build and time beside this checkout's kernels")
+    args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -635,30 +744,55 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]} | TF32 off | {time.perf_counter() - t0:.1f}s")
+        f"python {sys.version.split()[0]} | TF32 (matmul, cuDNN) as found: {tf32_flags()}; the port "
+        f"turns both off in float32 | {time.perf_counter() - t0:.1f}s")
 
     # 2. build
     t0 = time.perf_counter()
-    from jtsm_tpu_torch.ops.roi_align_cuda import BWD_KERNEL, KERNEL, KERNELS, load_kernels
+    from concurrent.futures import ThreadPoolExecutor
 
-    for k, built in zip(KERNELS, load_kernels()):
-        log(f"[build] {k.source} -> {os.path.relpath(built.path, REPO)} in {built.seconds:.1f}s (nvcc)")
-        for line in built.ptxas_log.splitlines():
+    from jtsm_tpu_torch.ops.roi_align_cuda import (
+        BWD_KERNEL,
+        KERNEL,
+        KERNELS,
+        RoIAlignBwdKernel,
+        RoIAlignFwdKernel,
+    )
+
+    baseline = None
+    if args.baseline:
+        out = os.path.join(REPO, "build", "baseline_kernels")
+        baseline = (RoIAlignFwdKernel(args.baseline, out), RoIAlignBwdKernel(args.baseline, out))
+    everything = list(KERNELS) + list(baseline or ())
+    with ThreadPoolExecutor(len(everything)) as pool:
+        built = list(pool.map(lambda k: k.load(), everything))
+    for k, b in zip(everything, built):
+        log(f"[build] {k.source if k in KERNELS else os.path.join(args.baseline, os.path.basename(k.source))} -> "
+            f"{os.path.relpath(b.path, REPO)} in {b.seconds:.1f}s (nvcc)")
+        for line in b.ptxas_log.splitlines():
             log(f"[build] {line.strip()}")
-    log(f"[build] done in {time.perf_counter() - t0:.1f}s (one nvcc per source, in parallel)")
+    log(f"[build] done in {time.perf_counter() - t0:.1f}s (one nvcc per source, in parallel)"
+        + ("" if baseline else "; no --baseline: times beside an earlier version not measured"))
 
-    # 3. kernels against their plain versions
+    # 3. K1 against its plain version at the served shapes
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    res = phase_kernels(gen)
+    res = phase_kernels(gen, baseline)
     log(f"[kernels] done in {time.perf_counter() - t0:.1f}s")
 
-    # 4. serve the flagship
+    # 4. serve the flagship at its configured dtype, then in float32
+    from jtsm_tpu_torch.checkpoint import random_state_dict
+    from jtsm_tpu_torch.config import mask_rcnn_R_50_FPN_cfg
+    from jtsm_tpu_torch.modeling import build_model
+
+    flagship = mask_rcnn_R_50_FPN_cfg()
+    main_dtype = flagship.TPU.COMPUTE_DTYPE
+    if main_dtype != "bfloat16":
+        raise AssertionError(f"the flagship's TPU.COMPUTE_DTYPE is {main_dtype}, not bfloat16")
+    state = random_state_dict(build_model(flagship, device="cpu"), seed=0)
     t0 = time.perf_counter()
-    launches = phase_serve(KERNEL)
+    launches = {d: phase_serve(KERNEL, d, state) for d in (main_dtype, "float32")}
     log(f"[serve] done in {time.perf_counter() - t0:.1f}s")
 
     # 5. trained weights, kernel against plain on the card
@@ -668,13 +802,13 @@ def main() -> int:
 
     # 6. the training kernels against their plain versions
     t0 = time.perf_counter()
-    tres = phase_train_kernels(gen)
+    tres = phase_train_kernels(gen, baseline)
     log(f"[train_kernels] done in {time.perf_counter() - t0:.1f}s")
 
     # 7. train the flagship (cuDNN's own algorithm choice, as a user trains)
     t0 = time.perf_counter()
     torch.backends.cudnn.deterministic = False
-    train_launches, step_ms = phase_train(KERNELS)
+    train = {d: phase_train(KERNELS, d, state) for d in (main_dtype, "float32")}
     log(f"[train] done in {time.perf_counter() - t0:.1f}s")
 
     # 8. a train step from trained weights, kernels against plain
@@ -684,37 +818,17 @@ def main() -> int:
 
     # per served request K1 pools boxes (R=1000, P=7) and masks (R=100,
     # P=14); per train step K1 and K2 pool and unpool boxes (R=1024, P=7)
-    # and masks (R=256, P=14). Launches: both main paths, serve and train.
-    box, mask = res["box pooler f32"], res["mask pooler f32"]
-    b_ms, b_by = bound(box["nbytes"] + mask["nbytes"], box["flops"] + mask["flops"])
-    bbox, bmask = tres["bwd box pooler f32"], tres["bwd mask pooler f32"]
-    k2_ms, k2_by = bound(bbox["nbytes"] + bmask["nbytes"], bbox["flops"] + bmask["flops"])
-    kernels = [{
-        "name": KERNEL.name,
-        "route": "cuda",
-        "source": KERNEL.source,
-        "replaces": KERNEL.replaces,
-        "launches": launches + train_launches[KERNEL.name],
-        "max_abs_err": max(r["err"] for n, r in res.items() if "f32" in n),
-        "ms": box["ms"] + mask["ms"],
-        "plain_ms": box["plain_ms"] + mask["plain_ms"],
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": None,
-    }, {
-        "name": BWD_KERNEL.name,
-        "route": "cuda",
-        "source": BWD_KERNEL.source,
-        "replaces": BWD_KERNEL.replaces,
-        "launches": train_launches[BWD_KERNEL.name],
-        "max_abs_err": max(bbox["err"], bmask["err"]),
-        "ms": bbox["ms"] + bmask["ms"],
-        "plain_ms": bbox["plain_ms"] + bmask["plain_ms"],
-        "bound_ms": k2_ms,
-        "bound_by": k2_by,
-        "library_ms": None,
-    }]
-    log(f"[train] median step ms {step_ms:.3f}; K1 launches serve {launches}, train {train_launches[KERNEL.name]}")
+    # and masks (R=256, P=14). Times of the flagship's compute dtype;
+    # launches: both main paths, serve and train, in both dtypes.
+    key = DTYPE_NAMES[main_dtype]
+    k1_launches = sum(launches.values()) + sum(t[0][KERNEL.name] for t in train.values())
+    k2_launches = sum(t[0][BWD_KERNEL.name] for t in train.values())
+    kernels = [
+        kernel_line(KERNEL, k1_launches, res, key),
+        kernel_line(BWD_KERNEL, k2_launches, {k[4:]: v for k, v in tres.items() if k.startswith("bwd ")}, key),
+    ]
+    log("[train] median step ms " + " ".join(f"{DTYPE_NAMES[d]}={t[1]:.3f}" for d, t in train.items())
+        + f"; K1 launches serve {launches}, train " + str({d: t[0][KERNEL.name] for d, t in train.items()}))
     log(f"[done] {time.perf_counter() - t_run:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -12,8 +12,10 @@ from torch import nn
 
 
 class FrozenBatchNorm2d(nn.Module):
-    """Batch norm with fixed statistics and affine terms, held as buffers
-    under detectron2's names, applied as one multiply-add on NCHW maps."""
+    """Batch norm with fixed statistics and affine terms, held as float32
+    buffers under detectron2's names, applied as one multiply-add on NCHW
+    maps in the input's dtype (JAX ``layers/batch_norm.py:42``): the scale
+    and shift are computed in float32 and cast to it."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()

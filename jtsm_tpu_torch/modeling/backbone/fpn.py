@@ -1,6 +1,8 @@
 """Feature Pyramid Network with the ``LastLevelMaxPool`` p6 (reference:
 detectron2/modeling/backbone/fpn.py:16, :173, :202; JAX package
-``modeling/backbone/fpn.py``)."""
+``modeling/backbone/fpn.py``). The laterals and outputs compute in the
+``TPU.COMPUTE_DTYPE`` that the builder reads (JAX ``fpn.py:162``), and the
+top-down sums and the p6 pool run in that dtype too."""
 
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import Conv2d, ShapeSpec, get_norm, interpolate_nearest
+from ...layers import Conv2d, ShapeSpec, compute_dtype, get_norm, interpolate_nearest
 from .resnet import ResNet, build_resnet_backbone
 
 
@@ -27,6 +29,7 @@ class FPN(nn.Module):
         out_channels: int,
         norm: str = "",
         fuse_type: str = "sum",
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if fuse_type not in ("sum", "avg"):
@@ -41,11 +44,11 @@ class FPN(nn.Module):
         for f, k in zip(self.in_features, self.stages):
             self.add_module(f"fpn_lateral{k}", Conv2d(
                 shapes[f].channels, out_channels, kernel_size=1, bias=not norm,
-                norm=get_norm(norm, out_channels),
+                norm=get_norm(norm, out_channels), compute_dtype=compute_dtype,
             ))
             self.add_module(f"fpn_output{k}", Conv2d(
                 out_channels, out_channels, kernel_size=3, padding=1, bias=not norm,
-                norm=get_norm(norm, out_channels),
+                norm=get_norm(norm, out_channels), compute_dtype=compute_dtype,
             ))
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -84,6 +87,7 @@ def build_resnet_fpn_backbone(cfg) -> FPN:
         out_channels=cfg.MODEL.FPN.OUT_CHANNELS,
         norm=cfg.MODEL.FPN.NORM,
         fuse_type=cfg.MODEL.FPN.FUSE_TYPE,
+        compute_dtype=compute_dtype(cfg),
     )
 
 

@@ -8,7 +8,10 @@ NCHW maps; module names follow detectron2 (``stem.conv1``, ``res2.0.conv1``,
 the stem (1) and the stages up to res{FREEZE_AT} from the graph, as the JAX
 package's ``stop_gradient`` does (``backbone/resnet.py:388-407``): their
 parameters get no gradient. FrozenBN has no statistics to update.
-Deformable blocks and the res5 dilation wait for later slices.
+Every convolution computes in the ``TPU.COMPUTE_DTYPE`` that
+``build_resnet_backbone`` reads (JAX ``backbone/resnet.py:442``) over
+float32 parameters. Deformable blocks and the res5 dilation wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import Conv2d, ShapeSpec, get_norm
+from ...layers import Conv2d, ShapeSpec, compute_dtype, get_norm
 
 _DEPTH_TO_BLOCKS = {
     18: [2, 2, 2, 2],
@@ -33,39 +36,41 @@ _DEPTH_TO_BLOCKS = {
 class BasicStem(nn.Module):
     """7x7/2 conv, norm, ReLU, 3x3/2 max pool with padding 1 (JAX :47)."""
 
-    def __init__(self, in_channels: int = 3, out_channels: int = 64, norm: str = "FrozenBN"):
+    def __init__(self, in_channels: int = 3, out_channels: int = 64, norm: str = "FrozenBN",
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv1 = Conv2d(
             in_channels, out_channels, kernel_size=7, stride=2, padding=3, bias=False,
-            norm=get_norm(norm, out_channels), activation=F.relu,
+            norm=get_norm(norm, out_channels), activation=F.relu, compute_dtype=compute_dtype,
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.max_pool2d(self.conv1(x), kernel_size=3, stride=2, padding=1)
 
 
-def _shortcut(in_channels, out_channels, stride, norm):
+def _shortcut(in_channels, out_channels, stride, norm, compute_dtype):
     if in_channels == out_channels and stride == 1:
         return None
     return Conv2d(
         in_channels, out_channels, kernel_size=1, stride=stride, bias=False,
-        norm=get_norm(norm, out_channels),
+        norm=get_norm(norm, out_channels), compute_dtype=compute_dtype,
     )
 
 
 class BasicBlock(nn.Module):
     """Two 3x3 convs (R18/R34)."""
 
-    def __init__(self, in_channels: int, out_channels: int, stride: int = 1, norm: str = "FrozenBN"):
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1, norm: str = "FrozenBN",
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.shortcut = _shortcut(in_channels, out_channels, stride, norm)
+        self.shortcut = _shortcut(in_channels, out_channels, stride, norm, compute_dtype)
         self.conv1 = Conv2d(
             in_channels, out_channels, kernel_size=3, stride=stride, padding=1, bias=False,
-            norm=get_norm(norm, out_channels), activation=F.relu,
+            norm=get_norm(norm, out_channels), activation=F.relu, compute_dtype=compute_dtype,
         )
         self.conv2 = Conv2d(
             out_channels, out_channels, kernel_size=3, padding=1, bias=False,
-            norm=get_norm(norm, out_channels),
+            norm=get_norm(norm, out_channels), compute_dtype=compute_dtype,
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -86,22 +91,25 @@ class BottleneckBlock(nn.Module):
         num_groups: int = 1,
         norm: str = "FrozenBN",
         stride_in_1x1: bool = True,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         stride_1x1, stride_3x3 = (stride, 1) if stride_in_1x1 else (1, stride)
-        self.shortcut = _shortcut(in_channels, out_channels, stride, norm)
+        self.shortcut = _shortcut(in_channels, out_channels, stride, norm, compute_dtype)
         self.conv1 = Conv2d(
             in_channels, bottleneck_channels, kernel_size=1, stride=stride_1x1, bias=False,
             norm=get_norm(norm, bottleneck_channels), activation=F.relu,
+            compute_dtype=compute_dtype,
         )
         self.conv2 = Conv2d(
             bottleneck_channels, bottleneck_channels, kernel_size=3, stride=stride_3x3,
             padding=1, groups=num_groups, bias=False,
             norm=get_norm(norm, bottleneck_channels), activation=F.relu,
+            compute_dtype=compute_dtype,
         )
         self.conv3 = Conv2d(
             bottleneck_channels, out_channels, kernel_size=1, bias=False,
-            norm=get_norm(norm, out_channels),
+            norm=get_norm(norm, out_channels), compute_dtype=compute_dtype,
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -122,13 +130,14 @@ class ResNet(nn.Module):
         norm: str = "FrozenBN",
         out_features: Sequence[str] = ("res4",),
         freeze_at: int = 0,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.freeze_at = freeze_at
         if depth not in _DEPTH_TO_BLOCKS:
             raise ValueError(f"ResNet depth {depth} is not one of {sorted(_DEPTH_TO_BLOCKS)}")
         self.out_features = tuple(out_features)
-        self.stem = BasicStem(3, stem_out_channels, norm)
+        self.stem = BasicStem(3, stem_out_channels, norm, compute_dtype)
         is_basic = depth in (18, 34)
         if is_basic and res2_out_channels != 64:
             raise ValueError("Must set MODEL.RESNETS.RES2_OUT_CHANNELS = 64 for R18/R34")
@@ -144,11 +153,11 @@ class ResNet(nn.Module):
             for b in range(_DEPTH_TO_BLOCKS[depth][idx]):
                 stride = 2 if b == 0 and idx > 0 else 1
                 if is_basic:
-                    block = BasicBlock(in_channels, out_channels, stride, norm)
+                    block = BasicBlock(in_channels, out_channels, stride, norm, compute_dtype)
                 else:
                     block = BottleneckBlock(
                         in_channels, out_channels, bottleneck_channels, stride,
-                        num_groups, norm, stride_in_1x1,
+                        num_groups, norm, stride_in_1x1, compute_dtype,
                     )
                 blocks.append(block)
                 in_channels = out_channels
@@ -196,4 +205,5 @@ def build_resnet_backbone(cfg) -> ResNet:
         norm=r.NORM,
         out_features=tuple(r.OUT_FEATURES),
         freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
+        compute_dtype=compute_dtype(cfg),
     )

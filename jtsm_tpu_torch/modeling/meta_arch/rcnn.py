@@ -19,6 +19,12 @@ Sampling in training draws uniforms from the generator passed to
 ``forward``, in this order: the RPN's positive and negative anchor draws
 (B, anchors) each, the ROI heads' positive, negative and slot-order draws
 (B, proposals + G) each, and the mask branch's draw (B, slots).
+
+Precision: ``TPU.COMPUTE_DTYPE`` (``compute_dtype``). Images are normalised
+in float32, as in the JAX package (``rcnn.py:63``), and the backbone takes
+them in the compute dtype; the modules compute in it over float32
+parameters. In float32, inference and training (``engine.train_loop``) run
+with TF32 off for matrix products and cuDNN (``exact_float32``).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ...layers import compute_dtype, exact_float32
 from ..backbone import build_backbone
 from ..postprocessing import detector_postprocess_batched
 from ..proposal_generator.rpn import build_proposal_generator
@@ -37,6 +44,7 @@ from ..roi_heads.roi_heads import build_roi_heads
 class GeneralizedRCNN(nn.Module):
     def __init__(self, cfg):
         super().__init__()
+        self.compute_dtype = compute_dtype(cfg)
         self.backbone = build_backbone(cfg)
         shapes = self.backbone.output_shape()
         self.proposal_generator = build_proposal_generator(cfg, shapes)
@@ -59,17 +67,18 @@ class GeneralizedRCNN(nn.Module):
         # normalise NHWC, then an NCHW view of it: the backbone runs
         # channels-last, so the poolers read the maps without a copy
         x = ((images - self.pixel_mean) / self.pixel_std).permute(0, 3, 1, 2)
-        return self.backbone(x), image_sizes
+        return self.backbone(x.to(self.compute_dtype)), image_sizes
 
     @torch.no_grad()
     def inference(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Detections for a batch dict (see the module docstring). Inputs
         are moved to the model's device."""
-        features, image_sizes = self._features(batch)
-        orig_sizes = torch.as_tensor(batch.get("orig_sizes", image_sizes), device=self.device)
-        proposals, proposal_scores, _ = self.proposal_generator(image_sizes, features)
-        detections = self.roi_heads(features, proposals, proposal_scores, image_sizes)
-        return detector_postprocess_batched(detections, image_sizes, orig_sizes)
+        with exact_float32(self.compute_dtype == torch.float32):
+            features, image_sizes = self._features(batch)
+            orig_sizes = torch.as_tensor(batch.get("orig_sizes", image_sizes), device=self.device)
+            proposals, proposal_scores, _ = self.proposal_generator(image_sizes, features)
+            detections = self.roi_heads(features, proposals, proposal_scores, image_sizes)
+            return detector_postprocess_batched(detections, image_sizes, orig_sizes)
 
     def forward(
         self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None

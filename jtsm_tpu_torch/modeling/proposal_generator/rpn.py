@@ -6,7 +6,11 @@ Module names follow detectron2 (``rpn_head.conv``,
 ``rpn_head.objectness_logits``, ``rpn_head.anchor_deltas``). In training
 the RPN also matches anchors to the padded ground truth, samples them with
 uniform draws from the caller's generator and returns its two losses; the
-proposals carry no gradient."""
+proposals carry no gradient.
+
+The head computes in the ``TPU.COMPUTE_DTYPE`` that the RPN reads (JAX
+``rpn.py:120``); its objectness logits and deltas go back to float32 before
+top-k, decoding and the losses, as in the JAX package (``rpn.py:185-188``)."""
 
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import Conv2d, ShapeSpec
+from ...layers import Conv2d, ShapeSpec, compute_dtype
 from ...ops.box_regression import Box2BoxTransform
 from ...ops.losses import binary_cross_entropy_with_logits, smooth_l1_loss
 from ...ops.matcher import Matcher
@@ -29,14 +33,17 @@ from .proposal_utils import find_top_rpn_proposals, topk_stable
 class StandardRPNHead(nn.Module):
     """3x3 conv -> (objectness 1x1, deltas 1x1), shared across levels."""
 
-    def __init__(self, in_channels: int, num_anchors: int, box_dim: int = 4, conv_dims=(-1,)):
+    def __init__(self, in_channels: int, num_anchors: int, box_dim: int = 4, conv_dims=(-1,),
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if len(conv_dims) != 1:
             raise NotImplementedError("an RPN head of several convs is not ported yet")
         out_c = in_channels if conv_dims[0] == -1 else conv_dims[0]
-        self.conv = Conv2d(in_channels, out_c, kernel_size=3, padding=1, activation=F.relu)
-        self.objectness_logits = nn.Conv2d(out_c, num_anchors, kernel_size=1)
-        self.anchor_deltas = nn.Conv2d(out_c, num_anchors * box_dim, kernel_size=1)
+        dt = compute_dtype
+        self.conv = Conv2d(in_channels, out_c, kernel_size=3, padding=1, activation=F.relu,
+                           compute_dtype=dt)
+        self.objectness_logits = Conv2d(out_c, num_anchors, kernel_size=1, compute_dtype=dt)
+        self.anchor_deltas = Conv2d(out_c, num_anchors * box_dim, kernel_size=1, compute_dtype=dt)
 
     def forward(self, features: List[torch.Tensor]):
         logits, deltas = [], []
@@ -60,7 +67,7 @@ class RPN(nn.Module):
             raise ValueError("all levels must share one anchor count")
         self.rpn_head = StandardRPNHead(
             shapes[0].channels, num_anchors[0], self.anchor_generator.box_dim,
-            tuple(cfg.MODEL.RPN.CONV_DIMS),
+            tuple(cfg.MODEL.RPN.CONV_DIMS), compute_dtype(cfg),
         )
         r = cfg.MODEL.RPN
         self.box2box_transform = Box2BoxTransform(weights=r.BBOX_REG_WEIGHTS)

@@ -23,13 +23,15 @@ from ..proposal_generator.proposal_utils import topk_stable
 
 
 class FastRCNNOutputLayers(nn.Module):
-    """(K+1)-way classification and per-class box deltas."""
+    """(K+1)-way classification and per-class box deltas, computed in
+    ``compute_dtype`` and returned in float32 (JAX ``fast_rcnn.py:55``)."""
 
-    def __init__(self, input_size: int, num_classes: int, cls_agnostic_bbox_reg: bool = False, box_dim: int = 4):
+    def __init__(self, input_size: int, num_classes: int, cls_agnostic_bbox_reg: bool = False, box_dim: int = 4,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.cls_score = Linear(input_size, num_classes + 1)
+        self.cls_score = Linear(input_size, num_classes + 1, compute_dtype=compute_dtype)
         num_bbox_reg_classes = 1 if cls_agnostic_bbox_reg else num_classes
-        self.bbox_pred = Linear(input_size, num_bbox_reg_classes * box_dim)
+        self.bbox_pred = Linear(input_size, num_bbox_reg_classes * box_dim, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor):
         x = x.flatten(1)

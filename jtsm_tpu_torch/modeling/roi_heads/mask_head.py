@@ -6,7 +6,12 @@ detectron2/modeling/roi_heads/mask_head.py ``MaskRCNNConvUpsampleHead``,
 Ground truth masks arrive as the JAX package's fixed-size crops rasterised
 inside each ground truth box (``gt_mask_crops``, (B, G, M, M)); each
 proposal's target is the matched crop resampled under the proposal to gt
-box map."""
+box map.
+
+The head computes in the ``TPU.COMPUTE_DTYPE`` that the builder reads (JAX
+``mask_head.py:80``) and returns its logits in that dtype; the loss and the
+inference select each ROI's class first and cast that map to float32 (JAX
+``mask_head.py:139,154``)."""
 
 from __future__ import annotations
 
@@ -14,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import Conv2d, ConvTranspose2d, ShapeSpec, get_norm
+from ...layers import Conv2d, ConvTranspose2d, ShapeSpec, compute_dtype, get_norm
 from ...ops.losses import binary_cross_entropy_with_logits
 from ...structures.masks import crop_and_resize_masks
 
@@ -23,20 +28,23 @@ class MaskRCNNConvUpsampleHead(nn.Module):
     """3x3 convs, a 2x2/2 deconv with ReLU, a 1x1 predictor: pooled features
     (N, S, S, C) -> mask logits (N, K, 2S, 2S)."""
 
-    def __init__(self, input_shape: ShapeSpec, num_classes: int, num_conv=4, conv_dim=256, norm="", cls_agnostic_mask=False):
+    def __init__(self, input_shape: ShapeSpec, num_classes: int, num_conv=4, conv_dim=256, norm="", cls_agnostic_mask=False,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         c = input_shape.channels
         self.conv_norm_relus = []
         for i in range(num_conv):
             conv = Conv2d(
                 c, conv_dim, kernel_size=3, padding=1, bias=not norm,
-                norm=get_norm(norm, conv_dim), activation=F.relu,
+                norm=get_norm(norm, conv_dim), activation=F.relu, compute_dtype=compute_dtype,
             )
             self.add_module(f"mask_fcn{i + 1}", conv)
             self.conv_norm_relus.append(conv)
             c = conv_dim
-        self.deconv = ConvTranspose2d(c, conv_dim, kernel_size=2, stride=2)
-        self.predictor = nn.Conv2d(conv_dim, 1 if cls_agnostic_mask else num_classes, kernel_size=1)
+        self.deconv = ConvTranspose2d(c, conv_dim, kernel_size=2, stride=2, compute_dtype=compute_dtype)
+        self.predictor = Conv2d(
+            conv_dim, 1 if cls_agnostic_mask else num_classes, kernel_size=1, compute_dtype=compute_dtype
+        )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)  # channels-last NCHW view
@@ -113,5 +121,5 @@ def build_mask_head(cfg, input_shape: ShapeSpec) -> MaskRCNNConvUpsampleHead:
         raise NotImplementedError(f"mask head {h.NAME!r} is not ported yet")
     return MaskRCNNConvUpsampleHead(
         input_shape, cfg.MODEL.ROI_HEADS.NUM_CLASSES, h.NUM_CONV, h.CONV_DIM, h.NORM,
-        h.CLS_AGNOSTIC_MASK,
+        h.CLS_AGNOSTIC_MASK, compute_dtype(cfg),
     )

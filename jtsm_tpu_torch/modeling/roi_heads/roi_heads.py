@@ -18,7 +18,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from ...layers import ShapeSpec
+from ...layers import ShapeSpec, compute_dtype
 from ...ops.box_regression import Box2BoxTransform
 from ...ops.matcher import Matcher
 from ..poolers import ROIPooler
@@ -46,7 +46,8 @@ class StandardROIHeads(nn.Module):
             cfg, ShapeSpec(channels=in_channels, height=bh.POOLER_RESOLUTION, width=bh.POOLER_RESOLUTION)
         )
         self.box_predictor = FastRCNNOutputLayers(
-            self.box_head.output_size, self.num_classes, bh.CLS_AGNOSTIC_BBOX_REG
+            self.box_head.output_size, self.num_classes, bh.CLS_AGNOSTIC_BBOX_REG,
+            compute_dtype=compute_dtype(cfg),
         )
         self.box2box_transform = Box2BoxTransform(weights=bh.BBOX_REG_WEIGHTS)
         rh = cfg.MODEL.ROI_HEADS

@@ -18,13 +18,28 @@
 // each, about 10 flops a tap and channel, against 4 bytes read per tap and
 // channel in f32; at the flagship shapes the pyramid read once and the
 // pooled output written once take longer at 3.35 TB/s than the arithmetic at
-// 67 TFLOP/s. The design: one thread block per (ROI, bin), one thread per
-// channel, so a warp reads 32 neighbouring channels of one feature cell
-// (channels-last maps: 128 contiguous bytes in f32) and writes 32
-// neighbouring channels of the output; the sample loop and the f32 sum stay
-// in registers. Taps shared by neighbouring bins and ROIs are left to the
-// L1 and the 50 MB L2. Staging the ROI's window in shared memory and vector
-// loads are later work.
+// 67 TFLOP/s. What keeps such a kernel from that bound is load latency:
+// a thread that walks its samples one after the other with one 4-byte load
+// per tap, in a block per bin that works out the ROI's geometry anew, has
+// little in flight. The design:
+// - one block per (ROI, 16 bins, channel tile): 16 groups of 16 threads,
+//   each group one bin, so the ROI's geometry and its sample taps are worked
+//   out once per block, one sample a thread, into shared memory;
+// - 16-byte loads: each thread holds 4 float32 or 8 bfloat16 channels of
+//   every tap (channels-last maps, so a group reads 256 contiguous bytes of
+//   a cell) and writes its 16 output bytes once;
+// - the f32 sum stays in registers;
+// - taps shared by neighbouring bins and ROIs are left to the L1 and the
+//   50 MB L2 (the ROI's window is not staged in shared memory: reads from
+//   there cost the SM the same bandwidth as L1 hits).
+// A channel count that is not a multiple of the vector width, or a level
+// whose address is not 16-byte aligned, takes the same kernel with one
+// channel a thread (4- or 2-byte loads); the result is the same.
+//
+// What holds it above its bound (PERF.md): every tap is read again by each
+// sample that touches it, from the L1 and the L2, and a thread does as many
+// loads, conversions and multiply-adds per channel in bfloat16 as in
+// float32, so bfloat16, half the bytes, takes about 0.7x the float32 time.
 //
 // Numerics: positions, fractions and weights come from roi_align_geometry.cuh,
 // which K2 shares, with the same float operations in the same order as the
@@ -42,58 +57,158 @@ namespace {
 
 using jtsm::Pyramid;
 using jtsm::RoiGeometry;
+using jtsm::Tap;
 
-__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+constexpr int kThreads = 256;
+constexpr int kLanes = 16;                  // threads over the channels of one bin
+constexpr int kGroups = kThreads / kLanes;  // bins of one block
 
-template <typename T>
-__global__ void roi_align_fwd_kernel(Pyramid pyr, const float* __restrict__ boxes,
-                                     const int* __restrict__ batch_idx,
-                                     const int* __restrict__ levels, int pooled_h,
-                                     int pooled_w, int sampling_ratio, int max_ratio,
-                                     int aligned, T* __restrict__ out) {
+// VEC channels of one cell as float32, and back.
+template <typename T, int VEC>
+struct Vec;
+
+template <>
+struct Vec<float, 4> {
+  static __device__ __forceinline__ void load(const float* p, float* v) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16, 8> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* v) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* v) {
+    uint4 q;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = q;
+  }
+};
+
+template <>
+struct Vec<float, 1> {
+  static __device__ __forceinline__ void load(const float* p, float* v) { v[0] = __ldg(p); }
+  static __device__ __forceinline__ void store(float* p, const float* v) { *p = v[0]; }
+};
+
+template <>
+struct Vec<__nv_bfloat16, 1> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* v) {
+    v[0] = __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* v) {
+    *p = __float2bfloat16(v[0]);
+  }
+};
+
+// grid: (num_rois * bin_blocks, channel tiles of kLanes * VEC); dynamic
+// shared memory: (pooled_h + pooled_w) * max_samples Taps.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    roi_align_fwd_kernel(Pyramid pyr, const float* __restrict__ boxes,
+                         const int* __restrict__ batch_idx, const int* __restrict__ levels,
+                         int pooled_h, int pooled_w, int sampling_ratio, int max_ratio,
+                         int aligned, int bin_blocks, T* __restrict__ out) {
+  extern __shared__ Tap taps[];
   const int bins = pooled_h * pooled_w;
-  const int r = blockIdx.x / bins;
-  const int bin = blockIdx.x - r * bins;
-  const int py = bin / pooled_w;
-  const int px = bin - py * pooled_w;
+  const int r = blockIdx.x / bin_blocks;
+  const int bin = (blockIdx.x - r * bin_blocks) * kGroups + threadIdx.x / kLanes;
 
   const RoiGeometry g = jtsm::roi_geometry(pyr, boxes, batch_idx, levels, r, pooled_h,
                                            pooled_w, sampling_ratio, max_ratio, aligned);
-  const int w = g.w;
-  const int c_total = pyr.channels;
-  const T* feat = static_cast<const T*>(pyr.data[g.lvl]) + (size_t)g.b * g.h * w * c_total;
-
-  T* out_bin = out + ((size_t)r * bins + bin) * c_total;
-  for (int c = threadIdx.x; c < c_total; c += blockDim.x) {
-    const T* fc = feat + c;
-    float acc = 0.0f;
-    for (int iy = 0; iy < g.ry; ++iy) {
-      const float y = jtsm::sample_pos(g.y0, py, iy, g.ry, g.bin_h);
-      int ylo, yhi;
-      float wy;
-      if (!jtsm::axis_tap(y, g.h, &ylo, &yhi, &wy)) continue;
-      for (int ix = 0; ix < g.rx; ++ix) {
-        const float x = jtsm::sample_pos(g.x0, px, ix, g.rx, g.bin_w);
-        int xlo, xhi;
-        float wx;
-        if (!jtsm::axis_tap(x, w, &xlo, &xhi, &wx)) continue;
-        const float v00 = load(fc + ((size_t)ylo * w + xlo) * c_total);
-        const float v01 = load(fc + ((size_t)ylo * w + xhi) * c_total);
-        const float v10 = load(fc + ((size_t)yhi * w + xlo) * c_total);
-        const float v11 = load(fc + ((size_t)yhi * w + xhi) * c_total);
-        acc += v00 * (1.0f - wy) * (1.0f - wx) + v01 * (1.0f - wy) * wx +
-               v10 * wy * (1.0f - wx) + v11 * wy * wx;
-      }
+  // the ROI's sample taps, one sample a thread: rows (bin-major), then columns
+  const int ny = pooled_h * g.ry;
+  const int nx = pooled_w * g.rx;
+  Tap* ty = taps;
+  Tap* tx = taps + ny;
+  for (int t = threadIdx.x; t < ny + nx; t += kThreads) {
+    if (t < ny) {
+      ty[t] = jtsm::make_tap(g.y0, t / g.ry, t % g.ry, g.ry, g.bin_h, g.h);
+    } else {
+      const int u = t - ny;
+      tx[u] = jtsm::make_tap(g.x0, u / g.rx, u % g.rx, g.rx, g.bin_w, g.w);
     }
-    store(out_bin + c, acc / g.count);
   }
+  __syncthreads();
+
+  const int c_total = pyr.channels;
+  const int c = (blockIdx.y * kLanes + threadIdx.x % kLanes) * VEC;
+  if (bin >= bins || c >= c_total) return;
+  const int py = bin / pooled_w;
+  const int px = bin - py * pooled_w;
+  const size_t row = (size_t)g.w * c_total;
+  const T* feat = static_cast<const T*>(pyr.data[g.lvl]) + (size_t)g.b * g.h * row + c;
+  const Tap* bx = tx + px * g.rx;
+
+  float acc[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
+  for (int iy = 0; iy < g.ry; ++iy) {
+    const Tap ay = ty[py * g.ry + iy];
+    if (ay.lo < 0) continue;
+    const float wy = ay.frac;
+    const T* r0 = feat + (size_t)ay.lo * row;
+    const T* r1 = feat + (size_t)ay.hi * row;
+    for (int ix = 0; ix < g.rx; ++ix) {
+      const Tap ax = bx[ix];
+      if (ax.lo < 0) continue;
+      const float wx = ax.frac;
+      float v00[VEC], v01[VEC], v10[VEC], v11[VEC];
+      Vec<T, VEC>::load(r0 + (size_t)ax.lo * c_total, v00);
+      Vec<T, VEC>::load(r0 + (size_t)ax.hi * c_total, v01);
+      Vec<T, VEC>::load(r1 + (size_t)ax.lo * c_total, v10);
+      Vec<T, VEC>::load(r1 + (size_t)ax.hi * c_total, v11);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v)
+        acc[v] += v00[v] * (1.0f - wy) * (1.0f - wx) + v01[v] * (1.0f - wy) * wx +
+                  v10[v] * wy * (1.0f - wx) + v11[v] * wy * wx;
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) acc[v] = acc[v] / g.count;
+  Vec<T, VEC>::store(out + ((size_t)r * bins + bin) * c_total + c, acc);
+}
+
+template <typename T, int VEC>
+int launch_fwd(const Pyramid& pyr, const float* boxes, const int* batch_idx, const int* levels,
+               int num_rois, int pooled_h, int pooled_w, int sampling_ratio, int max_ratio,
+               int aligned, void* out, cudaStream_t s) {
+  const int bin_blocks = (pooled_h * pooled_w + kGroups - 1) / kGroups;
+  if ((long long)num_rois * bin_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int per_block = kLanes * VEC;
+  const dim3 grid(num_rois * bin_blocks, (pyr.channels + per_block - 1) / per_block);
+  const size_t smem = (size_t)(pooled_h + pooled_w) *
+                      jtsm::max_samples(sampling_ratio, max_ratio) * sizeof(Tap);
+  return (int)jtsm::launch(roi_align_fwd_kernel<T, VEC>, grid, kThreads, smem, s, pyr, boxes,
+                           batch_idx, levels, pooled_h, pooled_w, sampling_ratio, max_ratio,
+                           aligned, bin_blocks, static_cast<T*>(out));
+}
+
+// 16-byte vectors need the channel count a multiple of the vector width and
+// every level and the output on 16-byte boundaries.
+bool vectors_fit(void* const* level_data, int num_levels, const void* out, int channels,
+                 int vec) {
+  if (channels % vec != 0 || !jtsm::aligned_to(out, 16)) return false;
+  for (int i = 0; i < num_levels; ++i)
+    if (!jtsm::aligned_to(level_data[i], 16)) return false;
+  return true;
 }
 
 }  // namespace
@@ -118,22 +233,23 @@ extern "C" int jtsm_roi_align_fwd(int dtype, void* const* level_data,
   Pyramid pyr;
   jtsm::fill_pyramid(&pyr, level_data, heights, widths, scales, num_levels, batch, channels);
 
-  const dim3 grid(num_rois * pooled_h * pooled_w);
-  const int threads = jtsm::threads_for(channels);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bx = static_cast<const float*>(boxes);
   const int* bi = static_cast<const int*>(batch_idx);
   const int* lv = static_cast<const int*>(levels);
   if (dtype == 0) {
-    roi_align_fwd_kernel<float><<<grid, threads, 0, s>>>(
-        pyr, bx, bi, lv, pooled_h, pooled_w, sampling_ratio, max_ratio, aligned,
-        static_cast<float*>(out));
-  } else if (dtype == 1) {
-    roi_align_fwd_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(
-        pyr, bx, bi, lv, pooled_h, pooled_w, sampling_ratio, max_ratio, aligned,
-        static_cast<__nv_bfloat16*>(out));
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return vectors_fit(level_data, num_levels, out, channels, 4)
+               ? launch_fwd<float, 4>(pyr, bx, bi, lv, num_rois, pooled_h, pooled_w,
+                                      sampling_ratio, max_ratio, aligned, out, s)
+               : launch_fwd<float, 1>(pyr, bx, bi, lv, num_rois, pooled_h, pooled_w,
+                                      sampling_ratio, max_ratio, aligned, out, s);
   }
-  return (int)cudaGetLastError();
+  if (dtype == 1) {
+    return vectors_fit(level_data, num_levels, out, channels, 8)
+               ? launch_fwd<__nv_bfloat16, 8>(pyr, bx, bi, lv, num_rois, pooled_h, pooled_w,
+                                              sampling_ratio, max_ratio, aligned, out, s)
+               : launch_fwd<__nv_bfloat16, 1>(pyr, bx, bi, lv, num_rois, pooled_h, pooled_w,
+                                              sampling_ratio, max_ratio, aligned, out, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -15,6 +15,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stddef.h>
+#include <stdint.h>
 
 namespace jtsm {
 
@@ -109,6 +111,25 @@ __device__ __forceinline__ bool axis_tap(float pos, int size, int* lo, int* hi, 
   return true;
 }
 
+// One sample's taps along one axis; lo < 0 marks a sample that counts as
+// zero (its hi is then 0, so an address made from it stays inside the map).
+struct Tap {
+  int lo;
+  int hi;
+  float frac;
+};
+
+__device__ __forceinline__ Tap make_tap(float origin, int bin, int k, int ratio, float bin_size,
+                                        int size) {
+  Tap t;
+  if (!axis_tap(sample_pos(origin, bin, k, ratio, bin_size), size, &t.lo, &t.hi, &t.frac)) {
+    t.lo = -1;
+    t.hi = 0;
+    t.frac = 0.0f;
+  }
+  return t;
+}
+
 // Fills the pyramid's shapes from the host arrays of the C interface.
 inline void fill_pyramid(Pyramid* pyr, void* const* level_data, const int* heights,
                          const int* widths, const float* scales, int num_levels, int batch,
@@ -125,9 +146,29 @@ inline void fill_pyramid(Pyramid* pyr, void* const* level_data, const int* heigh
   pyr->channels = channels;
 }
 
-// Threads of a block: one per channel, a multiple of the warp, at most 256.
-inline int threads_for(int channels) {
-  return channels >= 256 ? 256 : ((channels + 31) / 32) * 32;
+// True when `p` lies on a multiple of `bytes`.
+inline bool aligned_to(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// The largest grid of samples per bin and axis a launch can meet: the fixed
+// sampling ratio, or the adaptive grid's cap.
+__host__ __device__ inline int max_samples(int sampling_ratio, int max_ratio) {
+  return sampling_ratio > 0 ? sampling_ratio : max_ratio;
+}
+
+// Launches `kernel` with `smem` bytes of dynamic shared memory, first
+// raising the kernel's limit when it asks for more than the default 48 KB.
+template <typename Kernel, typename... Args>
+inline cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t s,
+                          Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, threads, smem, s>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace jtsm

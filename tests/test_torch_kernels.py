@@ -17,6 +17,12 @@ atomic sums land in another order than the plain version's ``index_add_``.
 The train step compares losses to 1e-5 of their scale and gradients to 1e-4
 of each parameter's gradient scale (the K1/K2 differences of ~1e-7 pass
 through the backbone's backward).
+
+The edge cases hold both kernels to the same tolerances on the inputs that
+their vector and table paths are most likely to get wrong: channel counts
+off the vector width, level views and cotangents off 16-byte boundaries,
+maps of one row or column, ROIs outside the map, of zero area, at the
+adaptive grid's cap, stacked on one cell, covering whole levels, and R = 0.
 """
 
 import numpy as np
@@ -109,6 +115,7 @@ def _spread_boxes(rng, r, h, w):
         (torch.float32, 0, True, 7, 4, "train"),
         (torch.float32, 0, True, 14, 4, "train"),
         (torch.bfloat16, 0, True, 7, 4, "train"),
+        (torch.bfloat16, 0, True, 14, 4, "train"),
     ],
 )
 def test_roi_align_backward_kernel_matches_plain(dtype, sampling_ratio, aligned, p, levels, size):
@@ -220,3 +227,173 @@ def test_tiny_train_step_kernels_match_plain(monkeypatch):
     for n in g_kernel:
         scale = max(1e-6, g_plain[n].abs().max().item())
         assert (g_kernel[n] - g_plain[n]).abs().max().item() <= 1e-4 * scale, n
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+def _edge_case(name, rng):
+    """(level shapes (B, H, W, C), scales, boxes, batch indices, levels, P)."""
+    b, c, p = 2, 64, 7
+    shapes = [(b, 32, 48, c), (b, 16, 24, c), (b, 8, 12, c)]
+    scales = [1 / 4, 1 / 8, 1 / 16]
+    r = 64
+    boxes = _boxes(rng, r, 128, 192)
+    if name in ("c40", "c42"):
+        c = int(name[1:])
+        shapes = [(b, hh, ww, c) for b, hh, ww, _ in shapes]
+    elif name == "one_row":
+        # a level of one row, one of one column, one of one cell; on a
+        # degenerate axis every sample lies in (-1, 1), where the map's one
+        # cell is the whole answer (see _plain_one_row)
+        shapes = [(b, 1, 48, c), (b, 16, 1, c), (b, 1, 1, c)]
+        levels = rng.randint(0, 3, r).astype(np.int32)
+        reach = np.array([[190.0, 6.0], [12.0, 120.0], [24.0, 24.0]], np.float32)[levels]
+        start = np.array([[0.0, -2.0], [-4.0, 0.0], [-8.0, -8.0]], np.float32)[levels]
+        lo = start + rng.rand(r, 2).astype(np.float32) * (reach - start) * 0.3
+        boxes = np.concatenate([lo, lo + rng.rand(r, 2).astype(np.float32) * (reach - lo)], 1)
+        return shapes, scales, boxes, rng.randint(0, b, r).astype(np.int32), levels, p
+    elif name == "outside":
+        boxes[: r // 2] = [[-90.0, -90.0, -30.0, -40.0], [300.0, 200.0, 400.0, 260.0]] * (r // 4)
+    elif name == "zero_area":
+        xy = rng.rand(r, 2) * [192, 128]
+        boxes = np.concatenate([xy, xy], 1).astype(np.float32)
+        boxes[::4, 2] -= 5.0  # inverted in x
+    elif name == "ratio_cap":
+        # bins of exactly 4, just over 4, exactly 3 and just over 3 cells on
+        # level 0 (stride 4): grids of 4, 4 (capped), 3 and 4
+        side = np.array([4.0, 4.001, 3.0, 3.001] * (r // 4), np.float32) * 4 * p
+        xy = rng.rand(r, 2) * 20
+        boxes = np.concatenate([xy, xy + side[:, None]], 1).astype(np.float32)
+        return shapes, scales, boxes, np.zeros(r, np.int32), np.zeros(r, np.int32), p
+    elif name == "stacked":
+        r = 512
+        boxes = np.tile(np.array([[40.0, 30.0, 52.0, 41.0]], np.float32), (r, 1))
+        boxes[: r // 2] += rng.rand(r // 2, 4).astype(np.float32) * 0.01
+        return shapes, scales, boxes, np.zeros(r, np.int32), np.zeros(r, np.int32), 14
+    elif name == "whole_levels":
+        boxes = np.tile(np.array([[-8.0, -8.0, 200.0, 136.0]], np.float32), (r, 1))
+    elif name == "r0":
+        boxes = np.zeros((0, 4), np.float32)
+        r = 0
+    levels = rng.randint(0, len(shapes), r).astype(np.int32)
+    return shapes, scales, boxes.astype(np.float32), rng.randint(0, b, r).astype(np.int32), levels, p
+
+
+def _plain_one_row(args, bwd_args):
+    """The plain versions' answers for maps of one row or column. The plain
+    version, as the JAX formulation, reads the tap after a map's last cell
+    unclamped (the next row of the flat pyramid, or past its end), where the
+    kernels take the last cell again; with every sample of a degenerate axis
+    inside (-1, 1) the kernels' answer is the plain version's on the map
+    with its one row (column) doubled, and the gradient that one's summed
+    back over the two."""
+    feats, scales, *rois = args[:5]
+    doubled = [f.repeat(1, 2 if f.shape[1] == 1 else 1, 2 if f.shape[2] == 1 else 1, 1) for f in feats]
+    want = roi_align_multilevel_plain(doubled, scales, *rois, *args[5:])
+    grad, shapes = bwd_args[:2]
+    want_g = roi_align_multilevel_backward_plain(
+        grad.float(), [f.shape for f in doubled], *bwd_args[2:]
+    )
+    want_g = [
+        g.unflatten(1, (g.shape[1] // s[1], s[1])).sum(1)
+        .unflatten(2, (g.shape[2] // s[2], s[2])).sum(2).to(grad.dtype)
+        for g, s in zip(want_g, shapes)
+    ]
+    return want, want_g
+
+
+EDGE_CASES = ["c40", "c42", "unaligned", "one_row", "outside", "zero_area", "ratio_cap",
+              "stacked", "whole_levels", "r0"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_roi_align_kernels_edge_cases_match_plain(name, dtype):
+    _card()
+    rng = np.random.RandomState(EDGE_CASES.index(name))
+    shapes, scales, boxes, bidx, levels, p = _edge_case(name, rng)
+    feats = [torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda().to(dtype) for s in shapes]
+    r, c = boxes.shape[0], shapes[0][3]
+    grad = torch.from_numpy(rng.randn(r, p, p, c).astype(np.float32)).cuda().to(dtype)
+    if name == "unaligned":
+        feats = [_unaligned(f) for f in feats]
+        grad = _unaligned(grad)
+    rois = (torch.from_numpy(boxes).cuda(), torch.from_numpy(bidx).cuda(),
+            torch.from_numpy(levels).cuda())
+    tol = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
+    k1, k2 = KERNEL.launches, BWD_KERNEL.launches
+
+    args = (feats, scales, *rois, p, 0, True)
+    bwd_args = (grad, shapes, scales, *rois, p, 0, True)
+    got = roi_align_multilevel_cuda(*args)
+    got_g = roi_align_multilevel_backward_cuda(*bwd_args)
+    if name == "one_row":
+        want, want_g = _plain_one_row(args, bwd_args)
+    else:
+        want = roi_align_multilevel_plain(*args)
+        want_g = roi_align_multilevel_backward_plain(*bwd_args)
+    torch.cuda.synchronize()
+    # R = 0 launches nothing: the wrappers return the empty output and zeros
+    assert (KERNEL.launches - k1, BWD_KERNEL.launches - k2) == ((0, 0) if r == 0 else (1, 1))
+    assert got.shape == want.shape == (r, p, p, c) and got.dtype == dtype
+    if r:
+        scale = max(1.0, want.float().abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= tol * scale
+    if name == "outside":
+        assert got[: r // 2].float().abs().max().item() == 0.0
+    for g, wnt, shp in zip(got_g, want_g, shapes):
+        assert g.shape == wnt.shape == shp and g.dtype == dtype and g.is_contiguous()
+        scale = max(1.0, wnt.float().abs().max().item())
+        assert (g.float() - wnt.float()).abs().max().item() <= tol * scale, name
+
+
+@pytest.mark.gpu
+def test_launch_runs_inside_the_tensors_device(monkeypatch):
+    """Each wrapper enters ``torch.cuda.device`` of its tensors' device and
+    takes that device's stream inside it; the guard is a spy around the
+    real one, so this also runs on a machine with one card."""
+    _card()
+    real_device, real_stream = torch.cuda.device, torch.cuda.current_stream
+    entered, streams = [], []
+    inside = [False]
+
+    class Spy:
+        def __init__(self, device):
+            entered.append(torch.device(device))
+            self.guard = real_device(device)
+
+        def __enter__(self):
+            inside[0] = True
+            return self.guard.__enter__()
+
+        def __exit__(self, *exc):
+            inside[0] = False
+            return self.guard.__exit__(*exc)
+
+    def stream(device=None):
+        streams.append((torch.device(device), inside[0]))
+        return real_stream(device)
+
+    monkeypatch.setattr(torch.cuda, "device", Spy)
+    monkeypatch.setattr(torch.cuda, "current_stream", stream)
+    rng = np.random.RandomState(5)
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    feats = [torch.from_numpy(rng.randn(2, 16, 24, 32).astype(np.float32)).to(dev)]
+    rois = (torch.from_numpy(_boxes(rng, 12, 64, 96)).to(dev),
+            torch.from_numpy(rng.randint(0, 2, 12).astype(np.int32)).to(dev),
+            torch.zeros(12, dtype=torch.int32, device=dev))
+    out = roi_align_multilevel_cuda(feats, [0.25], *rois, 7)
+    roi_align_multilevel_backward_cuda(torch.ones_like(out), [f.shape for f in feats], [0.25], *rois, 7)
+    monkeypatch.undo()
+    torch.cuda.synchronize(dev)
+    assert entered == [dev, dev]
+    assert streams == [(dev, True), (dev, True)]
