@@ -8,16 +8,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
 1. device: the card's name and power limit;
 2. build: every CUDA kernel of the served and trained paths, compiled with
    nvcc from the sources in this checkout (and, with ``--baseline DIR``, the
-   same C interface from the sources in DIR, an earlier version of
-   ``jtsm_tpu_torch/ops/csrc``, to time beside them);
+   same C interfaces from the sources in DIR, an earlier version of
+   ``jtsm_tpu_torch/ops/csrc``, into a temporary directory, to time beside
+   them);
 3. kernels: K1 against its plain PyTorch version at the shapes the served
    path gives it, in float32 and bfloat16, with the stated tolerance, timed
-   with CUDA events beside its bound (and beside the baseline, in turns);
+   with CUDA events beside its bound (and beside the baseline, in turns),
+   both as calls issued back to back (host cost per call included) and as
+   the device's time alone;
 4. serve: Mask R-CNN R50-FPN at full width (random weights from a seed)
-   answers 4 requests of one 800x1344 image each, first at its configured
-   TPU.COMPUTE_DTYPE (bfloat16), then in float32; every kernel's launch
-   count is set to 0 before and read after, and K1 must run twice a request
-   in each;
+   answers 8 requests of one 800x1344 image in each of its configured
+   TPU.COMPUTE_DTYPE (bfloat16) and float32, the two in turns; every
+   kernel's launch count is set to 0 before and read after, and K1 must run
+   twice a request in each; then each stage's time and host syncs;
 5. trained weights: the committed gate checkpoint (a narrow R50, float32) on
    one seeded image, through the kernel and through the plain version on
    the card, must give the same detections;
@@ -34,8 +37,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    through K1/K2 and through the plain forward and backward on the card must
    give the same losses and gradients.
 
-The last three lines are {"kernels": [...]} (times of the flagship's
-compute dtype), the card's name and power limit as nvidia-smi gives them,
+The last three lines are {"kernels": [...]} (``kernel_line`` says which
+times), the card's name and power limit as nvidia-smi gives them,
 and {"ok": true, "device": {...}}. Needs one card, torch, numpy and pytest;
 imports nothing of JAX. Without a card, or outside a checkout of the
 repository, it exits with 2 and prints no result.
@@ -68,6 +71,8 @@ FLAGSHIP_HW = (800, 1344)
 LEVEL_STRIDES = (4, 8, 16, 32)
 TRAIN_BATCH = 2  # the per-card batch of the reference's 8-card IMS_PER_BATCH 16
 TRAIN_STEPS = 5
+SERVE_ROUNDS = 8  # requests in each dtype
+STAGE_ROUNDS = 5
 DTYPE_NAMES = {"bfloat16": "bf16", "float32": "f32"}
 
 
@@ -75,17 +80,20 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls, from CUDA
-    events. The stream first sleeps a few milliseconds, so the host has
-    queued every call before the first starts and the time is the device's,
-    not the host's launch overhead."""
+def cuda_time_ms(fn, reps: int, queued: bool = False) -> float:
+    """Mean time of ``fn`` over ``reps`` back-to-back calls, from CUDA events
+    recorded around them as the host issues them: a call whose host cost
+    (the wrapper's Python, ctypes and allocations) exceeds its device time
+    is timed at its host cost. With ``queued`` the stream first
+    sleeps a few milliseconds, so the host has queued every call before the
+    first starts and the time is the device's alone."""
     import torch
 
     fn()  # warm-up
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(5_000_000)
+    if queued:
+        torch.cuda._sleep(5_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -95,12 +103,14 @@ def cuda_time_ms(fn, reps: int) -> float:
 
 
 def time_in_turns(fns: dict, reps: int = 20) -> dict:
-    """``cuda_time_ms`` of each callable twice, in turns (a, b, b, a), and
-    the mean of its two: versions compared on one card in one run."""
-    times = {k: [] for k in fns}
-    for k in list(fns) + list(reversed(fns)):
-        times[k].append(cuda_time_ms(fns[k], reps))
-    return {k: sum(v) / len(v) for k, v in times.items()}
+    """``cuda_time_ms`` of each callable under both timers, twice each, in
+    turns (a, b, b, a), and the mean of its two: versions compared on one
+    card in one run. Returns {name: {"ms": t, "device_ms": t}}."""
+    times = {k: {"ms": [], "device_ms": []} for k in fns}
+    for queued, key in ((False, "ms"), (True, "device_ms")):
+        for k in list(fns) + list(reversed(fns)):
+            times[k][key].append(cuda_time_ms(fns[k], reps, queued))
+    return {k: {key: sum(v) / len(v) for key, v in t.items()} for k, t in times.items()}
 
 
 def roi_align_counts(features, scales, boxes, batch_indices, levels, p, sampling_ratio):
@@ -206,6 +216,15 @@ def dtype_tag(t) -> str:
     return "bf16" if t.dtype == torch.bfloat16 else "f32"
 
 
+def format_times(times) -> str:
+    """The kernel's times under both timers, and the baseline's when it ran."""
+    text = f"kernel_ms={times['new']['ms']:.4f} kernel_device_ms={times['new']['device_ms']:.4f}"
+    old = times.get("baseline")
+    if old is None:
+        return text + " baseline_ms=not measured"
+    return text + f" baseline_ms={old['ms']:.4f} baseline_device_ms={old['device_ms']:.4f}"
+
+
 def check_and_time_fwd(tag, feats, scales, boxes, bidx, levels, p, baseline, phase="kernels"):
     """K1 against its plain version at these inputs, then its time (in turns
     with the baseline's K1 when there is one), the plain version's, and the
@@ -233,16 +252,13 @@ def check_and_time_fwd(tag, feats, scales, boxes, bidx, levels, p, baseline, pha
     nbytes, flops = roi_align_work(feats, scales, boxes, bidx, levels, p, 0)
     b_ms, b_by = bound(nbytes, flops)
     per_level = [int((levels == i).sum()) for i in range(len(feats))]
-    old_ms = times.get("baseline")
     log(f"[{phase}] roi_align_fwd {tag}: R={boxes.shape[0]} P={p} C={feats[0].shape[-1]} rois/level={per_level} "
         f"max_abs_err={err:.3e} max_rel_err={err / scale:.3e} (tol {tol:.3e} abs, {tol / scale:.3e} of the "
-        f"output's scale {scale:.3f}) kernel_ms={times['new']:.4f} baseline_ms="
-        f"{'not measured' if old_ms is None else f'{old_ms:.4f}'} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} "
-        f"({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP) kernel/bound={times['new'] / b_ms:.2f}")
+        f"output's scale {scale:.3f}) {format_times(times)} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} "
+        f"({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP) kernel/bound={times['new']['ms'] / b_ms:.2f}")
     if not err <= tol:
         raise AssertionError(f"roi_align_fwd {tag}: max_abs_err {err} > {tol}")
-    return dict(err=err, ms=times["new"], baseline_ms=old_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                nbytes=nbytes, flops=flops)
+    return dict(err=err, times=times, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=flops)
 
 
 def check_and_time_bwd(tag, feats, scales, boxes, bidx, levels, p, gen, baseline):
@@ -274,20 +290,17 @@ def check_and_time_bwd(tag, feats, scales, boxes, bidx, levels, p, gen, baseline
     p_ms = cuda_time_ms(lambda: roi_align_multilevel_backward_plain(*args), 3)
     nbytes, flops, touched_bytes = roi_align_bwd_work(feats, scales, boxes, bidx, levels, p, 0)
     b_ms, b_by = bound(nbytes, flops)
-    old_ms = times.get("baseline")
     log(f"[train_kernels] roi_align_bwd {tag}: R={boxes.shape[0]} P={p} max_abs_err={err:.3e} "
         f"max_rel_err={err / scale:.3e} (tol {tol:.3e} abs, {tol / scale:.3e} of the gradient's scale "
-        f"{scale:.3f}) kernel_ms={times['new']:.4f} baseline_ms="
-        f"{'not measured' if old_ms is None else f'{old_ms:.4f}'} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} "
+        f"{scale:.3f}) {format_times(times)} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} "
         f"({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP; touched cells read and written once: "
         f"{touched_bytes / 1e6:.1f} MB, {touched_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms) "
-        f"kernel/bound={times['new'] / b_ms:.2f} contiguous (B, H, W, C) gradients: {contiguous}")
+        f"kernel/bound={times['new']['ms'] / b_ms:.2f} contiguous (B, H, W, C) gradients: {contiguous}")
     if not err <= tol:
         raise AssertionError(f"roi_align_bwd {tag}: max_abs_err {err} > {tol}")
     if not contiguous:
         raise AssertionError(f"roi_align_bwd {tag}: gradients not contiguous (B, H, W, C)")
-    return dict(err=err, ms=times["new"], baseline_ms=old_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                nbytes=nbytes, flops=flops)
+    return dict(err=err, times=times, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=flops)
 
 
 def phase_kernels(gen, baseline):
@@ -352,9 +365,28 @@ def tf32_flags():
     return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
 
 
-def phase_serve(kernel, dtype, state):
-    """The flagship at ``dtype`` answers 4 requests after a warm-up; then
-    one request split by stage. Returns K1's launches."""
+def count_host_syncs(fn):
+    """Runs ``fn`` and counts the operations in it that made the host wait
+    for the card (PyTorch's sync debug mode warns once for each)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_serve(kernel, dtypes, state):
+    """The flagship answers SERVE_ROUNDS requests in each dtype after a
+    warm-up in each, the dtypes in turns (a b, b a, ...) so that both meet
+    the same host; then the first request split by stage, in turns too, and
+    the host syncs of each stage. Returns K1's launches per dtype."""
     import numpy as np
     import torch
 
@@ -362,10 +394,6 @@ def phase_serve(kernel, dtype, state):
     from jtsm_tpu_torch.engine import Predictor
     from jtsm_tpu_torch.layers import exact_float32
 
-    cfg = mask_rcnn_R_50_FPN_cfg()
-    cfg.TPU.COMPUTE_DTYPE = dtype
-    predictor = Predictor(cfg, state)
-    tag = DTYPE_NAMES[dtype]
     rng = np.random.default_rng(0)
     h, w = FLAGSHIP_HW
     warm = request(rng, (h, w), (h, w), (h, w))
@@ -376,59 +404,91 @@ def phase_serve(kernel, dtype, state):
         request(rng, (h, w), (h, w), (h, w)),
     ]
     flags = tf32_flags()
-    predictor(warm)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernel.launches = 0
-    lat, valid = [], []
-    for i, req in enumerate(reqs):
-        before = kernel.launches
-        t0 = time.perf_counter()
-        out = predictor(req)
+    predictors, mem = {}, {}
+    for d in dtypes:
+        cfg = mask_rcnn_R_50_FPN_cfg()
+        cfg.TPU.COMPUTE_DTYPE = d
         torch.cuda.synchronize()
-        lat.append((time.perf_counter() - t0) * 1e3)
-        check_detections(out, cfg.TEST.DETECTIONS_PER_IMAGE, 2 * cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION)
-        if kernel.launches - before != 2:
-            raise AssertionError(f"{tag} request {i}: roi_align_fwd launched {kernel.launches - before} times, not 2")
-        bh, bw = req["orig_sizes"][0]
-        boxes = out["boxes"][0]
-        if (boxes[:, 2] > bw).any() or (boxes[:, 3] > bh).any() or (boxes < 0).any():
-            raise AssertionError(f"{tag} request {i}: boxes leave the original image")
-        valid.append(int(out["valid"].sum()))
-    launches = kernel.launches
-    if launches == 0:
+        before = torch.cuda.memory_allocated()
+        predictors[d] = Predictor(cfg, state)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        predictors[d](warm)
+        torch.cuda.synchronize()
+        mem[d] = ((resident - before) / 2**30, (torch.cuda.max_memory_allocated() - resident) / 2**30)
+    detections = cfg.TEST.DETECTIONS_PER_IMAGE, 2 * cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION
+
+    kernel.launches = 0
+    lat = {d: [] for d in dtypes}
+    valid = {d: [] for d in dtypes}
+    launches = dict.fromkeys(dtypes, 0)
+    for i in range(SERVE_ROUNDS):
+        req = reqs[i % len(reqs)]
+        for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+            before = kernel.launches
+            t0 = time.perf_counter()
+            out = predictors[d](req)
+            torch.cuda.synchronize()
+            lat[d].append((time.perf_counter() - t0) * 1e3)
+            check_detections(out, *detections)
+            launches[d] += kernel.launches - before
+            if kernel.launches - before != 2:
+                raise AssertionError(f"{d} request {i}: roi_align_fwd launched {kernel.launches - before} times, not 2")
+            bh, bw = req["orig_sizes"][0]
+            boxes = out["boxes"][0]
+            if (boxes[:, 2] > bw).any() or (boxes[:, 3] > bh).any() or (boxes < 0).any():
+                raise AssertionError(f"{d} request {i}: boxes leave the original image")
+            valid[d].append(int(out["valid"].sum()))
+    if kernel.launches == 0:
         raise AssertionError("roi_align_fwd was not launched on the served path")
     if tf32_flags() != flags:
         raise AssertionError(f"serving changed the caller's TF32 flags {flags} to {tf32_flags()}")
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[serve] R50-FPN Mask R-CNN 800x1344 {tag}, 4 requests: latency_ms={[round(x, 3) for x in lat]} "
-        f"mean_ms={sum(lat) / len(lat):.3f} valid_detections={valid} roi_align_fwd_launches={launches} "
-        f"peak_mem_gib={peak:.3f}")
+    for d in dtypes:
+        tag = DTYPE_NAMES[d]
+        log(f"[serve] R50-FPN Mask R-CNN 800x1344 {tag}, {SERVE_ROUNDS} requests in turns with "
+            f"{'/'.join(DTYPE_NAMES[o] for o in dtypes if o != d)}: latency_ms={[round(x, 3) for x in lat[d]]} "
+            f"mean_ms={sum(lat[d]) / len(lat[d]):.3f} median_ms={sorted(lat[d])[len(lat[d]) // 2]:.3f} "
+            f"valid_detections={valid[d]} roi_align_fwd_launches={launches[d]} "
+            f"weights_gib={mem[d][0]:.3f} request_peak_gib={mem[d][1]:.3f}")
 
-    # where a request's time goes: the model's stages one by one, each
-    # ended by a synchronize (host clock, mean of 3 runs of the first request)
-    model, req = predictor.model, reqs[0]
-    stage_ms = {"backbone": 0.0, "rpn": 0.0, "roi_heads": 0.0}
-    with torch.no_grad(), exact_float32(model.compute_dtype == torch.float32):
-        for _ in range(3):
-            t0 = time.perf_counter()
-            feats, sizes = model._features(req)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            proposals, scores, _ = model.proposal_generator(sizes, feats)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            model.roi_heads(feats, proposals, scores, sizes)
-            torch.cuda.synchronize()
-            t3 = time.perf_counter()
-            for k, dt in zip(stage_ms, (t1 - t0, t2 - t1, t3 - t2)):
-                stage_ms[k] += dt * 1e3 / 3
-    channels_last = all(f.is_contiguous(memory_format=torch.channels_last) for f in feats.values())
-    map_dtypes = sorted({str(f.dtype) for f in feats.values()})
-    log(f"[serve] {tag} stages_ms " + " ".join(f"{k}={v:.3f}" for k, v in stage_ms.items())
-        + f" | FPN maps {map_dtypes}, channels-last (free NHWC views for the poolers): {channels_last}")
-    if not channels_last:
-        raise AssertionError(f"{tag}: the FPN maps are not channels-last")
+    # where a request's time goes: the model's stages one by one on the
+    # first request, each ended by a synchronize (host clock, median of
+    # STAGE_ROUNDS runs, the dtypes in turns); then one more run of each
+    # stage counting its host syncs
+    def run_stages(model, measure):
+        """The three stages of ``req`` through ``model``; ``measure`` makes
+        each call and returns its reading."""
+        r = {}
+        with torch.no_grad(), exact_float32(model.compute_dtype == torch.float32):
+            readings = {
+                "backbone": measure(lambda: r.update(zip(("feats", "sizes"), model._features(req)))),
+                "rpn": measure(lambda: r.update(zip(("proposals", "scores", "_"), model.proposal_generator(
+                    r["sizes"], r["feats"])))),
+                "roi_heads": measure(lambda: model.roi_heads(r["feats"], r["proposals"], r["scores"], r["sizes"])),
+            }
+        return readings, r["feats"].values()
+
+    def timed(call):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    req = reqs[0]
+    stage_ms = {d: {} for d in dtypes}
+    for i in range(STAGE_ROUNDS):
+        for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+            for k, ms in run_stages(predictors[d].model, timed)[0].items():
+                stage_ms[d].setdefault(k, []).append(ms)
+    for d in dtypes:
+        syncs, feats = run_stages(predictors[d].model, count_host_syncs)
+        if not all(f.is_contiguous(memory_format=torch.channels_last) for f in feats):
+            raise AssertionError(f"{d}: the FPN maps are not channels-last")
+        log(f"[serve] {DTYPE_NAMES[d]} stages_ms (median of {STAGE_ROUNDS}) "
+            + " ".join(f"{k}={sorted(v)[len(v) // 2]:.3f}" for k, v in stage_ms[d].items())
+            + " | host syncs " + " ".join(f"{k}={n}" for k, n in syncs.items())
+            + f" | FPN maps {sorted({str(f.dtype) for f in feats})}, channels-last (free NHWC views for the poolers)")
     return launches
 
 
@@ -702,24 +762,87 @@ def phase_train_trained():
         raise AssertionError(f"kernel vs plain gradients differ by {grad_err}")
 
 
-def kernel_line(kernel, launches, rows, key):
-    """One entry of the kernels JSON line: the kernel's box and mask pooler
-    rows of ``key``'s dtype summed (time, bound over the summed work)."""
-    box, mask = rows[f"box pooler {key}"], rows[f"mask pooler {key}"]
-    b_ms, b_by = bound(box["nbytes"] + mask["nbytes"], box["flops"] + mask["flops"])
-    return {
+def kernel_line(kernel, launches, rows, f32_errs):
+    """One entry of the kernels JSON line. ``ms``, ``plain_ms`` and
+    ``bound_ms`` keep their long-standing meaning: the float32 box and mask
+    pooler rows summed, under the timer without a queue, against the bound
+    of the summed work. Beside them: ``device_ms`` (the same rows, the
+    device's time alone), the bf16 rows (the flagship's compute dtype) and,
+    with --baseline, the earlier kernel's times on the same inputs."""
+
+    def summed(key, who, timer):
+        return rows[f"box pooler {key}"]["times"][who][timer] + rows[f"mask pooler {key}"]["times"][who][timer]
+
+    def summed_bound(key):
+        box, mask = rows[f"box pooler {key}"], rows[f"mask pooler {key}"]
+        return bound(box["nbytes"] + mask["nbytes"], box["flops"] + mask["flops"])
+
+    box, mask = rows["box pooler f32"], rows["mask pooler f32"]
+    b_ms, b_by = summed_bound("f32")
+    line = {
         "name": kernel.name,
         "route": "cuda",
         "source": kernel.source,
         "replaces": kernel.replaces,
         "launches": launches,
-        "max_abs_err": max(box["err"], mask["err"]),
-        "ms": box["ms"] + mask["ms"],
+        "max_abs_err": max(f32_errs),
+        "ms": summed("f32", "new", "ms"),
         "plain_ms": box["plain_ms"] + mask["plain_ms"],
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,
+        "device_ms": summed("f32", "new", "device_ms"),
+        "bf16_ms": summed("bf16", "new", "ms"),
+        "bf16_device_ms": summed("bf16", "new", "device_ms"),
+        "bf16_bound_ms": summed_bound("bf16")[0],
+        "bf16_max_abs_err": max(rows["box pooler bf16"]["err"], rows["mask pooler bf16"]["err"]),
     }
+    if "baseline" in box["times"]:
+        line.update({
+            "baseline_ms": summed("f32", "baseline", "ms"),
+            "baseline_device_ms": summed("f32", "baseline", "device_ms"),
+            "bf16_baseline_ms": summed("bf16", "baseline", "ms"),
+            "bf16_baseline_device_ms": summed("bf16", "baseline", "device_ms"),
+        })
+    return line
+
+
+def build_baseline(src_dir):
+    """K1 and K2 from the sources in ``src_dir`` (an earlier
+    ``jtsm_tpu_torch/ops/csrc`` with the same C interfaces), compiled with the
+    package's nvcc command into a temporary directory outside the checkout,
+    which is removed once both libraries are loaded. Their launches count
+    apart from the package's kernels."""
+    import ctypes
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    from jtsm_tpu_torch.ops.cuda_build import NVCC_FLAGS, BuiltLibrary, find_nvcc
+    from jtsm_tpu_torch.ops.roi_align_cuda import RoIAlignBwdKernel, RoIAlignFwdKernel
+
+    out_dir = tempfile.mkdtemp(prefix="jtsm_baseline_kernels_")
+
+    def one(kernel):
+        src = os.path.join(src_dir, os.path.basename(kernel.source))
+        out = os.path.join(out_dir, f"lib{kernel.name}.so")
+        t0 = time.perf_counter()
+        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", out, src], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src}:\n{proc.stdout}\n{proc.stderr}")
+        lib = ctypes.CDLL(out)
+        fn = getattr(lib, kernel.entry)
+        fn.argtypes = kernel.argtypes
+        fn.restype = ctypes.c_int
+        kernel.built = BuiltLibrary(lib, Path(src), time.perf_counter() - t0, "")
+        return kernel
+
+    try:
+        with ThreadPoolExecutor(2) as pool:
+            return tuple(pool.map(one, (RoIAlignFwdKernel(), RoIAlignBwdKernel())))
+    finally:
+        shutil.rmtree(out_dir)
 
 
 def main(argv=None) -> int:
@@ -752,26 +875,17 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     from concurrent.futures import ThreadPoolExecutor
 
-    from jtsm_tpu_torch.ops.roi_align_cuda import (
-        BWD_KERNEL,
-        KERNEL,
-        KERNELS,
-        RoIAlignBwdKernel,
-        RoIAlignFwdKernel,
-    )
+    from jtsm_tpu_torch.ops.roi_align_cuda import BWD_KERNEL, KERNEL, KERNELS, load_kernels
 
-    baseline = None
-    if args.baseline:
-        out = os.path.join(REPO, "build", "baseline_kernels")
-        baseline = (RoIAlignFwdKernel(args.baseline, out), RoIAlignBwdKernel(args.baseline, out))
-    everything = list(KERNELS) + list(baseline or ())
-    with ThreadPoolExecutor(len(everything)) as pool:
-        built = list(pool.map(lambda k: k.load(), everything))
-    for k, b in zip(everything, built):
-        log(f"[build] {k.source if k in KERNELS else os.path.join(args.baseline, os.path.basename(k.source))} -> "
-            f"{os.path.relpath(b.path, REPO)} in {b.seconds:.1f}s (nvcc)")
-        for line in b.ptxas_log.splitlines():
-            log(f"[build] {line.strip()}")
+    with ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(build_baseline, args.baseline) if args.baseline else None
+        for k, built in zip(KERNELS, load_kernels()):
+            log(f"[build] {k.source} -> {os.path.relpath(built.path, REPO)} in {built.seconds:.1f}s (nvcc)")
+            for line in built.ptxas_log.splitlines():
+                log(f"[build] {line.strip()}")
+        baseline = pending and pending.result()
+    for k in baseline or ():
+        log(f"[build] baseline {k.built.path} in {k.built.seconds:.1f}s (nvcc, into a temporary directory)")
     log(f"[build] done in {time.perf_counter() - t0:.1f}s (one nvcc per source, in parallel)"
         + ("" if baseline else "; no --baseline: times beside an earlier version not measured"))
 
@@ -792,7 +906,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"the flagship's TPU.COMPUTE_DTYPE is {main_dtype}, not bfloat16")
     state = random_state_dict(build_model(flagship, device="cpu"), seed=0)
     t0 = time.perf_counter()
-    launches = {d: phase_serve(KERNEL, d, state) for d in (main_dtype, "float32")}
+    launches = phase_serve(KERNEL, (main_dtype, "float32"), state)
     log(f"[serve] done in {time.perf_counter() - t0:.1f}s")
 
     # 5. trained weights, kernel against plain on the card
@@ -818,14 +932,14 @@ def main(argv=None) -> int:
 
     # per served request K1 pools boxes (R=1000, P=7) and masks (R=100,
     # P=14); per train step K1 and K2 pool and unpool boxes (R=1024, P=7)
-    # and masks (R=256, P=14). Times of the flagship's compute dtype;
-    # launches: both main paths, serve and train, in both dtypes.
-    key = DTYPE_NAMES[main_dtype]
+    # and masks (R=256, P=14). Times as kernel_line says; launches: both
+    # main paths, serve and train, in both dtypes.
     k1_launches = sum(launches.values()) + sum(t[0][KERNEL.name] for t in train.values())
     k2_launches = sum(t[0][BWD_KERNEL.name] for t in train.values())
+    bwd = {k[4:]: v for k, v in tres.items() if k.startswith("bwd ")}
     kernels = [
-        kernel_line(KERNEL, k1_launches, res, key),
-        kernel_line(BWD_KERNEL, k2_launches, {k[4:]: v for k, v in tres.items() if k.startswith("bwd ")}, key),
+        kernel_line(KERNEL, k1_launches, res, [r["err"] for n, r in res.items() if "f32" in n]),
+        kernel_line(BWD_KERNEL, k2_launches, bwd, [r["err"] for n, r in bwd.items() if "f32" in n]),
     ]
     log("[train] median step ms " + " ".join(f"{DTYPE_NAMES[d]}={t[1]:.3f}" for d, t in train.items())
         + f"; K1 launches serve {launches}, train " + str({d: t[0][KERNEL.name] for d, t in train.items()}))

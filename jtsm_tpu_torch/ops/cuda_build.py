@@ -47,16 +47,13 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build(name: str, source: str, src_dir: Path | None = None,
-          build_dir: Path | None = None) -> BuiltLibrary:
-    """Compile ``ops/csrc/<source>`` (or ``<src_dir>/<source>``) into
-    ``lib<name>.so`` under ``BUILD_DIR`` (or ``build_dir``) and load it."""
-    src = Path(src_dir or PACKAGE_DIR / "ops" / "csrc") / source
-    build_dir = Path(build_dir or BUILD_DIR)
-    build_dir.mkdir(parents=True, exist_ok=True)
-    out = build_dir / f"lib{name}.so"
+def build(name: str, source: str) -> BuiltLibrary:
+    """Compile ``ops/csrc/<source>`` into ``lib<name>.so`` and load it."""
+    src = PACKAGE_DIR / "ops" / "csrc" / source
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"lib{name}.so"
     out.unlink(missing_ok=True)
-    tmp = build_dir / f"lib{name}.{os.getpid()}.so"
+    tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.so"
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)

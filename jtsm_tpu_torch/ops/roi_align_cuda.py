@@ -56,17 +56,13 @@ class _Kernel:
     entry: str
     argtypes: list
 
-    def __init__(self, src_dir=None, build_dir=None):
-        """``src_dir`` and ``build_dir`` default to the package's sources and
-        build directory; another pair builds the same C interface from other
-        sources (an earlier version, to time beside this one)."""
+    def __init__(self):
         self.launches = 0
         self.built = None
-        self.src_dir, self.build_dir = src_dir, build_dir
 
     def load(self):
         if self.built is None:
-            built = build(self.name, self.source.rsplit("/", 1)[-1], self.src_dir, self.build_dir)
+            built = build(self.name, self.source.rsplit("/", 1)[-1])
             fn = getattr(built.lib, self.entry)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int

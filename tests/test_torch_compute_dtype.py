@@ -19,13 +19,23 @@ box head + predictor scores and deltas      0          2^-7
 mask head logits                            2.0e-3     2^-7
 multilevel ROIAlign, bf16 features          9.3e-3     2e-2
 train step losses (relative)                1.4e-2     3e-2
-train step gradients (of grad scale)        1.2e-1     2.5e-1
 ==========================================  =========  =========
 
-The gradients' gap is bf16's own: the port's bf16 gradients differ from
-its float32 gradients on the same step by as much (1.1e-2 to 1.7e-1 of
-scale over the five parameters checked, measured the same way), since each
-is a sum over many bf16 products that largely cancel.
+Gradients are compared by their normwise gap ||port - JAX|| / ||JAX||, which
+one cancelling entry cannot dominate, against JAX's bf16 step, and read two
+ways:
+
+- each of six gradients (FPN lateral, RPN conv, box fc1, box predictor,
+  mask predictor, res3 conv) within 1.5e-1; measured 9.1e-3 to 1.08e-1
+  (the mask predictor), and the same step in float32 (the port's, which the
+  float32 tests hold to JAX's float32 step) lies 1.0e-2 to 2.4e-1 from it;
+- nearer JAX's bf16 gradients than the float32 ones are: for at least 3/4
+  of the parameters (measured 41 of 49), and for the box predictor's deltas
+  at under 1/4 of the float32 gap (measured 1.65e-2 against 2.39e-1). A
+  port computing in float32 would fail both.
+
+Every loss takes its logits and deltas in float32 (checked on the inputs
+of each loss function), and every conv and linear layer computes in bf16.
 
 ROIAlign: the JAX formulation interpolates and sums in bf16
 (``jtsm_tpu/ops/roi_align.py:155-174``); the port (and its kernel K1) sums
@@ -51,7 +61,11 @@ from jtsm_tpu.ops.roi_align import roi_align_multilevel as jax_roi_align_multile
 from jtsm_tpu_torch.checkpoint import variables_to_state_dict
 from jtsm_tpu_torch.config import get_cfg
 from jtsm_tpu_torch.engine import create_train_state, make_train_step
+from jtsm_tpu_torch.layers import Conv2d, ConvTranspose2d, Linear
 from jtsm_tpu_torch.modeling import build_model
+from jtsm_tpu_torch.modeling.proposal_generator import rpn as rpn_module
+from jtsm_tpu_torch.modeling.roi_heads import mask_head as mask_head_module
+from jtsm_tpu_torch.modeling.roi_heads import roi_heads as roi_heads_module
 from jtsm_tpu_torch.ops import roi_align
 from jtsm_tpu_torch.solver import build_lr_schedule, build_optimizer
 from tests.modeling.test_meta_archs import _batch, _fpn_tiny
@@ -63,7 +77,17 @@ TOL_BOX = BF16_STEP
 TOL_MASK = BF16_STEP
 TOL_ROI = 2e-2
 TOL_LOSS = 3e-2
-TOL_GRAD = 2.5e-1
+TOL_GRAD = 1.5e-1
+TOL_NEARER = 0.75
+TOL_BBOX_VS_F32 = 0.25
+GRAD_CHECKED = (
+    "backbone.fpn_lateral3.weight",
+    "proposal_generator.rpn_head.conv.weight",
+    "roi_heads.box_head.fc1.weight",
+    "roi_heads.box_predictor.bbox_pred.weight",
+    "roi_heads.mask_head.predictor.weight",
+    "backbone.bottom_up.res3.0.conv1.weight",
+)
 LOSSES = ["loss_box_reg", "loss_cls", "loss_mask", "loss_rpn_cls", "loss_rpn_loc"]
 
 
@@ -122,6 +146,9 @@ def test_bf16_parameters_stay_float32_and_activations_are_bf16(pair):
     assert tm.compute_dtype == torch.bfloat16
     assert {p.dtype for p in tm.parameters()} == {torch.float32}
     assert {b.dtype for b in tm.buffers()} == {torch.float32}
+    # every conv and linear layer, down to the box and mask predictors
+    layers = [m for m in tm.modules() if isinstance(m, (Conv2d, ConvTranspose2d, Linear))]
+    assert len(layers) > 30 and {m.compute_dtype for m in layers} == {torch.bfloat16}
     feats, _ = tm._features(pair["batch"])
     assert {f.dtype for f in feats.values()} == {torch.bfloat16}
     # the maps stay channels-last, so the poolers read them without a copy
@@ -291,28 +318,60 @@ def jax_train(pair):
     return {k: float(v) for k, v in losses.items()}, jax.tree_util.tree_map(np.asarray, grads)
 
 
-def test_bf16_train_step_losses_and_gradients_match_jax(pair, jax_train):
-    want_losses, want_grads = jax_train
-    _, model = _torch_model(pair["cfg"], pair["variables"])
+def _normwise(got, want):
+    """||got - want|| / ||want||: a gradient's gap as a whole, which one
+    cancelling entry cannot dominate."""
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _train_grads(pair, dtype):
+    _, model = _torch_model(_cfg(dtype), pair["variables"])
     model.train()
     losses = model(pair["batch"], generator=torch.Generator().manual_seed(0))
+    sum(losses.values()).backward()
+    return losses, {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+
+
+def test_bf16_train_step_losses_and_gradients_match_jax(pair, jax_train, monkeypatch):
+    want_losses, want_grads = jax_train
+    # every loss takes its logits and deltas in float32, as in JAX
+    # (rpn.py:349, fast_rcnn.py:55, mask_head.py:139)
+    seen = []
+
+    def spy(module, name):
+        fn = getattr(module, name)
+
+        def wrapped(*args, **kwargs):
+            dtypes = {a.dtype for a in args if isinstance(a, torch.Tensor) and a.is_floating_point()}
+            seen.append((module.__name__.rsplit(".", 1)[-1], name, frozenset(dtypes)))
+            return fn(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, wrapped)
+
+    spy(rpn_module, "binary_cross_entropy_with_logits")
+    spy(rpn_module, "smooth_l1_loss")
+    spy(roi_heads_module, "fast_rcnn_losses")
+    spy(mask_head_module, "binary_cross_entropy_with_logits")
+    losses, grads = _train_grads(pair, "bfloat16")
+    assert len({s[:2] for s in seen}) == 4 and {s[2] for s in seen} == {frozenset([torch.float32])}, seen
     assert sorted(losses) == sorted(want_losses) == LOSSES
     for k in LOSSES:
         assert losses[k].dtype == torch.float32
         gap = abs(losses[k].item() - want_losses[k]) / max(abs(want_losses[k]), 1e-30)
         assert gap <= TOL_LOSS, k
-    sum(losses.values()).backward()
-    want = variables_to_state_dict({"params": want_grads})
-    params = dict(model.named_parameters())
-    for name in (
-        "backbone.fpn_lateral3.weight",
-        "proposal_generator.rpn_head.conv.weight",
-        "roi_heads.box_head.fc1.weight",
-        "roi_heads.mask_head.predictor.weight",
-        "backbone.bottom_up.res3.0.conv1.weight",
-    ):
-        g = params[name].grad
-        assert g.dtype == torch.float32
-        w = want[name].numpy()
-        gap = float(np.abs(w - g.numpy()).max() / np.abs(w).max())
-        assert gap <= TOL_GRAD, name
+    want = {n: g.numpy() for n, g in variables_to_state_dict({"params": want_grads}).items()}
+    assert {g.dtype for g in grads.values()} == {torch.float32}
+    for name in GRAD_CHECKED:
+        assert _normwise(grads[name].numpy(), want[name]) <= TOL_GRAD, name
+    # the same step in float32 (exact arithmetic, which the float32 tests
+    # hold to JAX's float32 step): the port's bf16 gradients must lie
+    # nearer JAX's bf16 ones than float32 gradients do, for most parameters
+    # and on the box predictor, whose gradient float32 moves the most
+    _, exact = _train_grads(pair, "float32")
+    live = [n for n in grads if np.linalg.norm(want[n]) > 0]
+    assert sorted(grads) == sorted(exact) and len(live) > 40
+
+    nearer = [_normwise(grads[n].numpy(), want[n]) < _normwise(exact[n].numpy(), want[n]) for n in live]
+    assert np.mean(nearer) >= TOL_NEARER
+    name = "roi_heads.box_predictor.bbox_pred.weight"
+    assert _normwise(grads[name].numpy(), want[name]) <= TOL_BBOX_VS_F32 * _normwise(exact[name].numpy(), want[name])
