@@ -35,7 +35,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    each launch 2 times a step in each;
 8. train, kernel against plain: one float32 step from the gate checkpoint
    through K1/K2 and through the plain forward and backward on the card must
-   give the same losses and gradients.
+   give the same losses and gradients;
+9. score: (a) the committed gate checkpoint (float32) scores the 8 synthetic
+   COCO scenes of its gate (``data.datasets.synthetic``, the seed and count
+   of ``tests/test_inference_gates.py``, before JPEG encoding) through
+   ``engine.defaults.test`` on the card (K1, paste on the card) and on this
+   machine's CPU (plain pooler, paste on the CPU): the COCO result lists must
+   hold the same detections (boxes within 1e-3 px, scores within 1e-4,
+   each mask's IoU at least 0.999), the CPU run's outputs pasted on the
+   card must give the CPU's masks pixel for pixel, and bbox and segm AP
+   must agree within 0.02; then the same on
+   the card in bfloat16, reported beside float32; K1 must launch twice an
+   image in each run on the card; (b) the flagship at full width (random
+   weights from phase 4's seed) scores 16 synthetic scenes of 480x640,
+   resized to 800 (max 1333), in bfloat16 and float32 in turns, with the
+   seconds per image of each stage (data, model, paste, RLE encode,
+   COCOEval), K1's launches and the peak memory, and the model's time alone
+   on the same batches collated beforehand; its AP is printed, not checked
+   (random weights).
 
 The last three lines are {"kernels": [...]} (``kernel_line`` says which
 times), the card's name and power limit as nvidia-smi gives them,
@@ -73,6 +90,10 @@ TRAIN_BATCH = 2  # the per-card batch of the reference's 8-card IMS_PER_BATCH 16
 TRAIN_STEPS = 5
 SERVE_ROUNDS = 8  # requests in each dtype
 STAGE_ROUNDS = 5
+GATE_SCENES = 8  # tests/test_inference_gates.py: make_synthetic_coco.py --num 8
+SCORE_SCENES = 16
+SCORE_HW = (480, 640)  # COCO's usual image size
+SCORE_ROUNDS = 2  # flagship scoring runs in each dtype, in turns
 DTYPE_NAMES = {"bfloat16": "bf16", "float32": "f32"}
 
 
@@ -762,6 +783,195 @@ def phase_train_trained():
         raise AssertionError(f"kernel vs plain gradients differ by {grad_err}")
 
 
+def score_once(cfg, state_dict, device, evaluator_name, kernel, captured=None):
+    """``engine.defaults.test`` of ``cfg`` on ``device``, K1's count set to
+    0 just before and read just after: returns the results, the COCO result
+    list, K1's launches, the seconds of each stage (``timings``) and the
+    peak device memory of the run (GiB above what was allocated before).
+    With ``captured`` (a list), the model's raw outputs and the batch's
+    original sizes are appended to it, batch by batch."""
+    import torch
+
+    from jtsm_tpu_torch.engine import test
+    from jtsm_tpu_torch.evaluation import COCOEvaluator
+    from jtsm_tpu_torch.modeling import build_model
+
+    model = build_model(cfg, device=device)
+    model.load_state_dict(state_dict)
+    if captured is not None:
+        inference = model.inference
+
+        def capture(batch):
+            out = inference(batch)
+            captured.append((out, batch["orig_sizes"]))
+            return out
+
+        model.inference = capture
+    timings = {}
+    evaluator = COCOEvaluator(evaluator_name, timings=timings)  # no output_dir: writes nothing
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    results = test(cfg, model, evaluators=[evaluator], timings=timings)
+    timings["total"] = time.perf_counter() - t0
+    launches = kernel.launches
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30 if on_card else float("nan")
+    return results, evaluator.predictions, launches, timings, peak
+
+
+def compare_results(want, got):
+    """The largest box and score differences between two COCO result lists
+    of the same detections in the same order, and for their masks the
+    smallest IoU, the masks that differ and their differing pixels; raises
+    where the lists do not hold the same detections."""
+    from jtsm_tpu_torch.data.rle import decode_segmentation
+
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} detections against {len(want)}")
+    box_err = score_err = 0.0
+    min_iou, masks_differ, pixels_differ = 1.0, 0, 0
+    for g, w in zip(got, want):
+        if (g["image_id"], g["category_id"]) != (w["image_id"], w["category_id"]):
+            raise AssertionError(f"detection {g['image_id'], g['category_id']} against {w['image_id'], w['category_id']}")
+        box_err = max(box_err, max(abs(a - b) for a, b in zip(g["bbox"], w["bbox"])))
+        score_err = max(score_err, abs(g["score"] - w["score"]))
+        if g["segmentation"] != w["segmentation"]:
+            gm, wm = (decode_segmentation(r["segmentation"], 0, 0) for r in (g, w))
+            union = int((gm | wm).sum())
+            min_iou = min(min_iou, int((gm & wm).sum()) / union if union else 1.0)
+            masks_differ += 1
+            pixels_differ += int((gm != wm).sum())
+    return box_err, score_err, min_iou, masks_differ, pixels_differ
+
+
+def check_paste_on_card(captured):
+    """The CPU run's raw outputs pasted on the card and on the CPU: the
+    same masks, pixel for pixel. Returns the number of masks compared."""
+    import torch
+
+    from jtsm_tpu_torch.ops.paste_masks import paste_masks
+
+    n = 0
+    for out, orig_sizes in captured:
+        for i, (h, w) in enumerate(orig_sizes.tolist()):
+            sel = out["valid"][i]
+            masks, boxes = out["masks"][i][sel], out["boxes"][i][sel]
+            on_cpu = paste_masks(masks, boxes, h, w)
+            on_card = paste_masks(masks.to(DEVICE), boxes.to(DEVICE), h, w).cpu()
+            if not torch.equal(on_card, on_cpu):
+                raise AssertionError(f"the paste on the card differs from the CPU's on {int((on_card != on_cpu).sum())} pixels")
+            n += int(sel.sum())
+    return n
+
+
+def format_ap(results):
+    return " ".join(f"{task}_AP={results[task]['AP']:.4f}" for task in ("bbox", "segm"))
+
+
+def phase_score(kernel, state):
+    """(a) the gate on the card against the port on the CPU, and in bf16;
+    (b) the flagship's scoring at full width, stage by stage. Returns K1's
+    launches."""
+    import torch
+
+    from jtsm_tpu_torch.checkpoint import load_gate_ckpt, variables_to_state_dict
+    from jtsm_tpu_torch.config import mask_rcnn_gate_cfg, mask_rcnn_R_50_FPN_cfg
+    from jtsm_tpu_torch.data.datasets.synthetic import register_synthetic_coco
+    from jtsm_tpu_torch.engine.defaults import build_test_loader
+    from jtsm_tpu_torch.modeling import build_model
+
+    launches = 0
+    # (a) the gate: the card against the CPU in float32, then bf16 on the card
+    gate = "chip_smoke_gate"
+    register_synthetic_coco(gate, num=GATE_SCENES, seed=0)
+    cfg = mask_rcnn_gate_cfg()
+    cfg.DATASETS.TEST = (gate,)
+    weights = variables_to_state_dict(load_gate_ckpt(os.path.join(REPO, cfg.MODEL.WEIGHTS)))
+    runs, cpu_outputs = {}, []
+    for name, device, dtype in (("card f32", DEVICE, "float32"), ("cpu f32", "cpu", "float32"),
+                                ("card bf16", DEVICE, "bfloat16")):
+        c = cfg.clone()
+        c.TPU.COMPUTE_DTYPE = dtype
+        runs[name] = score_once(c, weights, device, gate, kernel, cpu_outputs if device == "cpu" else None)
+        n = runs[name][2]
+        if device != "cpu":
+            launches += n
+            if n != 2 * GATE_SCENES:
+                raise AssertionError(f"gate {name}: roi_align_fwd launched {n} times for {GATE_SCENES} images, not 2 each")
+        log(f"[score] gate checkpoint on {GATE_SCENES} synthetic scenes (before JPEG), {name}: "
+            f"{format_ap(runs[name][0])} detections={len(runs[name][1])} roi_align_fwd_launches={n} "
+            f"seconds={runs[name][3]['total']:.2f}")
+    pasted = check_paste_on_card(cpu_outputs)
+    box_err, score_err, min_iou, masks_differ, pixels_differ = compare_results(runs["cpu f32"][1], runs["card f32"][1])
+    ap_diff = {t: abs(runs["card f32"][0][t]["AP"] - runs["cpu f32"][0][t]["AP"]) for t in ("bbox", "segm")}
+    bf16_diff = {t: runs["card bf16"][0][t]["AP"] - runs["card f32"][0][t]["AP"] for t in ("bbox", "segm")}
+    # the paste is exact: on the same inputs the card's masks are the CPU's
+    # (checked above); across the two runs its inputs differ by the boxes'
+    # and mask probabilities' float32 rounding, which moves the odd pixel
+    # whose value lies next to the threshold
+    log(f"[score] gate card f32 against cpu f32: {len(runs['card f32'][1])} detections, max box diff "
+        f"{box_err:.3e} px (tol 1e-3), max score diff {score_err:.3e} (tol 1e-4), masks differing "
+        f"{masks_differ} by {pixels_differ} pixels, min mask IoU {min_iou:.6f} (tol 0.999); the CPU run's outputs "
+        f"pasted on the card and on the CPU: {pasted} masks, equal pixel for pixel | AP diff bbox "
+        f"{ap_diff['bbox']:.4f} segm {ap_diff['segm']:.4f} (tol 0.02) | "
+        f"bf16 minus f32 on the card: bbox {bf16_diff['bbox']:+.4f} segm {bf16_diff['segm']:+.4f} AP")
+    if not box_err <= 1e-3 or not score_err <= 1e-4 or not min_iou >= 0.999:
+        raise AssertionError("the card's gate detections differ from the CPU's")
+    if not max(ap_diff.values()) <= 0.02:
+        raise AssertionError(f"the card's gate AP differs from the CPU's by {ap_diff}")
+
+    # (b) the flagship at full width: 16 scenes at 480x640, bf16 and f32 in turns
+    name = "chip_smoke_flagship"
+    register_synthetic_coco(name, num=SCORE_SCENES, seed=0, image_hw=SCORE_HW)
+    dtypes = (mask_rcnn_R_50_FPN_cfg().TPU.COMPUTE_DTYPE, "float32")
+    stats = {d: [] for d in dtypes}
+    for i in range(SCORE_ROUNDS):
+        for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+            c = mask_rcnn_R_50_FPN_cfg()
+            c.TPU.COMPUTE_DTYPE = d
+            c.DATASETS.TEST = (name,)
+            results, preds, n, timings, peak = score_once(c, state, DEVICE, name, kernel)
+            launches += n
+            if n != 2 * SCORE_SCENES:
+                raise AssertionError(f"flagship {d}: roi_align_fwd launched {n} times for {SCORE_SCENES} images")
+            stats[d].append((results, len(preds), timings, peak, n))
+    # the model alone on the same batches, collated beforehand: no loader
+    # thread runs beside it
+    alone = {}
+    for d in dtypes:
+        c = mask_rcnn_R_50_FPN_cfg()
+        c.TPU.COMPUTE_DTYPE = d
+        c.DATASETS.TEST = (name,)
+        batches = list(build_test_loader(c, name))
+        model = build_model(c, device=DEVICE)
+        model.load_state_dict(state)
+        model.inference(batches[0])
+        seconds = []
+        for b in batches:
+            t0 = time.perf_counter()
+            model.inference(b)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        alone[d] = sum(seconds) / len(seconds)
+        del model
+    stages = ("data", "model", "paste", "encode", "eval", "total")
+    for d in dtypes:
+        per_image = {k: sum(r[2][k] for r in stats[d]) / sum(r[2]["images"] for r in stats[d]) for k in stages}
+        later = sum(r[2]["model"] - r[2]["model_first"] for r in stats[d]) / sum(r[2]["images"] - 1 for r in stats[d])
+        log(f"[score] R50-FPN Mask R-CNN {DTYPE_NAMES[d]}, {SCORE_SCENES} synthetic scenes {SCORE_HW[0]}x{SCORE_HW[1]} "
+            f"resized to {c.INPUT.MIN_SIZE_TEST} (max {c.INPUT.MAX_SIZE_TEST}), {SCORE_ROUNDS} runs in turns: "
+            "seconds per image " + " ".join(f"{k}={v:.5f}" for k, v in per_image.items())
+            + f" | detections={[r[1] for r in stats[d]]} roi_align_fwd_launches={sum(r[4] for r in stats[d])} "
+            f"peak_mem_gib={max(r[3] for r in stats[d]):.3f} | model after each run's first image {later:.5f} s/img, "
+            f"alone on the collated batches {alone[d]:.5f} s/img | random weights: {format_ap(stats[d][0][0])} "
+            "(not checked)")
+    return launches
+
+
 def kernel_line(kernel, launches, rows, f32_errs):
     """One entry of the kernels JSON line. ``ms``, ``plain_ms`` and
     ``bound_ms`` keep their long-standing meaning: the float32 box and mask
@@ -930,11 +1140,16 @@ def main(argv=None) -> int:
     phase_train_trained()
     log(f"[train_trained] done in {time.perf_counter() - t0:.1f}s")
 
+    # 9. score: the gate on the card against the CPU; the flagship by stage
+    t0 = time.perf_counter()
+    score_launches = phase_score(KERNEL, state)
+    log(f"[score] done in {time.perf_counter() - t0:.1f}s")
+
     # per served request K1 pools boxes (R=1000, P=7) and masks (R=100,
     # P=14); per train step K1 and K2 pool and unpool boxes (R=1024, P=7)
-    # and masks (R=256, P=14). Times as kernel_line says; launches: both
-    # main paths, serve and train, in both dtypes.
-    k1_launches = sum(launches.values()) + sum(t[0][KERNEL.name] for t in train.values())
+    # and masks (R=256, P=14). Times as kernel_line says; launches: the
+    # main paths, serve, train and score, in both dtypes.
+    k1_launches = sum(launches.values()) + sum(t[0][KERNEL.name] for t in train.values()) + score_launches
     k2_launches = sum(t[0][BWD_KERNEL.name] for t in train.values())
     bwd = {k[4:]: v for k, v in tres.items() if k.startswith("bwd ")}
     kernels = [
@@ -942,7 +1157,8 @@ def main(argv=None) -> int:
         kernel_line(BWD_KERNEL, k2_launches, bwd, [r["err"] for n, r in bwd.items() if "f32" in n]),
     ]
     log("[train] median step ms " + " ".join(f"{DTYPE_NAMES[d]}={t[1]:.3f}" for d, t in train.items())
-        + f"; K1 launches serve {launches}, train " + str({d: t[0][KERNEL.name] for d, t in train.items()}))
+        + f"; K1 launches serve {launches}, train " + str({d: t[0][KERNEL.name] for d, t in train.items()})
+        + f", score {score_launches}")
     log(f"[done] {time.perf_counter() - t_run:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -3,7 +3,8 @@
 
 A request is the batch dict of ``GeneralizedRCNN.inference`` (numpy arrays
 or tensors); the answer is its detection dict, on the model's device.
-Resizing raw images to the network's input waits for the data slice.
+``data.DatasetMapper`` and ``data.detection_utils.build_static_batch`` make
+such a batch from a raw image.
 """
 
 from __future__ import annotations

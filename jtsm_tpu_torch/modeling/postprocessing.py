@@ -17,8 +17,8 @@ def detector_postprocess_batched(
 ) -> Dict[str, torch.Tensor]:
     """Rescale boxes from network-input to original-image coordinates, clip
     them there, and mark boxes that clipped to empty invalid. Masks stay
-    (D, S, S) ROI probabilities; pasting them into the image waits for the
-    evaluation slice."""
+    (D, S, S) ROI probabilities; ``ops.paste_masks`` pastes them into the
+    image."""
     scale = orig_sizes.to(torch.float32) / image_sizes.to(torch.float32).clamp(min=1.0)
     sy = scale[:, 0][:, None]
     sx = scale[:, 1][:, None]

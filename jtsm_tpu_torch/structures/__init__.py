@@ -1,3 +1,4 @@
-from .boxes import box_area, clip_boxes, nonempty_boxes, pairwise_iou
+from .boxes import BoxMode, box_area, clip_boxes, nonempty_boxes, pairwise_iou
+from .masks import polygons_to_bitmask
 
-__all__ = ["box_area", "clip_boxes", "nonempty_boxes", "pairwise_iou"]
+__all__ = ["BoxMode", "box_area", "clip_boxes", "nonempty_boxes", "pairwise_iou", "polygons_to_bitmask"]

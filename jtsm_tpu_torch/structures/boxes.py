@@ -4,7 +4,20 @@ detectron2/structures/boxes.py:185 ``clip``, :199 ``nonempty``, :369
 
 from __future__ import annotations
 
+from enum import IntEnum
+
 import torch
+
+
+class BoxMode(IntEnum):
+    """How a dataset record's box is written (reference:
+    detectron2/structures/boxes.py:23)."""
+
+    XYXY_ABS = 0
+    XYWH_ABS = 1
+    XYXY_REL = 2
+    XYWH_REL = 3
+    XYWHA_ABS = 4
 
 
 def box_area(boxes: torch.Tensor) -> torch.Tensor:
