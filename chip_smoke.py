@@ -52,7 +52,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
    seconds per image of each stage (data, model, paste, RLE encode,
    COCOEval), K1's launches and the peak memory, and the model's time alone
    on the same batches collated beforehand; its AP is printed, not checked
-   (random weights).
+   (random weights);
+10. jtsm: (a) K1 against its plain version at the JTSM mask pooler's shape
+   (one level, a (1, 64, 64, 512) res5 map, R=100, P=14) in float32 and
+   bfloat16, timed beside its bound; (b) the JTSM flagship
+   (``jtsm_WSR_18_DC5_1x.yaml``, test-time augmentation off) at full width
+   with random weights from a seed serves 8 requests in each of bfloat16
+   and float32, in turns: one VOC-size 375x500 image resized to 688x917 in
+   the 1024x1024 bucket, 4000 seeded proposals (the last 150 padding),
+   1000 Voronoi superpixels and their membership; K1 must launch once a
+   request and the plain ROIAlign never; then the stage split with its
+   host syncs and the peak memory; (c) the committed JTSM gate checkpoint
+   on two seeded 128x176 requests on the card against the CPU: detections
+   matched by (source proposal, class), boxes within 1e-3 px, scores and
+   mask probabilities within 1e-4, so that a mask pixel lands on the other
+   side of 0.5 only within 1e-4 of it (each mask's IoU is reported);
+   detections may trade slots only with a score within 1e-4
+   (``match_detections``).
 
 The last three lines are {"kernels": [...]} (``kernel_line`` says which
 times), the card's name and power limit as nvidia-smi gives them,
@@ -94,6 +110,10 @@ GATE_SCENES = 8  # tests/test_inference_gates.py: make_synthetic_coco.py --num 8
 SCORE_SCENES = 16
 SCORE_HW = (480, 640)  # COCO's usual image size
 SCORE_ROUNDS = 2  # flagship scoring runs in each dtype, in turns
+JTSM_IMAGE_HW = (375, 500)  # a VOC-size image
+JTSM_ROUNDS = 8  # JTSM requests in each dtype
+JTSM_PADDING = 150  # padded proposal slots of the 4000
+JTSM_SUPERPIXELS = 1000  # Voronoi cells (WSL.MAX_SUPERPIXELS is 1024)
 DTYPE_NAMES = {"bfloat16": "bf16", "float32": "f32"}
 
 
@@ -972,6 +992,337 @@ def phase_score(kernel, state):
     return launches
 
 
+def jtsm_mask_boxes(gen, r, hw):
+    """R boxes of log-uniform size from 16 to 600 px inside an image of
+    ``hw``, as the JTSM detections are."""
+    import torch
+
+    h, w = hw
+    size = torch.exp(torch.empty(r, 2, device=DEVICE).uniform_(math.log(16), math.log(600), generator=gen))
+    size = torch.minimum(size, torch.tensor([w, h], device=DEVICE, dtype=torch.float32))
+    xy = torch.rand(r, 2, generator=gen, device=DEVICE) * (torch.tensor([w, h], device=DEVICE) - size)
+    return torch.cat([xy, xy + size], dim=1).contiguous()
+
+
+def voronoi_superpixels(seed, h, w, n):
+    """(h, w) int32 ids of the nearest of ``n`` seeded centres, computed on
+    the card in chunks of rows."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    centres = torch.rand(n, 2, generator=gen, device=DEVICE) * torch.tensor([h, w], device=DEVICE)
+    xs = torch.arange(w, device=DEVICE, dtype=torch.float32)
+    out = np.empty((h, w), np.int32)
+    for y0 in range(0, h, 64):
+        ys = torch.arange(y0, min(y0 + 64, h), device=DEVICE, dtype=torch.float32)
+        pix = torch.stack(torch.meshgrid(ys, xs, indexing="ij"), -1).reshape(-1, 2)
+        out[y0: y0 + len(ys)] = torch.cdist(pix, centres).argmin(1).reshape(len(ys), w).cpu().numpy()
+    return out
+
+
+def jtsm_request(cfg, seed):
+    """One JTSM request at the config's test size: a seeded 375x500 image
+    resized to the short edge MIN_SIZE_TEST, padded into its bucket; the
+    top PRECOMPUTED_PROPOSAL_TOPK_TEST seeded proposals (log-uniform sizes,
+    descending objectness, the last JTSM_PADDING slots padding with -inf
+    scores); Voronoi superpixels; their membership by centroid
+    (``wsl.data.add_wsl_batch_fields``)."""
+    import numpy as np
+
+    from jtsm_tpu_torch.data.detection_utils import pick_bucket
+    from jtsm_tpu_torch.data.transforms.augmentation import ResizeShortestEdge
+    from jtsm_tpu_torch.wsl.data import add_wsl_batch_fields
+
+    rng = np.random.default_rng(seed)
+    oh, ow = JTSM_IMAGE_HW
+    h, w = ResizeShortestEdge.get_output_shape(oh, ow, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
+    bh, bw = pick_bucket(h, w, cfg.TPU.IMAGE_BUCKETS)
+    img = rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
+    canvas = np.zeros((1, bh, bw, 3), np.float32)
+    canvas[0, :h, :w] = img
+    r = cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST
+    live = r - JTSM_PADDING
+    size = np.minimum(np.exp(rng.uniform(np.log(16), np.log(600), (live, 2))), [w, h])
+    xy = rng.uniform(0, 1, (live, 2)) * ([w, h] - size)
+    boxes = np.zeros((r, 4), np.float32)
+    boxes[:live] = np.concatenate([xy, xy + size], 1)
+    scores = np.full(r, -np.inf, np.float32)
+    scores[:live] = np.sort(rng.uniform(0, 1, live))[::-1]
+    sp = voronoi_superpixels(seed, h, w, JTSM_SUPERPIXELS)
+    batch = {
+        "image": canvas,
+        "image_sizes": np.array([[h, w]], np.int32),
+        "orig_sizes": np.array([[oh, ow]], np.int32),
+        "proposals": boxes[None],
+        "proposal_scores": scores[None],
+    }
+    add_wsl_batch_fields(batch, [{"image": img, "proposals": {"boxes": boxes, "superpixels": sp}}],
+                         cfg.WSL.MAX_SUPERPIXELS)
+    return batch
+
+
+def jtsm_gate_request():
+    """Two seeded 128x176 scenes of the gate's size, 64 proposals each (the
+    last five of the second padding), the grid superpixels and their
+    membership."""
+    import numpy as np
+
+    from jtsm_tpu_torch.wsl.data import compute_superpixels_grid, oh_labels_from_boxes
+
+    h, w, r = 128, 176, 64
+    rng = np.random.RandomState(0)
+    imgs = []
+    for _ in range(2):
+        img = np.full((h, w, 3), 128.0, np.float32)
+        img[: h // 2] = [205, 115, 95]
+        img[h // 2:] = [95, 175, 95]
+        for _ in range(4):
+            y0, x0 = rng.randint(0, h - 40), rng.randint(0, w - 40)
+            img[y0: y0 + rng.randint(20, 60), x0: x0 + rng.randint(20, 60)] = rng.randint(55, 255, 3)
+        imgs.append(img + rng.randn(h, w, 3).astype(np.float32) * 3)
+    xy = rng.rand(2, r, 2) * [w - 30, h - 30]
+    boxes = np.concatenate([xy, xy + rng.rand(2, r, 2) * 60 + 10], -1).astype(np.float32)
+    scores = rng.rand(2, r).astype(np.float32)
+    scores[1, -5:] = -np.inf
+    sp = compute_superpixels_grid(h, w)
+    return {
+        "image": np.stack(imgs),
+        "image_sizes": np.array([[h, w], [h - 16, w - 32]], np.int32),
+        "orig_sizes": np.array([[2 * h, 2 * w], [h - 16, w - 32]], np.int32),
+        "proposals": boxes,
+        "proposal_scores": scores,
+        "superpixels": np.stack([sp, sp]).astype(np.int32),
+        "oh_labels": np.stack([oh_labels_from_boxes(boxes[i], sp, 512) for i in range(2)]),
+    }
+
+
+def jtsm_stages(model, batch, measure):
+    """The JTSM request ``batch`` through ``model`` stage by stage;
+    ``measure`` makes each call and returns its reading."""
+    import torch
+
+    from jtsm_tpu_torch.layers import exact_float32, interpolate_bilinear
+
+    heads = model.roi_heads
+    dev = model.device
+    r = {}
+
+    def backbone():
+        r["feats"], r["sizes"] = model._features(batch)
+        r["props"] = torch.as_tensor(batch["proposals"], dtype=torch.float32, device=dev)
+        r["scores"] = torch.as_tensor(batch["proposal_scores"], dtype=torch.float32, device=dev)
+        r["sp"] = torch.as_tensor(batch["superpixels"], device=dev)
+        r["oh"] = torch.as_tensor(batch["oh_labels"], device=dev)
+
+    def moipool():
+        feat = r["feats"][heads.in_features[0]].permute(0, 2, 3, 1)
+        r["pooled"], r["nonempty"] = heads.pool(feat, r["props"], r["sp"], r["oh"])
+
+    def stuff():
+        logits = interpolate_bilinear(model.sem_seg_head(r["feats"]), tuple(batch["image"].shape[1:3]))
+        return logits.argmax(dim=1)
+
+    with torch.no_grad(), exact_float32(model.compute_dtype == torch.float32):
+        return {
+            "backbone": measure(backbone),
+            "moipool": measure(moipool),
+            "dan_refine": measure(lambda: r.update(branches=heads.refine_branches(
+                r["pooled"], r["nonempty"], r["scores"]))),
+            "detect_nms": measure(lambda: r.update(det=heads.detect(r["props"], r["scores"], r["branches"], r["sizes"]))),
+            "mask": measure(lambda: heads.add_masks(r["det"], r["feats"])),
+            "stuff": measure(stuff),
+        }
+
+
+def match_detections(card, host, score_tol):
+    """The detections of two runs on the same request matched by their
+    (source proposal, class), which names a detection uniquely: scores,
+    boxes and mask probabilities are compared pair by pair, and the masks'
+    IoU at 0.5 is reported with the largest distance from 0.5 of a pixel
+    that lands on the other side of it. Two
+    detections whose scores lie within ``score_tol`` may take each other's
+    slots, and one within ``score_tol`` of the last kept score may fall on
+    either side of the cut; anything else that is on one side only fails."""
+    import torch
+
+    out = dict(matched=0, reordered=0, at_cut=0, reorder_gap=0.0, boxes=0.0, scores=0.0, masks=0.0, iou=1.0,
+               flip_margin=0.0,
+               class_scores=(card["proposal_class_scores"] - host["proposal_class_scores"]).abs().max().item())
+    for i in range(host["valid"].shape[0]):
+        sides = []
+        for run in (card, host):
+            keys = zip(run["prop_idx"][i].tolist(), run["classes"][i].tolist(), run["valid"][i].tolist())
+            sides.append({(p, c): j for j, (p, c, v) in enumerate(keys) if v})
+        (kc, kh), scores = sides, (card["scores"][i], host["scores"][i])
+        cut = min(float(scores[1][list(kh.values())].min()), float(scores[0][list(kc.values())].min()))
+        for key in set(kc) ^ set(kh):
+            run, j = (0, kc[key]) if key in kc else (1, kh[key])
+            if float(scores[run][j]) > cut + score_tol:
+                raise AssertionError(f"jtsm gate image {i}: detection {key} (score {float(scores[run][j])}) "
+                                     f"only on the {'card' if run == 0 else 'CPU'}")
+            out["at_cut"] += 1
+        for key in set(kc) & set(kh):
+            jc, jh = kc[key], kh[key]
+            out["matched"] += 1
+            if jc != jh:
+                out["reordered"] += 1
+                out["reorder_gap"] = max(out["reorder_gap"], abs(float(scores[1][jh] - scores[1][jc])))
+            out["boxes"] = max(out["boxes"], (card["boxes"][i, jc] - host["boxes"][i, jh]).abs().max().item())
+            out["scores"] = max(out["scores"], abs(float(scores[0][jc] - scores[1][jh])))
+            pc, ph = card["masks"][i, jc], host["masks"][i, jh]
+            out["masks"] = max(out["masks"], (pc - ph).abs().max().item())
+            a, b = pc >= 0.5, ph >= 0.5
+            union = int((a | b).sum())
+            out["iou"] = min(out["iou"], int((a & b).sum()) / union if union else 1.0)
+            out["flip_margin"] = max(out["flip_margin"], (ph[a != b] - 0.5).abs().max().item() if (a != b).any() else 0.0)
+    if out["reorder_gap"] > score_tol:
+        raise AssertionError(f"jtsm gate: detections swapped slots across a score gap of {out['reorder_gap']}")
+    return out
+
+
+def phase_jtsm(kernel, gen, baseline):
+    """Phase 10: (a) K1 at the JTSM mask pooler's shape, (b) the JTSM
+    flagship served at full width in both dtypes, (c) the gate checkpoint on
+    the card against the CPU. Returns K1's rows, its launches on the served
+    path and the gate run, and the per-dtype latencies."""
+    import numpy as np
+    import torch
+
+    import jtsm_tpu_torch.ops.roi_align as roi_align
+    from jtsm_tpu_torch.checkpoint import load_gate_ckpt, random_state_dict, variables_to_state_dict
+    from jtsm_tpu_torch.config import jtsm_gate_cfg, jtsm_WSR_18_DC5_cfg
+    from jtsm_tpu_torch.engine import Predictor
+    from jtsm_tpu_torch.modeling import build_model
+
+    # (a) K1 at the mask pooler's shape: one level, res5 at stride 16 of
+    # the 1024x1024 bucket, 100 detections of the 688x917 image
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        feat = torch.randn((1, 64, 64, 512), generator=gen, device=DEVICE).to(dtype)
+        boxes = jtsm_mask_boxes(gen, 100, (688, 917))
+        zeros = torch.zeros(100, dtype=torch.int32, device=DEVICE)
+        tag = f"jtsm mask pooler {'bf16' if dtype == torch.bfloat16 else 'f32'} (L=1)"
+        rows[tag] = check_and_time_fwd(tag, [feat], [1.0 / 16], boxes, zeros, zeros, 14, baseline, phase="jtsm")
+
+    # (b) the flagship at full width
+    t0 = time.perf_counter()
+    flagship = jtsm_WSR_18_DC5_cfg()
+    flagship.TEST.AUG.ENABLED = False  # test-time augmentation waits for a later slice
+    main_dtype = flagship.TPU.COMPUTE_DTYPE
+    dtypes = (main_dtype, "float32")
+    state = random_state_dict(build_model(flagship, device="cpu"), seed=0)
+    reqs = [jtsm_request(flagship, seed) for seed in (1, 2)]
+    req = reqs[0]
+    log(f"[jtsm] flagship {flagship.MODEL.BACKBONE.NAME} R{flagship.MODEL.RESNETS.DEPTH} "
+        f"RES5_DILATION={flagship.MODEL.RESNETS.RES5_DILATION}, image {JTSM_IMAGE_HW} -> "
+        f"{tuple(req['image_sizes'][0].tolist())} in {req['image'].shape[1:3]}, R={req['proposals'].shape[1]} "
+        f"({JTSM_PADDING} padding), superpixels {int(req['superpixels'].max()) + 1} of "
+        f"{flagship.WSL.MAX_SUPERPIXELS}, oh_labels {req['oh_labels'].shape} "
+        f"({req['oh_labels'].sum(-1).mean():.1f} members a proposal), DAN {list(flagship.MODEL.ROI_BOX_HEAD.DAN_DIM)}, "
+        f"{flagship.WSL.REFINE_NUM} refinement branches, mask refinery {flagship.WSL.MASK_REFINE_NUM}; "
+        f"weights and requests made in {time.perf_counter() - t0:.1f}s")
+
+    def plain(*a, **k):
+        raise AssertionError("the plain ROIAlign ran on the card in the JTSM flagship")
+
+    routed = roi_align.roi_align_multilevel_plain_autograd
+    roi_align.roi_align_multilevel_plain_autograd = plain
+    try:
+        predictors, mem = {}, {}
+        for d in dtypes:
+            cfg = flagship.clone()
+            cfg.TPU.COMPUTE_DTYPE = d
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            predictors[d] = Predictor(cfg, state)
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            predictors[d](req)  # warm-up
+            torch.cuda.synchronize()
+            mem[d] = ((resident - before) / 2**30, (torch.cuda.max_memory_allocated() - resident) / 2**30)
+
+        kernel.launches = 0
+        lat = {d: [] for d in dtypes}
+        valid = {d: [] for d in dtypes}
+        launches = dict.fromkeys(dtypes, 0)
+        for i in range(JTSM_ROUNDS):
+            for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+                before = kernel.launches
+                t0 = time.perf_counter()
+                out = predictors[d](reqs[i % len(reqs)])
+                torch.cuda.synchronize()
+                lat[d].append((time.perf_counter() - t0) * 1e3)
+                n = kernel.launches - before
+                launches[d] += n
+                if n != 1:
+                    raise AssertionError(f"jtsm {d} request {i}: roi_align_fwd launched {n} times, not 1")
+                canvas = (1,) + reqs[i % len(reqs)]["image"].shape[1:3]
+                for k, shape in (("boxes", (1, 100, 4)), ("masks", (1, 100, 28, 28)), ("sem_seg", canvas)):
+                    if tuple(out[k].shape) != shape or not torch.isfinite(out[k].float()).all():
+                        raise AssertionError(f"jtsm {d} request {i}: {k} {tuple(out[k].shape)} not finite {shape}")
+                boxes = out["boxes"][0][out["valid"][0]]
+                if (boxes[:, 2] > JTSM_IMAGE_HW[1]).any() or (boxes[:, 3] > JTSM_IMAGE_HW[0]).any() or (boxes < 0).any():
+                    raise AssertionError(f"jtsm {d} request {i}: boxes leave the original image")
+                if not bool(out["valid"].any()):
+                    raise AssertionError(f"jtsm {d} request {i}: no detection")
+                valid[d].append(int(out["valid"].sum()))
+        serve_launches = kernel.launches
+        for d in dtypes:
+            tag = DTYPE_NAMES[d]
+            log(f"[jtsm] JTSM WSR-18 DC5 {'x'.join(map(str, req['image_sizes'][0]))} {tag}, {JTSM_ROUNDS} requests in turns: "
+                f"latency_ms={[round(x, 3) for x in lat[d]]} mean_ms={sum(lat[d]) / len(lat[d]):.3f} "
+                f"median_ms={sorted(lat[d])[len(lat[d]) // 2]:.3f} valid_detections={valid[d]} "
+                f"roi_align_fwd_launches={launches[d]} weights_gib={mem[d][0]:.3f} request_peak_gib={mem[d][1]:.3f}")
+
+        def timed(call):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        stage_ms = {d: {} for d in dtypes}
+        for i in range(STAGE_ROUNDS):
+            for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+                for k, ms in jtsm_stages(predictors[d].model, req, timed).items():
+                    stage_ms[d].setdefault(k, []).append(ms)
+        for d in dtypes:
+            syncs = jtsm_stages(predictors[d].model, req, count_host_syncs)
+            log(f"[jtsm] {DTYPE_NAMES[d]} stages_ms (median of {STAGE_ROUNDS}) "
+                + " ".join(f"{k}={sorted(v)[len(v) // 2]:.3f}" for k, v in stage_ms[d].items())
+                + " | host syncs " + " ".join(f"{k}={n}" for k, n in syncs.items()))
+        del predictors
+    finally:
+        roi_align.roi_align_multilevel_plain_autograd = routed
+
+    # (c) the gate checkpoint on the card against the CPU
+    cfg = jtsm_gate_cfg()
+    state = variables_to_state_dict(load_gate_ckpt(os.path.join(REPO, cfg.MODEL.WEIGHTS)))
+    batch = jtsm_gate_request()
+    before = kernel.launches
+    card = {k: v.cpu() for k, v in Predictor(cfg, state)(batch).items()}
+    gate_launches = kernel.launches - before
+    if gate_launches != 1:
+        raise AssertionError(f"jtsm gate on the card: roi_align_fwd launched {gate_launches} times, not 1")
+    host = Predictor(cfg, state, device="cpu")(batch)
+    if not bool(host["valid"].any()):
+        raise AssertionError("jtsm gate: no detection")
+    m = match_detections(card, host, score_tol=1e-4)
+    sem_agree = (card["sem_seg"] == host["sem_seg"]).float().mean().item()
+    log(f"[jtsm] gate checkpoint (float32), 2 images 128x176, 64 proposals: valid_detections="
+        f"{host['valid'].sum(1).tolist()}, card vs CPU: proposal class scores max_abs_err={m['class_scores']:.3e}; "
+        f"detections matched by (source proposal, class): {m['matched']} matched, {m['reordered']} in another "
+        f"slot (scores within {m['reorder_gap']:.3e} of a neighbour), {m['at_cut']} only on one side at the "
+        f"100-detection cut; boxes max_abs_err={m['boxes']:.3e} px (tol 1e-3), scores {m['scores']:.3e} "
+        f"(tol 1e-4), classes and prop_idx equal by construction, mask probabilities {m['masks']:.3e} (tol 1e-4), "
+        f"min mask IoU at 0.5 {m['iou']:.6f} (pixels across 0.5 lie within {m['flip_margin']:.3e} of it, tol 1e-4), "
+        f"sem_seg pixels equal {sem_agree:.6f}, roi_align_fwd_launches={gate_launches}")
+    if not (m["boxes"] <= 1e-3 and m["scores"] <= 1e-4 and m["masks"] <= 1e-4 and m["flip_margin"] <= 1e-4):
+        raise AssertionError(f"jtsm gate: the card disagrees with the CPU: {m}")
+    return rows, serve_launches + gate_launches, {d: sum(x) / len(x) for d, x in lat.items()}
+
+
 def kernel_line(kernel, launches, rows, f32_errs):
     """One entry of the kernels JSON line. ``ms``, ``plain_ms`` and
     ``bound_ms`` keep their long-standing meaning: the float32 box and mask
@@ -1145,20 +1496,42 @@ def main(argv=None) -> int:
     score_launches = phase_score(KERNEL, state)
     log(f"[score] done in {time.perf_counter() - t0:.1f}s")
 
+    # 10. the JTSM flagship: K1 at its mask pooler's shape, serving, the gate
+    t0 = time.perf_counter()
+    jtsm_rows, jtsm_launches, jtsm_lat = phase_jtsm(KERNEL, gen, baseline)
+    log(f"[jtsm] done in {time.perf_counter() - t0:.1f}s")
+
     # per served request K1 pools boxes (R=1000, P=7) and masks (R=100,
     # P=14); per train step K1 and K2 pool and unpool boxes (R=1024, P=7)
-    # and masks (R=256, P=14). Times as kernel_line says; launches: the
-    # main paths, serve, train and score, in both dtypes.
-    k1_launches = sum(launches.values()) + sum(t[0][KERNEL.name] for t in train.values()) + score_launches
+    # and masks (R=256, P=14); per JTSM request K1 pools masks on one level
+    # (R=100, P=14, C=512). Times as kernel_line says; launches: the main
+    # paths, serve, train, score and JTSM, in both dtypes.
+    k1_launches = (sum(launches.values()) + sum(t[0][KERNEL.name] for t in train.values()) + score_launches
+                   + jtsm_launches)
     k2_launches = sum(t[0][BWD_KERNEL.name] for t in train.values())
     bwd = {k[4:]: v for k, v in tres.items() if k.startswith("bwd ")}
     kernels = [
         kernel_line(KERNEL, k1_launches, res, [r["err"] for n, r in res.items() if "f32" in n]),
         kernel_line(BWD_KERNEL, k2_launches, bwd, [r["err"] for n, r in bwd.items() if "f32" in n]),
     ]
+    # the single-level row (K1b's shape): the JTSM mask pooler
+    l1, l1_bf16 = jtsm_rows["jtsm mask pooler f32 (L=1)"], jtsm_rows["jtsm mask pooler bf16 (L=1)"]
+    kernels[0].update({
+        "l1_launches": jtsm_launches,
+        "l1_max_abs_err": l1["err"],
+        "l1_ms": l1["times"]["new"]["ms"],
+        "l1_device_ms": l1["times"]["new"]["device_ms"],
+        "l1_plain_ms": l1["plain_ms"],
+        "l1_bound_ms": l1["bound_ms"],
+        "l1_bf16_max_abs_err": l1_bf16["err"],
+        "l1_bf16_ms": l1_bf16["times"]["new"]["ms"],
+        "l1_bf16_device_ms": l1_bf16["times"]["new"]["device_ms"],
+        "l1_bf16_bound_ms": l1_bf16["bound_ms"],
+    })
     log("[train] median step ms " + " ".join(f"{DTYPE_NAMES[d]}={t[1]:.3f}" for d, t in train.items())
         + f"; K1 launches serve {launches}, train " + str({d: t[0][KERNEL.name] for d, t in train.items()})
-        + f", score {score_launches}")
+        + f", score {score_launches}, jtsm {jtsm_launches}; JTSM request mean ms "
+        + " ".join(f"{DTYPE_NAMES[d]}={ms:.3f}" for d, ms in jtsm_lat.items()))
     log(f"[done] {time.perf_counter() - t_run:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -14,7 +14,10 @@ inverts the JAX package's ``checkpoint/c2_model_loading.py:231-285``
   (C, P, P);
 * flax paths -> detectron2 names (``res2_block0`` -> ``res2.0``, the RPN's
   ``head`` -> ``rpn_head``, ``conv/kernel`` and ``dense/kernel`` ->
-  ``weight``).
+  ``weight``, a group norm's ``norm/GroupNorm_0/scale`` -> ``norm.weight``);
+  the JTSM heads keep their flax names (``roi_heads.dan.dan1``,
+  ``roi_heads.mil.cls``, ``roi_heads.refine0.refine_score``,
+  ``roi_heads.mask_refinery_0.mask_fcn1``, ``sem_seg_head.res5_head_conv0``).
 
 ``load_gate_ckpt`` reads the committed ``tests/fixtures/gate_ckpts/*.ckpt.gz``
 files: gzip-pickled plain dicts of numpy arrays, float16 on disk, upcast
@@ -85,11 +88,14 @@ def variables_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor
             *module, leaf = path
             if leaf in ("kernel", "bias") and module and module[-1] in ("conv", "dense"):
                 module = module[:-1]
+            if module and module[-1] == "GroupNorm_0":
+                module = module[:-1]
+                leaf = {"scale": "weight"}.get(leaf, leaf)
             name = ".".join(_d2_module_path(tuple(module)))
             if collection == "frozen":
                 key = f"{name}.{leaf}"  # FrozenBN: weight, bias, running_mean, running_var
-            elif leaf == "bias":
-                key = f"{name}.bias"
+            elif leaf in ("bias", "weight"):
+                key = f"{name}.{leaf}"
             elif leaf == "kernel":
                 key = f"{name}.weight"
                 if arr.ndim == 4 and any("deconv" in p for p in module):

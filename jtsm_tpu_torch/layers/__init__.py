@@ -1,4 +1,4 @@
-from .batch_norm import FrozenBatchNorm2d, get_norm
+from .batch_norm import FrozenBatchNorm2d, GroupNorm32, get_norm
 from .shape_spec import ShapeSpec
 from .wrappers import (
     Conv2d,
@@ -6,6 +6,7 @@ from .wrappers import (
     Linear,
     compute_dtype,
     exact_float32,
+    interpolate_bilinear,
     interpolate_nearest,
 )
 
@@ -18,5 +19,7 @@ __all__ = [
     "compute_dtype",
     "exact_float32",
     "get_norm",
+    "GroupNorm32",
+    "interpolate_bilinear",
     "interpolate_nearest",
 ]

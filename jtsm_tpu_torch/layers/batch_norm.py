@@ -1,11 +1,13 @@
 """Normalization layers (reference: detectron2/layers/batch_norm.py:14
 ``FrozenBatchNorm2d``, :128 ``get_norm``; JAX package ``layers/batch_norm.py``).
 
-Only the norms of the ported main path are here: FrozenBN and none. The
-others (BN, SyncBN, GN) wait for a later slice.
+The norms of the ported paths are here: FrozenBN, GN (the FPN sem-seg
+head) and none. BN and SyncBN wait for a later slice.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -35,6 +37,20 @@ class FrozenBatchNorm2d(nn.Module):
         return f"{self.num_features}, eps={self.eps}"
 
 
+class GroupNorm32(nn.GroupNorm):
+    """Group norm over ``gcd(32, C)`` groups, eps 1e-5 (JAX
+    ``layers/batch_norm.py:90`` ``GroupNorm32``): statistics and affine in
+    float32, the result in the input's dtype, as flax's
+    ``GroupNorm(dtype=x.dtype)`` computes them."""
+
+    def __init__(self, num_features: int, num_groups: int = 32, eps: float = 1e-5):
+        super().__init__(math.gcd(num_groups, num_features), num_features, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = nn.functional.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        return y.to(x.dtype)
+
+
 def get_norm(norm: str | None, out_channels: int) -> nn.Module | None:
     """A norm module for ``out_channels``, or None for "" (reference
     batch_norm.py:128)."""
@@ -42,4 +58,6 @@ def get_norm(norm: str | None, out_channels: int) -> nn.Module | None:
         return None
     if norm == "FrozenBN":
         return FrozenBatchNorm2d(out_channels)
+    if norm == "GN":
+        return GroupNorm32(out_channels)
     raise NotImplementedError(f"norm {norm!r} is not ported yet")

@@ -112,3 +112,27 @@ def interpolate_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
     """Nearest-neighbour upsampling of NCHW maps by an integer factor (FPN
     top-down; JAX ``layers/wrappers.py:263``)."""
     return F.interpolate(x, scale_factor=scale, mode="nearest")
+
+
+def interpolate_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Bilinear resize of NCHW maps, written out as the JAX package's
+    ``layers/wrappers.py:270`` (half-pixel centres, source coordinates
+    clamped to [0, size - 1], the low tap at most size - 2), in the input's
+    dtype."""
+    h, w = x.shape[-2:]
+    oh, ow = out_hw
+    dev = x.device
+
+    def axis(n_in, n_out):
+        pos = (torch.arange(n_out, dtype=torch.float32, device=dev) + 0.5) * (n_in / n_out) - 0.5
+        pos = pos.clamp(0.0, n_in - 1.0)
+        lo = torch.floor(pos).to(torch.int64).clamp(0, max(n_in - 2, 0))
+        hi = torch.minimum(lo + 1, torch.full_like(lo, n_in - 1))
+        return lo, hi, (pos - lo).to(x.dtype)
+
+    y0, y1, fy = axis(h, oh)
+    x0, x1, fx = axis(w, ow)
+    rows0, rows1 = x[..., y0, :], x[..., y1, :]
+    top = rows0[..., x0] * (1 - fx) + rows0[..., x1] * fx
+    bot = rows1[..., x0] * (1 - fx) + rows1[..., x1] * fx
+    return top * (1 - fy)[:, None] + bot * fy[:, None]

@@ -92,10 +92,14 @@ def build_resnet_fpn_backbone(cfg) -> FPN:
 
 
 def build_backbone(cfg) -> nn.Module:
+    from ...wsl.modeling.resnet_wsl import build_wsl_resnet_backbone, build_wsl_resnet_v2_backbone
+
     name = cfg.MODEL.BACKBONE.NAME
     builders = {
         "build_resnet_backbone": build_resnet_backbone,
         "build_resnet_fpn_backbone": build_resnet_fpn_backbone,
+        "build_wsl_resnet_backbone": build_wsl_resnet_backbone,
+        "build_wsl_resnet_v2_backbone": build_wsl_resnet_v2_backbone,
     }
     if name not in builders:
         raise NotImplementedError(f"backbone {name!r} is not ported yet")

@@ -10,8 +10,11 @@ package's ``stop_gradient`` does (``backbone/resnet.py:388-407``): their
 parameters get no gradient. FrozenBN has no statistics to update.
 Every convolution computes in the ``TPU.COMPUTE_DTYPE`` that
 ``build_resnet_backbone`` reads (JAX ``backbone/resnet.py:442``) over
-float32 parameters. Deformable blocks and the res5 dilation wait for later
-slices.
+float32 parameters. ``RES5_DILATION`` 2 (DC5) runs res5 at stride 1 with
+its bottleneck 3x3 convolutions dilated, so res5 keeps stride 16; basic
+blocks (R18/R34) take the stride but not the dilation, as the JAX package's
+``BasicBlock`` is built (``backbone/resnet.py:337-355``). Deformable blocks
+wait for a later slice.
 """
 
 from __future__ import annotations
@@ -92,6 +95,7 @@ class BottleneckBlock(nn.Module):
         norm: str = "FrozenBN",
         stride_in_1x1: bool = True,
         compute_dtype: torch.dtype = torch.float32,
+        dilation: int = 1,
     ):
         super().__init__()
         stride_1x1, stride_3x3 = (stride, 1) if stride_in_1x1 else (1, stride)
@@ -103,7 +107,7 @@ class BottleneckBlock(nn.Module):
         )
         self.conv2 = Conv2d(
             bottleneck_channels, bottleneck_channels, kernel_size=3, stride=stride_3x3,
-            padding=1, groups=num_groups, bias=False,
+            padding=dilation, dilation=dilation, groups=num_groups, bias=False,
             norm=get_norm(norm, bottleneck_channels), activation=F.relu,
             compute_dtype=compute_dtype,
         )
@@ -131,13 +135,18 @@ class ResNet(nn.Module):
         out_features: Sequence[str] = ("res4",),
         freeze_at: int = 0,
         compute_dtype: torch.dtype = torch.float32,
+        res5_dilation: int = 1,
+        stem: nn.Module | None = None,
     ):
         super().__init__()
         self.freeze_at = freeze_at
         if depth not in _DEPTH_TO_BLOCKS:
             raise ValueError(f"ResNet depth {depth} is not one of {sorted(_DEPTH_TO_BLOCKS)}")
+        if res5_dilation not in (1, 2):
+            raise ValueError(f"RES5_DILATION {res5_dilation} is not 1 or 2")
+        self.res5_dilation = res5_dilation
         self.out_features = tuple(out_features)
-        self.stem = BasicStem(3, stem_out_channels, norm, compute_dtype)
+        self.stem = stem if stem is not None else BasicStem(3, stem_out_channels, norm, compute_dtype)
         is_basic = depth in (18, 34)
         if is_basic and res2_out_channels != 64:
             raise ValueError("Must set MODEL.RESNETS.RES2_OUT_CHANNELS = 64 for R18/R34")
@@ -149,15 +158,17 @@ class ResNet(nn.Module):
         self.stage_names = []
         self._out_channels = {"stem": stem_out_channels}
         for idx, stage_idx in enumerate(range(2, max_stage + 1)):
+            dilation = res5_dilation if stage_idx == 5 else 1
+            first_stride = 1 if idx == 0 or dilation == 2 else 2
             blocks = []
             for b in range(_DEPTH_TO_BLOCKS[depth][idx]):
-                stride = 2 if b == 0 and idx > 0 else 1
+                stride = first_stride if b == 0 else 1
                 if is_basic:
                     block = BasicBlock(in_channels, out_channels, stride, norm, compute_dtype)
                 else:
                     block = BottleneckBlock(
                         in_channels, out_channels, bottleneck_channels, stride,
-                        num_groups, norm, stride_in_1x1, compute_dtype,
+                        num_groups, norm, stride_in_1x1, compute_dtype, dilation,
                     )
                 blocks.append(block)
                 in_channels = out_channels
@@ -184,17 +195,19 @@ class ResNet(nn.Module):
         return outputs
 
     def output_shape(self) -> Dict[str, ShapeSpec]:
-        strides = {"stem": 4, "res2": 4, "res3": 8, "res4": 16, "res5": 32}
+        strides = {"stem": 4, "res2": 4, "res3": 8, "res4": 16, "res5": 32 // self.res5_dilation}
         return {
             f: ShapeSpec(channels=self._out_channels[f], stride=strides[f])
             for f in self.out_features
         }
 
 
-def build_resnet_backbone(cfg) -> ResNet:
+def build_resnet_backbone(cfg, stem: nn.Module | None = None) -> ResNet:
+    """The ResNet of MODEL.RESNETS; ``stem`` replaces the basic stem (the
+    WSL backbones' 2x2 pool)."""
     r = cfg.MODEL.RESNETS
-    if r.RES5_DILATION != 1 or any(r.DEFORM_ON_PER_STAGE):
-        raise NotImplementedError("dilated and deformable ResNets are not ported yet")
+    if any(r.DEFORM_ON_PER_STAGE):
+        raise NotImplementedError("deformable ResNets are not ported yet")
     return ResNet(
         depth=r.DEPTH,
         stem_out_channels=r.STEM_OUT_CHANNELS,
@@ -206,4 +219,6 @@ def build_resnet_backbone(cfg) -> ResNet:
         out_features=tuple(r.OUT_FEATURES),
         freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
         compute_dtype=compute_dtype(cfg),
+        res5_dilation=r.RES5_DILATION,
+        stem=stem,
     )

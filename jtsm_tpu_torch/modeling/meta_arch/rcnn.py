@@ -112,13 +112,18 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def build_model(cfg, device="cuda") -> GeneralizedRCNN:
-    """The model named by MODEL.META_ARCHITECTURE, in eval mode, on
-    ``device``. Weights are left at PyTorch's initialisation: load a state
-    dict (``checkpoint.convert``) before serving or training; call
-    ``.train()`` to train (``engine.create_train_state`` does)."""
+def build_model(cfg, device="cuda") -> nn.Module:
+    """The model named by MODEL.META_ARCHITECTURE (``GeneralizedRCNN``, or
+    the JTSM ``GeneralizedMCNNWSL``), in eval mode, on ``device``. Weights
+    are left at PyTorch's initialisation: load a state dict
+    (``checkpoint.convert``) before serving or training; call ``.train()``
+    to train (``engine.create_train_state`` does)."""
     name = cfg.MODEL.META_ARCHITECTURE
-    if name != "GeneralizedRCNN":
+    if name == "GeneralizedRCNN":
+        arch = GeneralizedRCNN
+    elif name == "GeneralizedMCNNWSL":
+        from ...wsl.modeling.meta_arch import GeneralizedMCNNWSL as arch
+    else:
         raise NotImplementedError(f"meta architecture {name!r} is not ported yet")
     device = resolve_device(device)
-    return GeneralizedRCNN(cfg).to(device).eval()
+    return arch(cfg).to(device).eval()

@@ -117,9 +117,13 @@ def mask_rcnn_loss(
 
 def build_mask_head(cfg, input_shape: ShapeSpec) -> MaskRCNNConvUpsampleHead:
     h = cfg.MODEL.ROI_MASK_HEAD
-    if h.NAME != "MaskRCNNConvUpsampleHead":
+    if h.NAME == "MaskRCNNConvUpsampleHead":
+        cls = MaskRCNNConvUpsampleHead
+    elif h.NAME == "MaskRCNNConvUpsampleWSLHead":
+        from ...wsl.modeling.mask_head_wsl import MaskRCNNConvUpsampleWSLHead as cls
+    else:
         raise NotImplementedError(f"mask head {h.NAME!r} is not ported yet")
-    return MaskRCNNConvUpsampleHead(
+    return cls(
         input_shape, cfg.MODEL.ROI_HEADS.NUM_CLASSES, h.NUM_CONV, h.CONV_DIM, h.NORM,
         h.CLS_AGNOSTIC_MASK, compute_dtype(cfg),
     )

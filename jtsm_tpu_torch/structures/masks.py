@@ -8,11 +8,12 @@ outline=1, fill=1)``, which with the outline equal to the fill draws the
 fill alone). Pillow is absent where the port runs on the card, so
 ``polygons_to_bitmask`` is Pillow's scan-line fill written out in Python
 (``src/libImaging/Draw.c``: vertices truncated to int, ``add_edge``,
-``polygon_generic`` with float32 crossings, ``hline``). It gives Pillow's
-pixels for axis-aligned rectangles (every polygon of the synthetic COCO
-set); for other polygons its corner joins can differ from Pillow's at a
-few vertex pixels (111 of 447,275 over 400 random polygons,
-``tests/test_torch_data.py``).
+``polygon_generic`` with float32 crossings, ``hline``), with the joins
+Pillow adds at top and bottom vertices found by experiment
+(``_corner_joins``). It gives Pillow's pixels for axis-aligned rectangles
+(every polygon of the synthetic COCO set) and for 400 random polygons
+(``tests/test_torch_data.py``); degenerate ones, with a vertex repeated
+apart or folded back on an edge, can still differ at a few pixels.
 """
 
 from __future__ import annotations
@@ -46,10 +47,6 @@ def _round_up(f) -> int:  # Draw.c ROUND_UP
 
 def _round_down(f) -> int:  # Draw.c ROUND_DOWN
     return math.ceil(_f32(f - _f32(0.5))) if f >= 0 else -math.ceil(_f32(abs(f) - _f32(0.5)))
-
-
-def _roundf(f) -> float:  # C roundf: halves away from zero
-    return math.floor(f + 0.5) if f >= 0 else -math.floor(-f + 0.5)
 
 
 def _fill_polygon(mask: np.ndarray, xy: List[int]) -> None:
@@ -86,37 +83,57 @@ def _fill_polygon(mask: np.ndarray, xy: List[int]) -> None:
             hline(e.xmin, e.ymin, e.xmax)
         else:
             table.append(e)
-    for y in range(max(ymin, 0), min(ymax, height) + 1):
+    ymax = min(ymax, height)
+    for y in range(max(ymin, 0), ymax + 1):
         xx = []
-        for i, cur in enumerate(table):
+        for cur in table:
             if not cur.ymin <= y <= cur.ymax:
                 continue
             xx.append(cur.x_at(y))
             if y == cur.ymax and y < ymax:
                 xx.append(xx[-1])
-            elif cur.dx != 0 and len(xx) % 2 == 1 and _roundf(xx[-1]) == xx[-1]:
-                # join a corner that the next (or, on the last row, the
-                # previous) row would leave detached
-                for k in range(i):
-                    other = table[k]
-                    if (cur.dx > 0 and other.dx <= 0) or (cur.dx < 0 and other.dx >= 0):
-                        continue
-                    if xx[-1] != other.x_at(y):
-                        continue
-                    offset = -1 if y == ymax else 1
-                    a, b = float(cur.x_at(y + offset)), float(other.x_at(y + offset))
-                    if y == cur.ymax:
-                        v = max(a, b) + 1 if cur.dx > 0 else min(a, b) - 1
-                    else:
-                        v = min(a, b) if cur.dx > 0 else max(a, b) + 1
-                    if k < len(xx):  # C writes slot k of its buffer; a slot past the crossings is unread
-                        xx[k] = _f32(v)
-                    break
         xx.sort()
         for j in range(1, len(xx), 2):
             x_start, x_end = _round_up(xx[j - 1]), _round_down(xx[j])
             if x_end >= x_start:
                 hline(x_start, y, x_end)
+    for y, x0, x1 in _corner_joins(xy, ymax):
+        hline(x0, y, x1)
+
+
+def _corner_joins(xy: List[int], last_row: int):
+    """The pixels Pillow adds at a top vertex, or at a bottom vertex on the
+    last row ``last_row``, when both of its edges run the same way in x: on
+    the vertex's row, from the vertex toward the adjacent row's crossings of
+    the two edges, up to ``ROUND_UP(max + 1)`` on the left or
+    ``ROUND_UP(min) - 1`` on the right. Derived by experiment against
+    Pillow 12.1's fill (a bottom vertex above the last row ends two edges
+    whose crossings the scan doubles, and gets no join); consecutive repeated
+    vertices count once. Yields (row, x0, x1) spans."""
+    pts = [(xy[2 * i], xy[2 * i + 1]) for i in range(len(xy) // 2)]
+    pts = [q for i, q in enumerate(pts) if q != pts[i - 1]]
+    n = len(pts)
+    for i in range(n):
+        (vx, vy), (px, py), (nx, ny) = pts[i], pts[i - 1], pts[(i + 1) % n]
+        if py == vy or ny == vy or (py > vy) != (ny > vy):
+            continue
+        top = py > vy
+        if not top and vy != last_row:
+            continue
+        dxa, dxb = _f32(_f32(px - vx) / _f32(py - vy)), _f32(_f32(nx - vx) / _f32(ny - vy))
+        if dxa == 0 or dxb == 0 or (dxa > 0) != (dxb > 0):
+            continue
+        y = vy + (1 if top else -1)
+        a = float(_f32(_f32(y - vy) * dxa) + _f32(vx))
+        b = float(_f32(_f32(y - vy) * dxb) + _f32(vx))
+        if top == (dxa < 0):  # the edges run left of the vertex on the adjacent row
+            start = _round_up(max(a, b) + 1)
+            if start <= vx:
+                yield vy, start, vx
+        else:
+            end = _round_up(min(a, b)) - 1
+            if end >= vx:
+                yield vy, vx, end
 
 
 def polygons_to_bitmask(polygons: List[np.ndarray], height: int, width: int) -> np.ndarray:

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 K1 (ROIAlign forward), K2 (ROIAlign backward) and one tiny train step
-through both against the same step through the plain versions.
+through both against the same step through the plain versions; and the JTSM
+gate model's mask pooler, which must launch K1 once a request.
 
 Every test here needs an NVIDIA card and skips without one. The card's
 machine has no JAX, which ``tests/conftest.py`` imports, so run them there
@@ -397,3 +398,45 @@ def test_launch_runs_inside_the_tensors_device(monkeypatch):
     torch.cuda.synchronize(dev)
     assert entered == [dev, dev]
     assert streams == [(dev, True), (dev, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_jtsm_mask_pooler_launches_k1_once_a_request(monkeypatch, dtype):
+    """The JTSM gate model on the card: its mask pooler (one 512-channel
+    level) runs K1 once a request and the plain ROIAlign never."""
+    _card()
+    import os
+
+    import jtsm_tpu_torch.ops.roi_align as roi_align
+    from jtsm_tpu_torch.checkpoint import load_gate_ckpt, variables_to_state_dict
+    from jtsm_tpu_torch.config import jtsm_gate_cfg
+    from jtsm_tpu_torch.engine import Predictor
+    from jtsm_tpu_torch.wsl.data import compute_superpixels_grid, oh_labels_from_boxes
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain ROIAlign ran on the card")
+
+    monkeypatch.setattr(roi_align, "roi_align_multilevel_plain_autograd", plain)
+    cfg = jtsm_gate_cfg()
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    predictor = Predictor(cfg, variables_to_state_dict(load_gate_ckpt(os.path.join(root, cfg.MODEL.WEIGHTS))))
+    rng = np.random.RandomState(0)
+    h, w = 128, 176
+    xy = rng.rand(64, 2) * [w - 30, h - 30]
+    boxes = np.concatenate([xy, xy + rng.rand(64, 2) * 60 + 10], 1).astype(np.float32)
+    sp = compute_superpixels_grid(h, w)
+    request = {
+        "image": (rng.rand(1, h, w, 3) * 255).astype(np.float32),
+        "image_sizes": np.array([[h, w]], np.int32),
+        "proposals": boxes[None],
+        "proposal_scores": rng.rand(1, 64).astype(np.float32),
+        "superpixels": sp[None],
+        "oh_labels": oh_labels_from_boxes(boxes, sp, cfg.WSL.MAX_SUPERPIXELS)[None],
+    }
+    before = KERNEL.launches
+    out = predictor(request)
+    torch.cuda.synchronize()
+    assert KERNEL.launches - before == 1
+    assert out["masks"].shape == (1, 100, 28, 28) and bool(out["valid"].any())
