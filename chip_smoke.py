@@ -68,11 +68,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
    mask probabilities within 1e-4, so that a mask pixel lands on the other
    side of 0.5 only within 1e-4 of it (each mask's IoU is reported);
    detections may trade slots only with a score within 1e-4
-   (``match_detections``).
+   (``match_detections``);
+11. jtsm train: (a) K1 and K2 against their plain versions at the JTSM
+   mask pooler's train shape (a (4, 64, 64, 512) res5 map, R=256 mined
+   boxes, P=14) in float32 and bfloat16, timed beside their bounds; (b) the
+   JTSM flagship at full width and depth (random weights from phase 10's
+   seed) takes 5 SGD steps in each of bfloat16 and float32, in turns, on
+   IMS_PER_BATCH 4 seeded requests of phase 10's kind with seeded image
+   labels; every loss must be finite, K1 must launch once a step and K2
+   never (FREEZE_AT 5: no gradient reaches the maps), and the plain
+   ROIAlign never runs; then the stage split with its host syncs, peak
+   memory, and one step at the largest train scale (short side 1200);
+   (c) the JTSM gate config (FREEZE_AT 0, the full-model clip, seeded
+   weights, dropout 0) takes 3 steps on the card and on the CPU from the
+   same weights and batch: the mined mask ROIs and the painted pseudo
+   sem-seg map equal, losses within 1e-4 relative, every parameter within
+   1e-5 of its scale after the steps, K1 and K2 once a step on the card.
 
 The last three lines are {"kernels": [...]} (``kernel_line`` says which
-times), the card's name and power limit as nvidia-smi gives them,
-and {"ok": true, "device": {...}}. Needs one card, torch, numpy and pytest;
+times; ``l1_*`` are K1's single-level rows of phase 10, ``jt_*`` K1's and
+K2's rows at phase 11's train shape), the card's name and power limit as
+nvidia-smi gives them, and {"ok": true, "device": {...}}. Needs one card, torch, numpy and pytest;
 imports nothing of JAX. Without a card, or outside a checkout of the
 repository, it exits with 2 and prints no result.
 """
@@ -114,6 +130,12 @@ JTSM_IMAGE_HW = (375, 500)  # a VOC-size image
 JTSM_ROUNDS = 8  # JTSM requests in each dtype
 JTSM_PADDING = 150  # padded proposal slots of the 4000
 JTSM_SUPERPIXELS = 1000  # Voronoi cells (WSL.MAX_SUPERPIXELS is 1024)
+JTSM_TRAIN_STEPS = 5  # train steps in each dtype
+JTSM_TRAIN_SHORT = 688  # an INPUT.MIN_SIZE_TRAIN scale, the one phase 10 serves
+JTSM_TRAIN_LARGEST = (1200, (1216, 1600))  # the largest train scale and a canvas that holds it
+JTSM_GATE_STEPS = 3
+JTSM_FLAGSHIP_LOSSES = sorted(["loss_mil", "loss_mask", "loss_mask_r0", "total_loss"]
+                              + [f"loss_refine_{k}{i}" for k in ("cls", "reg") for i in range(4)])
 DTYPE_NAMES = {"bfloat16": "bf16", "float32": "f32"}
 
 
@@ -302,7 +324,7 @@ def check_and_time_fwd(tag, feats, scales, boxes, bidx, levels, p, baseline, pha
     return dict(err=err, times=times, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=flops)
 
 
-def check_and_time_bwd(tag, feats, scales, boxes, bidx, levels, p, gen, baseline):
+def check_and_time_bwd(tag, feats, scales, boxes, bidx, levels, p, gen, baseline, phase="train_kernels"):
     """K2 against its plain version, as ``check_and_time_fwd``."""
     import torch
 
@@ -331,7 +353,7 @@ def check_and_time_bwd(tag, feats, scales, boxes, bidx, levels, p, gen, baseline
     p_ms = cuda_time_ms(lambda: roi_align_multilevel_backward_plain(*args), 3)
     nbytes, flops, touched_bytes = roi_align_bwd_work(feats, scales, boxes, bidx, levels, p, 0)
     b_ms, b_by = bound(nbytes, flops)
-    log(f"[train_kernels] roi_align_bwd {tag}: R={boxes.shape[0]} P={p} max_abs_err={err:.3e} "
+    log(f"[{phase}] roi_align_bwd {tag}: R={boxes.shape[0]} P={p} max_abs_err={err:.3e} "
         f"max_rel_err={err / scale:.3e} (tol {tol:.3e} abs, {tol / scale:.3e} of the gradient's scale "
         f"{scale:.3f}) {format_times(times)} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} "
         f"({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP; touched cells read and written once: "
@@ -766,7 +788,7 @@ def phase_train_trained():
     from jtsm_tpu_torch.solver import build_lr_schedule, build_optimizer
 
     cfg = mask_rcnn_gate_cfg()
-    cfg.SOLVER.CLIP_GRADIENTS.ENABLED = False  # not ported yet; the gradients are compared before it
+    cfg.SOLVER.CLIP_GRADIENTS.ENABLED = False  # the gradients are compared as the backward pass leaves them
     state_dict = variables_to_state_dict(load_gate_ckpt(os.path.join(REPO, cfg.MODEL.WEIGHTS)))
     batch = synthetic_train_batch(1, 2, (128, 176), g=cfg.TPU.MAX_GT_INSTANCES, valid=4)
 
@@ -1021,10 +1043,11 @@ def voronoi_superpixels(seed, h, w, n):
     return out
 
 
-def jtsm_request(cfg, seed):
-    """One JTSM request at the config's test size: a seeded 375x500 image
-    resized to the short edge MIN_SIZE_TEST, padded into its bucket; the
-    top PRECOMPUTED_PROPOSAL_TOPK_TEST seeded proposals (log-uniform sizes,
+def jtsm_request(cfg, seed, short=None, max_size=None, canvas=None):
+    """One JTSM request at the config's test size (or the short edge
+    ``short``, at most ``max_size``): a seeded 375x500 image resized to
+    it, padded into its bucket (or ``canvas``); the top
+    PRECOMPUTED_PROPOSAL_TOPK_TEST seeded proposals (log-uniform sizes,
     descending objectness, the last JTSM_PADDING slots padding with -inf
     scores); Voronoi superpixels; their membership by centroid
     (``wsl.data.add_wsl_batch_fields``)."""
@@ -1036,8 +1059,10 @@ def jtsm_request(cfg, seed):
 
     rng = np.random.default_rng(seed)
     oh, ow = JTSM_IMAGE_HW
-    h, w = ResizeShortestEdge.get_output_shape(oh, ow, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
-    bh, bw = pick_bucket(h, w, cfg.TPU.IMAGE_BUCKETS)
+    h, w = ResizeShortestEdge.get_output_shape(
+        oh, ow, short or cfg.INPUT.MIN_SIZE_TEST, max_size or cfg.INPUT.MAX_SIZE_TEST
+    )
+    bh, bw = canvas or pick_bucket(h, w, cfg.TPU.IMAGE_BUCKETS)
     img = rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
     canvas = np.zeros((1, bh, bw, 3), np.float32)
     canvas[0, :h, :w] = img
@@ -1185,7 +1210,8 @@ def phase_jtsm(kernel, gen, baseline):
     """Phase 10: (a) K1 at the JTSM mask pooler's shape, (b) the JTSM
     flagship served at full width in both dtypes, (c) the gate checkpoint on
     the card against the CPU. Returns K1's rows, its launches on the served
-    path and the gate run, and the per-dtype latencies."""
+    path and the gate run, the per-dtype latencies and the flagship's
+    random weights."""
     import numpy as np
     import torch
 
@@ -1211,7 +1237,7 @@ def phase_jtsm(kernel, gen, baseline):
     flagship.TEST.AUG.ENABLED = False  # test-time augmentation waits for a later slice
     main_dtype = flagship.TPU.COMPUTE_DTYPE
     dtypes = (main_dtype, "float32")
-    state = random_state_dict(build_model(flagship, device="cpu"), seed=0)
+    flagship_state = random_state_dict(build_model(flagship, device="cpu"), seed=0)
     reqs = [jtsm_request(flagship, seed) for seed in (1, 2)]
     req = reqs[0]
     log(f"[jtsm] flagship {flagship.MODEL.BACKBONE.NAME} R{flagship.MODEL.RESNETS.DEPTH} "
@@ -1235,7 +1261,7 @@ def phase_jtsm(kernel, gen, baseline):
             cfg.TPU.COMPUTE_DTYPE = d
             torch.cuda.synchronize()
             before = torch.cuda.memory_allocated()
-            predictors[d] = Predictor(cfg, state)
+            predictors[d] = Predictor(cfg, flagship_state)
             torch.cuda.synchronize()
             resident = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
@@ -1320,7 +1346,278 @@ def phase_jtsm(kernel, gen, baseline):
         f"sem_seg pixels equal {sem_agree:.6f}, roi_align_fwd_launches={gate_launches}")
     if not (m["boxes"] <= 1e-3 and m["scores"] <= 1e-4 and m["masks"] <= 1e-4 and m["flip_margin"] <= 1e-4):
         raise AssertionError(f"jtsm gate: the card disagrees with the CPU: {m}")
-    return rows, serve_launches + gate_launches, {d: sum(x) / len(x) for d, x in lat.items()}
+    return rows, serve_launches + gate_launches, {d: sum(x) / len(x) for d, x in lat.items()}, flagship_state
+
+
+def jtsm_train_batch(cfg, seeds, short, max_size, canvas=None):
+    """``jtsm_request`` for each seed at the short edge ``short``, stacked,
+    with seeded image labels collated by ``wsl.data.add_wsl_train_fields``:
+    1 to 3 of the thing classes, and the stuff map of VOC's panoptic
+    labels, class 1 (background) over each image."""
+    import numpy as np
+
+    from jtsm_tpu_torch.wsl.data import add_wsl_train_fields
+
+    reqs = [jtsm_request(cfg, seed, short, max_size, canvas) for seed in seeds]
+    batch = {k: np.concatenate([r[k] for r in reqs]) for k in reqs[0]}
+    rng = np.random.default_rng(seeds[0])
+    per_image = [{"gt_classes": rng.choice(cfg.MODEL.ROI_HEADS.NUM_CLASSES, rng.integers(1, 4), replace=False),
+                  "sem_seg": np.ones(tuple(r["image_sizes"][0]), np.int32)} for r in reqs]
+    add_wsl_train_fields(batch, per_image, cfg.TPU.MAX_GT_INSTANCES)
+    return batch
+
+
+def jtsm_train_stages(model, optimizer, schedule, state, batch, measure, upto="sgd"):
+    """One train step of ``batch`` through ``model`` stage by stage, as
+    ``GeneralizedMCNNWSL.forward`` and ``engine.make_train_step`` run it,
+    up to the stage ``upto``; ``measure`` makes each call and returns its
+    reading. Returns the readings and the stages' outputs."""
+    import torch
+
+    from jtsm_tpu_torch.engine.train_loop import sgd_update
+    from jtsm_tpu_torch.layers import exact_float32
+
+    heads = model.roi_heads
+    r = {}
+
+    def backbone():
+        r["feats"], _ = model._features(batch)
+        r["props"], r["scores"], r["sp"], r["oh"] = model.request_fields(batch)
+        r["targets"] = {k: torch.as_tensor(batch[k], device=model.device)
+                        for k in ("gt_classes", "gt_valid", "gt_sem_seg") if k in batch}
+
+    def moipool():
+        feat = r["feats"][heads.in_features[0]].permute(0, 2, 3, 1)
+        r["pooled"], r["nonempty"] = heads.pool(feat, r["props"], r["sp"], r["oh"])
+
+    def dan_branches():
+        r["mil"], r["branches"] = heads.train_outputs(r["pooled"], r["nonempty"], r["scores"], state.generator)
+
+    def mining():
+        r["losses"], r["aux"], r["mined"] = heads.mine(
+            r["props"], r["scores"], r["mil"], r["branches"], r["targets"], r["sp"], r["oh"])
+
+    def mask():
+        r["losses"].update(heads.mask_losses(r["feats"], r["mined"]))
+        if "pgt_sem_seg" in r["aux"]:
+            r["losses"].update(model.sem_seg_head.losses(
+                model.sem_seg_head(r["feats"]), r["aux"]["pgt_sem_seg"], r["aux"]["pgt_sem_seg_stride"]))
+
+    def backward():
+        optimizer.zero_grad(set_to_none=True)
+        sum(r["losses"].values()).backward()
+
+    def sgd():
+        sgd_update(optimizer, schedule(state.step))
+        state.step += 1
+
+    stages = {"backbone": backbone, "moipool": moipool, "dan_branches": dan_branches, "mining": mining,
+              "mask": mask, "backward": backward, "sgd": sgd}
+    readings = {}
+    with exact_float32(model.compute_dtype == torch.float32):
+        for k, fn in stages.items():
+            readings[k] = measure(fn)
+            if k == upto:
+                break
+    return readings, r
+
+
+def gate_train_state(model, seed):
+    """Seeded weights for the gate (``random_state_dict``) with the heads'
+    spread of ``tests/test_torch_jtsm.py``: the DAN's first layer and the
+    box deltas at 0.05 of the usual scale and the predictors at 0.1, so
+    that the WSDDN scores do not tie."""
+    from jtsm_tpu_torch.checkpoint import random_state_dict
+
+    state = random_state_dict(model, seed)
+    gains = {"dan1.weight": 0.05, "refine_reg.weight": 0.05, "predictor.weight": 0.1}
+    for key in state:
+        for name, gain in gains.items():
+            if key.endswith(name):
+                state[key] = state[key] * gain
+    return state
+
+
+def phase_jtsm_train(kernels, gen, baseline, flagship_state):
+    """Phase 11: (a) K1 and K2 at the JTSM train step's mask pooler shape,
+    (b) the flagship's train step at full width in both dtypes, (c) the
+    gate config's steps on the card against the CPU. Returns the kernel
+    rows, each kernel's launches in (b) and (c), and the median step
+    times."""
+    import numpy as np
+    import torch
+
+    import jtsm_tpu_torch.ops.roi_align as roi_align
+    from jtsm_tpu_torch.config import jtsm_gate_cfg, jtsm_WSR_18_DC5_cfg
+    from jtsm_tpu_torch.engine import create_train_state, make_train_step
+    from jtsm_tpu_torch.modeling import build_model
+    from jtsm_tpu_torch.solver import build_lr_schedule, build_optimizer
+
+    k1, k2 = kernels
+    # (a) the mask pooler of a flagship step: res5 of four images in the
+    # 1024x1024 bucket, 64 mined ROIs an image
+    rows = {}
+    b, r = 4, 256
+    boxes = jtsm_mask_boxes(gen, r, (688, 917))
+    bidx = torch.arange(b, dtype=torch.int32, device=DEVICE).repeat_interleave(r // b)
+    zeros = torch.zeros(r, dtype=torch.int32, device=DEVICE)
+    for dtype in (torch.float32, torch.bfloat16):
+        feat = torch.randn((b, 64, 64, 512), generator=gen, device=DEVICE).to(dtype)
+        tag = f"jtsm train mask pooler {dtype_tag(feat)} B={b} (L=1)"
+        rows[f"fwd {dtype_tag(feat)}"] = check_and_time_fwd(
+            tag, [feat], [1.0 / 16], boxes, bidx, zeros, 14, baseline, phase="jtsm_train")
+        rows[f"bwd {dtype_tag(feat)}"] = check_and_time_bwd(
+            tag, [feat], [1.0 / 16], boxes, bidx, zeros, 14, gen, baseline, phase="jtsm_train")
+    del feat
+
+    # (b) the flagship's train step at full width, both dtypes in turns
+    t0 = time.perf_counter()
+    flagship = jtsm_WSR_18_DC5_cfg()
+    dtypes = (flagship.TPU.COMPUTE_DTYPE, "float32")
+    seeds = tuple(range(21, 21 + flagship.SOLVER.IMS_PER_BATCH))
+    batch = jtsm_train_batch(flagship, seeds, JTSM_TRAIN_SHORT, flagship.INPUT.MAX_SIZE_TRAIN)
+    log(f"[jtsm_train] flagship FREEZE_AT={flagship.MODEL.BACKBONE.FREEZE_AT}, IMS_PER_BATCH="
+        f"{flagship.SOLVER.IMS_PER_BATCH}: images {batch['image_sizes'].tolist()} in {batch['image'].shape[1:3]}, "
+        f"R={batch['proposals'].shape[1]} ({JTSM_PADDING} padding), superpixels {JTSM_SUPERPIXELS}, image labels "
+        f"{[np.flatnonzero(v).size for v in batch['gt_valid']]} classes, DAN {list(flagship.MODEL.ROI_BOX_HEAD.DAN_DIM)}, "
+        f"clip {flagship.SOLVER.CLIP_GRADIENTS.ENABLED}; batch made in {time.perf_counter() - t0:.1f}s")
+
+    def plain(*a, **k):
+        raise AssertionError("the plain ROIAlign ran on the card in the JTSM train step")
+
+    routed = roi_align.roi_align_multilevel_plain_autograd
+    roi_align.roi_align_multilevel_plain_autograd = plain
+    torch.backends.cudnn.deterministic = False  # cuDNN's own algorithm choice, as a user trains
+    try:
+        runs = {}
+        for d in dtypes:
+            cfg = flagship.clone()
+            cfg.TPU.COMPUTE_DTYPE = d
+            model = build_model(cfg)
+            model.load_state_dict(flagship_state)
+            optimizer = build_optimizer(cfg, model)
+            schedule = build_lr_schedule(cfg)
+            runs[d] = (model, optimizer, schedule, create_train_state(model, optimizer, seed=0),
+                       make_train_step(model, optimizer, schedule))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = {d: [] for d in dtypes}
+        for k in kernels:
+            k.launches = 0
+        for i in range(JTSM_TRAIN_STEPS):
+            for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+                model, _, _, state, train_step = runs[d]
+                before = [k.launches for k in kernels]
+                t0 = time.perf_counter()
+                metrics = train_step(state, batch)
+                torch.cuda.synchronize()
+                times[d].append((time.perf_counter() - t0) * 1e3)
+                values = {k: v.item() for k, v in metrics.items()}
+                if sorted(values) != JTSM_FLAGSHIP_LOSSES or not all(math.isfinite(v) for v in values.values()):
+                    raise AssertionError(f"jtsm train {d} step {i}: losses {values}")
+                per_step = [k.launches - n for k, n in zip(kernels, before)]
+                if per_step != [1, 0]:
+                    raise AssertionError(f"jtsm train {d} step {i}: launches {per_step}, not K1 once and K2 never")
+                log(f"[jtsm_train] {DTYPE_NAMES[d]} step {i}: ms={times[d][-1]:.3f} "
+                    + " ".join(f"{k}={v:.6g}" for k, v in values.items()))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        train_launches = {k.name: k.launches for k in kernels}
+        med = {d: sorted(t[1:])[len(t[1:]) // 2] for d, t in times.items()}
+        for d in dtypes:
+            log(f"[jtsm_train] JTSM WSR-18 DC5, {len(seeds)} images {JTSM_TRAIN_SHORT} short side per step, "
+                f"{DTYPE_NAMES[d]}{' (TF32 off)' if d == 'float32' else ''}: step_ms={[round(t, 3) for t in times[d]]} "
+                f"median_of_steps_2_to_{JTSM_TRAIN_STEPS}_ms={med[d]:.3f}")
+        log(f"[jtsm_train] launches over {2 * JTSM_TRAIN_STEPS} steps {train_launches}; peak_mem_gib={peak:.3f} "
+            "(both dtypes' models, gradients and momentum resident)")
+
+        def timed(call):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        for d in dtypes:
+            model, optimizer, schedule, state, _ = runs[d]
+            stage_ms = jtsm_train_stages(model, optimizer, schedule, state, batch, timed)[0]
+            syncs = jtsm_train_stages(model, optimizer, schedule, state, batch, count_host_syncs)[0]
+            log(f"[jtsm_train] {DTYPE_NAMES[d]} stages_ms " + " ".join(f"{k}={v:.3f}" for k, v in stage_ms.items())
+                + f" sum={sum(stage_ms.values()):.3f} | host syncs " + " ".join(f"{k}={n}" for k, n in syncs.items()))
+        del runs, model, optimizer, state
+
+        # one step at the largest train scale, for its peak memory
+        short, canvas = JTSM_TRAIN_LARGEST
+        big = jtsm_train_batch(flagship, seeds, short, flagship.INPUT.MAX_SIZE_TRAIN, canvas)
+        model = build_model(flagship)
+        model.load_state_dict(flagship_state)
+        optimizer = build_optimizer(flagship, model)
+        state = create_train_state(model, optimizer, seed=0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        values = {k: v.item() for k, v in make_train_step(model, optimizer, build_lr_schedule(flagship))(state, big).items()}
+        torch.cuda.synchronize()
+        big_ms = (time.perf_counter() - t0) * 1e3
+        big_peak = torch.cuda.max_memory_allocated() / 2**30
+        if not all(math.isfinite(v) for v in values.values()):
+            raise AssertionError(f"jtsm train at short side {short}: losses {values}")
+        log(f"[jtsm_train] {DTYPE_NAMES[dtypes[0]]} one step at short side {short}: images "
+            f"{big['image_sizes'].tolist()} in {canvas}, ms={big_ms:.3f} (first step of a new model) "
+            f"peak_mem_gib={big_peak:.3f} (of which {base / 2**30:.3f} before the step: weights)")
+        train_launches = {k.name: k.launches for k in kernels}
+        del model, optimizer, state
+    finally:
+        roi_align.roi_align_multilevel_plain_autograd = routed
+
+    # (c) the gate config on the card against the CPU
+    cfg = jtsm_gate_cfg()
+    if cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE != "full_model" or cfg.MODEL.BACKBONE.FREEZE_AT != 0:
+        raise AssertionError("the JTSM gate config is not the full-model clip over a trained backbone")
+    weights = gate_train_state(build_model(cfg, device="cpu"), seed=1)
+    batch = jtsm_gate_request()
+    rng = np.random.RandomState(19)
+    batch["gt_classes"] = rng.randint(0, 80, (2, 4)).astype(np.int32)
+    batch["gt_valid"] = np.array([[1, 1, 1, 0], [1, 1, 0, 0]], bool)
+    batch["gt_boxes"] = np.zeros((2, 4, 4), np.float32)
+    batch["gt_sem_seg"] = rng.randint(0, 54, (2, 128, 176)).astype(np.int32)
+    torch.backends.cudnn.deterministic = True
+    gate = {}
+    for name, device in (("card", DEVICE), ("cpu", "cpu")):
+        model = build_model(cfg, device=device)
+        model.load_state_dict(weights)
+        model.roi_heads.dan.dropout = 0.0  # the two devices' generators draw other bits
+        optimizer = build_optimizer(cfg, model)
+        state = create_train_state(model, optimizer, seed=0)
+        with torch.no_grad():
+            _, r = jtsm_train_stages(model, optimizer, None, state, batch, lambda fn: fn(), upto="mining")
+        mined = {k: v.cpu() for k, v in r["mined"].items()}
+        mined["pgt_sem_seg"] = r["aux"]["pgt_sem_seg"].cpu()
+        before = [k.launches for k in kernels]
+        train_step = make_train_step(model, optimizer, build_lr_schedule(cfg))
+        losses = []
+        for i in range(JTSM_GATE_STEPS):
+            losses.append({k: v.item() for k, v in train_step(state, batch).items()})
+            if device != "cpu" and [k.launches - n for k, n in zip(kernels, before)] != [i + 1, i + 1]:
+                raise AssertionError(f"jtsm gate step {i} on the card: K1 and K2 did not launch once a step")
+        launches = [k.launches - n for k, n in zip(kernels, before)]
+        gate[name] = (mined, losses, {n: p.detach().cpu() for n, p in model.named_parameters()}, launches)
+        del model, optimizer, state, r
+    (m_card, l_card, p_card, gate_launches), (m_cpu, l_cpu, p_cpu, _) = gate["card"], gate["cpu"]
+    unequal = [k for k in m_cpu if not torch.equal(m_card[k], m_cpu[k])]
+    loss_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for a, b in zip(l_card, l_cpu) for k in b)
+    param_err = max(((p_card[n] - p_cpu[n]).abs().max() / p_cpu[n].abs().max().clamp(min=1e-12)).item() for n in p_cpu)
+    finite = all(math.isfinite(v) for step in l_card for v in step.values())
+    log(f"[jtsm_train] gate config (float32, FREEZE_AT 0, full-model clip {cfg.SOLVER.CLIP_GRADIENTS.CLIP_VALUE}), "
+        f"2 images 128x176, {JTSM_GATE_STEPS} steps on the card and on the CPU: mined mask ROIs "
+        f"{int(m_cpu['ok'].sum())} of {m_cpu['ok'].numel()}, mined fields equal: {not unequal} {unequal or ''}; "
+        f"losses {len(l_cpu[0])} keys, max_rel_err={loss_err:.3e} (tol 1e-4), loss_mil by step card "
+        f"{[round(x['loss_mil'], 6) for x in l_card]} cpu {[round(x['loss_mil'], 6) for x in l_cpu]}; parameters "
+        f"after {JTSM_GATE_STEPS} steps max_err={param_err:.3e} of each one's scale (tol 1e-5) over {len(p_cpu)}; "
+        f"launches on the card K1/K2 {gate_launches}")
+    if unequal or not finite or not loss_err <= 1e-4 or not param_err <= 1e-5:
+        raise AssertionError("jtsm gate: the card's train steps disagree with the CPU's")
+    launches = {k.name: train_launches[k.name] + n for k, n in zip(kernels, gate_launches)}
+    return rows, launches, med
 
 
 def kernel_line(kernel, launches, rows, f32_errs):
@@ -1498,17 +1795,25 @@ def main(argv=None) -> int:
 
     # 10. the JTSM flagship: K1 at its mask pooler's shape, serving, the gate
     t0 = time.perf_counter()
-    jtsm_rows, jtsm_launches, jtsm_lat = phase_jtsm(KERNEL, gen, baseline)
+    jtsm_rows, jtsm_launches, jtsm_lat, jtsm_state = phase_jtsm(KERNEL, gen, baseline)
     log(f"[jtsm] done in {time.perf_counter() - t0:.1f}s")
+
+    # 11. JTSM training: K1 and K2 at its mask pooler's shape, the flagship's
+    # step in both dtypes, the gate's steps on the card against the CPU
+    t0 = time.perf_counter()
+    jt_rows, jt_launches, jt_med = phase_jtsm_train(KERNELS, gen, baseline, jtsm_state)
+    log(f"[jtsm_train] done in {time.perf_counter() - t0:.1f}s")
 
     # per served request K1 pools boxes (R=1000, P=7) and masks (R=100,
     # P=14); per train step K1 and K2 pool and unpool boxes (R=1024, P=7)
     # and masks (R=256, P=14); per JTSM request K1 pools masks on one level
-    # (R=100, P=14, C=512). Times as kernel_line says; launches: the main
-    # paths, serve, train, score and JTSM, in both dtypes.
+    # (R=100, P=14, C=512); per JTSM train step K1 pools masks on one level
+    # (B=4, R=256, P=14, C=512), and K2 unpools them where the maps train
+    # (the gate). Times as kernel_line says; launches: the main paths,
+    # serve, train, score, JTSM and JTSM train, in both dtypes.
     k1_launches = (sum(launches.values()) + sum(t[0][KERNEL.name] for t in train.values()) + score_launches
-                   + jtsm_launches)
-    k2_launches = sum(t[0][BWD_KERNEL.name] for t in train.values())
+                   + jtsm_launches + jt_launches[KERNEL.name])
+    k2_launches = sum(t[0][BWD_KERNEL.name] for t in train.values()) + jt_launches[BWD_KERNEL.name]
     bwd = {k[4:]: v for k, v in tres.items() if k.startswith("bwd ")}
     kernels = [
         kernel_line(KERNEL, k1_launches, res, [r["err"] for n, r in res.items() if "f32" in n]),
@@ -1528,10 +1833,29 @@ def main(argv=None) -> int:
         "l1_bf16_device_ms": l1_bf16["times"]["new"]["device_ms"],
         "l1_bf16_bound_ms": l1_bf16["bound_ms"],
     })
+    # the JTSM train rows: the mask pooler of a flagship step, one level,
+    # B=4, R=256, P=14, C=512 (K1 forward, K2 backward)
+    for line, kind in ((kernels[0], "fwd"), (kernels[1], "bwd")):
+        f32, bf16 = jt_rows[f"{kind} f32"], jt_rows[f"{kind} bf16"]
+        line.update({
+            "jt_launches": jt_launches[line["name"]],
+            "jt_max_abs_err": f32["err"],
+            "jt_ms": f32["times"]["new"]["ms"],
+            "jt_device_ms": f32["times"]["new"]["device_ms"],
+            "jt_plain_ms": f32["plain_ms"],
+            "jt_bound_ms": f32["bound_ms"],
+            "jt_bf16_max_abs_err": bf16["err"],
+            "jt_bf16_ms": bf16["times"]["new"]["ms"],
+            "jt_bf16_device_ms": bf16["times"]["new"]["device_ms"],
+            "jt_bf16_plain_ms": bf16["plain_ms"],
+            "jt_bf16_bound_ms": bf16["bound_ms"],
+        })
     log("[train] median step ms " + " ".join(f"{DTYPE_NAMES[d]}={t[1]:.3f}" for d, t in train.items())
         + f"; K1 launches serve {launches}, train " + str({d: t[0][KERNEL.name] for d, t in train.items()})
         + f", score {score_launches}, jtsm {jtsm_launches}; JTSM request mean ms "
-        + " ".join(f"{DTYPE_NAMES[d]}={ms:.3f}" for d, ms in jtsm_lat.items()))
+        + " ".join(f"{DTYPE_NAMES[d]}={ms:.3f}" for d, ms in jtsm_lat.items())
+        + "; JTSM train step median ms " + " ".join(f"{DTYPE_NAMES[d]}={ms:.3f}" for d, ms in jt_med.items())
+        + f", launches {jt_launches}")
     log(f"[done] {time.perf_counter() - t_run:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

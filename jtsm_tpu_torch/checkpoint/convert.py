@@ -131,9 +131,10 @@ def random_state_dict(model: torch.nn.Module, seed: int) -> Dict[str, torch.Tens
     """Seeded random weights for every entry of ``model.state_dict()``, for
     serving without trained weights: conv and linear weights normal with
     std 1/sqrt(fan_in), so activations keep their scale through the
-    network; the box-regression outputs (``anchor_deltas``, ``bbox_pred``)
-    with std 0.001 as detectron2 initialises them, so boxes stay near their
-    anchors; biases small and FrozenBN near identity."""
+    network; the box-regression outputs (``anchor_deltas``, ``bbox_pred``,
+    the OICR branches' ``refine_reg``) with std 0.001 as detectron2 and the
+    JAX package initialise them, so boxes stay near their anchors and
+    proposals; biases small and FrozenBN near identity."""
     rng = np.random.default_rng(seed)
     state = {}
     for key, t in model.state_dict().items():
@@ -144,7 +145,7 @@ def random_state_dict(model: torch.nn.Module, seed: int) -> Dict[str, torch.Tens
             a = rng.normal(1.0, 0.1, shape)
         elif key.endswith("running_mean") or key.endswith("bias"):
             a = rng.normal(0.0, 0.1, shape)
-        elif key.endswith(("anchor_deltas.weight", "bbox_pred.weight")):
+        elif key.endswith(("anchor_deltas.weight", "bbox_pred.weight", "refine_reg.weight")):
             a = rng.normal(0.0, 0.001, shape)
         else:
             # (out, in, ...) for conv and linear, (in, out, kh, kw) for the deconv

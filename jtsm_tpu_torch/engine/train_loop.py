@@ -3,7 +3,11 @@
 ``create_train_state``, :46 ``make_train_step``).
 
 A step is forward (the loss dict), the sum of the losses, backward, the
-learning rate of the step's update count, and one SGD update. Parameters
+configured gradient clip (``solver.SGD.clip_gradients``, on the raw
+gradients as the JAX package's optax chain clips them), the learning rate
+of the step's update count, and one SGD update. The model is called with
+the train state's generator, which draws its random sampling and dropout.
+Parameters
 that the graph leaves without a gradient (the stages FREEZE_AT detaches)
 get a zero gradient before the update, so weight decay and momentum move
 them as the JAX package's optax chain moves its frozen-stage weights;
@@ -37,6 +41,22 @@ def create_train_state(model, optimizer, seed: int) -> TrainState:
     return TrainState(model, optimizer, 0, torch.Generator(device=dev).manual_seed(seed))
 
 
+def sgd_update(optimizer, lr: float) -> None:
+    """The update after the backward pass: a zero gradient for every
+    parameter the graph left without one, the gradient clip of a
+    ``solver.SGD``, each group's learning rate ``lr * lr_factor``, one
+    step."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        group["lr"] = lr * group.get("lr_factor", 1.0)
+    clip = getattr(optimizer, "clip_gradients", None)
+    if clip is not None:
+        clip()
+    optimizer.step()
+
+
 def make_train_step(model, optimizer, schedule: Callable[[int], float]):
     """Returns ``train_step(state, batch) -> metrics``: the loss dict and
     ``total_loss``, detached. It advances ``state.step``."""
@@ -47,13 +67,7 @@ def make_train_step(model, optimizer, schedule: Callable[[int], float]):
             losses = model(batch, generator=state.generator)
             total = sum(losses.values())
             total.backward()
-            lr = schedule(state.step)
-            for group in optimizer.param_groups:
-                for p in group["params"]:
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
-                group["lr"] = lr * group.get("lr_factor", 1.0)
-            optimizer.step()
+            sgd_update(optimizer, schedule(state.step))
         state.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()

@@ -1,10 +1,12 @@
-"""The FPN semantic-segmentation head, its inference branch (reference:
+"""The FPN semantic-segmentation head (reference:
 detectron2/modeling/meta_arch/semantic_seg.py:104 ``SemSegFPNHead``; JAX
-package ``modeling/meta_arch/semantic_seg.py:30``): each input level goes
-through 3x3 conv-GN-ReLU layers, each followed by a 2x bilinear upsample
-until it reaches the common stride; the levels are summed (cropped to the
-smallest grid) and a 1x1 predictor gives the logits at the common stride,
-in float32. Its loss waits for the JTSM training slice."""
+package ``modeling/meta_arch/semantic_seg.py:30``, the loss :115-135):
+each input level goes through 3x3 conv-GN-ReLU layers, each followed by a
+2x bilinear upsample until it reaches the common stride; the levels are
+summed (cropped to the smallest grid) and a 1x1 predictor gives the logits
+at the common stride, in float32. The loss is the cross entropy at the
+common stride over the pixels that are not ``IGNORE_VALUE``, times
+``LOSS_WEIGHT``."""
 
 from __future__ import annotations
 
@@ -16,9 +18,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...layers import Conv2d, ShapeSpec, compute_dtype, get_norm, interpolate_bilinear
+from ...ops.losses import softmax_cross_entropy
 
 
 class SemSegFPNHead(nn.Module):
+    has_loss = True
+
     def __init__(
         self,
         input_shape: Dict[str, ShapeSpec],
@@ -28,10 +33,15 @@ class SemSegFPNHead(nn.Module):
         common_stride: int = 4,
         norm: str = "GN",
         compute_dtype: torch.dtype = torch.float32,
+        loss_weight: float = 1.0,
+        ignore_value: int = 255,
     ):
         super().__init__()
         self.in_features = tuple(in_features)
+        self.num_classes = num_classes
         self.common_stride = common_stride
+        self.loss_weight = loss_weight
+        self.ignore_value = ignore_value
         self.heads = {}
         for f in self.in_features:
             stride = input_shape[f].stride
@@ -68,13 +78,28 @@ class SemSegFPNHead(nn.Module):
                 out = out[..., :hh, :ww] + x[..., :hh, :ww]
         return self.predictor(out).float()
 
+    def losses(self, logits: torch.Tensor, targets: torch.Tensor, targets_stride: int = 1) -> Dict[str, torch.Tensor]:
+        """``loss_sem_seg`` of (B, K, h, w) logits against (B, H, W) integer
+        targets sampled at ``targets_stride`` (1: full resolution): every
+        (common_stride / targets_stride)-th target, cropped to the logits'
+        grid."""
+        if self.common_stride % targets_stride:
+            raise ValueError(f"targets at stride {targets_stride} do not divide {self.common_stride}")
+        rs = self.common_stride // targets_stride
+        th, tw = logits.shape[-2:]
+        t = targets[:, ::rs, ::rs][:, :th, :tw].long()
+        valid = (t != self.ignore_value) & (t >= 0)
+        ce = softmax_cross_entropy(logits.permute(0, 2, 3, 1), t.clamp(0, self.num_classes - 1))
+        loss = (ce * valid).sum() / valid.sum().float().clamp(min=1.0)
+        return {"loss_sem_seg": loss * self.loss_weight}
+
 
 def build_sem_seg_head(cfg, input_shape: Dict[str, ShapeSpec]) -> nn.Module:
     h = cfg.MODEL.SEM_SEG_HEAD
     if h.NAME == "SemSegFPNHead":
         return SemSegFPNHead(
             input_shape, h.IN_FEATURES, h.NUM_CLASSES, h.CONVS_DIM, h.COMMON_STRIDE, h.NORM,
-            compute_dtype(cfg),
+            compute_dtype(cfg), h.LOSS_WEIGHT, h.IGNORE_VALUE,
         )
     if h.NAME == "TwoClassHead":
         from ...wsl.modeling.seg_heads import TwoClassHead

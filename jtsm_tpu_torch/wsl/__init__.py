@@ -1,5 +1,6 @@
 """The weakly supervised (WSL) plane of the port: the JTSM flagship's
-serving path (reference: projects/WSL; JAX package ``wsl/``)."""
+serving and training paths (reference: projects/WSL; JAX package
+``wsl/``)."""
 
 from .config import add_wsl_config
 

@@ -1,12 +1,17 @@
-"""WSL request helpers in numpy (reference:
+"""WSL batch helpers in numpy (reference:
 projects/WSL/wsl/data/detection_utils.py:266; JAX package ``wsl/data.py``
 :163 ``compute_superpixels_grid``, :172 ``oh_labels_from_boxes``, :196
-``add_wsl_batch_fields``), copied so that the port serves JTSM requests
+``add_wsl_batch_fields``, and the training fields of
+``data/detection_utils.py:418,476`` ``instances_to_static_targets`` and
+``build_static_batch``), copied so that the port serves and trains JTSM
 without the JAX package. The MCG proposal loaders and ``WSLDatasetMapper``
 wait for the JTSM scoring slice.
 
 Static shapes: ``superpixels`` (B, H, W) int32 ids clipped to
-``[0, max_superpixels)``, ``oh_labels`` (B, R, max_superpixels) bool.
+``[0, max_superpixels)``, ``oh_labels`` (B, R, max_superpixels) bool;
+for training ``gt_classes`` (B, G) int32, ``gt_valid`` (B, G) bool,
+``gt_boxes`` (B, G, 4) float32 and ``gt_sem_seg`` (B, H, W) int32 with 255
+outside each image.
 """
 
 from __future__ import annotations
@@ -73,3 +78,29 @@ def add_wsl_batch_fields(
         if oh is not None:
             n = min(len(oh), r)
             batch["oh_labels"][i, :n] = oh[:n, :max_superpixels]
+
+
+def add_wsl_train_fields(batch: Dict[str, np.ndarray], per_image: List[dict], max_instances: int) -> None:
+    """Collate the image-level targets of a JTSM train step into the static
+    batch, as the JAX package's ``build_static_batch`` does: each
+    per-image dict's ``gt_classes`` (and ``gt_boxes`` when present) fill the
+    first rows of a ``max_instances`` capacity, marked in ``gt_valid``; its
+    ``sem_seg`` (h, w), where any dict has one, fills ``gt_sem_seg``."""
+    b = batch["image"].shape[0]
+    bh, bw = batch["image"].shape[1:3]
+    g = max_instances
+    batch["gt_boxes"] = np.zeros((b, g, 4), np.float32)
+    batch["gt_classes"] = np.zeros((b, g), np.int32)
+    batch["gt_valid"] = np.zeros((b, g), bool)
+    if any("sem_seg" in d for d in per_image):
+        batch["gt_sem_seg"] = np.full((b, bh, bw), 255, np.int32)
+    for i, d in enumerate(per_image):
+        classes = np.asarray(d.get("gt_classes", ()), np.int32)[:g]
+        n = len(classes)
+        batch["gt_classes"][i, :n] = classes
+        batch["gt_valid"][i, :n] = True
+        if "gt_boxes" in d:
+            batch["gt_boxes"][i, :n] = np.asarray(d["gt_boxes"], np.float32)[:n]
+        if "sem_seg" in d:
+            h, w = d["sem_seg"].shape
+            batch["gt_sem_seg"][i, :h, :w] = d["sem_seg"]

@@ -1,8 +1,8 @@
 """WSL mask head (reference: projects/WSL/wsl/modeling/roi_heads/
 mask_head.py:267; JAX package ``wsl/modeling/mask_head_wsl.py:29``
 ``MaskRCNNConvUpsampleWSLHead``): the Mask R-CNN conv-upsample head that
-returns its float32 logits and the features before its predictor. The WSL
-mask losses wait for the JTSM training slice."""
+returns its float32 logits and the features before its predictor. The
+JTSM heads train it (``roi_heads_jtsm.JTSMROIHeads.mask_losses``)."""
 
 from __future__ import annotations
 

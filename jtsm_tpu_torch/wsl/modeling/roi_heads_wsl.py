@@ -1,11 +1,13 @@
-"""WSOD ROI-head pieces of the JTSM serving path (reference:
-projects/WSL/wsl/modeling/roi_heads/box_head.py:106 and
-fast_rcnn_oicr.py:712-786; JAX package ``wsl/modeling/roi_heads_wsl.py``
-:68 ``DiscriminativeAdaptionNeck``, :108 ``wsl_inference_single``)."""
+"""WSOD ROI-head pieces of the JTSM path (reference:
+projects/WSL/wsl/modeling/roi_heads/roi_heads.py:146, roi_heads_jtsm.py:166,
+box_head.py:106 and fast_rcnn_oicr.py:712-786; JAX package
+``wsl/modeling/roi_heads_wsl.py`` :50 ``image_level_gt``, :56
+``image_level_gt_stuff``, :68 ``DiscriminativeAdaptionNeck``, :108
+``wsl_inference_single``)."""
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -17,11 +19,31 @@ from ...ops.nms import batched_nms_mask
 from ...structures.boxes import clip_boxes, nonempty_boxes
 
 
+def image_level_gt(gt_classes: torch.Tensor, gt_valid: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """(B, G) classes and validity -> (B, C) float multi-hot image labels."""
+    oh = F.one_hot(gt_classes.long().clamp(0, num_classes - 1), num_classes).float()
+    return (oh * gt_valid[..., None].float()).sum(dim=1).clamp(0, 1)
+
+
+def image_level_gt_stuff(gt_sem_seg: torch.Tensor, num_stuff: int, ignore_value: int = 255) -> torch.Tensor:
+    """(B, H, W) stuff labels -> (B, num_stuff) float presence of each class
+    (pixels of ``ignore_value`` or outside [0, num_stuff) count for none)."""
+    b = gt_sem_seg.shape[0]
+    s = gt_sem_seg.reshape(b, -1).long()
+    ok = (s != ignore_value) & (s >= 0) & (s < num_stuff)
+    present = torch.zeros((b, num_stuff + 1), dtype=torch.float32, device=gt_sem_seg.device)
+    present.scatter_(1, torch.where(ok, s, torch.full_like(s, num_stuff)), 1.0)
+    return present[:, :num_stuff]
+
+
 class DiscriminativeAdaptionNeck(nn.Module):
     """The DAN: fully connected layers ``dan1``, ``dan2``, ... with ReLU and
-    dropout (active only in train mode) over the pooled features flattened
-    as detectron2 flattens them, (C, P, P); the converter turns the JAX
-    package's (P, P, C) rows of ``dan1`` into that order."""
+    dropout over the pooled features flattened as detectron2 flattens them,
+    (C, P, P); the converter turns the JAX package's (P, P, C) rows of
+    ``dan1`` into that order. Dropout acts in train mode only, as flax's
+    does: each unit is kept where a uniform draw from ``generator`` (None:
+    PyTorch's default generator) is below 1 - p, and kept units are scaled
+    by 1 / (1 - p)."""
 
     def __init__(self, input_size: int, dims: Sequence[int] = (4096, 4096), dropout: float = 0.5,
                  compute_dtype: torch.dtype = torch.float32):
@@ -35,14 +57,16 @@ class DiscriminativeAdaptionNeck(nn.Module):
         self.dropout = dropout
         self.output_size = input_size
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (R, P, P, C) pooled features, or (R, D)."""
         if x.dim() > 2:
             x = x.permute(0, 3, 1, 2).flatten(1)
+        keep = 1.0 - self.dropout
         for fc in self.fcs:
             x = F.relu(fc(x))
-            if self.dropout > 0:
-                x = F.dropout(x, self.dropout, self.training)
+            if self.training and self.dropout > 0:
+                kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+                x = torch.where(kept, x / keep, torch.zeros_like(x))
         return x
 
 

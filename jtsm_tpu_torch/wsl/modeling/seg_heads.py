@@ -16,6 +16,7 @@ class TwoClassHead(nn.Module):
     is not a thing is background."""
 
     num_classes = 2
+    has_loss = False
 
     def forward(self, features: Dict[str, torch.Tensor]) -> torch.Tensor:
         f = next(iter(features.values()))

@@ -1,4 +1,4 @@
-"""The WSL pooling ops of the JTSM serving path, in plain PyTorch.
+"""The WSL pooling ops of the JTSM path, in plain PyTorch.
 
 Semantics: the JAX package's ``wsl/ops.py`` (``superpixel_membership_grid``
 :34, ``sample_membership_grid`` :59, ``moi_pool`` :101, ``moi_pool_exact``

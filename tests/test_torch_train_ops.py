@@ -423,6 +423,13 @@ def test_optimizer_groups_follow_the_config():
     assert [len(groups[k]["params"]) for k in ("regular", "bias", "norm")] == [1, 1, 2]
     assert (groups["bias"]["lr_factor"], groups["bias"]["weight_decay"]) == (2.0, 0.0)
     assert groups["regular"]["weight_decay"] == cfg.SOLVER.WEIGHT_DECAY
+    assert build_optimizer(cfg, toy).clip is None
+    # the clip types are ported: each builds an in-place clip, any other
+    # type raises
     cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True
-    with pytest.raises(NotImplementedError):
+    for kind in ("value", "full_model", "norm"):
+        cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = kind
+        assert callable(build_optimizer(cfg, toy).clip)
+    cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "agc"
+    with pytest.raises(ValueError):
         build_optimizer(cfg, toy)
