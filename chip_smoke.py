@@ -83,11 +83,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    weights, dropout 0) takes 3 steps on the card and on the CPU from the
    same weights and batch: the mined mask ROIs and the painted pseudo
    sem-seg map equal, losses within 1e-4 relative, every parameter within
-   1e-5 of its scale after the steps, K1 and K2 once a step on the card.
+   1e-5 of its scale after the steps, K1 and K2 once a step on the card;
+12. jtsm score: (a) the committed JTSM gate checkpoint scores the 12 scenes
+   of the dev script's cocovar tree, made in memory before JPEG
+   (``data.datasets.synthetic``), through the WSL test loader, panoptic
+   fusion and the COCO, SemSeg and panoptic evaluators
+   (``engine.defaults.test``), on the card (K1 once an image, the plain
+   ROIAlign stubbed to raise on the card) and on this machine's CPU:
+   detections matched by (source proposal, class) as in phase 10(c), the
+   fused sem-seg maps equal but where the two largest upsampled logits lie
+   within 1e-4, and bbox AP, segm AP, mIoU and PQ within 0.02; (b) the JTSM
+   flagship at full width (phase 10's random weights, test-time
+   augmentation off) scores 8 seeded VOC-shaped 375x500 scenes at 688x917
+   (4000 proposals, 1000 superpixels, 1-3 VOC things over the background
+   stuff, registered with the VOC panoptic-separated metadata) in
+   bfloat16 and float32, 2 runs each in turns: K1 once an image, the four
+   tasks' numbers present (printed, not checked: random weights), the
+   seconds per image of each stage (data, model, fusion, paste, encode,
+   each evaluator, total) and the peak memory.
 
 The last three lines are {"kernels": [...]} (``kernel_line`` says which
 times; ``l1_*`` are K1's single-level rows of phase 10, ``jt_*`` K1's and
-K2's rows at phase 11's train shape), the card's name and power limit as
+K2's rows at phase 11's train shape, ``js_launches`` its launches in phase
+12), the card's name and power limit as
 nvidia-smi gives them, and {"ok": true, "device": {...}}. Needs one card, torch, numpy and pytest;
 imports nothing of JAX. Without a card, or outside a checkout of the
 repository, it exits with 2 and prints no result.
@@ -136,6 +154,9 @@ JTSM_TRAIN_LARGEST = (1200, (1216, 1600))  # the largest train scale and a canva
 JTSM_GATE_STEPS = 3
 JTSM_FLAGSHIP_LOSSES = sorted(["loss_mil", "loss_mask", "loss_mask_r0", "total_loss"]
                               + [f"loss_refine_{k}{i}" for k in ("cls", "reg") for i in range(4)])
+GATE_VAR_SCENES = 12  # the dev script's cocovar tree (--num-varied 12)
+JTSM_SCORE_SCENES = 8
+JTSM_SCORE_ROUNDS = 2  # flagship scoring runs in each dtype, in turns
 DTYPE_NAMES = {"bfloat16": "bf16", "float32": "f32"}
 
 
@@ -1620,6 +1641,238 @@ def phase_jtsm_train(kernels, gen, baseline, flagship_state):
     return rows, launches, med
 
 
+def jtsm_score_once(cfg, state_dict, device, kernel):
+    """``engine.defaults.test`` of the WSL config ``cfg`` on ``device``
+    through the WSL test loader, with the COCO, SemSeg and panoptic
+    evaluators (writing nothing) and panoptic fusion, K1's count set to 0
+    just before and read just after: returns the results, each batch's
+    fused outputs on the host, K1's launches, the seconds of each stage and
+    the peak device memory of the run (GiB above what was allocated
+    before)."""
+    import torch
+
+    from jtsm_tpu_torch.engine import test
+    from jtsm_tpu_torch.evaluation import (COCOEvaluator, COCOPanopticEvaluator, DatasetEvaluator,
+                                           DatasetEvaluators, SemSegEvaluator)
+    from jtsm_tpu_torch.modeling import build_model
+    from jtsm_tpu_torch.wsl.train_net import build_test_loader
+
+    class Captured(DatasetEvaluator):
+        def __init__(self):
+            self.batches = []
+
+        def process(self, inputs, outputs):
+            out = {k: v.cpu() if torch.is_tensor(v) else v for k, v in outputs.items()}
+            self.batches.append(dict(out, image_sizes=inputs["image_sizes"]))
+
+    model = build_model(cfg, device=device)
+    model.load_state_dict(state_dict)
+    name = cfg.DATASETS.TEST[0]
+    timings, captured = {}, Captured()
+    evaluator = DatasetEvaluators([COCOEvaluator(name, timings=timings), SemSegEvaluator(name, timings=timings),
+                                   COCOPanopticEvaluator(name, timings=timings), captured])
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    results = test(cfg, model, evaluators=[evaluator], timings=timings, build_test_loader=build_test_loader)
+    timings["total"] = time.perf_counter() - t0
+    launches = kernel.launches
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30 if on_card else float("nan")
+    return results, captured.batches, launches, timings, peak
+
+
+JTSM_TASK_METRICS = (("bbox", "AP"), ("segm", "AP"), ("sem_seg", "mIoU"), ("panoptic_seg", "PQ"))
+
+
+def format_jtsm(results):
+    return " ".join(f"{t}_{m}={results[t][m]:.4f}" for t, m in JTSM_TASK_METRICS)
+
+
+def sem_seg_near_ties(logits, image_size, orig_size, pixels):
+    """The gap between the two largest of the upsampled stuff logits (the
+    fusion's float64 resize) at each of ``pixels`` (an (N, 2) index)."""
+    import torch
+
+    from jtsm_tpu_torch.modeling.meta_arch.panoptic_fpn import bilinear_resize
+
+    (h, w), (h0, w0) = image_size, orig_size
+    up = bilinear_resize(logits[:h, :w].float(), h0, w0)[pixels[:, 0], pixels[:, 1]]
+    top2 = torch.topk(up, 2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]).abs()
+
+
+def voc_scenes(num, seed, r):
+    """``num`` seeded VOC-shaped scenes of JTSM_IMAGE_HW: a noisy background
+    (the stuff class "background") with 1-3 rectangles of VOC things in
+    their palette colours; the instance json, the pixels, the stuff and
+    panoptic maps and the panoptic json in the separated format, and the
+    MCG-style proposal dict (``r`` log-uniform boxes with descending
+    objectness, JTSM_SUPERPIXELS Voronoi superpixels, membership by
+    centroid)."""
+    import numpy as np
+
+    from jtsm_tpu_torch.wsl.builtin import VOC_CATEGORIES
+    from jtsm_tpu_torch.wsl.data import oh_labels_from_boxes
+
+    rng = np.random.default_rng(seed)
+    h, w = JTSM_IMAGE_HW
+    things = [c for c in VOC_CATEGORIES if c["isthing"]]
+    infos, anns, pan_anns = [], [], []
+    images, sem_maps, pan_maps = {}, {}, {}
+    props = {"ids": [], "boxes": [], "objectness_logits": [], "superpixels": [], "oh_labels": [], "bbox_mode": 0}
+    for i in range(num):
+        infos.append({"id": i, "file_name": f"{i:06d}.jpg", "height": h, "width": w})
+        img = np.empty((h, w, 3), np.uint8)
+        img[:] = rng.integers(60, 200, 3)
+        ids = np.ones((h, w), np.uint32)
+        segments = [{"id": 1, "category_id": 21, "iscrowd": 0}]
+        for k in range(int(rng.integers(1, 4))):
+            bw, bh = rng.uniform(40, w / 2), rng.uniform(40, h / 2)
+            x, y = rng.uniform(0, w - bw - 1), rng.uniform(0, h - bh - 1)
+            cat = int(rng.integers(1, 21))
+            anns.append({"id": len(anns) + 1, "image_id": i, "category_id": cat, "bbox": [x, y, bw, bh],
+                         "area": bw * bh, "iscrowd": 0,
+                         "segmentation": [[x, y, x + bw, y, x + bw, y + bh, x, y + bh]]})
+            xi, yi, bwi, bhi = (int(round(v)) for v in (x, y, bw, bh))
+            img[yi: yi + bhi, xi: xi + bwi] = things[cat - 1]["color"]
+            ids[yi: yi + bhi, xi: xi + bwi] = k + 2
+            segments.append({"id": k + 2, "category_id": cat, "iscrowd": 0})
+        images[i] = np.clip(img.astype(np.int16) + rng.integers(-12, 13, (h, w, 3)), 0, 255).astype(np.uint8)
+        areas = np.bincount(ids.reshape(-1), minlength=len(segments) + 1)
+        pan_anns.append({"image_id": i, "file_name": f"{i:06d}.png", "segments_info": [
+            dict(s, area=int(areas[s["id"]])) for s in segments if areas[s["id"]] > 0]})
+        pan_maps[i], sem_maps[i] = ids, (ids == 1).astype(np.uint8)
+        size = np.minimum(np.exp(rng.uniform(np.log(16), np.log(400), (r, 2))), [w - 1, h - 1])
+        xy = rng.uniform(0, 1, (r, 2)) * ([w - 1, h - 1] - size)
+        boxes = np.concatenate([xy, xy + size], 1).astype(np.float32)
+        sp = voronoi_superpixels(seed + i, h, w, JTSM_SUPERPIXELS)
+        props["ids"].append(i)
+        props["boxes"].append(boxes)
+        props["objectness_logits"].append(np.sort(rng.uniform(0, 1, r))[::-1].astype(np.float32))
+        props["superpixels"].append(sp)
+        props["oh_labels"].append(oh_labels_from_boxes(boxes, sp, JTSM_SUPERPIXELS))
+    coco = {"images": infos, "annotations": anns,
+            "categories": [{"id": c["id"], "name": c["name"]} for c in things]}
+    pan_json = {"images": infos, "annotations": pan_anns,
+                "categories": [{"id": c["id"], "name": c["name"], "isthing": c["isthing"]} for c in VOC_CATEGORIES]}
+    return coco, images, sem_maps, pan_maps, pan_json, props
+
+
+def phase_jtsm_score(kernel, flagship_state):
+    """Phase 12: (a) the JTSM gate checkpoint scores the 12 in-memory
+    cocovar scenes on the card and on the CPU; (b) the JTSM flagship scores
+    seeded VOC scenes at full width by stage. Returns K1's launches."""
+    import numpy as np
+    import torch
+
+    import jtsm_tpu_torch.ops.roi_align as roi_align
+    from jtsm_tpu_torch.checkpoint import load_gate_ckpt, variables_to_state_dict
+    from jtsm_tpu_torch.config import jtsm_gate_cfg, jtsm_WSR_18_DC5_cfg
+    from jtsm_tpu_torch.data.datasets.synthetic import register_synthetic_cocovar, register_synthetic_panoptic
+    from jtsm_tpu_torch.wsl.builtin import _voc_sbd_panoptic_separated_meta
+
+    routed = roi_align.roi_align_multilevel_plain_autograd
+
+    def plain_on_cpu_only(features, scales, boxes, *a, **k):
+        if boxes.device.type != "cpu":
+            raise AssertionError("the plain ROIAlign ran on the card in JTSM scoring")
+        return routed(features, scales, boxes, *a, **k)
+
+    roi_align.roi_align_multilevel_plain_autograd = plain_on_cpu_only
+    try:
+        # (a) the gate: the card against the CPU, float32
+        name = "chip_smoke_jtsm_gate"
+        cfg = jtsm_gate_cfg()
+        cfg.DATASETS.TEST = (name,)
+        cfg.DATASETS.PROPOSAL_FILES_TEST = (register_synthetic_cocovar(name, num=GATE_VAR_SCENES),)
+        state = variables_to_state_dict(load_gate_ckpt(os.path.join(REPO, cfg.MODEL.WEIGHTS)))
+        runs = {k: jtsm_score_once(cfg, state, dev, kernel) for k, dev in (("card", DEVICE), ("cpu", "cpu"))}
+        (res_card, out_card, launches, _, _), (res_cpu, out_cpu, _, t_cpu, _) = runs["card"], runs["cpu"]
+        if launches != GATE_VAR_SCENES:
+            raise AssertionError(f"jtsm gate scoring on the card: roi_align_fwd launched {launches} times for "
+                                 f"{GATE_VAR_SCENES} images, not once each")
+        m = {"matched": 0, "reordered": 0, "at_cut": 0, "boxes": 0.0, "scores": 0.0, "masks": 0.0, "flip": 0.0}
+        sem_pixels, sem_differ, sem_gap = 0, 0, 0.0
+        for bc, bh in zip(out_card, out_cpu):
+            one = match_detections(bc, bh, score_tol=1e-4)
+            for k in ("matched", "reordered", "at_cut"):
+                m[k] += one[k]
+            for k, src in (("boxes", "boxes"), ("scores", "scores"), ("masks", "masks"), ("flip", "flip_margin")):
+                m[k] = max(m[k], one[src])
+            for i, (sc, sh) in enumerate(zip(bc["sem_seg"], bh["sem_seg"])):
+                sem_pixels += sh.size
+                diff = np.argwhere(sc != sh)
+                if len(diff):
+                    sem_differ += len(diff)
+                    gaps = sem_seg_near_ties(bh["sem_seg_logits"][i], bh["image_sizes"][i], sh.shape,
+                                             torch.as_tensor(diff))
+                    sem_gap = max(sem_gap, gaps.max().item())
+        task_diff = {t: abs(res_card[t][k] - res_cpu[t][k]) for t, k in JTSM_TASK_METRICS}
+        log(f"[jtsm_score] gate checkpoint (float32) on the {GATE_VAR_SCENES} in-memory cocovar scenes: card "
+            f"{format_jtsm(res_card)} | cpu {format_jtsm(res_cpu)} (cpu {t_cpu['total']:.1f}s) | detections matched "
+            f"by (source proposal, class): {m['matched']}, {m['reordered']} in another slot, {m['at_cut']} at the "
+            f"cut; boxes max_abs_err={m['boxes']:.3e} px (tol 1e-3), scores {m['scores']:.3e} (tol 1e-4), mask "
+            f"probabilities {m['masks']:.3e} (tol 1e-4, pixels across 0.5 within {m['flip']:.3e} of it) | sem_seg "
+            f"maps: {sem_differ} of {sem_pixels} pixels differ, their two largest logits within {sem_gap:.3e} "
+            f"(tol 1e-4) | task diffs " + " ".join(f"{t}={d:.4f}" for t, d in task_diff.items())
+            + f" (tol 0.02) | roi_align_fwd_launches={launches}")
+        if not (m["boxes"] <= 1e-3 and m["scores"] <= 1e-4 and m["masks"] <= 1e-4 and m["flip"] <= 1e-4):
+            raise AssertionError(f"jtsm gate scoring: the card's detections disagree with the CPU's: {m}")
+        if sem_differ and not sem_gap <= 1e-4:
+            raise AssertionError(f"jtsm gate scoring: sem_seg maps differ where the logits are {sem_gap} apart")
+        if not max(task_diff.values()) <= 0.02:
+            raise AssertionError(f"jtsm gate scoring: the card's numbers differ from the CPU's by {task_diff}")
+        total = launches
+
+        # (b) the flagship at full width: VOC scenes, bf16 and f32 in turns
+        name = "chip_smoke_jtsm_voc"
+        t0 = time.perf_counter()
+        base = jtsm_WSR_18_DC5_cfg()
+        coco, images, sem_maps, pan_maps, pan_json, props = voc_scenes(
+            JTSM_SCORE_SCENES, 3, base.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST)
+        register_synthetic_panoptic(name, coco, images, sem_maps, pan_maps, pan_json,
+                                    _voc_sbd_panoptic_separated_meta())
+        log(f"[jtsm_score] {JTSM_SCORE_SCENES} seeded VOC scenes {JTSM_IMAGE_HW}, {len(coco['annotations'])} things, "
+            f"{props['boxes'][0].shape[0]} proposals and {JTSM_SUPERPIXELS} superpixels each, made in "
+            f"{time.perf_counter() - t0:.1f}s")
+        dtypes = (base.TPU.COMPUTE_DTYPE, "float32")
+        stats = {d: [] for d in dtypes}
+        for i in range(JTSM_SCORE_ROUNDS):
+            for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+                c = base.clone()
+                c.TEST.AUG.ENABLED = False  # test-time augmentation waits for a later slice
+                c.TPU.COMPUTE_DTYPE = d
+                c.DATASETS.TEST = (name,)
+                c.DATASETS.PROPOSAL_FILES_TEST = (props,)
+                results, outs, n, timings, peak = jtsm_score_once(c, flagship_state, DEVICE, kernel)
+                total += n
+                if n != JTSM_SCORE_SCENES:
+                    raise AssertionError(f"jtsm flagship scoring {d}: roi_align_fwd launched {n} times for "
+                                         f"{JTSM_SCORE_SCENES} images, not once each")
+                missing = [(t, k) for t, k in JTSM_TASK_METRICS if t not in results or k not in results[t]]
+                shapes = {out["panoptic_seg"][j][0].shape for out in outs for j in range(len(out["panoptic_seg"]))}
+                if missing or shapes != {JTSM_IMAGE_HW}:
+                    raise AssertionError(f"jtsm flagship scoring {d}: missing {missing}, panoptic maps {shapes}")
+                stats[d].append((results, timings, peak, n))
+        stages = ("data", "model", "fusion", "paste", "encode", "eval", "eval_sem_seg", "eval_panoptic_seg", "total")
+        for d in dtypes:
+            per_image = {k: sum(r[1].get(k, 0.0) for r in stats[d]) / sum(r[1]["images"] for r in stats[d])
+                         for k in stages}
+            log(f"[jtsm_score] JTSM WSR-18 DC5 {DTYPE_NAMES[d]}, {JTSM_SCORE_SCENES} VOC scenes "
+                f"{JTSM_IMAGE_HW[0]}x{JTSM_IMAGE_HW[1]} at {base.INPUT.MIN_SIZE_TEST}, {JTSM_SCORE_ROUNDS} runs in "
+                "turns: seconds per image " + " ".join(f"{k}={v:.5f}" for k, v in per_image.items())
+                + f" (eval = COCOEval) | roi_align_fwd_launches={sum(r[3] for r in stats[d])} "
+                f"peak_mem_gib={max(r[2] for r in stats[d]):.3f} | random weights: {format_jtsm(stats[d][0][0])} "
+                "(not checked)")
+    finally:
+        roi_align.roi_align_multilevel_plain_autograd = routed
+    return total
+
+
 def kernel_line(kernel, launches, rows, f32_errs):
     """One entry of the kernels JSON line. ``ms``, ``plain_ms`` and
     ``bound_ms`` keep their long-standing meaning: the float32 box and mask
@@ -1804,15 +2057,21 @@ def main(argv=None) -> int:
     jt_rows, jt_launches, jt_med = phase_jtsm_train(KERNELS, gen, baseline, jtsm_state)
     log(f"[jtsm_train] done in {time.perf_counter() - t0:.1f}s")
 
+    # 12. JTSM scoring: the gate on the card against the CPU; the flagship by stage
+    t0 = time.perf_counter()
+    js_launches = phase_jtsm_score(KERNEL, jtsm_state)
+    log(f"[jtsm_score] done in {time.perf_counter() - t0:.1f}s")
+
     # per served request K1 pools boxes (R=1000, P=7) and masks (R=100,
     # P=14); per train step K1 and K2 pool and unpool boxes (R=1024, P=7)
     # and masks (R=256, P=14); per JTSM request K1 pools masks on one level
     # (R=100, P=14, C=512); per JTSM train step K1 pools masks on one level
     # (B=4, R=256, P=14, C=512), and K2 unpools them where the maps train
-    # (the gate). Times as kernel_line says; launches: the main paths,
-    # serve, train, score, JTSM and JTSM train, in both dtypes.
+    # (the gate); per JTSM scored image K1 pools masks on one level (R=100,
+    # P=14, C=512). Times as kernel_line says; launches: the main paths,
+    # serve, train, score, JTSM, JTSM train and JTSM score, in both dtypes.
     k1_launches = (sum(launches.values()) + sum(t[0][KERNEL.name] for t in train.values()) + score_launches
-                   + jtsm_launches + jt_launches[KERNEL.name])
+                   + jtsm_launches + jt_launches[KERNEL.name] + js_launches)
     k2_launches = sum(t[0][BWD_KERNEL.name] for t in train.values()) + jt_launches[BWD_KERNEL.name]
     bwd = {k[4:]: v for k, v in tres.items() if k.startswith("bwd ")}
     kernels = [
@@ -1833,6 +2092,7 @@ def main(argv=None) -> int:
         "l1_bf16_device_ms": l1_bf16["times"]["new"]["device_ms"],
         "l1_bf16_bound_ms": l1_bf16["bound_ms"],
     })
+    kernels[0]["js_launches"] = js_launches
     # the JTSM train rows: the mask pooler of a flagship step, one level,
     # B=4, R=256, P=14, C=512 (K1 forward, K2 backward)
     for line, kind in ((kernels[0], "fwd"), (kernels[1], "bwd")):
@@ -1852,7 +2112,7 @@ def main(argv=None) -> int:
         })
     log("[train] median step ms " + " ".join(f"{DTYPE_NAMES[d]}={t[1]:.3f}" for d, t in train.items())
         + f"; K1 launches serve {launches}, train " + str({d: t[0][KERNEL.name] for d, t in train.items()})
-        + f", score {score_launches}, jtsm {jtsm_launches}; JTSM request mean ms "
+        + f", score {score_launches}, jtsm {jtsm_launches}, jtsm score {js_launches}; JTSM request mean ms "
         + " ".join(f"{DTYPE_NAMES[d]}={ms:.3f}" for d, ms in jtsm_lat.items())
         + "; JTSM train step median ms " + " ".join(f"{DTYPE_NAMES[d]}={ms:.3f}" for d, ms in jt_med.items())
         + f", launches {jt_launches}")

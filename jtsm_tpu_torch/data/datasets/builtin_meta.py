@@ -1,6 +1,7 @@
 """COCO metadata (reference: detectron2/data/datasets/builtin_meta.py; JAX
-package ``data/datasets/builtin_meta.py:7,185``). The category table is the
-public COCO panoptic list; the instance splits use its 80 things."""
+package ``data/datasets/builtin_meta.py:7,185,198``). The category table is
+the public COCO panoptic list; the instance splits use its 80 things, the
+separated panoptic splits its 53 stuff classes too."""
 
 # fmt: off
 COCO_CATEGORIES = [
@@ -155,7 +156,23 @@ def _get_coco_instances_meta():
     }
 
 
+def _get_coco_panoptic_separated_meta():
+    """The 80 things, and the stuff classes of a separated panoptic split:
+    "things" at 0, then the 53 stuff categories at 1..53."""
+    stuff = [k for k in COCO_CATEGORIES if k["isthing"] == 0]
+    assert len(stuff) == 53, len(stuff)
+    ret = {
+        "stuff_dataset_id_to_contiguous_id": {k["id"]: i + 1 for i, k in enumerate(stuff)},
+        "stuff_classes": ["things"] + [k["name"].replace("-other", "").replace("-merged", "") for k in stuff],
+        "stuff_colors": [[82, 18, 128]] + [k["color"] for k in stuff],
+    }
+    ret.update(_get_coco_instances_meta())
+    return ret
+
+
 def _get_builtin_metadata(dataset_name: str):
     if dataset_name == "coco":
         return _get_coco_instances_meta()
+    if dataset_name == "coco_panoptic_separated":
+        return _get_coco_panoptic_separated_meta()
     raise KeyError(f"No built-in metadata for dataset {dataset_name} in the port yet")

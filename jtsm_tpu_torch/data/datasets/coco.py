@@ -1,6 +1,8 @@
-"""COCO-format instance datasets, read from the json with no pycocotools
-(reference: detectron2/data/datasets/coco.py:30 ``load_coco_json``, :449
-``register_coco_instances``; JAX package ``data/datasets/coco.py:24,133``)."""
+"""COCO-format instance datasets, read from the json with no pycocotools,
+and sem-seg ground truth paired with images by name (reference:
+detectron2/data/datasets/coco.py:30 ``load_coco_json``, :209
+``load_sem_seg``, :449 ``register_coco_instances``; JAX package
+``data/datasets/coco.py:24,95,133``)."""
 
 from __future__ import annotations
 
@@ -79,6 +81,34 @@ def load_coco_json(
     if num_without_valid_segmentation > 0:
         logger.warning(f"Filtered out {num_without_valid_segmentation} instances without valid segmentation.")
     return dataset_dicts
+
+
+def _walk(root: str, ext: str):
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(ext):
+                yield os.path.relpath(os.path.join(dirpath, f), root)
+
+
+def load_sem_seg(gt_root: str, image_root: str, gt_ext: str = "png", image_ext: str = "jpg") -> List[dict]:
+    """{file_name, sem_seg_file_name} for each image under ``image_root``
+    with a ground-truth file of the same base name under ``gt_root``, in
+    the order of their relative paths."""
+
+    def file2id(folder_path, file_path):
+        return os.path.splitext(os.path.normpath(os.path.relpath(file_path, start=folder_path)))[0]
+
+    input_files = sorted((os.path.join(image_root, f) for f in _walk(image_root, image_ext)),
+                         key=lambda p: file2id(image_root, p))
+    gt_files = sorted((os.path.join(gt_root, f) for f in _walk(gt_root, gt_ext)), key=lambda p: file2id(gt_root, p))
+    assert len(gt_files) > 0, f"No annotations found in {gt_root}."
+    if len(input_files) != len(gt_files):
+        input_basenames = [os.path.basename(f)[: -len(image_ext) - 1] for f in input_files]
+        gt_basenames = [os.path.basename(f)[: -len(gt_ext) - 1] for f in gt_files]
+        intersect = sorted(set(input_basenames) & set(gt_basenames))
+        input_files = [os.path.join(image_root, f + "." + image_ext) for f in intersect]
+        gt_files = [os.path.join(gt_root, f + "." + gt_ext) for f in intersect]
+    return [{"file_name": i, "sem_seg_file_name": g} for i, g in zip(input_files, gt_files)]
 
 
 def register_coco_instances(name: str, metadata: dict, json_file: Union[str, Dict], image_root: str):

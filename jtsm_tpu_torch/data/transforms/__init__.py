@@ -1,5 +1,12 @@
 from .augmentation import AugInput, Augmentation, AugmentationList, ResizeShortestEdge
-from .transform import NoOpTransform, ResizeTransform, Transform, TransformList, resize_bilinear_uint8
+from .transform import (
+    NoOpTransform,
+    ResizeTransform,
+    Transform,
+    TransformList,
+    resize_bilinear_uint8,
+    resize_nearest,
+)
 
 __all__ = [
     "AugInput",
@@ -11,4 +18,5 @@ __all__ = [
     "Transform",
     "TransformList",
     "resize_bilinear_uint8",
+    "resize_nearest",
 ]

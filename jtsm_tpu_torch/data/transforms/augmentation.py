@@ -6,7 +6,7 @@ random train augmentations come with the train loader (ROADMAP)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -31,14 +31,17 @@ class Augmentation:
 
 
 class AugInput:
-    """Carries an image through a chain of transforms (reference
-    augmentation.py:275)."""
+    """Carries an image, and optionally its sem-seg map, through a chain of
+    transforms (reference augmentation.py:275)."""
 
-    def __init__(self, image: np.ndarray):
+    def __init__(self, image: np.ndarray, *, sem_seg: Optional[np.ndarray] = None):
         self.image = image
+        self.sem_seg = sem_seg
 
     def transform(self, tfm: Transform) -> None:
         self.image = tfm.apply_image(self.image)
+        if self.sem_seg is not None:
+            self.sem_seg = tfm.apply_segmentation(self.sem_seg)
 
 
 class AugmentationList(Augmentation):

@@ -10,6 +10,13 @@ with 22 fraction bits, the horizontal pass into a uint8 image, then the
 vertical pass). It gives Pillow's pixels bit for bit. When downscaling,
 Pillow's bilinear filter is a triangle of the scale's width
 (antialiasing), not a 2x2 interpolation.
+
+Segmentations resize with Pillow's ``NEAREST`` filter, which the JAX package
+applies in ``L`` mode to uint8 maps and in ``F`` mode (float32) to others,
+such as the int32 superpixel ids. ``resize_nearest`` is that filter written
+out (``src/libImaging/Geometry.c`` ``ImagingScaleAffine``): the source
+coordinate of output index ``i`` is a double that starts at half the scale
+and adds the scale once per step, truncated to an index.
 """
 
 from __future__ import annotations
@@ -77,12 +84,41 @@ def resize_bilinear_uint8(img: np.ndarray, new_h: int, new_w: int) -> np.ndarray
     return np.ascontiguousarray(out)
 
 
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """The input index Pillow's nearest filter reads for each of
+    ``out_size`` outputs: the coordinate accumulates in double precision,
+    as the C loop does (``xo = a * 0.5``, then ``xo += a``)."""
+    steps = np.full(out_size, float(in_size) / out_size)
+    steps[0] *= 0.5
+    return np.trunc(np.add.accumulate(steps)).astype(np.int64)
+
+
+def resize_nearest(img: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
+    """``Image.resize((new_w, new_h), Image.NEAREST)`` of an (H, W) or (H, W,
+    C) array, without Pillow; the array keeps its dtype."""
+    ys = _nearest_index(img.shape[0], new_h)
+    xs = _nearest_index(img.shape[1], new_w)
+    return np.ascontiguousarray(img[ys[:, None], xs[None, :]])
+
+
 class Transform:
-    """An image transform. Box, polygon and segmentation transforms come
-    with the train loader (ROADMAP)."""
+    """A deterministic transform of an image and of what lies on it: boxes
+    (through their corners) and segmentations."""
 
     def apply_image(self, img: np.ndarray) -> np.ndarray:
         raise NotImplementedError
+
+    def apply_coords(self, coords: np.ndarray) -> np.ndarray:
+        raise NotImplementedError
+
+    def apply_box(self, box: np.ndarray) -> np.ndarray:
+        """(N, 4) XYXY boxes: the envelope of the transformed corners."""
+        box = np.asarray(box, dtype=np.float64).reshape(-1, 4)
+        coords = self.apply_coords(box[:, [0, 1, 2, 1, 0, 3, 2, 3]].reshape(-1, 2)).reshape(-1, 4, 2)
+        return np.concatenate((coords.min(axis=1), coords.max(axis=1)), axis=1)
+
+    def apply_segmentation(self, segmentation: np.ndarray) -> np.ndarray:
+        return self.apply_image(segmentation)
 
 
 class TransformList(Transform):
@@ -96,6 +132,16 @@ class TransformList(Transform):
             img = t.apply_image(img)
         return img
 
+    def apply_coords(self, coords):
+        for t in self.transforms:
+            coords = t.apply_coords(coords)
+        return coords
+
+    def apply_segmentation(self, seg):
+        for t in self.transforms:
+            seg = t.apply_segmentation(seg)
+        return seg
+
     def __len__(self):
         return len(self.transforms)
 
@@ -107,11 +153,16 @@ class NoOpTransform(Transform):
     def apply_image(self, img):
         return img
 
+    def apply_coords(self, coords):
+        return coords
+
 
 class ResizeTransform(Transform):
     """Resize (h, w) to (new_h, new_w) (reference transform.py:94). Images
-    are uint8, resized as Pillow's ``BILINEAR`` does; other filters and
-    float images are not ported yet."""
+    are uint8, resized as Pillow's ``BILINEAR`` does (other filters and
+    float images are not ported yet); segmentations as its ``NEAREST``
+    does, in float32 unless they are uint8 or bool, as the JAX package's
+    ``F`` mode gives them."""
 
     def __init__(self, h: int, w: int, new_h: int, new_w: int):
         self.h, self.w, self.new_h, self.new_w = h, w, new_h, new_w
@@ -121,3 +172,15 @@ class ResizeTransform(Transform):
         if img.dtype != np.uint8:
             raise NotImplementedError("only uint8 images are resized in the port so far")
         return resize_bilinear_uint8(img, self.new_h, self.new_w)
+
+    def apply_coords(self, coords):
+        coords = np.asarray(coords, dtype=np.float64).copy()
+        coords[:, 0] = coords[:, 0] * (self.new_w * 1.0 / self.w)
+        coords[:, 1] = coords[:, 1] * (self.new_h * 1.0 / self.h)
+        return coords
+
+    def apply_segmentation(self, seg: np.ndarray) -> np.ndarray:
+        assert seg.shape[:2] == (self.h, self.w), (seg.shape, self.h, self.w)
+        if seg.dtype == np.uint8 or seg.dtype == bool:
+            return resize_nearest(seg, self.new_h, self.new_w)
+        return resize_nearest(seg.astype(np.float32), self.new_h, self.new_w)

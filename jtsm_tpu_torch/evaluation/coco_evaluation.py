@@ -4,7 +4,10 @@ detectron2/evaluation/coco_evaluation.py:30 ``COCOEvaluator``, :357
 135,168``).
 
 Masks are pasted at each image's original size on the outputs' device
-(``ops.paste_masks``), then run-length encoded on the host in numpy.
+(``ops.paste_masks``), then run-length encoded on the host in numpy. A WSL
+model's ``no_paste`` detections carry image-size masks (``masks_full``) at
+the network's input size instead: each is cropped to the image and sampled
+at the original size (JAX package ``coco_evaluation.py:95-110``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,23 @@ def _numpy(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
+def _tensor(x) -> Optional[torch.Tensor]:
+    return x if x is None or torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+
+
+def _sample_full_masks(masks_full: torch.Tensor, ih: int, iw: int, h: int, w: int) -> np.ndarray:
+    """(N, H, W) image-size masks at the network's input size, cropped to
+    (ih, iw) and sampled at (h, w) by the nearest half-pixel centre (numpy's
+    ``round``, halves to even), at 0.5."""
+    def index(n, size):
+        return torch.as_tensor(np.clip((np.arange(size) + 0.5) * n / size - 0.5, 0, n - 1).round().astype(int),
+                               device=masks_full.device)
+
+    m = masks_full[:, :ih, :iw]
+    ys, xs = index(m.shape[1], h), index(m.shape[2], w)
+    return (m[:, ys[:, None], xs[None, :]].to(torch.float32) >= 0.5).cpu().numpy()
+
+
 def batched_outputs_to_coco_json(
     outputs: Dict,
     image_ids: np.ndarray,
@@ -40,30 +60,43 @@ def batched_outputs_to_coco_json(
     reverse_id_mapping: Optional[Dict[int, int]] = None,
     with_masks: bool = False,
     timings: Optional[Dict[str, float]] = None,
+    image_sizes: Optional[np.ndarray] = None,
 ) -> List[dict]:
     """Fixed-capacity (B, D, ...) detections (tensors or arrays) -> COCO
     result dicts, image by image in slot order, valid slots only. With
     ``with_masks``, each image's valid masks are pasted at its original
-    size in one batched call and encoded as compressed RLE. ``timings``
-    (optional) gathers the seconds of the ``paste`` and the ``encode``."""
+    size in one batched call and encoded as compressed RLE; a detection
+    flagged ``no_paste`` takes its ``masks_full`` mask cropped to its
+    ``image_sizes`` entry instead. ``timings`` (optional) gathers the
+    seconds of the ``paste`` and the ``encode``."""
     boxes, scores = _numpy(outputs["boxes"]), _numpy(outputs["scores"])
     classes, valid = _numpy(outputs["classes"]), _numpy(outputs["valid"]).astype(bool)
-    masks = outputs.get("masks") if with_masks else None
-    if masks is not None and not torch.is_tensor(masks):
-        masks = torch.as_tensor(np.asarray(masks))
+    masks = _tensor(outputs.get("masks")) if with_masks else None
+    masks_full = _tensor(outputs.get("masks_full")) if with_masks else None
+    no_paste = np.zeros(valid.shape, bool)
+    if masks_full is not None and outputs.get("no_paste") is not None:
+        no_paste = _numpy(outputs["no_paste"]).astype(bool)
     results = []
     for i in range(scores.shape[0]):
         img_id = int(image_ids[i])
         h, w = int(orig_sizes[i][0]), int(orig_sizes[i][1])
         slots = np.nonzero(valid[i])[0]
         rles = None
-        if masks is not None and len(slots):
+        if (masks is not None or masks_full is not None) and len(slots):
             t0 = time.perf_counter()
-            sel = torch.as_tensor(slots, device=masks.device)
-            pasted = paste_masks(masks[i][sel], torch.as_tensor(boxes[i][slots], device=masks.device), h, w)
-            pasted = pasted.cpu().numpy()
+            full = np.zeros((len(slots), h, w), bool)
+            flat = no_paste[i][slots]
+            if flat.any():
+                ih, iw = (int(v) for v in image_sizes[i]) if image_sizes is not None else masks_full.shape[2:4]
+                sel = torch.as_tensor(slots[flat], device=masks_full.device)
+                full[flat] = _sample_full_masks(masks_full[i][sel], ih, iw, h, w)
+            if masks is not None and not flat.all():
+                sel = torch.as_tensor(slots[~flat], device=masks.device)
+                pasted = paste_masks(masks[i][sel], torch.as_tensor(boxes[i][slots[~flat]], device=masks.device), h, w)
+                full[~flat] = pasted.cpu().numpy()
             t1 = time.perf_counter()
-            rles = [rle_string_encode(m) for m in pasted]
+            # a detection with neither kind of mask has no segmentation
+            rles = [rle_string_encode(m) if f or masks is not None else None for m, f in zip(full, flat)]
             add_time(timings, "paste", t1 - t0)
             add_time(timings, "encode", time.perf_counter() - t1)
         for n, j in enumerate(slots):
@@ -75,7 +108,7 @@ def batched_outputs_to_coco_json(
                 "bbox": [x0, y0, x1 - x0, y1 - y0],
                 "score": float(scores[i, j]),
             }
-            if rles is not None:
+            if rles is not None and rles[n] is not None:
                 res["segmentation"] = rles[n]
             results.append(res)
     return results
@@ -106,10 +139,11 @@ class COCOEvaluator(DatasetEvaluator):
         reverse_id_mapping = None
         if hasattr(self._metadata, "thing_dataset_id_to_contiguous_id"):
             reverse_id_mapping = {v: k for k, v in self._metadata.thing_dataset_id_to_contiguous_id.items()}
-        with_masks = "masks" in outputs
+        with_masks = "masks" in outputs or "masks_full" in outputs
         self._do_masks = self._do_masks or with_masks
         self._predictions.extend(batched_outputs_to_coco_json(
-            outputs, inputs["image_ids"], inputs["orig_sizes"], reverse_id_mapping, with_masks, self._timings
+            outputs, inputs["image_ids"], inputs["orig_sizes"], reverse_id_mapping, with_masks, self._timings,
+            inputs.get("image_sizes"),
         ))
 
     @property

@@ -1,13 +1,14 @@
 """Evaluator interface and the inference loop (reference:
-detectron2/evaluation/evaluator.py:13, :101; JAX package
-``evaluation/evaluator.py:56`` ``inference_on_dataset``)."""
+detectron2/evaluation/evaluator.py:13, :64, :101; JAX package
+``evaluation/evaluator.py:21,32,56``)."""
 
 from __future__ import annotations
 
 import datetime
 import logging
 import time
-from typing import Callable, Dict, Optional
+from collections import OrderedDict
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -39,9 +40,34 @@ class DatasetEvaluator:
         pass
 
 
+class DatasetEvaluators(DatasetEvaluator):
+    """Several evaluators fed the same outputs; their results merged, each
+    task from one evaluator only."""
+
+    def __init__(self, evaluators: List[DatasetEvaluator]):
+        self._evaluators = evaluators
+
+    def reset(self):
+        for evaluator in self._evaluators:
+            evaluator.reset()
+
+    def process(self, inputs, outputs):
+        for evaluator in self._evaluators:
+            evaluator.process(inputs, outputs)
+
+    def evaluate(self):
+        results = OrderedDict()
+        for evaluator in self._evaluators:
+            for k, v in (evaluator.evaluate() or {}).items():
+                assert k not in results, f"Different evaluators produce results with the same key {k}"
+                results[k] = v
+        return results
+
+
 def inference_on_dataset(predict_fn: Callable, data_loader, evaluator: DatasetEvaluator,
-                         timings: Optional[Dict[str, float]] = None):
-    """Runs ``predict_fn(batch) -> outputs`` over the loader and feeds the
+                         timings: Optional[Dict[str, float]] = None, postprocess: Optional[Callable] = None):
+    """Runs ``predict_fn(batch) -> outputs`` over the loader, then
+    ``postprocess(batch, outputs) -> outputs`` where given, and feeds the
     evaluator; the timing log leaves out the first 5 batches, as in the
     reference. ``timings`` (optional) gathers the seconds of ``model``
     (the call, ended by a device synchronize; ``model_first`` the first
@@ -64,6 +90,8 @@ def inference_on_dataset(predict_fn: Callable, data_loader, evaluator: DatasetEv
         add_time(timings, "model", seconds)
         if idx == 0:
             add_time(timings, "model_first", seconds)
+        if postprocess is not None:
+            outputs = postprocess(inputs, outputs)
         evaluator.process(inputs, outputs)
         n = len(inputs["image_ids"])
         total += n

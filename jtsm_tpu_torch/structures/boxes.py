@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from enum import IntEnum
 
+import numpy as np
 import torch
 
 
@@ -18,6 +19,21 @@ class BoxMode(IntEnum):
     XYXY_REL = 2
     XYWH_REL = 3
     XYWHA_ABS = 4
+
+    @staticmethod
+    def convert(box: np.ndarray, from_mode: "BoxMode", to_mode: "BoxMode") -> np.ndarray:
+        """(N, 4) boxes from one absolute mode to another (reference
+        boxes.py:35): the array as it is when the modes agree, else float64;
+        only XYXY_ABS and XYWH_ABS are ported."""
+        if from_mode == to_mode:
+            return box
+        arr = np.asarray(box, dtype=np.float64)
+        a, b, c, d = (arr[..., i] for i in range(4))
+        if (from_mode, to_mode) == (BoxMode.XYWH_ABS, BoxMode.XYXY_ABS):
+            return np.stack([a, b, a + c, b + d], axis=-1)
+        if (from_mode, to_mode) == (BoxMode.XYXY_ABS, BoxMode.XYWH_ABS):
+            return np.stack([a, b, c - a, d - b], axis=-1)
+        raise NotImplementedError(f"BoxMode.convert from {from_mode} to {to_mode} is not ported yet")
 
 
 def box_area(boxes: torch.Tensor) -> torch.Tensor:

@@ -35,8 +35,10 @@ def argument_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def setup(args):
-    cfg = get_cfg()
+def setup(args, cfg=None):
+    """The config: ``cfg`` (default ``get_cfg()``) with the file and the
+    command line's KEY VALUE pairs merged in, frozen."""
+    cfg = cfg if cfg is not None else get_cfg()
     if args.config_file:
         cfg.merge_from_file(args.config_file)
     cfg.merge_from_list(args.opts)

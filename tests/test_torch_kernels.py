@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 K1 (ROIAlign forward), K2 (ROIAlign backward) and one tiny train step
-through both against the same step through the plain versions; and the JTSM
-gate model's mask pooler, which must launch K1 once a request.
+through both against the same step through the plain versions; the JTSM
+gate model's mask pooler, which must launch K1 once a request; and JTSM
+scoring, whose panoptic fusion on the card must give the CPU's maps.
 
 Every test here needs an NVIDIA card and skips without one. The card's
 machine has no JAX, which ``tests/conftest.py`` imports, so run them there
@@ -440,3 +441,64 @@ def test_jtsm_mask_pooler_launches_k1_once_a_request(monkeypatch, dtype):
     torch.cuda.synchronize()
     assert KERNEL.launches - before == 1
     assert out["masks"].shape == (1, 100, 28, 28) and bool(out["valid"].any())
+
+
+@pytest.mark.gpu
+def test_jtsm_scoring_fuses_on_the_card_as_on_the_cpu(monkeypatch):
+    """The JTSM gate scores three in-memory cocovar scenes on the card: K1
+    launches once a batch and the plain ROIAlign never; its outputs fused on
+    the card and, copied, on the CPU give the same panoptic id maps,
+    segments and sem-seg maps."""
+    _card()
+    import os
+
+    import jtsm_tpu_torch.ops.roi_align as roi_align
+    from jtsm_tpu_torch.checkpoint import load_gate_ckpt, variables_to_state_dict
+    from jtsm_tpu_torch.config import jtsm_gate_cfg
+    from jtsm_tpu_torch.data import DatasetCatalog, MetadataCatalog
+    from jtsm_tpu_torch.data.datasets.synthetic import register_synthetic_cocovar
+    from jtsm_tpu_torch.engine import test
+    from jtsm_tpu_torch.evaluation import COCOEvaluator, COCOPanopticEvaluator, DatasetEvaluators, SemSegEvaluator
+    from jtsm_tpu_torch.modeling import build_model
+    from jtsm_tpu_torch.modeling.meta_arch.panoptic_fpn import panoptic_fusion_postprocess
+    from jtsm_tpu_torch.wsl.train_net import build_test_loader
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain ROIAlign ran on the card")
+
+    monkeypatch.setattr(roi_align, "roi_align_multilevel_plain_autograd", plain)
+    name = "torch_kernels_jtsm_score"
+    cfg = jtsm_gate_cfg()
+    cfg.DATASETS.TEST = (name,)
+    cfg.DATASETS.PROPOSAL_FILES_TEST = (register_synthetic_cocovar(name, num=3),)
+    try:
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        model = build_model(cfg, device="cuda")
+        model.load_state_dict(variables_to_state_dict(load_gate_ckpt(os.path.join(root, cfg.MODEL.WEIGHTS))))
+        raw = []
+        inference = model.inference
+
+        def capture(batch):
+            out = inference(batch)
+            raw.append((out, batch["image_sizes"], batch["orig_sizes"]))
+            return out
+
+        model.inference = capture
+        evaluator = DatasetEvaluators([COCOEvaluator(name), SemSegEvaluator(name), COCOPanopticEvaluator(name)])
+        before = KERNEL.launches
+        results = test(cfg, model, evaluators=[evaluator], build_test_loader=build_test_loader)
+        assert KERNEL.launches - before == len(raw) == 3
+        assert set(results) == {"bbox", "segm", "sem_seg", "panoptic_seg"}
+        combine = cfg.MODEL.PANOPTIC_FPN.COMBINE
+        args = (combine.OVERLAP_THRESH, combine.STUFF_AREA_LIMIT, combine.INSTANCES_CONFIDENCE_THRESH)
+        for out, image_sizes, orig_sizes in raw:
+            on_card = panoptic_fusion_postprocess(out, image_sizes, orig_sizes, *args)
+            on_cpu = panoptic_fusion_postprocess({k: v.cpu() for k, v in out.items()}, image_sizes, orig_sizes, *args)
+            for (cm, cs), (hm, hs) in zip(on_card["panoptic_seg"], on_cpu["panoptic_seg"]):
+                np.testing.assert_array_equal(cm, hm)
+                assert cs == hs and cs
+            for a, b in zip(on_card["sem_seg"], on_cpu["sem_seg"]):
+                np.testing.assert_array_equal(a, b)
+    finally:
+        DatasetCatalog.remove(name)
+        MetadataCatalog.remove(name)
