@@ -100,12 +100,37 @@ Phases, in order; any failure ends the run with a non-zero exit:
    bfloat16 and float32, 2 runs each in turns: K1 once an image, the four
    tasks' numbers present (printed, not checked: random weights), the
    seconds per image of each stage (data, model, fusion, paste, encode,
-   each evaluator, total) and the peak memory.
+   each evaluator, total) and the peak memory;
+13. jtsm tta: (a) the committed JTSM gate checkpoint scores 6 of the 12
+   in-memory cocovar scenes with test-time augmentation (short sides 112
+   and 128, long side at most 176, and the flips: 4 views) through the WSL
+   command's ``test_with_TTA`` (TTA-AVG: mean class scores and sem-seg
+   logits over the views, the mask re-run on the merged boxes, fusion, the
+   three evaluators), on the card (the plain ROIAlign stubbed to raise
+   there) and on this machine's CPU: merged detections matched by class
+   and box, boxes within 1e-3 px, scores, re-run mask probabilities and
+   merged logits within 1e-4, the four numbers within 0.02, K1 twice a
+   view; (b) K1 against its plain version at the mask pooler's shape in
+   the largest view of a VOC image (one level, (1, 75, 100, 512), R=100,
+   P=14) in float32 and bfloat16, timed beside its bound; then the JTSM
+   flagship (phase 10's random weights, TEST.AUG as configured: 5 short
+   sides and their flips, 10 views, 20 passes an image) scores 4 seeded
+   VOC scenes in bfloat16 and float32, 2 runs each in turns, with
+   TPU.IMAGE_BUCKETS that hold every view (a cut: no default bucket holds
+   the 1200 view): K1 20 times an image, the seconds per image of each
+   stage (the views' resize, their passes, the logits' copy and resize,
+   the merge, the mask re-run, fusion, paste, encode, each evaluator,
+   total), the same scenes without TTA for the ratio, and the peak memory;
+   (c) the Mask R-CNN gate checkpoint with TTA (TTA-UNION, the masks
+   re-run) on 2 in-memory scenes on the card against the CPU: merged
+   detections matched, boxes within 1e-3 px, scores and re-run mask
+   probabilities within 1e-4, bbox AP within 0.02.
 
 The last three lines are {"kernels": [...]} (``kernel_line`` says which
 times; ``l1_*`` are K1's single-level rows of phase 10, ``jt_*`` K1's and
 K2's rows at phase 11's train shape, ``js_launches`` its launches in phase
-12), the card's name and power limit as
+12, ``tta_*`` K1's row at phase 13's largest view and its launches there),
+the card's name and power limit as
 nvidia-smi gives them, and {"ok": true, "device": {...}}. Needs one card, torch, numpy and pytest;
 imports nothing of JAX. Without a card, or outside a checkout of the
 repository, it exits with 2 and prints no result.
@@ -1255,7 +1280,7 @@ def phase_jtsm(kernel, gen, baseline):
     # (b) the flagship at full width
     t0 = time.perf_counter()
     flagship = jtsm_WSR_18_DC5_cfg()
-    flagship.TEST.AUG.ENABLED = False  # test-time augmentation waits for a later slice
+    flagship.TEST.AUG.ENABLED = False  # serving one view; TTA is phase 13's
     main_dtype = flagship.TPU.COMPUTE_DTYPE
     dtypes = (main_dtype, "float32")
     flagship_state = random_state_dict(build_model(flagship, device="cpu"), seed=0)
@@ -1844,7 +1869,7 @@ def phase_jtsm_score(kernel, flagship_state):
         for i in range(JTSM_SCORE_ROUNDS):
             for d in dtypes if i % 2 == 0 else dtypes[::-1]:
                 c = base.clone()
-                c.TEST.AUG.ENABLED = False  # test-time augmentation waits for a later slice
+                c.TEST.AUG.ENABLED = False  # one view; TTA is phase 13's
                 c.TPU.COMPUTE_DTYPE = d
                 c.DATASETS.TEST = (name,)
                 c.DATASETS.PROPOSAL_FILES_TEST = (props,)
@@ -1871,6 +1896,331 @@ def phase_jtsm_score(kernel, flagship_state):
     finally:
         roi_align.roi_align_multilevel_plain_autograd = routed
     return total
+
+
+# phase 13: test-time augmentation
+TTA_GATE_SCENES = 6  # of the 12 cocovar scenes: the CPU's half of 13(a) stays near 20 s
+TTA_GATE_AUG = ((112, 128), 176)  # short sides and long-side cap: every gate view fits [[128, 176], [176, 176]]
+TTA_SCORE_SCENES = 4
+TTA_SCORE_ROUNDS = 2  # flagship TTA runs in each dtype, in turns
+# the flagship's default buckets, then (1344, 1344), where the 864 view of a
+# VOC image lands by the default fallback, and (1200, 1600), which holds the
+# 1200 view that no default bucket holds
+TTA_BUCKETS = [[800, 1344], [1344, 800], [1024, 1024], [1344, 1344], [1200, 1600]]
+TTA_STAGES = ("tta_resize", "tta_views", "tta_logits", "tta_merge", "tta_rerun", "fusion", "paste", "encode", "eval",
+              "eval_sem_seg", "eval_panoptic_seg", "total")
+
+
+class recording:
+    """Within the block, every call of ``cls`` (a TTA wrapper) appends its
+    merged result to ``self.merged``."""
+
+    def __init__(self, cls):
+        self.cls, self.merged = cls, []
+
+    def __enter__(self):
+        call, merged = self.cls.__call__, self.merged
+
+        def record(wrapper, *args, **kwargs):
+            merged.append(call(wrapper, *args, **kwargs))
+            return merged[-1]
+
+        self.call, self.cls.__call__ = call, record
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__call__ = self.call
+
+
+def tta_score_once(cfg, state_dict, device, kernel, wrapper):
+    """The WSL command's ``test_with_TTA`` (a WSL ``cfg``) or
+    ``engine.defaults.test`` with TEST.AUG on (Mask R-CNN) of ``cfg`` on
+    ``device``, K1's count set to 0 just before and read just after, the
+    evaluators writing nothing: returns the results, each image's merged
+    result of ``wrapper``, K1's launches, the seconds of each stage and
+    the peak device memory of the run (GiB above what was allocated
+    before)."""
+    import torch
+
+    from jtsm_tpu_torch.engine import test
+    from jtsm_tpu_torch.evaluation import COCOEvaluator, COCOPanopticEvaluator, DatasetEvaluators, SemSegEvaluator
+    from jtsm_tpu_torch.modeling import build_model
+    from jtsm_tpu_torch.wsl import train_net
+
+    model = build_model(cfg, device=device)
+    model.load_state_dict(state_dict)
+    wsl = cfg.MODEL.META_ARCHITECTURE == "GeneralizedMCNNWSL"
+
+    def build_evaluator(cfg_, name, timings=None):
+        if not wsl:
+            return COCOEvaluator(name, timings=timings)
+        return DatasetEvaluators([COCOEvaluator(name, timings=timings), SemSegEvaluator(name, timings=timings),
+                                  COCOPanopticEvaluator(name, timings=timings)])
+
+    timings = {}
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    with recording(wrapper) as rec:
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        if wsl:
+            results = train_net.test_with_TTA(cfg, model, timings, build_evaluator)
+        else:
+            results = test(cfg, model, timings=timings, build_evaluator=build_evaluator)
+        timings["total"] = time.perf_counter() - t0
+        launches = kernel.launches
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30 if on_card else float("nan")
+    return results, rec.merged, launches, timings, peak
+
+
+def match_merged(card, host, score_tol):
+    """The merged detections of two runs on one image matched by class and
+    box (within 1e-3 px): the largest box, score and mask-probability
+    differences. A detection on one side only must score within
+    ``score_tol`` of the lower of the two runs' last scores (the cut at the
+    detection count)."""
+    import numpy as np
+
+    out = dict(matched=0, at_cut=0, boxes=0.0, scores=0.0, masks=0.0)
+    free = list(range(len(host["boxes"])))
+    cut = min([float(host["scores"].min(initial=np.inf)), float(card["scores"].min(initial=np.inf))])
+    for i in range(len(card["boxes"])):
+        for n, j in enumerate(free):
+            if (card["classes"][i] == host["classes"][j] and np.abs(card["boxes"][i] - host["boxes"][j]).max() <= 1e-3
+                    and abs(float(card["scores"][i] - host["scores"][j])) <= score_tol):
+                out["matched"] += 1
+                out["boxes"] = max(out["boxes"], float(np.abs(card["boxes"][i] - host["boxes"][j]).max()))
+                out["scores"] = max(out["scores"], abs(float(card["scores"][i] - host["scores"][j])))
+                if "masks" in card:
+                    out["masks"] = max(out["masks"], float(np.abs(card["masks"][i] - host["masks"][j]).max()))
+                free.pop(n)
+                break
+        else:
+            if float(card["scores"][i]) > cut + score_tol:
+                raise AssertionError(f"TTA detection {i} (score {float(card['scores'][i])}) only on the card")
+            out["at_cut"] += 1
+    for j in free:
+        if float(host["scores"][j]) > cut + score_tol:
+            raise AssertionError(f"TTA detection {j} (score {float(host['scores'][j])}) only on the CPU")
+        out["at_cut"] += 1
+    return out
+
+
+def register_first_scenes(name, coco, images, n, metadata, panoptic=False):
+    """The first ``n`` of a synthetic set's scenes, registered in memory as
+    ``name``: the COCO set with ``metadata``, or the separated panoptic set
+    with its stuff and panoptic maps. Returns the proposal dict of a
+    panoptic set."""
+    from jtsm_tpu_torch.data import DatasetCatalog, MetadataCatalog
+    from jtsm_tpu_torch.data.datasets.coco import load_coco_json
+    from jtsm_tpu_torch.data.datasets.synthetic import (IMAGE_DIR, make_panoptic_and_proposals,
+                                                        register_synthetic_panoptic)
+
+    ids = {im["id"] for im in coco["images"][:n]}
+    coco = dict(coco, images=coco["images"][:n], annotations=[a for a in coco["annotations"] if a["image_id"] in ids])
+    if panoptic:
+        pan_maps, sem_maps, pan_json, proposals = make_panoptic_and_proposals(coco)
+        register_synthetic_panoptic(name, coco, images, sem_maps, pan_maps, pan_json, metadata)
+        return proposals
+
+    def load():
+        records = load_coco_json(coco, IMAGE_DIR, name)
+        for r in records:
+            r["image"] = images[r["image_id"]]
+        return records
+
+    DatasetCatalog.register(name, load)
+    MetadataCatalog.get(name).set(json_file=coco, image_root=IMAGE_DIR, evaluator_type="coco", **metadata)
+    return None
+
+
+def phase_jtsm_tta(kernel, gen, baseline, flagship_state, card):
+    """Phase 13: (a) the JTSM gate with TTA on the card against the CPU;
+    (b) K1 at the largest view's mask pooler shape, then the JTSM flagship
+    scored with its TEST.AUG by stage (``card``, nvidia-smi's name and
+    power limit, printed beside the times); (c) the Mask R-CNN gate with
+    TTA on the card against the CPU. Returns K1's rows and its launches."""
+    import numpy as np
+    import torch
+
+    import jtsm_tpu_torch.modeling.test_time_augmentation as tta
+    import jtsm_tpu_torch.ops.roi_align as roi_align
+    from jtsm_tpu_torch.checkpoint import load_gate_ckpt, variables_to_state_dict
+    from jtsm_tpu_torch.config import jtsm_gate_cfg, jtsm_WSR_18_DC5_cfg, mask_rcnn_gate_cfg
+    from jtsm_tpu_torch.data.datasets.builtin_meta import _get_builtin_metadata
+    from jtsm_tpu_torch.data.datasets.synthetic import VARIED_SEED, make_synthetic_coco, register_synthetic_panoptic
+    from jtsm_tpu_torch.wsl.builtin import _voc_sbd_panoptic_separated_meta
+
+    routed = roi_align.roi_align_multilevel_plain_autograd
+
+    def plain_on_cpu_only(features, scales, boxes, *a, **k):
+        if boxes.device.type != "cpu":
+            raise AssertionError("the plain ROIAlign ran on the card in TTA scoring")
+        return routed(features, scales, boxes, *a, **k)
+
+    sizes, max_size = TTA_GATE_AUG
+    views = len(sizes) * 2
+    roi_align.roi_align_multilevel_plain_autograd = plain_on_cpu_only
+    try:
+        # (a) the JTSM gate: the card against the CPU, float32
+        name = "chip_smoke_tta_gate"
+        cfg = jtsm_gate_cfg()
+        coco, images = make_synthetic_coco(GATE_VAR_SCENES, VARIED_SEED, varied=True)
+        proposals = register_first_scenes(name, coco, images, TTA_GATE_SCENES,
+                                          _get_builtin_metadata("coco_panoptic_separated"), panoptic=True)
+        cfg.DATASETS.TEST = cfg.DATASETS.TRAIN = (name,)
+        cfg.DATASETS.PROPOSAL_FILES_TEST = (proposals,)
+        cfg.TEST.AUG.ENABLED, cfg.TEST.AUG.MIN_SIZES, cfg.TEST.AUG.MAX_SIZE = True, sizes, max_size
+        state = variables_to_state_dict(load_gate_ckpt(os.path.join(REPO, cfg.MODEL.WEIGHTS)))
+        runs = {k: tta_score_once(cfg, state, dev, kernel, tta.GeneralizedRCNNWithTTAAVG)
+                for k, dev in (("card", DEVICE), ("cpu", "cpu"))}
+        (res_card, m_card, launches, _, _), (res_cpu, m_cpu, _, t_cpu, _) = runs["card"], runs["cpu"]
+        if launches != TTA_GATE_SCENES * views * 2:
+            raise AssertionError(f"jtsm gate TTA on the card: roi_align_fwd launched {launches} times for "
+                                 f"{TTA_GATE_SCENES} images of {views} views, not twice a view")
+        m = {"matched": 0, "at_cut": 0, "boxes": 0.0, "scores": 0.0, "masks": 0.0, "class_scores": 0.0, "logits": 0.0}
+        sem_differ = sem_pixels = 0
+        sem_gap = 0.0
+        for mc, mh in zip(m_card, m_cpu):
+            one = match_merged(mc["detections"], mh["detections"], score_tol=1e-4)
+            for k in one:
+                m[k] = m[k] + one[k] if k in ("matched", "at_cut") else max(m[k], one[k])
+            m["class_scores"] = max(m["class_scores"], float(np.abs(mc["proposal_class_scores"]
+                                                                    - mh["proposal_class_scores"]).max()))
+            m["logits"] = max(m["logits"], float(np.abs(mc["sem_seg_logits"] - mh["sem_seg_logits"]).max()))
+            sc, sh = mc["sem_seg_logits"].argmax(-1), mh["sem_seg_logits"].argmax(-1)
+            sem_pixels += sh.size
+            diff = sc != sh
+            if diff.any():
+                sem_differ += int(diff.sum())
+                top2 = np.sort(mh["sem_seg_logits"][diff], -1)[:, -2:]
+                sem_gap = max(sem_gap, float((top2[:, 1] - top2[:, 0]).max()))
+        task_diff = {t: abs(res_card[t][k] - res_cpu[t][k]) for t, k in JTSM_TASK_METRICS}
+        log(f"[jtsm_tta] gate checkpoint (float32) with TTA ({views} views: short sides {list(sizes)}, long side "
+            f"<= {max_size}, and their flips) on {TTA_GATE_SCENES} in-memory cocovar scenes: card "
+            f"{format_jtsm(res_card)} | cpu {format_jtsm(res_cpu)} (cpu {t_cpu['total']:.1f}s) | merged detections "
+            f"matched by class and box: {m['matched']}, {m['at_cut']} at the cut; boxes max_abs_err={m['boxes']:.3e} "
+            f"px (tol 1e-3), scores {m['scores']:.3e} (tol 1e-4), re-run mask probabilities {m['masks']:.3e} (tol "
+            f"1e-4), mean class scores {m['class_scores']:.3e}, merged sem-seg logits {m['logits']:.3e} (tol 1e-4) "
+            f"| their argmax: {sem_differ} of {sem_pixels} pixels differ, the two largest logits within "
+            f"{sem_gap:.3e} | task diffs " + " ".join(f"{t}={d:.4f}" for t, d in task_diff.items())
+            + f" (tol 0.02) | roi_align_fwd_launches={launches} (twice a view)")
+        if not (m["boxes"] <= 1e-3 and m["scores"] <= 1e-4 and m["masks"] <= 1e-4 and m["logits"] <= 1e-4):
+            raise AssertionError(f"jtsm gate TTA: the card's merged outputs disagree with the CPU's: {m}")
+        if sem_differ and not sem_gap <= 1e-4:
+            raise AssertionError(f"jtsm gate TTA: sem-seg maps differ where the logits are {sem_gap} apart")
+        if not max(task_diff.values()) <= 0.02:
+            raise AssertionError(f"jtsm gate TTA: the card's numbers differ from the CPU's by {task_diff}")
+        total = launches
+
+        # (b) K1 at the largest view's mask pooler shape: res5 at stride 16
+        # of the 1200x1600 view, 100 detections
+        rows = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            feat = torch.randn((1, 75, 100, 512), generator=gen, device=DEVICE).to(dtype)
+            boxes = jtsm_mask_boxes(gen, 100, (1200, 1600))
+            zeros = torch.zeros(100, dtype=torch.int32, device=DEVICE)
+            tag = f"tta mask pooler {'bf16' if dtype == torch.bfloat16 else 'f32'} (L=1, 1200 view)"
+            rows[tag] = check_and_time_fwd(tag, [feat], [1.0 / 16], boxes, zeros, zeros, 14, baseline,
+                                           phase="jtsm_tta")
+
+        # the flagship with its TEST.AUG, VOC scenes, bf16 and f32 in turns
+        name = "chip_smoke_tta_voc"
+        base = jtsm_WSR_18_DC5_cfg()
+        if not base.TEST.AUG.ENABLED:
+            raise AssertionError("the JTSM flagship's TEST.AUG.ENABLED is off")
+        n_views = len(base.TEST.AUG.MIN_SIZES) * (2 if base.TEST.AUG.FLIP else 1)
+        t0 = time.perf_counter()
+        coco, images, sem_maps, pan_maps, pan_json, props = voc_scenes(
+            TTA_SCORE_SCENES, 4, base.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST)
+        register_synthetic_panoptic(name, coco, images, sem_maps, pan_maps, pan_json,
+                                    _voc_sbd_panoptic_separated_meta())
+        log(f"[jtsm_tta] flagship TEST.AUG: MIN_SIZES {list(base.TEST.AUG.MIN_SIZES)}, MAX_SIZE "
+            f"{base.TEST.AUG.MAX_SIZE}, FLIP {base.TEST.AUG.FLIP}: {n_views} views and {2 * n_views} passes an image "
+            f"(the mask re-run); {TTA_SCORE_SCENES} seeded VOC scenes {JTSM_IMAGE_HW} made in "
+            f"{time.perf_counter() - t0:.1f}s | cut: TPU.IMAGE_BUCKETS {TTA_BUCKETS} in place of "
+            f"{base.TPU.IMAGE_BUCKETS}, since no default bucket holds the 1200 view (1200x1600) of a VOC image "
+            "and the JAX package raises there; (1344, 1344) keeps the 864 view where the default fallback puts it "
+            "| cut: TEST.EVAL_TRAIN off (the VOC train sets are not in the repository)")
+        dtypes = (base.TPU.COMPUTE_DTYPE, "float32")
+        stats = {d: [] for d in dtypes}
+        plain_runs = {d: [] for d in dtypes}
+        for i in range(TTA_SCORE_ROUNDS):
+            for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+                c = base.clone()
+                c.TPU.COMPUTE_DTYPE = d
+                c.TPU.IMAGE_BUCKETS = TTA_BUCKETS
+                c.TEST.EVAL_TRAIN = False
+                c.DATASETS.TEST = (name,)
+                c.DATASETS.PROPOSAL_FILES_TEST = (props,)
+                results, merged, n, timings, peak = tta_score_once(c, flagship_state, DEVICE, kernel,
+                                                                   tta.GeneralizedRCNNWithTTAAVG)
+                total += n
+                if n != TTA_SCORE_SCENES * n_views * 2:
+                    raise AssertionError(f"jtsm flagship TTA {d}: roi_align_fwd launched {n} times for "
+                                         f"{TTA_SCORE_SCENES} images, not {2 * n_views} each")
+                missing = [(t, k) for t, k in JTSM_TASK_METRICS if t not in results or k not in results[t]]
+                bad = [mg["sem_seg_logits"].shape for mg in merged
+                       if mg["sem_seg_logits"].shape[:2] != JTSM_IMAGE_HW or not np.isfinite(mg["sem_seg_logits"]).all()
+                       or not np.isfinite(mg["detections"]["masks"]).all()]
+                if missing or bad or len(merged) != TTA_SCORE_SCENES:
+                    raise AssertionError(f"jtsm flagship TTA {d}: missing {missing}, merged logits {bad}")
+                stats[d].append((results, timings, peak, n))
+                c.TEST.AUG.ENABLED = False
+                c.TPU.IMAGE_BUCKETS = base.TPU.IMAGE_BUCKETS
+                _, _, n, timings, _ = jtsm_score_once(c, flagship_state, DEVICE, kernel)
+                if n != TTA_SCORE_SCENES:
+                    raise AssertionError(f"jtsm flagship {d} without TTA: roi_align_fwd launched {n} times")
+                plain_runs[d].append(timings)
+                total += n
+        for d in dtypes:
+            n_img = sum(r[1]["images"] for r in stats[d])
+            per_image = {k: sum(r[1].get(k, 0.0) for r in stats[d]) / n_img for k in TTA_STAGES}
+            off = sum(t["total"] for t in plain_runs[d]) / sum(t["images"] for t in plain_runs[d])
+            log(f"[jtsm_tta] JTSM WSR-18 DC5 {DTYPE_NAMES[d]} with TTA on {card}, {TTA_SCORE_SCENES} VOC scenes "
+                f"{JTSM_IMAGE_HW[0]}x{JTSM_IMAGE_HW[1]}, {TTA_SCORE_ROUNDS} runs in turns: seconds per image "
+                + " ".join(f"{k}={v:.5f}" for k, v in per_image.items())
+                + f" (tta_views = the {n_views} views' passes to their scores on the host, tta_logits = the logits "
+                f"to the host and resized back, eval = COCOEval) | TTA off on the same scenes total={off:.5f}, "
+                f"ratio {per_image['total'] / off:.2f} | roi_align_fwd_launches={sum(r[3] for r in stats[d])} "
+                f"({2 * n_views} an image) peak_mem_gib={max(r[2] for r in stats[d]):.3f} | random weights: "
+                f"{format_jtsm(stats[d][0][0])} (not checked)")
+
+        # (c) the Mask R-CNN gate with TTA: the card against the CPU
+        name = "chip_smoke_tta_coco"
+        cfg = mask_rcnn_gate_cfg()
+        coco, images = make_synthetic_coco(GATE_SCENES, 0)
+        register_first_scenes(name, coco, images, 2, _get_builtin_metadata("coco"))
+        cfg.DATASETS.TEST = (name,)
+        cfg.TEST.AUG.ENABLED, cfg.TEST.AUG.MIN_SIZES, cfg.TEST.AUG.MAX_SIZE = True, sizes, max_size
+        state = variables_to_state_dict(load_gate_ckpt(os.path.join(REPO, cfg.MODEL.WEIGHTS)))
+        runs = {k: tta_score_once(cfg, state, dev, kernel, tta.GeneralizedRCNNWithTTA)
+                for k, dev in (("card", DEVICE), ("cpu", "cpu"))}
+        (res_card, m_card, n, _, _), (res_cpu, m_cpu, _, _, _) = runs["card"], runs["cpu"]
+        m = {"matched": 0, "at_cut": 0, "boxes": 0.0, "scores": 0.0, "masks": 0.0}
+        for mc, mh in zip(m_card, m_cpu):
+            one = match_merged(mc, mh, score_tol=1e-4)
+            for k in one:
+                m[k] = m[k] + one[k] if k in ("matched", "at_cut") else max(m[k], one[k])
+        # the box and mask poolers in each view's pass, the mask pooler in its re-run
+        want_n = sum(3 if len(mh["boxes"]) else 2 for mh in m_card) * views
+        log(f"[jtsm_tta] Mask R-CNN gate checkpoint (float32) with TTA ({views} views) on 2 in-memory scenes: card "
+            f"bbox_AP={res_card['bbox']['AP']:.4f} | cpu bbox_AP={res_cpu['bbox']['AP']:.4f} | merged detections "
+            f"matched by class and box: {m['matched']}, {m['at_cut']} at the cut; boxes max_abs_err="
+            f"{m['boxes']:.3e} px (tol 1e-3), scores {m['scores']:.3e} (tol 1e-4), re-run mask probabilities "
+            f"{m['masks']:.3e} (tol 1e-4) | roi_align_fwd_launches={n}")
+        if not (m["matched"] > 0 and m["boxes"] <= 1e-3 and m["scores"] <= 1e-4 and m["masks"] <= 1e-4):
+            raise AssertionError(f"Mask R-CNN gate TTA: the card's merged detections disagree with the CPU's: {m}")
+        if n != want_n or abs(res_card["bbox"]["AP"] - res_cpu["bbox"]["AP"]) > 0.02:
+            raise AssertionError(f"Mask R-CNN gate TTA: {n} launches (not {want_n}), bbox AP "
+                                 f"{res_card['bbox']['AP']} against {res_cpu['bbox']['AP']}")
+        total += n
+    finally:
+        roi_align.roi_align_multilevel_plain_autograd = routed
+    return rows, total
 
 
 def kernel_line(kernel, launches, rows, f32_errs):
@@ -2062,16 +2412,24 @@ def main(argv=None) -> int:
     js_launches = phase_jtsm_score(KERNEL, jtsm_state)
     log(f"[jtsm_score] done in {time.perf_counter() - t0:.1f}s")
 
+    # 13. TTA: the JTSM gate on the card against the CPU, K1 at the largest
+    # view's shape, the flagship by stage, the Mask R-CNN gate
+    t0 = time.perf_counter()
+    tta_rows, tta_launches = phase_jtsm_tta(KERNEL, gen, baseline, jtsm_state, card)
+    log(f"[jtsm_tta] done in {time.perf_counter() - t0:.1f}s")
+
     # per served request K1 pools boxes (R=1000, P=7) and masks (R=100,
     # P=14); per train step K1 and K2 pool and unpool boxes (R=1024, P=7)
     # and masks (R=256, P=14); per JTSM request K1 pools masks on one level
     # (R=100, P=14, C=512); per JTSM train step K1 pools masks on one level
     # (B=4, R=256, P=14, C=512), and K2 unpools them where the maps train
     # (the gate); per JTSM scored image K1 pools masks on one level (R=100,
-    # P=14, C=512). Times as kernel_line says; launches: the main paths,
-    # serve, train, score, JTSM, JTSM train and JTSM score, in both dtypes.
+    # P=14, C=512), and with TTA twice a view (R=100, P=14, C=512, up to
+    # (1, 75, 100, 512) at the 1200 view). Times as kernel_line says;
+    # launches: the main paths, serve, train, score, JTSM, JTSM train, JTSM
+    # score and TTA, in both dtypes.
     k1_launches = (sum(launches.values()) + sum(t[0][KERNEL.name] for t in train.values()) + score_launches
-                   + jtsm_launches + jt_launches[KERNEL.name] + js_launches)
+                   + jtsm_launches + jt_launches[KERNEL.name] + js_launches + tta_launches)
     k2_launches = sum(t[0][BWD_KERNEL.name] for t in train.values()) + jt_launches[BWD_KERNEL.name]
     bwd = {k[4:]: v for k, v in tres.items() if k.startswith("bwd ")}
     kernels = [
@@ -2093,6 +2451,22 @@ def main(argv=None) -> int:
         "l1_bf16_bound_ms": l1_bf16["bound_ms"],
     })
     kernels[0]["js_launches"] = js_launches
+    # the TTA row: the mask pooler at the 1200 view of a VOC image, one
+    # level (1, 75, 100, 512), R=100, P=14
+    tta, tta_bf16 = tta_rows["tta mask pooler f32 (L=1, 1200 view)"], tta_rows["tta mask pooler bf16 (L=1, 1200 view)"]
+    kernels[0].update({
+        "tta_launches": tta_launches,
+        "tta_max_abs_err": tta["err"],
+        "tta_ms": tta["times"]["new"]["ms"],
+        "tta_device_ms": tta["times"]["new"]["device_ms"],
+        "tta_plain_ms": tta["plain_ms"],
+        "tta_bound_ms": tta["bound_ms"],
+        "tta_bf16_max_abs_err": tta_bf16["err"],
+        "tta_bf16_ms": tta_bf16["times"]["new"]["ms"],
+        "tta_bf16_device_ms": tta_bf16["times"]["new"]["device_ms"],
+        "tta_bf16_plain_ms": tta_bf16["plain_ms"],
+        "tta_bf16_bound_ms": tta_bf16["bound_ms"],
+    })
     # the JTSM train rows: the mask pooler of a flagship step, one level,
     # B=4, R=256, P=14, C=512 (K1 forward, K2 backward)
     for line, kind in ((kernels[0], "fwd"), (kernels[1], "bwd")):
@@ -2112,7 +2486,8 @@ def main(argv=None) -> int:
         })
     log("[train] median step ms " + " ".join(f"{DTYPE_NAMES[d]}={t[1]:.3f}" for d, t in train.items())
         + f"; K1 launches serve {launches}, train " + str({d: t[0][KERNEL.name] for d, t in train.items()})
-        + f", score {score_launches}, jtsm {jtsm_launches}, jtsm score {js_launches}; JTSM request mean ms "
+        + f", score {score_launches}, jtsm {jtsm_launches}, jtsm score {js_launches}, tta {tta_launches}; "
+        "JTSM request mean ms "
         + " ".join(f"{DTYPE_NAMES[d]}={ms:.3f}" for d, ms in jtsm_lat.items())
         + "; JTSM train step median ms " + " ".join(f"{DTYPE_NAMES[d]}={ms:.3f}" for d, ms in jt_med.items())
         + f", launches {jt_launches}")

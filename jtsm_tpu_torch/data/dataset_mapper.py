@@ -41,11 +41,8 @@ class DatasetMapper:
 
     def __call__(self, dataset_dict: dict) -> dict:
         dataset_dict = copy.deepcopy(dataset_dict)
-        pixels = dataset_dict.pop("image", None)
-        if pixels is None:
-            image = utils.read_image(dataset_dict["file_name"], format=self.image_format)
-        else:
-            image = utils.convert_rgb_to_format(pixels, self.image_format)
+        image = utils.record_image(dataset_dict, self.image_format)
+        dataset_dict.pop("image", None)
         utils.check_image_size(dataset_dict, image)
         sem_seg_gt = dataset_dict.pop("sem_seg", None)
         if "sem_seg_file_name" in dataset_dict:

@@ -82,6 +82,14 @@ def read_image(file_name: str, format: Optional[str] = None) -> np.ndarray:
         return convert_PIL_to_numpy(_apply_exif_orientation(Image.open(f)), format)
 
 
+def record_image(dataset_dict: dict, format: Optional[str] = None) -> np.ndarray:
+    """A record's pixels in ``format``: its in-memory ``image`` (uint8 RGB)
+    as it is, else its ``file_name`` decoded (``read_image``)."""
+    if dataset_dict.get("image") is not None:
+        return convert_rgb_to_format(dataset_dict["image"], format)
+    return read_image(dataset_dict["file_name"], format)
+
+
 def read_sem_seg(file_name: str, dtype=np.uint8) -> np.ndarray:
     """A PNG of labels (a stuff map, or a panoptic map in RGB) as Pillow
     decodes it, in ``dtype``. Needs Pillow."""

@@ -4,6 +4,7 @@ from .transform import (
     ResizeTransform,
     Transform,
     TransformList,
+    resize_bilinear_float,
     resize_bilinear_uint8,
     resize_nearest,
 )
@@ -17,6 +18,7 @@ __all__ = [
     "ResizeTransform",
     "Transform",
     "TransformList",
+    "resize_bilinear_float",
     "resize_bilinear_uint8",
     "resize_nearest",
 ]

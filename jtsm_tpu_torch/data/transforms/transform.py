@@ -11,6 +11,12 @@ vertical pass). It gives Pillow's pixels bit for bit. When downscaling,
 Pillow's bilinear filter is a triangle of the scale's width
 (antialiasing), not a 2x2 interpolation.
 
+Float images (the test-time augmentation's views, and the sem-seg logits it
+resizes back) go through Pillow's 32-bit path, which the JAX package takes
+channel by channel in ``F`` mode: the same coefficients kept as normalised
+doubles, each output a double sum in the taps' order stored as float32,
+the horizontal pass first (``resize_bilinear_float``).
+
 Segmentations resize with Pillow's ``NEAREST`` filter, which the JAX package
 applies in ``L`` mode to uint8 maps and in ``F`` mode (float32) to others,
 such as the int32 superpixel ids. ``resize_nearest`` is that filter written
@@ -30,9 +36,8 @@ PRECISION_BITS = 32 - 8 - 2  # Resample.c: 8-bit values, 2 bits of headroom
 
 def _bilinear_coeffs(in_size: int, out_size: int):
     """For each output index: the first input index it reads, and the
-    integer weights of up to ``ksize`` consecutive inputs (zero past the
-    filter's support), as ``precompute_coeffs`` and
-    ``normalize_coeffs_8bpc`` compute them in double precision."""
+    normalised double weights of up to ``ksize`` consecutive inputs (zero
+    past the filter's support), as ``precompute_coeffs`` computes them."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
     support = 1.0 * filterscale  # the bilinear filter's support is 1
@@ -49,17 +54,18 @@ def _bilinear_coeffs(in_size: int, out_size: int):
     for i in range(ksize):  # the C loop's order of summation
         ww = ww + w[:, i]
     w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
-    k = np.trunc(0.5 + w * (1 << PRECISION_BITS)).astype(np.int64)  # the weights are >= 0
-    return xmin, np.where(live, k, 0), ksize
+    return xmin, np.where(live, w, 0.0), ksize
 
 
 def _resample_axis(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
-    """One pass of Pillow's 8-bit resampler along ``axis`` (0 or 1): integer
-    accumulation from a half, then the shift, clipped to 0..255. The sums
-    stay below 2^31 (255 times weights that add up to about 2^22)."""
+    """One pass of Pillow's 8-bit resampler along ``axis`` (0 or 1): the
+    weights quantised to ``PRECISION_BITS`` (``normalize_coeffs_8bpc``),
+    integer accumulation from a half, then the shift, clipped to 0..255.
+    The sums stay below 2^31 (255 times weights that add up to about
+    2^22)."""
     in_size = img.shape[axis]
-    xmin, k, ksize = _bilinear_coeffs(in_size, out_size)
-    k = k.astype(np.int32)
+    xmin, w, ksize = _bilinear_coeffs(in_size, out_size)
+    k = np.trunc(0.5 + w * (1 << PRECISION_BITS)).astype(np.int32)  # the weights are >= 0
     src = img.astype(np.int32)
     wshape = [1] * src.ndim
     wshape[axis] = -1
@@ -72,6 +78,25 @@ def _resample_axis(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
     return np.clip(acc, 0, 255).astype(np.uint8)
 
 
+def _resample_axis_float(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    """One pass of Pillow's 32-bit resampler along ``axis`` (0 or 1) of a
+    float32 array: each output the double sum, in the taps' order, of the
+    inputs times their normalised weights, stored as float32
+    (``ImagingResampleHorizontal_32bpc`` and its vertical twin). A tap past
+    the support has weight 0 and adds 0 (the inputs are finite)."""
+    in_size = img.shape[axis]
+    xmin, w, ksize = _bilinear_coeffs(in_size, out_size)
+    wshape = [1] * img.ndim
+    wshape[axis] = -1
+    src = img.astype(np.float64)
+    acc = np.zeros(img.shape[:axis] + (out_size,) + img.shape[axis + 1:], np.float64)
+    for i in range(ksize):
+        taps = np.take(src, np.minimum(xmin + i, in_size - 1), axis=axis)
+        taps *= w[:, i].reshape(wshape)
+        acc += taps
+    return acc.astype(np.float32)
+
+
 def resize_bilinear_uint8(img: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
     """``Image.fromarray(img).resize((new_w, new_h), Image.BILINEAR)`` of a
     uint8 (H, W) or (H, W, C) array, without Pillow."""
@@ -81,6 +106,19 @@ def resize_bilinear_uint8(img: np.ndarray, new_h: int, new_w: int) -> np.ndarray
         out = _resample_axis(out, 1, new_w)
     if new_h != img.shape[0]:
         out = _resample_axis(out, 0, new_h)
+    return np.ascontiguousarray(out)
+
+
+def resize_bilinear_float(img: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
+    """Pillow's ``F``-mode ``BILINEAR`` resize of each channel of an (H, W)
+    or (H, W, C) array taken as float32 (``Image.fromarray(img[..., c],
+    mode="F").resize((new_w, new_h), Image.BILINEAR)``), float32, without
+    Pillow."""
+    out = np.asarray(img, np.float32)
+    if new_w != img.shape[1]:
+        out = _resample_axis_float(out, 1, new_w)
+    if new_h != img.shape[0]:
+        out = _resample_axis_float(out, 0, new_h)
     return np.ascontiguousarray(out)
 
 
@@ -159,19 +197,20 @@ class NoOpTransform(Transform):
 
 class ResizeTransform(Transform):
     """Resize (h, w) to (new_h, new_w) (reference transform.py:94). Images
-    are uint8, resized as Pillow's ``BILINEAR`` does (other filters and
-    float images are not ported yet); segmentations as its ``NEAREST``
-    does, in float32 unless they are uint8 or bool, as the JAX package's
-    ``F`` mode gives them."""
+    resize as Pillow's ``BILINEAR`` does: uint8 ones in its 8-bit mode,
+    others in float32 channel by channel (``F`` mode), as the JAX package
+    hands them to Pillow (other filters are not ported yet); segmentations
+    as its ``NEAREST`` does, in float32 unless they are uint8 or bool, as
+    the JAX package's ``F`` mode gives them."""
 
     def __init__(self, h: int, w: int, new_h: int, new_w: int):
         self.h, self.w, self.new_h, self.new_w = h, w, new_h, new_w
 
     def apply_image(self, img: np.ndarray) -> np.ndarray:
         assert img.shape[:2] == (self.h, self.w), (img.shape, self.h, self.w)
-        if img.dtype != np.uint8:
-            raise NotImplementedError("only uint8 images are resized in the port so far")
-        return resize_bilinear_uint8(img, self.new_h, self.new_w)
+        if img.dtype == np.uint8:
+            return resize_bilinear_uint8(img, self.new_h, self.new_w)
+        return resize_bilinear_float(img, self.new_h, self.new_w)
 
     def apply_coords(self, coords):
         coords = np.asarray(coords, dtype=np.float64).copy()

@@ -13,10 +13,14 @@ import time
 from collections import OrderedDict
 from typing import Callable, Dict, List, Optional
 
-from ..data import MetadataCatalog, build_detection_test_loader
+import numpy as np
+
+from ..data import DatasetCatalog, MetadataCatalog, build_detection_test_loader
+from ..data.detection_utils import record_image
 from ..evaluation import COCOEvaluator, inference_on_dataset, print_csv_format
 from ..evaluation.evaluator import add_time
 from ..modeling.meta_arch.panoptic_fpn import panoptic_fusion_postprocess
+from ..modeling.test_time_augmentation import GeneralizedRCNNWithTTA
 
 logger = logging.getLogger(__name__)
 
@@ -44,9 +48,10 @@ def test(cfg, model, evaluators: Optional[List] = None, timings: Optional[Dict[s
     maps (``panoptic_fusion_postprocess``) before the evaluators see them.
     ``timings`` (optional) gathers the seconds of each stage
     (``evaluation.inference_on_dataset``, ``fusion``, and the evaluators
-    built here)."""
+    built here). With TEST.AUG.ENABLED the model scores through
+    ``test_with_TTA``."""
     if cfg.TEST.AUG.ENABLED:
-        raise NotImplementedError("test-time augmentation is not ported yet (ROADMAP queue 1)")
+        return test_with_TTA(cfg, model, timings, build_evaluator)
     combine = cfg.MODEL.PANOPTIC_FPN.COMBINE
     results = OrderedDict()
     for idx, dataset_name in enumerate(cfg.DATASETS.TEST):
@@ -76,3 +81,53 @@ def test(cfg, model, evaluators: Optional[List] = None, timings: Optional[Dict[s
     if len(results) == 1:
         results = list(results.values())[0]
     return results
+
+
+def tta_wrapper_args(cfg, model, timings: Optional[Dict[str, float]] = None) -> Dict:
+    """The TTA wrappers' arguments from TEST.AUG and TPU.IMAGE_BUCKETS, on
+    ``model``'s device."""
+    aug = cfg.TEST.AUG
+    return dict(min_sizes=tuple(aug.MIN_SIZES), max_size=aug.MAX_SIZE, flip=aug.FLIP,
+                buckets=[tuple(b) for b in cfg.TPU.IMAGE_BUCKETS], device=model.device, timings=timings)
+
+
+def evaluate_datasets(cfg, datasets, build_evaluator: Callable, timings, score_record: Callable):
+    """Each (dataset name, its records) scored image by image:
+    ``score_record(record) -> outputs`` (batch of one, original-image
+    coordinates) into the dataset's evaluator, the results printed; the
+    one dataset's dict when there is one."""
+    results = OrderedDict()
+    for dataset_name, records in datasets:
+        evaluator = build_evaluator(cfg, dataset_name, timings=timings)
+        evaluator.reset()
+        for d in records:
+            inputs = {"image_ids": np.asarray([d.get("image_id", -1)]),
+                      "orig_sizes": np.asarray([[d["height"], d["width"]]])}
+            evaluator.process(inputs, score_record(d, dataset_name))
+            add_time(timings, "images", 1)
+        results[dataset_name] = evaluator.evaluate() or {}
+        print_csv_format(results[dataset_name])
+    if len(results) == 1:
+        results = list(results.values())[0]
+    return results
+
+
+def test_with_TTA(cfg, model, timings: Optional[Dict[str, float]] = None,
+                  build_evaluator: Callable = build_evaluator):
+    """Scores ``model`` with test-time augmentation (JAX package
+    ``engine/defaults.py:427``): each image of DATASETS.TEST through
+    ``GeneralizedRCNNWithTTA`` (the union of the views' detections and the
+    mask re-run), its merged boxes, scores and classes to the evaluator.
+    As in the JAX package the masks are not handed on, so a Mask R-CNN
+    scores bbox AP only. ``timings`` gathers the wrapper's stages and the
+    evaluators'."""
+    tta = GeneralizedRCNNWithTTA(model.inference, **tta_wrapper_args(cfg, model, timings))
+
+    def score(d, dataset_name):
+        merged = tta(record_image(d, cfg.INPUT.FORMAT).astype(np.float32))
+        n = len(merged["boxes"])
+        return {"boxes": merged["boxes"][None], "scores": merged["scores"][None],
+                "classes": merged["classes"][None], "valid": np.ones((1, n), bool)}
+
+    return evaluate_datasets(cfg, [(n, DatasetCatalog.get(n)) for n in cfg.DATASETS.TEST], build_evaluator,
+                             timings, score)

@@ -11,9 +11,11 @@ Input contract, the JAX package's batch dict:
   gt_mask_crops:(B, G, M, M) bool           (training, MASK_ON)
 Output in eval mode: fixed (B, D) detections with a ``valid`` mask: ``boxes``
 (B, D, 4), ``scores`` (B, D), ``classes`` (B, D) int32, ``valid`` (B, D)
-bool and, with MASK_ON, ``masks`` (B, D, S, S) ROI probabilities. In train
-mode (``model.train()``): the loss dict ``loss_rpn_cls``, ``loss_rpn_loc``,
-``loss_cls``, ``loss_box_reg`` and, with MASK_ON, ``loss_mask``.
+bool and, with MASK_ON, ``masks`` (B, D, S, S) ROI probabilities; given
+``detected_boxes``, only the per-box branches
+(:meth:`GeneralizedRCNN.inference`). In train mode (``model.train()``): the
+loss dict ``loss_rpn_cls``, ``loss_rpn_loc``, ``loss_cls``,
+``loss_box_reg`` and, with MASK_ON, ``loss_mask``.
 
 Sampling in training draws uniforms from the generator passed to
 ``forward``, in this order: the RPN's positive and negative anchor draws
@@ -69,12 +71,35 @@ class GeneralizedRCNN(nn.Module):
         x = ((images - self.pixel_mean) / self.pixel_std).permute(0, 3, 1, 2)
         return self.backbone(x.to(self.compute_dtype)), image_sizes
 
+    def given_detections(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """The request's ``detected_boxes`` (B, D, 4) in network-input
+        coordinates and ``detected_classes`` (B, D) on the model's device,
+        with ``detected_scores`` (default 1) and ``detected_valid`` (default
+        all) as ``scores`` and ``valid``."""
+        dev = self.device
+        boxes = torch.as_tensor(batch["detected_boxes"], dtype=torch.float32, device=dev)
+        b, d = boxes.shape[:2]
+        scores, valid = batch.get("detected_scores"), batch.get("detected_valid")
+        return {
+            "boxes": boxes,
+            "classes": torch.as_tensor(batch["detected_classes"], device=dev),
+            "scores": torch.ones((b, d), device=dev) if scores is None else torch.as_tensor(scores, device=dev),
+            "valid": (torch.ones((b, d), dtype=torch.bool, device=dev) if valid is None
+                      else torch.as_tensor(valid, dtype=torch.bool, device=dev)),
+        }
+
     @torch.no_grad()
     def inference(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Detections for a batch dict (see the module docstring). Inputs
-        are moved to the model's device."""
+        are moved to the model's device. With ``detected_boxes`` (and
+        ``detected_classes``, optionally ``detected_scores`` and
+        ``detected_valid``) in the request, the RPN and the box head are
+        skipped and only the per-box branches run on those boxes, which
+        stay in network-input coordinates (JAX package ``rcnn.py:76-93``)."""
         with exact_float32(self.compute_dtype == torch.float32):
             features, image_sizes = self._features(batch)
+            if "detected_boxes" in batch:
+                return self.roi_heads.forward_with_given_boxes(features, self.given_detections(batch))
             orig_sizes = torch.as_tensor(batch.get("orig_sizes", image_sizes), device=self.device)
             proposals, proposal_scores, _ = self.proposal_generator(image_sizes, features)
             detections = self.roi_heads(features, proposals, proposal_scores, image_sizes)

@@ -110,15 +110,26 @@ class StandardROIHeads(nn.Module):
             self.nms_thresh,
             self.detections_per_image,
         )
-        if self.mask_on:
-            d = detections["boxes"].shape[1]
-            mask_feats = self.mask_pooler(
-                feats, detections["boxes"].reshape(b * d, 4), batch_idx.repeat_interleave(d)
-            )
-            probs = mask_rcnn_inference(self.mask_head(mask_feats), detections["classes"].reshape(-1))
-            detections["masks"] = probs.reshape((b, d) + probs.shape[-2:])
-        return detections
+        return self.forward_with_given_boxes(features, detections)
 
+    def forward_with_given_boxes(
+        self, features: Dict[str, torch.Tensor], detections: Dict[str, torch.Tensor]
+    ) -> Dict[str, torch.Tensor]:
+        """The per-box branches on (B, D) detections (``boxes``, ``classes``,
+        in network-input coordinates): with MASK_ON, ``masks`` (B, D, S, S)
+        probabilities from the mask pooler over all B*D boxes (JAX package
+        ``roi_heads.py:319``; the test-time augmentation's mask re-run calls
+        it on merged boxes)."""
+        if not self.mask_on:
+            return detections
+        feats = [features[f] for f in self.in_features]
+        b, d = detections["boxes"].shape[:2]
+        batch_idx = torch.arange(b, dtype=torch.int32, device=detections["boxes"].device)
+        mask_feats = self.mask_pooler(feats, detections["boxes"].reshape(b * d, 4), batch_idx.repeat_interleave(d))
+        probs = mask_rcnn_inference(self.mask_head(mask_feats), detections["classes"].reshape(-1))
+        detections = dict(detections)
+        detections["masks"] = probs.reshape((b, d) + probs.shape[-2:])
+        return detections
 
     def _forward_train(self, features, proposals, proposal_scores, targets, generator):
         feats = [features[f] for f in self.in_features]

@@ -2,7 +2,8 @@
 
 Reference: detectron2/layers/nms.py:10 (``batched_nms`` with the class
 offset trick); JAX package ``ops/nms.py`` :98 ``nms_mask`` and :174
-``batched_nms_mask``, whose semantics this module reproduces:
+``batched_nms_mask`` and their index forms :160 ``nms`` and :188
+``batched_nms``, whose semantics this module reproduces:
 
 * boxes are visited in descending score order, ties in index order (a stable
   sort, like the JAX package's ``argsort(-scores)``);
@@ -95,3 +96,30 @@ def batched_nms_mask(
     max_coord = live.flatten(-2).amax(dim=-1) + 1.0
     offsets = idxs.to(boxes.dtype) * max_coord[..., None]
     return nms_mask(boxes + offsets[..., None], scores, iou_threshold)
+
+
+def _kept_indices(keep: torch.Tensor, scores: torch.Tensor, max_out) -> torch.Tensor:
+    """The indices of the kept boxes by descending score (ties in index
+    order, as ``lax.top_k``), padded with -1 up to ``max_out`` (or N)."""
+    n = scores.shape[-1]
+    k = n if max_out is None else max_out
+    masked = torch.where(keep, scores, torch.full_like(scores, float("-inf")))
+    top, idx = torch.sort(masked, dim=-1, descending=True, stable=True)
+    top, idx = top[..., : min(k, n)], idx[..., : min(k, n)]
+    out = torch.where(torch.isfinite(top), idx, torch.full_like(idx, -1))
+    if k > n:
+        out = torch.cat([out, out.new_full(out.shape[:-1] + (k - n,), -1)], dim=-1)
+    return out
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float, max_out=None) -> torch.Tensor:
+    """(N, 4) boxes and (N,) scores -> the kept indices sorted by score,
+    padded with -1 up to ``max_out`` (or N) (JAX package ``ops/nms.py:160``)."""
+    return _kept_indices(nms_mask(boxes, scores, iou_threshold), scores, max_out)
+
+
+def batched_nms(
+    boxes: torch.Tensor, scores: torch.Tensor, idxs: torch.Tensor, iou_threshold: float, max_out=None
+) -> torch.Tensor:
+    """:func:`nms` per category of ``idxs`` (JAX package ``ops/nms.py:188``)."""
+    return _kept_indices(batched_nms_mask(boxes, scores, idxs, iou_threshold), scores, max_out)

@@ -113,6 +113,13 @@ def _level_geometry(feature_shapes, spatial_scales, boxes, batch_indices, levels
     return s, acc, base, w, (ylo, yfrac, ydead), (xlo, xfrac, xdead), count
 
 
+def _live_slots(dead: torch.Tensor) -> int:
+    """1 + the last sample slot of (R, p, s) ``dead`` that is live for some
+    ROI (at least 1)."""
+    live = (~dead).flatten(0, 1).any(dim=0).nonzero()
+    return int(live.max()) + 1 if len(live) else 1
+
+
 def roi_align_multilevel_plain(
     features: Sequence[torch.Tensor],
     spatial_scales: Sequence[float],
@@ -137,8 +144,13 @@ def roi_align_multilevel_plain(
     flat = torch.cat([f.reshape(-1, c) for f in features], dim=0)
     count = count[:, None, None, None]
     out = torch.empty((r, ph, pw, c), dtype=features[0].dtype, device=boxes.device)
-    # ROIs in chunks, so the (R, ph, s, pw, s, C) tap tensors stay small
-    step = max(1, _PLAIN_CHUNK_ELEMENTS // (ph * pw * s * s * c))
+    # sample slots past the last one that any ROI uses add zeros: leave them
+    # out (the adaptive grid of small ROIs is 1x1, a sixteenth of the slots)
+    sy, sx = (_live_slots(dead) for dead in (ydead, xdead))
+    ylo, yfrac, ydead = (a[:, :, :sy] for a in (ylo, yfrac, ydead))
+    xlo, xfrac, xdead = (a[:, :, :sx] for a in (xlo, xfrac, xdead))
+    # ROIs in chunks, so the (R, ph, sy, pw, sx, C) tap tensors stay small
+    step = max(1, _PLAIN_CHUNK_ELEMENTS // (ph * pw * sy * sx * c))
     for i in range(0, r, step):
         j = slice(i, i + step)
         # (n, ph, s, pw, s) row indices into the flat pyramid

@@ -6,9 +6,11 @@ counterpart ``tools/train_net.py:29``). Scoring only:
 
 builds the model on the card (or ``--device``), loads MODEL.WEIGHTS,
 scores it on DATASETS.TEST (``engine.defaults.test``) and checks
-TEST.EXPECTED_RESULTS. Datasets resolve under ``$JTSM_DATASETS``.
+TEST.EXPECTED_RESULTS; with TEST.AUG.ENABLED it scores with test-time
+augmentation (``engine.defaults.test_with_TTA``, bbox only, as in the JAX
+package). Datasets resolve under ``$JTSM_DATASETS``.
 Training from this command waits for ``DefaultTrainer`` (ROADMAP queue 1
-item 5).
+item 3).
 """
 
 from __future__ import annotations
@@ -53,13 +55,13 @@ def load_weights(model, path: str) -> None:
         logger.warning("MODEL.WEIGHTS is empty: scoring the untrained initialisation")
         return
     if not path.endswith(".ckpt.gz"):
-        raise NotImplementedError(f"loading {path} is not ported yet (ROADMAP queue 1 item 5: checkpoints)")
+        raise NotImplementedError(f"loading {path} is not ported yet (ROADMAP queue 1 item 3: checkpoints)")
     model.load_state_dict(variables_to_state_dict(load_gate_ckpt(path)), strict=True)
 
 
 def main(args):
     if not args.eval_only:
-        sys.exit("training from this command is not ported yet (ROADMAP queue 1 item 5, DefaultTrainer); "
+        sys.exit("training from this command is not ported yet (ROADMAP queue 1 item 3, DefaultTrainer); "
                  "pass --eval-only to score a model")
     cfg = setup(args)
     model = build_model(cfg, device=args.device)

@@ -61,6 +61,7 @@ class GeneralizedMCNNWSL(nn.Module):
     device = GeneralizedRCNN.device
     # f32 normalisation, then the backbone in the compute dtype
     _features = GeneralizedRCNN._features
+    given_detections = GeneralizedRCNN.given_detections
 
     @torch.no_grad()
     def inference(self, batch: Dict) -> Dict[str, torch.Tensor]:
@@ -68,17 +69,7 @@ class GeneralizedMCNNWSL(nn.Module):
         with exact_float32(self.compute_dtype == torch.float32):
             features, image_sizes = self._features(batch)
             if "detected_boxes" in batch:
-                boxes = torch.as_tensor(batch["detected_boxes"], dtype=torch.float32, device=dev)
-                b, d = boxes.shape[:2]
-                det = {
-                    "boxes": boxes,
-                    "classes": torch.as_tensor(batch["detected_classes"], device=dev),
-                    "scores": torch.as_tensor(batch.get("detected_scores", torch.ones((b, d))), device=dev),
-                    "valid": torch.as_tensor(
-                        batch.get("detected_valid", torch.ones((b, d), dtype=torch.bool)), device=dev
-                    ),
-                }
-                return self.roi_heads.forward_with_given_boxes(features, det)
+                return self.roi_heads.forward_with_given_boxes(features, self.given_detections(batch))
 
             proposals, scores, superpixels, oh_labels = self.request_fields(batch)
             det = self.roi_heads(features, proposals, scores, image_sizes, superpixels, oh_labels)

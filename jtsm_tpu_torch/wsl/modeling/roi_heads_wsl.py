@@ -116,3 +116,20 @@ def wsl_inference(
         pad = topk_per_image - k
         out = {key: torch.cat([v, v.new_zeros((b, pad) + v.shape[2:])], dim=1) for key, v in out.items()}
     return out
+
+
+def wsl_inference_single(
+    boxes: torch.Tensor,  # (R, 4) proposals, or (R, C, 4) per-class boxes
+    scores: torch.Tensor,  # (R, C) class probabilities
+    valid: torch.Tensor,  # (R,)
+    image_size: torch.Tensor,  # (2,) (h, w)
+    score_thresh: float,
+    nms_thresh: float,
+    topk_per_image: int,
+    nms_candidates: int = 1024,
+) -> Dict[str, torch.Tensor]:
+    """:func:`wsl_inference` of one image (JAX package
+    ``roi_heads_wsl.py:108``): (topk_per_image,) detections."""
+    out = wsl_inference(boxes[None], scores[None], valid[None], torch.as_tensor(image_size)[None], score_thresh,
+                        nms_thresh, topk_per_image, nms_candidates)
+    return {k: v[0] for k, v in out.items()}

@@ -93,7 +93,7 @@ def test_cli_without_eval_only_names_what_is_missing():
     proc = subprocess.run([sys.executable, "-m", "jtsm_tpu_torch.tools.train_net", "--config-file", GATE_YAML],
                           cwd=ROOT, capture_output=True, text=True, timeout=300, env=dict(os.environ, PYTHONPATH=ROOT))
     assert proc.returncode != 0
-    assert "ROADMAP queue 1 item 5" in proc.stderr
+    assert "ROADMAP queue 1 item 3" in proc.stderr
 
 
 def test_bf16_outputs_reach_the_paste_in_float32():
