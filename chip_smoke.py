@@ -124,12 +124,43 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (c) the Mask R-CNN gate checkpoint with TTA (TTA-UNION, the masks
    re-run) on 2 in-memory scenes on the card against the CPU: merged
    detections matched, boxes within 1e-3 px, scores and re-run mask
-   probabilities within 1e-4, bbox AP within 0.02.
+   probabilities within 1e-4, bbox AP within 0.02;
+14. train_cli: the port trains as its command line does. (a) Mask R-CNN
+   R50-FPN at full width in bfloat16 (random weights from phase 4's seed;
+   from scratch the JAX package's initialisers, which the port uses,
+   diverge within 20 iterations without a pretrained backbone or a clip)
+   through
+   ``engine.DefaultTrainer`` built from the config object, on 16
+   in-memory synthetic COCO scenes of 480x640 with polygon masks, the
+   yaml's augmentation (short side chosen from 640-800, max 1333, the
+   flip), IMS_PER_BATCH 2 (the reference's 16 is 8 cards x 2), 20
+   iterations with checkpoints every 10, at DATALOADER.NUM_WORKERS 0 and
+   4: every loss finite, K1 and K2 twice an iteration, the plain ROIAlign
+   stubbed to raise on the card, ``metrics.json`` with iterations 0-19,
+   ``model_0000009.pth``, ``model_final.pth`` and ``last_checkpoint``
+   written; printed: the median s/iter and ``data_time`` over iterations
+   5-19, the loader's own s/batch, the bare train step on batches collated
+   beforehand (phase 7's measure) and the peak memory; (b) a fresh
+   trainer resumed from ``model_0000009.pth``: its parameters, momentum
+   buffers, generator state and update count equal the checkpoint's, its
+   first learning rate the uninterrupted run's at iteration 10, and it
+   runs to 20; (c) the JTSM flagship at full width (random weights from
+   phase 10's seed) through the WSL trainer, ITER_SIZE 4, IMS_PER_BATCH 4,
+   the five train scales and the flip, on 8 seeded VOC-size scenes with
+   4000 proposals and 1000 superpixels each, 8 mini-batches, with
+   TPU.IMAGE_BUCKETS that hold the 1200 scale (a cut: no default bucket
+   does) and TEST.EVAL_PERIOD 0: the parameters unchanged after
+   mini-batches 1-3 and 5-7 and moved at 4 and 8, K1 once a mini-batch, K2
+   never; s/iter, ``data_time`` and peak memory printed; (d) the Mask
+   R-CNN gate (float32) for 3 iterations through the trainer on the card,
+   once with K1/K2 and once with the plain ROIAlign, from the same weights
+   and data: the losses within 1e-4 relative.
 
 The last three lines are {"kernels": [...]} (``kernel_line`` says which
 times; ``l1_*`` are K1's single-level rows of phase 10, ``jt_*`` K1's and
 K2's rows at phase 11's train shape, ``js_launches`` its launches in phase
-12, ``tta_*`` K1's row at phase 13's largest view and its launches there),
+12, ``tta_*`` K1's row at phase 13's largest view and its launches there,
+``tc_launches`` each kernel's launches under the trainers of phase 14),
 the card's name and power limit as
 nvidia-smi gives them, and {"ok": true, "device": {...}}. Needs one card, torch, numpy and pytest;
 imports nothing of JAX. Without a card, or outside a checkout of the
@@ -2223,6 +2254,355 @@ def phase_jtsm_tta(kernel, gen, baseline, flagship_state, card):
     return rows, total
 
 
+TC_SCENES = 16  # synthetic COCO scenes of SCORE_HW for the Mask R-CNN trainer
+TC_ITERS = 20
+TC_PERIOD = 10  # SOLVER.CHECKPOINT_PERIOD: model_0000009 and model_0000019
+TC_WORKERS = (0, 4)  # DATALOADER.NUM_WORKERS: the config's, then 4 mapping threads
+TC_BARE_STEPS = 8  # the bare train step on batches collated beforehand
+TC_TIMED_FROM = 5  # the medians skip the first iterations
+TC_JTSM_SCENES = 8
+TC_JTSM_ITERS = 8  # mini-batches: 2 updates of WSL.ITER_SIZE 4
+TC_JTSM_BUCKETS = [[800, 1344], [1344, 800], [1024, 1024], [1216, 1600], [1600, 1216]]
+TC_GATE_ITERS = 3
+
+
+def train_recorder(kernels, watch=(), losses=False):
+    """A trainer hook that keeps, for each iteration, the kernels' launches
+    in it, the step's losses when ``losses`` (read on the host, one sync an
+    iteration) and, for each watched parameter, its first elements (before
+    training too)."""
+    from jtsm_tpu_torch.engine.hooks import HookBase
+
+    class Recorder(HookBase):
+        def __init__(self):
+            self.kernels, self.watch = kernels, list(watch)
+            self.launches, self.params, self.losses = [], [], []
+
+        def snapshot(self):
+            if self.watch:
+                self.params.append([p.detach().reshape(-1)[:256].clone() for p in self.watch])
+
+        def before_train(self):
+            self.snapshot()
+
+        def before_step(self):
+            self._before = [k.launches for k in self.kernels]
+
+        def after_step(self):
+            self.launches.append([k.launches - b for k, b in zip(self.kernels, self._before)])
+            self.snapshot()
+            if losses:
+                self.losses.append({k: v.item() for k, v in self.trainer._trainer._pending_metrics.items()})
+
+    return Recorder()
+
+
+def run_trainer(trainer_class, cfg, kernels, state_dict=None, resume=False, watch=None, losses=False):
+    """``default_setup(cfg)`` (OUTPUT_DIR, the seeds), then
+    ``trainer_class(cfg)`` on the card (``state_dict`` loaded, or resumed
+    from OUTPUT_DIR), ``metrics.json`` written every iteration, a
+    ``train_recorder`` hooked in; the kernels' counts set to 0 just before
+    ``train()`` and read after. Returns the trainer, the recorder, the
+    launches and the peak memory in GiB."""
+    import torch
+
+    from jtsm_tpu_torch.engine import default_setup, hooks
+
+    default_setup(cfg)
+    trainer = trainer_class(cfg)
+    if state_dict is not None:
+        trainer.model.load_state_dict(state_dict)
+    trainer.resume_or_load(resume=resume)
+    for h in trainer._hooks:
+        if isinstance(h, hooks.PeriodicWriter):
+            h._period = 1
+    rec = train_recorder(kernels, watch(trainer.model) if watch else (), losses)
+    trainer.register_hooks([rec])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    trainer.train()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    return trainer, rec, launches, torch.cuda.max_memory_allocated() / 2**30
+
+
+def read_metrics(out):
+    with open(os.path.join(out, "metrics.json")) as f:
+        return [json.loads(line) for line in f]
+
+
+def median(values):
+    values = sorted(values)
+    return values[len(values) // 2] if values else float("nan")
+
+
+def iteration_times(trainer, name, first=TC_TIMED_FROM):
+    """The raw per-iteration values of the trainer's scalar ``name`` from
+    iteration ``first`` on."""
+    return [v for v, it in trainer.storage.history(name).values() if it >= first]
+
+
+def check_launches(tag, rec, per_iteration):
+    """Every iteration launched each kernel ``per_iteration[name]`` times."""
+    names = [k.name for k in rec.kernels]
+    want = [per_iteration[n] for n in names]
+    for i, got in enumerate(rec.launches):
+        if got != want:
+            raise AssertionError(f"{tag} iteration {i}: launches {dict(zip(names, got))}, not {per_iteration}")
+
+
+def bare_steps(cfg, model, batches):
+    """The train step alone on batches collated beforehand (phase 7's
+    measure): the milliseconds of each step, synchronized."""
+    import torch
+
+    from jtsm_tpu_torch.engine import create_train_state, make_train_step
+    from jtsm_tpu_torch.solver import build_lr_schedule, build_optimizer
+
+    optimizer = build_optimizer(cfg, model)
+    state = create_train_state(model, optimizer, seed=0)
+    step = make_train_step(model, optimizer, build_lr_schedule(cfg))
+    times = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, {k: v for k, v in batch.items() if k != "image_ids"})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def phase_train_cli(kernels, flagship_state, jtsm_state):
+    """Phase 14: the port trains through its trainers, as its command line
+    does. (a) Mask R-CNN R50-FPN at full width in bf16 (``DefaultTrainer``,
+    phase 4's random weights) on in-memory synthetic COCO scenes, at
+    NUM_WORKERS 0 and 4; (b) resume
+    from its iteration-9 checkpoint; (c) the JTSM flagship through the WSL
+    trainer, ITER_SIZE 4; (d) the Mask R-CNN gate (float32) through the
+    trainer with K1/K2 and with the plain ROIAlign. Returns the launches of
+    each kernel on the trainers' paths."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import jtsm_tpu_torch.modeling.poolers as poolers
+    import jtsm_tpu_torch.ops.roi_align as roi_align
+    from jtsm_tpu_torch.checkpoint import load_gate_ckpt, variables_to_state_dict
+    from jtsm_tpu_torch.config import jtsm_WSR_18_DC5_cfg, mask_rcnn_gate_cfg, mask_rcnn_R_50_FPN_cfg
+    from jtsm_tpu_torch.data.build import build_detection_train_loader
+    from jtsm_tpu_torch.data.datasets.synthetic import register_synthetic_coco, register_synthetic_panoptic
+    from jtsm_tpu_torch.engine import DefaultTrainer
+    from jtsm_tpu_torch.wsl.builtin import _voc_sbd_panoptic_separated_meta
+    from jtsm_tpu_torch.wsl.train_net import Trainer as WSLTrainer
+
+    names = [k.name for k in kernels]
+    total = dict.fromkeys(names, 0)
+    plain = roi_align.roi_align_multilevel_plain_autograd
+
+    def plain_on_cpu_only(features, scales, boxes, *a, **k):
+        if boxes.device.type != "cpu":
+            raise AssertionError("the plain ROIAlign ran on the card under the trainer")
+        return plain(features, scales, boxes, *a, **k)
+
+    def add(launches):
+        for n in names:
+            total[n] += launches[n]
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_cli_")
+    roi_align.roi_align_multilevel_plain_autograd = plain_on_cpu_only
+    try:
+        # (a) Mask R-CNN through DefaultTrainer, NUM_WORKERS 0 and 4
+        coco_name = "chip_smoke_train_coco"
+        register_synthetic_coco(coco_name, num=TC_SCENES, seed=5, image_hw=SCORE_HW)
+
+        def mrcnn_cfg(out, workers):
+            cfg = mask_rcnn_R_50_FPN_cfg()
+            cfg.DATASETS.TRAIN = (coco_name,)
+            cfg.SOLVER.IMS_PER_BATCH = TRAIN_BATCH
+            cfg.SOLVER.MAX_ITER = TC_ITERS
+            cfg.SOLVER.CHECKPOINT_PERIOD = TC_PERIOD
+            cfg.DATALOADER.NUM_WORKERS = workers
+            cfg.MODEL.WEIGHTS = ""
+            cfg.OUTPUT_DIR = out
+            cfg.SEED = 0
+            return cfg
+
+        base = mask_rcnn_R_50_FPN_cfg()
+        log(f"[train_cli] (a) Mask R-CNN R50-FPN {base.TPU.COMPUTE_DTYPE} through DefaultTrainer on {TC_SCENES} "
+            f"synthetic scenes {SCORE_HW}, INPUT.MIN_SIZE_TRAIN {tuple(base.INPUT.MIN_SIZE_TRAIN)} "
+            f"({base.INPUT.MIN_SIZE_TRAIN_SAMPLING}), MAX_SIZE_TRAIN {base.INPUT.MAX_SIZE_TRAIN}, flip "
+            f"{base.INPUT.RANDOM_FLIP}, {TC_ITERS} iterations, CHECKPOINT_PERIOD {TC_PERIOD} | cut: IMS_PER_BATCH "
+            f"{TRAIN_BATCH} (the reference's {base.SOLVER.IMS_PER_BATCH} is 8 cards x {TRAIN_BATCH}); MAX_ITER "
+            f"{TC_ITERS}; random weights from phase 4's seed (from scratch the JAX package's initialisers, the "
+            "port's, diverge within 20 iterations without a pretrained backbone or a clip)")
+        runs = {}
+        for workers in TC_WORKERS:
+            out = os.path.join(tmp, f"mrcnn_w{workers}")
+            trainer, rec, launches, peak = run_trainer(DefaultTrainer, mrcnn_cfg(out, workers), kernels,
+                                                       flagship_state)
+            check_launches(f"mask rcnn trainer (NUM_WORKERS {workers})", rec, dict.fromkeys(names, 2))
+            add(launches)
+            metrics = read_metrics(out)
+            if [m["iteration"] for m in metrics] != list(range(TC_ITERS)):
+                raise AssertionError(f"metrics.json holds iterations {[m['iteration'] for m in metrics]}")
+            losses = {k: v for m in metrics[1:] for k, v in m.items() if k.startswith("loss")}
+            if len(losses) != 5 or not all(math.isfinite(m[k]) for m in metrics[1:] for k in losses):
+                raise AssertionError(f"metrics.json losses: {metrics[-1]}")
+            files = sorted(os.listdir(out))
+            for f in ("model_0000009.pth", "model_0000019.pth", "model_final.pth", "last_checkpoint"):
+                if f not in files:
+                    raise AssertionError(f"{f} not written: {files}")
+            loader = trainer.data_loader
+            s_iter = median(iteration_times(trainer, "time"))
+            data_time = median(iteration_times(trainer, "data_time"))
+            runs[workers] = dict(out=out, s_iter=s_iter, data_time=data_time, peak=peak,
+                                 loader=loader.busy_seconds / loader.batches, mapping=loader.map_seconds / loader.batches,
+                                 metrics=metrics, trainer=trainer)
+            log(f"[train_cli] (a) NUM_WORKERS {workers}: s/iter median (iterations {TC_TIMED_FROM}-{TC_ITERS - 1}) "
+                f"{s_iter:.4f} data_time median {data_time:.4f} loader s/batch {runs[workers]['loader']:.4f} "
+                f"mapping s/batch {runs[workers]['mapping']:.4f} "
+                f"({loader.batches} batches produced) launches {launches} peak_mem_gib {peak:.3f} "
+                f"final losses {metrics[-1]['total_loss']:.4f} checkpoints {[f for f in files if f.endswith('.pth')]}")
+        # the bare step on the same kind of batches, collated beforehand
+        first = runs[TC_WORKERS[0]]
+        it = iter(build_detection_train_loader(mrcnn_cfg("", 0)))
+        batches = [next(it) for _ in range(TC_BARE_STEPS)]
+        it.close()
+        bare = bare_steps(mrcnn_cfg("", 0), first["trainer"].model, batches)
+        log(f"[train_cli] (a) bare train_step on {TC_BARE_STEPS} batches collated beforehand: ms "
+            f"{[round(t, 3) for t in bare]} median_after_first {median(bare[1:]):.3f}; per iteration the trainer "
+            f"takes {first['s_iter'] * 1e3:.3f} ms at NUM_WORKERS 0 and "
+            f"{runs[TC_WORKERS[1]]['s_iter'] * 1e3:.3f} ms at {TC_WORKERS[1]}")
+        for r in runs.values():
+            r.pop("trainer")
+        first.update(bare_ms=median(bare[1:]))
+
+        # (b) resume from model_0000009.pth in a fresh trainer
+        out = os.path.join(tmp, "mrcnn_resume")
+        os.makedirs(out)
+        shutil.copy(os.path.join(first["out"], "model_0000009.pth"), out)
+        with open(os.path.join(out, "last_checkpoint"), "w") as f:
+            f.write("model_0000009.pth")
+        saved = torch.load(os.path.join(out, "model_0000009.pth"), map_location="cpu", weights_only=False)
+        trainer = DefaultTrainer(mrcnn_cfg(out, 0))
+        trainer.resume_or_load(resume=True)
+        if trainer.start_iter != TC_PERIOD or trainer.state.step != TC_PERIOD:
+            raise AssertionError(f"resumed at iteration {trainer.start_iter}, update {trainer.state.step}")
+        for k, v in trainer.model.state_dict().items():
+            if not torch.equal(v.cpu(), saved["model"][k]):
+                raise AssertionError(f"resumed parameter {k} differs from the checkpoint")
+        opt = trainer.optimizer.state_dict()["state"]
+        if len(opt) != len(saved["optimizer"]["state"]) or not all(
+                torch.equal(opt[i]["momentum_buffer"].cpu(), s["momentum_buffer"])
+                for i, s in saved["optimizer"]["state"].items()):
+            raise AssertionError("resumed momentum buffers differ from the checkpoint")
+        if not torch.equal(trainer.state.generator.get_state(), saved["trainer"]["generator"]):
+            raise AssertionError("resumed generator state differs from the checkpoint")
+        trainer._trainer.close()
+        del trainer
+        trainer, rec, launches, _ = run_trainer(DefaultTrainer, mrcnn_cfg(out, 0), kernels, resume=True)
+        check_launches("resumed trainer", rec, dict.fromkeys(names, 2))
+        add(launches)
+        metrics = read_metrics(out)
+        if [m["iteration"] for m in metrics] != list(range(TC_PERIOD, TC_ITERS)):
+            raise AssertionError(f"the resumed run wrote iterations {[m['iteration'] for m in metrics]}")
+        if metrics[0]["lr"] != first["metrics"][TC_PERIOD]["lr"]:
+            raise AssertionError(f"resumed lr {metrics[0]['lr']} != {first['metrics'][TC_PERIOD]['lr']}")
+        log(f"[train_cli] (b) resumed from model_0000009.pth: parameters, {len(opt)} momentum buffers, the generator "
+            f"state and update {TC_PERIOD} equal the checkpoint's; iterations {TC_PERIOD}-{TC_ITERS - 1} ran, lr at "
+            f"{TC_PERIOD} {metrics[0]['lr']:.6g} as uninterrupted, launches {launches}")
+        del trainer
+
+        # (c) the JTSM flagship through the WSL trainer, ITER_SIZE 4
+        jtsm_name = "chip_smoke_train_voc"
+        jbase = jtsm_WSR_18_DC5_cfg()
+        coco, images, sem_maps, pan_maps, pan_json, props = voc_scenes(
+            TC_JTSM_SCENES, 6, jbase.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN)
+        register_synthetic_panoptic(jtsm_name, coco, images, sem_maps, pan_maps, pan_json,
+                                    _voc_sbd_panoptic_separated_meta())
+        jc = jtsm_WSR_18_DC5_cfg()
+        jc.DATASETS.TRAIN = (jtsm_name,)
+        jc.DATASETS.PROPOSAL_FILES_TRAIN = (props,)
+        jc.TPU.IMAGE_BUCKETS = TC_JTSM_BUCKETS
+        jc.SOLVER.MAX_ITER = TC_JTSM_ITERS
+        jc.TEST.EVAL_PERIOD = 0
+        jc.MODEL.WEIGHTS = ""
+        jc.OUTPUT_DIR = os.path.join(tmp, "jtsm")
+        jc.SEED = 0
+        k = jc.WSL.ITER_SIZE
+        log(f"[train_cli] (c) JTSM flagship {jc.TPU.COMPUTE_DTYPE} through the WSL trainer: ITER_SIZE {k}, "
+            f"IMS_PER_BATCH {jc.SOLVER.IMS_PER_BATCH}, short sides {tuple(jc.INPUT.MIN_SIZE_TRAIN)} and the flip, "
+            f"{TC_JTSM_SCENES} seeded VOC scenes {JTSM_IMAGE_HW} with {props['boxes'][0].shape[0]} proposals and "
+            f"{JTSM_SUPERPIXELS} superpixels each, {TC_JTSM_ITERS} mini-batches | cut: TPU.IMAGE_BUCKETS "
+            f"{TC_JTSM_BUCKETS} (no default bucket holds the 1200 scale's 1200x1600); TEST.EVAL_PERIOD 0 (no VOC "
+            "test set here); random weights from phase 10's seed; MAX_ITER 8")
+        trainer, rec, launches, peak = run_trainer(
+            WSLTrainer, jc, kernels, jtsm_state,
+            watch=lambda m: [p for p in m.parameters() if p.requires_grad])
+        check_launches("jtsm trainer", rec, {names[0]: 1, names[1]: 0})
+        add(launches)
+        # rec.params[0] before training, rec.params[i] after mini-batch i
+        moved = [sum(not torch.equal(a, b) for a, b in zip(rec.params[i], rec.params[i - 1]))
+                 for i in range(1, TC_JTSM_ITERS + 1)]
+        for i, n in enumerate(moved, 1):
+            if (i % k == 0) != (n > 0):
+                raise AssertionError(f"jtsm: {n} watched parameters moved at mini-batch {i} (ITER_SIZE {k}): {moved}")
+        updated = [n for i, n in enumerate(moved, 1) if i % k == 0]
+        metrics = read_metrics(jc.OUTPUT_DIR)
+        if not all(math.isfinite(v) for m in metrics[1:] for key, v in m.items() if key.startswith("loss")):
+            raise AssertionError(f"jtsm metrics.json: non-finite losses {metrics[-1]}")
+        if trainer.state.step != TC_JTSM_ITERS // k:
+            raise AssertionError(f"jtsm: {trainer.state.step} updates in {TC_JTSM_ITERS} mini-batches")
+        s_iter = median(iteration_times(trainer, "time", 3))
+        data_time = median(iteration_times(trainer, "data_time", 1))
+        loader = trainer.data_loader
+        log(f"[train_cli] (c) parameters unchanged after mini-batches 1-{k - 1} and moved at each {k}th "
+            f"({updated} of {len(rec.params[0])} watched tensors); updates {trainer.state.step}; s/iter median "
+            f"(mini-batches 4-{TC_JTSM_ITERS}) {s_iter:.4f} data_time median {data_time:.4f} loader s/batch "
+            f"{loader.busy_seconds / loader.batches:.4f} mapping s/batch {loader.map_seconds / loader.batches:.4f} "
+            f"launches {launches} peak_mem_gib {peak:.3f}")
+        jtsm_run = dict(s_iter=s_iter, data_time=data_time, peak=peak)
+        del trainer
+
+        # (d) the gate (float32) through the trainer, K1/K2 against the plain ROIAlign
+        gate_name = "chip_smoke_train_gate"
+        register_synthetic_coco(gate_name, num=GATE_SCENES, seed=0)
+        gc = mask_rcnn_gate_cfg()
+        gc.DATASETS.TRAIN = (gate_name,)
+        gc.SOLVER.MAX_ITER = TC_GATE_ITERS
+        gc.MODEL.WEIGHTS = ""
+        gc.SEED = 0
+        weights = variables_to_state_dict(load_gate_ckpt(os.path.join(REPO, mask_rcnn_gate_cfg().MODEL.WEIGHTS)))
+        gate_losses = {}
+        routed = poolers.roi_align_multilevel
+        for route in ("kernel", "plain"):
+            gc.OUTPUT_DIR = os.path.join(tmp, f"gate_{route}")
+            if route == "plain":
+                poolers.roi_align_multilevel = plain
+            try:
+                _, rec, launches, _ = run_trainer(DefaultTrainer, gc, kernels, weights, losses=True)
+            finally:
+                poolers.roi_align_multilevel = routed
+            check_launches(f"gate trainer ({route})", rec, dict.fromkeys(names, 2 if route == "kernel" else 0))
+            if route == "kernel":
+                add(launches)
+            gate_losses[route] = rec.losses
+        err = max(abs(a[key] - b[key]) / max(abs(b[key]), 1e-12)
+                  for a, b in zip(gate_losses["kernel"], gate_losses["plain"]) for key in b)
+        log(f"[train_cli] (d) gate checkpoint (float32) through DefaultTrainer, {TC_GATE_ITERS} iterations: "
+            f"K1/K2 against the plain ROIAlign on the card, max relative loss difference {err:.3e} (tol 1e-4); "
+            f"losses {gate_losses['kernel'][-1]}")
+        if not err <= 1e-4:
+            raise AssertionError(f"gate trainer: kernel and plain losses differ by {err}")
+    finally:
+        roi_align.roi_align_multilevel_plain_autograd = plain
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total, runs, jtsm_run
+
+
 def kernel_line(kernel, launches, rows, f32_errs):
     """One entry of the kernels JSON line. ``ms``, ``plain_ms`` and
     ``bound_ms`` keep their long-standing meaning: the float32 box and mask
@@ -2418,6 +2798,12 @@ def main(argv=None) -> int:
     tta_rows, tta_launches = phase_jtsm_tta(KERNEL, gen, baseline, jtsm_state, card)
     log(f"[jtsm_tta] done in {time.perf_counter() - t0:.1f}s")
 
+    # 14. training as the command line trains: both flagships through their
+    # trainers, resume, and the gate through the trainer against plain
+    t0 = time.perf_counter()
+    tc_launches, tc_runs, tc_jtsm = phase_train_cli(KERNELS, state, jtsm_state)
+    log(f"[train_cli] done in {time.perf_counter() - t0:.1f}s")
+
     # per served request K1 pools boxes (R=1000, P=7) and masks (R=100,
     # P=14); per train step K1 and K2 pool and unpool boxes (R=1024, P=7)
     # and masks (R=256, P=14); per JTSM request K1 pools masks on one level
@@ -2429,8 +2815,9 @@ def main(argv=None) -> int:
     # launches: the main paths, serve, train, score, JTSM, JTSM train, JTSM
     # score and TTA, in both dtypes.
     k1_launches = (sum(launches.values()) + sum(t[0][KERNEL.name] for t in train.values()) + score_launches
-                   + jtsm_launches + jt_launches[KERNEL.name] + js_launches + tta_launches)
-    k2_launches = sum(t[0][BWD_KERNEL.name] for t in train.values()) + jt_launches[BWD_KERNEL.name]
+                   + jtsm_launches + jt_launches[KERNEL.name] + js_launches + tta_launches + tc_launches[KERNEL.name])
+    k2_launches = (sum(t[0][BWD_KERNEL.name] for t in train.values()) + jt_launches[BWD_KERNEL.name]
+                   + tc_launches[BWD_KERNEL.name])
     bwd = {k[4:]: v for k, v in tres.items() if k.startswith("bwd ")}
     kernels = [
         kernel_line(KERNEL, k1_launches, res, [r["err"] for n, r in res.items() if "f32" in n]),
@@ -2484,6 +2871,16 @@ def main(argv=None) -> int:
             "jt_bf16_plain_ms": bf16["plain_ms"],
             "jt_bf16_bound_ms": bf16["bound_ms"],
         })
+    # the trainers' launches (phase 14): Mask R-CNN at NUM_WORKERS 0 and 4,
+    # the resumed run, the JTSM flagship, the gate's kernel run
+    for line in kernels:
+        line["tc_launches"] = tc_launches[line["name"]]
+    log("[train_cli] " + " ".join(
+        f"NUM_WORKERS {w}: s/iter {r['s_iter']:.4f} data_time {r['data_time']:.4f} loader s/batch {r['loader']:.4f} "
+        f"mapping s/batch {r['mapping']:.4f} "
+        f"peak_gib {r['peak']:.3f};" for w, r in tc_runs.items())
+        + f" bare step ms {tc_runs[TC_WORKERS[0]]['bare_ms']:.3f}; JTSM s/iter {tc_jtsm['s_iter']:.4f} data_time "
+        f"{tc_jtsm['data_time']:.4f} peak_gib {tc_jtsm['peak']:.3f}; launches {tc_launches}")
     log("[train] median step ms " + " ".join(f"{DTYPE_NAMES[d]}={t[1]:.3f}" for d, t in train.items())
         + f"; K1 launches serve {launches}, train " + str({d: t[0][KERNEL.name] for d, t in train.items()})
         + f", score {score_launches}, jtsm {jtsm_launches}, jtsm score {js_launches}, tta {tta_launches}; "

@@ -1,8 +1,8 @@
-"""Datasets, the test mapper and the static-batch test loader (JAX package
-``data/``): the scoring slice's input side. The train loader waits (ROADMAP)."""
+"""Datasets, the mapper and the static-batch train and test loaders (JAX
+package ``data/``)."""
 
 from . import datasets  # noqa: F401  registers the builtin datasets
-from .build import build_detection_test_loader, get_detection_dataset_dicts
+from .build import build_detection_test_loader, build_detection_train_loader, get_detection_dataset_dicts
 from .catalog import DatasetCatalog, Metadata, MetadataCatalog
 from .dataset_mapper import DatasetMapper
 
@@ -12,5 +12,6 @@ __all__ = [
     "Metadata",
     "MetadataCatalog",
     "build_detection_test_loader",
+    "build_detection_train_loader",
     "get_detection_dataset_dicts",
 ]

@@ -1,20 +1,29 @@
 """DatasetMapper: a dataset dict to the per-image dict the collator takes
 (reference: detectron2/data/dataset_mapper.py:20; JAX package
-``data/dataset_mapper.py:22,85,92,99``), in test mode: decode, check the
-size, resize the image and its sem-seg ground truth, transform the
-precomputed proposals, and keep the image HWC float32.
+``data/dataset_mapper.py:22,85,92,99-158``): decode, check the size, draw
+and apply the augmentations to the image and its sem-seg ground truth,
+transform the precomputed proposals, keep the image HWC float32 and, in
+training, turn the annotations that are not crowds into ``instances``
+(boxes, classes and, under MODEL.MASK_ON, masks), the empty ones dropped.
 
 A record that carries its pixels (``image``, uint8 RGB) or its stuff map
 (``sem_seg``, uint8, at the image's size), as ``datasets.synthetic`` makes
 them, is not decoded; one that names a file (``file_name``,
 ``sem_seg_file_name``) is, with Pillow, and raises where Pillow is absent.
+
+The random augmentations draw from ``rng``, a ``np.random.RandomState``
+that the mapper owns (the train loader seeds it, ``data.build``); the
+JAX package draws the same calls from the global ``np.random``.
+``draw()`` makes one record's draws ahead of mapping it, so that the
+loader's threads map records in any order with the draws of the
+sampler's order.
 """
 
 from __future__ import annotations
 
 import copy
 import logging
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -24,22 +33,34 @@ from . import transforms as T
 
 class DatasetMapper:
     def __init__(self, cfg, is_train: bool = False):
-        if is_train:
-            raise NotImplementedError("the train mapper is not ported yet (ROADMAP queue 1)")
-        augmentations = utils.build_augmentation(cfg, False)
+        if is_train and cfg.INPUT.CROP.ENABLED:
+            raise NotImplementedError("INPUT.CROP is not ported yet (ROADMAP queue 1)")
+        if is_train and cfg.MODEL.KEYPOINT_ON:
+            raise NotImplementedError("keypoint training is not ported yet (ROADMAP queue 1)")
+        augmentations = utils.build_augmentation(cfg, is_train)
+        self.is_train = is_train
         self.augmentations = T.AugmentationList(augmentations)
         self.image_format = cfg.INPUT.FORMAT
-        self.proposal_topk: Optional[int] = (
-            cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST if cfg.MODEL.LOAD_PROPOSALS else None
-        )
-        logging.getLogger(__name__).info(f"[DatasetMapper] Augmentations used in inference: {augmentations}")
+        self.use_instance_mask = cfg.MODEL.MASK_ON
+        self.instance_mask_format = cfg.INPUT.MASK_FORMAT
+        self.rng = np.random.RandomState()
+        topk = cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN if is_train else cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST
+        self.proposal_topk: Optional[int] = topk if cfg.MODEL.LOAD_PROPOSALS else None
+        mode = "training" if is_train else "inference"
+        logging.getLogger(__name__).info(f"[DatasetMapper] Augmentations used in {mode}: {augmentations}")
+
+    def draw(self) -> List:
+        """One record's augmentation draws, from ``rng``."""
+        return self.augmentations.draw(self.rng)
 
     def _transform_proposals(self, dataset_dict: dict, image_shape, transforms) -> None:
         """The proposal step; subclasses extend it (``wsl.data.WSLDatasetMapper``
         also transforms the superpixels and their membership)."""
         utils.transform_proposals(dataset_dict, image_shape, transforms, proposal_topk=self.proposal_topk)
 
-    def __call__(self, dataset_dict: dict) -> dict:
+    def __call__(self, dataset_dict: dict, drawn: Optional[List] = None) -> dict:
+        """The mapped record, with the augmentation draws ``drawn`` (from
+        ``draw()``; made here when None)."""
         dataset_dict = copy.deepcopy(dataset_dict)
         image = utils.record_image(dataset_dict, self.image_format)
         dataset_dict.pop("image", None)
@@ -48,13 +69,24 @@ class DatasetMapper:
         if "sem_seg_file_name" in dataset_dict:
             sem_seg_gt = utils.read_sem_seg(dataset_dict.pop("sem_seg_file_name"))
         aug_input = T.AugInput(image, sem_seg=sem_seg_gt)
-        transforms = self.augmentations(aug_input)
+        transforms = self.augmentations(aug_input, self.draw() if drawn is None else drawn)
         image, sem_seg_gt = aug_input.image, aug_input.sem_seg
+        image_shape = image.shape[:2]
         dataset_dict["image"] = np.ascontiguousarray(image.astype(np.float32))
         if sem_seg_gt is not None:
             dataset_dict["sem_seg"] = sem_seg_gt.astype(np.int64)
         if self.proposal_topk is not None:
-            self._transform_proposals(dataset_dict, image.shape[:2], transforms)
-        dataset_dict.pop("annotations", None)
+            self._transform_proposals(dataset_dict, image_shape, transforms)
         dataset_dict.pop("pan_seg", None)
+        annos = dataset_dict.pop("annotations", None)
+        if not self.is_train or annos is None:
+            return dataset_dict
+        for anno in annos:
+            if not self.use_instance_mask:
+                anno.pop("segmentation", None)
+            anno.pop("keypoints", None)
+        annos = [utils.transform_instance_annotations(obj, transforms, image_shape)
+                 for obj in annos if obj.get("iscrowd", 0) == 0]
+        instances = utils.annotations_to_instances(annos, image_shape, mask_format=self.instance_mask_format)
+        dataset_dict["instances"] = utils.filter_empty_instances(instances)
         return dataset_dict

@@ -1,7 +1,10 @@
-"""Image decoding, the test augmentation, precomputed proposals and the
-static-batch collator (reference: detectron2/data/detection_utils.py:165
-``read_image``, :212 ``transform_proposals``, :571 ``build_augmentation``;
-JAX package ``data/detection_utils.py:64,83,91,106,379,405,476``).
+"""Image decoding, the augmentations, precomputed proposals, instance
+annotations and the static-batch collator (reference:
+detectron2/data/detection_utils.py:165 ``read_image``, :212
+``transform_proposals``, :260 ``transform_instance_annotations``, :366
+``annotations_to_instances``, :460 ``filter_empty_instances``, :571
+``build_augmentation``; JAX package ``data/detection_utils.py:64,83,91,106,
+133,197,275,379,405,418,468,476``).
 
 ``read_image`` and ``read_sem_seg`` decode with Pillow, imported when they
 are called; where Pillow is absent they raise. Images and ground truth made
@@ -15,8 +18,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..structures import BoxMode
+from ..structures import BoxMode, Instances, PolygonMasks, polygons_to_bitmask, rasterize_polygons_within_box
 from . import transforms as T
+from .rle import decode_segmentation
 
 
 class SizeMismatchError(ValueError):
@@ -112,12 +116,99 @@ def check_image_size(dataset_dict: dict, image: np.ndarray) -> None:
 
 
 def build_augmentation(cfg, is_train: bool) -> List[T.Augmentation]:
-    """The test augmentation: the short edge to INPUT.MIN_SIZE_TEST, the long
-    one at most INPUT.MAX_SIZE_TEST (reference detection_utils.py:571). The
-    train branch comes with the train loader (ROADMAP)."""
-    if is_train:
-        raise NotImplementedError("the train augmentation is not ported yet (ROADMAP queue 1)")
-    return [T.ResizeShortestEdge(cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)]
+    """The short edge to INPUT.MIN_SIZE_TRAIN (drawn in the style of
+    MIN_SIZE_TRAIN_SAMPLING), the long one at most MAX_SIZE_TRAIN, then
+    INPUT.RANDOM_FLIP, in training; the short edge to MIN_SIZE_TEST, the
+    long one at most MAX_SIZE_TEST, in testing (reference
+    detection_utils.py:571)."""
+    if not is_train:
+        return [T.ResizeShortestEdge(cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST, "choice")]
+    augmentation = [T.ResizeShortestEdge(cfg.INPUT.MIN_SIZE_TRAIN, cfg.INPUT.MAX_SIZE_TRAIN,
+                                         cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING)]
+    if cfg.INPUT.RANDOM_FLIP != "none":
+        augmentation.append(T.RandomFlip(horizontal=cfg.INPUT.RANDOM_FLIP == "horizontal",
+                                         vertical=cfg.INPUT.RANDOM_FLIP == "vertical"))
+    return augmentation
+
+
+def transform_instance_annotations(annotation: dict, transforms, image_size: Tuple[int, int]) -> dict:
+    """One annotation through ``transforms`` in place (reference
+    detection_utils.py:260): its box, as the envelope of its transformed
+    corners clipped to the image of ``image_size`` (h, w), in XYXY_ABS;
+    its polygons point by point; an RLE segmentation decoded and
+    transformed as a mask (bool)."""
+    if isinstance(transforms, (tuple, list)):
+        transforms = T.TransformList(transforms)
+    bbox = BoxMode.convert(annotation["bbox"], annotation["bbox_mode"], BoxMode.XYXY_ABS)
+    bbox = transforms.apply_box(np.array([bbox]))[0]
+    bbox = np.minimum(bbox, list(image_size + image_size)[::-1])
+    annotation["bbox"] = np.maximum(bbox, 0)
+    annotation["bbox_mode"] = BoxMode.XYXY_ABS
+    if "segmentation" in annotation:
+        segm = annotation["segmentation"]
+        if isinstance(segm, list):
+            annotation["segmentation"] = [
+                p.reshape(-1) for p in transforms.apply_polygons([np.asarray(p).reshape(-1) for p in segm])
+            ]
+        elif isinstance(segm, dict):
+            mask = decode_segmentation(segm, *segm["size"])
+            annotation["segmentation"] = transforms.apply_segmentation(mask.astype(np.uint8)).astype(bool)
+        else:
+            raise ValueError(f"Unsupported segmentation type {type(segm)}")
+    if "keypoints" in annotation:
+        raise NotImplementedError("keypoint annotations are not ported yet (ROADMAP queue 1)")
+    return annotation
+
+
+def annotations_to_instances(annos: List[dict], image_size: Tuple[int, int],
+                             mask_format: str = "polygon") -> Instances:
+    """Transformed annotations as ``Instances`` of numpy fields (reference
+    detection_utils.py:366): ``gt_boxes`` (N, 4) float32 XYXY,
+    ``gt_classes`` (N,) int64 and, where the annotations have a
+    segmentation, ``gt_masks``: ``PolygonMasks`` in the "polygon" format
+    (every segmentation must be polygons there, as in detectron2), else
+    (N, h, w) bool masks."""
+    boxes = (np.stack([BoxMode.convert(o["bbox"], o["bbox_mode"], BoxMode.XYXY_ABS) for o in annos]).astype(np.float32)
+             if annos else np.zeros((0, 4), np.float32))
+    target = Instances(image_size)
+    target.gt_boxes = boxes
+    target.gt_classes = np.asarray([int(o["category_id"]) for o in annos], dtype=np.int64)
+    if annos and "segmentation" in annos[0]:
+        segms = [o["segmentation"] for o in annos]
+        if mask_format == "polygon":
+            if not all(isinstance(s, list) for s in segms):
+                raise ValueError("an RLE or bitmask segmentation needs INPUT.MASK_FORMAT 'bitmask'")
+            target.gt_masks = PolygonMasks([[np.asarray(p) for p in s] for s in segms])
+        else:
+            masks = []
+            for segm in segms:
+                if isinstance(segm, list):
+                    masks.append(polygons_to_bitmask([np.asarray(p) for p in segm], *image_size))
+                elif isinstance(segm, dict):
+                    masks.append(decode_segmentation(segm, *image_size))
+                else:
+                    masks.append(np.asarray(segm).astype(bool))
+            target.gt_masks = np.stack(masks)
+    return target
+
+
+def filter_empty_instances(instances: Instances, by_box: bool = True, by_mask: bool = True,
+                           box_threshold: float = 1e-5) -> Instances:
+    """The instances whose box is wider and taller than ``box_threshold``
+    and whose mask is not empty (reference detection_utils.py:460)."""
+    keep = []
+    if by_box:
+        b = instances.gt_boxes
+        keep.append(((b[:, 2] - b[:, 0]) > box_threshold) & ((b[:, 3] - b[:, 1]) > box_threshold))
+    if instances.has("gt_masks") and by_mask:
+        gm = instances.gt_masks
+        keep.append(gm.nonempty() if isinstance(gm, PolygonMasks) else gm.reshape(len(gm), -1).any(axis=1))
+    if not keep:
+        return instances
+    m = keep[0]
+    for x in keep[1:]:
+        m = m & x
+    return instances[np.asarray(m)]
 
 
 def transform_proposals(dataset_dict: dict, image_shape, transforms, *, proposal_topk: int,
@@ -165,25 +256,80 @@ def pick_bucket(h: int, w: int, buckets: Sequence[Sequence[int]]) -> Tuple[int, 
     return best
 
 
-def build_static_batch(per_image: List[dict], buckets: Sequence[Sequence[int]],
-                       proposal_topk: int = 0) -> Dict[str, np.ndarray]:
+def instances_to_static_targets(instances: Instances, max_instances: int,
+                                mask_crop_size: int = 0) -> Dict[str, np.ndarray]:
+    """The first ``max_instances`` instances in fixed slots: ``gt_boxes``
+    (G, 4) float32, ``gt_classes`` (G,) int32, ``gt_valid`` (G,) bool and,
+    with ``mask_crop_size``, ``gt_mask_crops`` (G, M, M) bool, each mask
+    cut to its box (polygons rasterised in the box, bit masks sampled at
+    the cells' centres), zero where an instance has no mask."""
+    n = min(len(instances), max_instances)
+    g = max_instances
+    out = {
+        "gt_boxes": np.zeros((g, 4), np.float32),
+        "gt_classes": np.zeros((g,), np.int32),
+        "gt_valid": np.zeros((g,), bool),
+    }
+    boxes = np.asarray(instances.gt_boxes)[:n]
+    out["gt_boxes"][:n] = boxes
+    out["gt_classes"][:n] = np.asarray(instances.gt_classes)[:n]
+    out["gt_valid"][:n] = True
+    if mask_crop_size > 0:
+        out["gt_mask_crops"] = np.zeros((g, mask_crop_size, mask_crop_size), bool)
+        if instances.has("gt_masks"):
+            gm = instances.gt_masks
+            for i in range(n):
+                if isinstance(gm, PolygonMasks):
+                    out["gt_mask_crops"][i] = rasterize_polygons_within_box(gm.polygons[i], boxes[i], mask_crop_size)
+                else:
+                    out["gt_mask_crops"][i] = _crop_bitmask(gm[i], boxes[i], mask_crop_size)
+    return out
+
+
+def _crop_bitmask(mask: np.ndarray, box: np.ndarray, size: int) -> np.ndarray:
+    """The mask sampled at the centres of ``size`` x ``size`` cells over
+    ``box`` (nearest pixel, clamped to the mask)."""
+    h, w = mask.shape
+    x0, y0, x1, y1 = box
+    xs = np.clip(np.linspace(x0, x1, size, endpoint=False) + (x1 - x0) / (2 * size), 0, w - 1).astype(int)
+    ys = np.clip(np.linspace(y0, y1, size, endpoint=False) + (y1 - y0) / (2 * size), 0, h - 1).astype(int)
+    return mask[ys[:, None], xs[None, :]]
+
+
+def build_static_batch(per_image: List[dict], buckets: Sequence[Sequence[int]], proposal_topk: int = 0,
+                       max_instances: int = 0, mask_crop_size: int = 0) -> Dict[str, np.ndarray]:
     """Mapped per-image dicts (HWC float32 images) collated into one padded
-    batch in the schema the models' ``inference`` takes: ``image`` (B, H,
-    W, 3) in the smallest bucket that fits them all, zero padded, the true
+    batch in the schema the models take: ``image`` (B, H, W, 3) in the
+    smallest bucket that fits them all, zero padded, the true
     ``image_sizes`` and the ``orig_sizes`` to map boxes back to (JAX
     package ``detection_utils.py:476``). With ``proposal_topk``,
     ``proposals`` (B, K, 4) and ``proposal_scores`` (B, K), -inf in unused
     slots; where any dict has a resized ``sem_seg``, ``gt_sem_seg`` (B, H,
-    W) int32 with 255 outside each image. Instance ground truth is
-    collated with the train loader (ROADMAP)."""
+    W) int32 with 255 outside each image. With ``max_instances``, the
+    dicts' ``instances`` in ``instances_to_static_targets``'s slots
+    (``gt_boxes``, ``gt_classes``, ``gt_valid``, ``gt_mask_crops``), zero
+    for a dict without them. A batch that no bucket holds raises a
+    ValueError (the JAX package pads into the largest bucket and fails in
+    numpy's broadcast)."""
     b = len(per_image)
-    bh, bw = pick_bucket(max(d["image"].shape[0] for d in per_image),
-                         max(d["image"].shape[1] for d in per_image), buckets)
+    h_max = max(d["image"].shape[0] for d in per_image)
+    w_max = max(d["image"].shape[1] for d in per_image)
+    bh, bw = pick_bucket(h_max, w_max, buckets)
+    if h_max > bh or w_max > bw:
+        raise ValueError(f"no bucket of TPU.IMAGE_BUCKETS {[list(x) for x in buckets]} holds an image of "
+                         f"{h_max}x{w_max}: add a bucket that does")
     batch = {
         "image": np.zeros((b, bh, bw, 3), np.float32),
         "image_sizes": np.zeros((b, 2), np.int32),
         "orig_sizes": np.zeros((b, 2), np.int32),
     }
+    targets: List[Optional[dict]] = [None] * b
+    if max_instances > 0:
+        for i, d in enumerate(per_image):
+            if "instances" in d:
+                targets[i] = instances_to_static_targets(d["instances"], max_instances, mask_crop_size)
+                for k, v in targets[i].items():
+                    batch.setdefault(k, np.zeros((b,) + v.shape, v.dtype))
     if proposal_topk > 0:
         batch["proposals"] = np.zeros((b, proposal_topk, 4), np.float32)
         batch["proposal_scores"] = np.full((b, proposal_topk), -np.inf, np.float32)
@@ -197,6 +343,9 @@ def build_static_batch(per_image: List[dict], buckets: Sequence[Sequence[int]],
         batch["orig_sizes"][i] = (d.get("height", h), d.get("width", w))
         if "sem_seg" in d:
             batch["gt_sem_seg"][i, :h, :w] = d["sem_seg"]
+        if targets[i] is not None:
+            for k, v in targets[i].items():
+                batch[k][i] = v
         if proposal_topk > 0 and "proposals" in d:
             p = d["proposals"]
             n = min(len(p["boxes"]), proposal_topk)

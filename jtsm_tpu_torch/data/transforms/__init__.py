@@ -1,9 +1,11 @@
-from .augmentation import AugInput, Augmentation, AugmentationList, ResizeShortestEdge
+from .augmentation import AugInput, Augmentation, AugmentationList, RandomFlip, ResizeShortestEdge
 from .transform import (
+    HFlipTransform,
     NoOpTransform,
     ResizeTransform,
     Transform,
     TransformList,
+    VFlipTransform,
     resize_bilinear_float,
     resize_bilinear_uint8,
     resize_nearest,
@@ -13,11 +15,14 @@ __all__ = [
     "AugInput",
     "Augmentation",
     "AugmentationList",
+    "HFlipTransform",
     "NoOpTransform",
+    "RandomFlip",
     "ResizeShortestEdge",
     "ResizeTransform",
     "Transform",
     "TransformList",
+    "VFlipTransform",
     "resize_bilinear_float",
     "resize_bilinear_uint8",
     "resize_nearest",

@@ -1,6 +1,7 @@
 """Deterministic image transforms on the host, in numpy (reference:
 detectron2/data/transforms/transform.py:94 ``ResizeTransform``; JAX package
-``data/transforms/transform.py:111``).
+``data/transforms/transform.py:34,97,111,173,203``): resizes and flips of
+images, coordinates, boxes, polygons and segmentations.
 
 The JAX package resizes uint8 images with Pillow's ``BILINEAR`` filter.
 Pillow is absent where the port runs on the card, so ``resize_bilinear_uint8``
@@ -155,6 +156,10 @@ class Transform:
         coords = self.apply_coords(box[:, [0, 1, 2, 1, 0, 3, 2, 3]].reshape(-1, 2)).reshape(-1, 4, 2)
         return np.concatenate((coords.min(axis=1), coords.max(axis=1)), axis=1)
 
+    def apply_polygons(self, polygons: List[np.ndarray]) -> List[np.ndarray]:
+        """Flat (x0, y0, x1, y1, ...) polygons through ``apply_coords``."""
+        return [self.apply_coords(np.asarray(p).reshape(-1, 2)).reshape(-1) for p in polygons]
+
     def apply_segmentation(self, segmentation: np.ndarray) -> np.ndarray:
         return self.apply_image(segmentation)
 
@@ -192,6 +197,45 @@ class NoOpTransform(Transform):
         return img
 
     def apply_coords(self, coords):
+        return coords
+
+
+class HFlipTransform(Transform):
+    """Mirror left to right an image ``width`` wide (reference
+    transform.py:173, JAX package ``transform.py:173``)."""
+
+    def __init__(self, width: int):
+        self.width = width
+
+    def apply_image(self, img):
+        return np.ascontiguousarray(img[:, ::-1])
+
+    def apply_coords(self, coords):
+        coords = np.asarray(coords, dtype=np.float64).copy()
+        coords[:, 0] = self.width - coords[:, 0]
+        return coords
+
+    def apply_box(self, box):
+        box = np.asarray(box, dtype=np.float64).reshape(-1, 4).copy()
+        x0 = self.width - box[:, 2]
+        x1 = self.width - box[:, 0]
+        box[:, 0], box[:, 2] = x0, x1
+        return box
+
+
+class VFlipTransform(Transform):
+    """Mirror top to bottom an image ``height`` tall (JAX package
+    ``transform.py:203``)."""
+
+    def __init__(self, height: int):
+        self.height = height
+
+    def apply_image(self, img):
+        return np.ascontiguousarray(img[::-1])
+
+    def apply_coords(self, coords):
+        coords = np.asarray(coords, dtype=np.float64).copy()
+        coords[:, 1] = self.height - coords[:, 1]
         return coords
 
 

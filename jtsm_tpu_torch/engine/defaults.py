@@ -1,12 +1,25 @@
-"""Scoring a model on the test datasets (reference:
-detectron2/engine/defaults.py:504 ``DefaultTrainer.test``; JAX package
-``engine/defaults.py:473-575``), as module-level functions: ``DefaultTrainer``
-itself waits for the train loader (ROADMAP queue 1). The functions that
-build the test loader and the evaluator are arguments, so that the WSL
-command (``wsl/train_net.py``) runs the same loop with its own."""
+"""The command line's setup, the trainer and scoring (reference:
+detectron2/engine/defaults.py:47 ``default_argument_parser``, :112
+``default_setup``, :271 ``DefaultTrainer``, :504 ``DefaultTrainer.test``;
+JAX package ``engine/defaults.py:53,72,194,326,363,371,401,473-575``).
+
+Scoring is module-level functions; the functions that build the test
+loader and the evaluator are arguments, so that the WSL command
+(``wsl/train_net.py``) runs the same loop with its own.
+
+``DefaultTrainer(cfg)`` builds the model on the card (or ``device``), the
+train loader, the SGD optimizer and the schedule, and trains with the
+hooks of ``build_hooks``: the iteration timer, the learning rate, the
+periodic checkpoints, scoring every TEST.EVAL_PERIOD iterations (none
+when it is 0, as in the JAX package) and the writers (the console and
+``metrics.json``, every 20 iterations). ``resume_or_load()`` loads
+MODEL.WEIGHTS or, with ``resume``, the newest checkpoint of OUTPUT_DIR
+with the optimizer's and the trainer's state; ``train()`` runs to
+SOLVER.MAX_ITER."""
 
 from __future__ import annotations
 
+import argparse
 import logging
 import os
 import time
@@ -15,12 +28,19 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from ..data import DatasetCatalog, MetadataCatalog, build_detection_test_loader
+from ..checkpoint import DetectionCheckpointer, PeriodicCheckpointer
+from ..data import DatasetCatalog, MetadataCatalog, build_detection_test_loader, build_detection_train_loader
 from ..data.detection_utils import record_image
-from ..evaluation import COCOEvaluator, inference_on_dataset, print_csv_format
+from ..evaluation import COCOEvaluator, inference_on_dataset, print_csv_format, verify_results
 from ..evaluation.evaluator import add_time
+from ..modeling import build_model
 from ..modeling.meta_arch.panoptic_fpn import panoptic_fusion_postprocess
 from ..modeling.test_time_augmentation import GeneralizedRCNNWithTTA
+from ..solver import build_lr_schedule, build_optimizer
+from ..utils.env import seed_all_rng
+from ..utils.events import CommonMetricPrinter, JSONWriter
+from . import hooks
+from .trainer import SimpleTrainer, TrainerBase
 
 logger = logging.getLogger(__name__)
 
@@ -131,3 +151,124 @@ def test_with_TTA(cfg, model, timings: Optional[Dict[str, float]] = None,
 
     return evaluate_datasets(cfg, [(n, DatasetCatalog.get(n)) for n in cfg.DATASETS.TEST], build_evaluator,
                              timings, score)
+
+
+def default_argument_parser(epilog=None) -> argparse.ArgumentParser:
+    """The command line of the training scripts (reference
+    defaults.py:47): ``--config-file``, ``--resume``, ``--eval-only``,
+    ``--device`` (default: the card), KEY VALUE pairs, and detectron2's
+    launcher flags, accepted and ignored (one process, one card)."""
+    parser = argparse.ArgumentParser(epilog=epilog)
+    parser.add_argument("--config-file", default="", metavar="FILE", help="path to config file")
+    parser.add_argument("--resume", action="store_true", help="resume from the last checkpoint of OUTPUT_DIR")
+    parser.add_argument("--eval-only", action="store_true", help="perform evaluation only")
+    parser.add_argument("--device", default="cuda", help="device to run on (default: the card)")
+    parser.add_argument("--num-gpus", type=int, default=1, help="ignored: the port runs one process")
+    parser.add_argument("--num-machines", type=int, default=1, help="ignored")
+    parser.add_argument("--machine-rank", type=int, default=0, help="ignored")
+    parser.add_argument("--dist-url", default="auto", help="ignored")
+    parser.add_argument("opts", nargs=argparse.REMAINDER, help="KEY VALUE pairs that override the config")
+    return parser
+
+
+def default_setup(cfg, args=None) -> None:
+    """Makes OUTPUT_DIR, writes the config into it, and seeds Python's,
+    numpy's and PyTorch's generators with SEED (reference defaults.py:112,
+    JAX package ``engine/defaults.py:72``)."""
+    if cfg.OUTPUT_DIR:
+        os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+        with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
+            f.write(str(cfg) + "\n")
+    if args is not None and getattr(args, "config_file", ""):
+        logger.info(f"Contents of args.config_file={args.config_file}")
+    seed_all_rng(None if cfg.SEED < 0 else cfg.SEED)
+
+
+class DefaultTrainer(TrainerBase):
+    """Trains the model of ``cfg`` on DATASETS.TRAIN (see the module
+    docstring). ``iter_size`` mini-batches go into an update (1 here; the
+    WSL trainer takes WSL.ITER_SIZE)."""
+
+    def __init__(self, cfg, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        self.iter_size = self.build_iter_size(cfg)
+        self.model = build_model(cfg, device=device)
+        self.data_loader = self.build_train_loader(cfg)
+        self.optimizer = build_optimizer(cfg, self.model)
+        self.schedule = build_lr_schedule(cfg)
+        self._trainer = SimpleTrainer(self.model, self.data_loader, self.optimizer, self.schedule,
+                                      seed=max(cfg.SEED, 0), iter_size=self.iter_size)
+        self.checkpointer = DetectionCheckpointer(self.model, cfg.OUTPUT_DIR, optimizer=self.optimizer,
+                                                  trainer=self._trainer)
+        self.start_iter = 0
+        self.max_iter = cfg.SOLVER.MAX_ITER
+        self.register_hooks(self.build_hooks())
+
+    @classmethod
+    def build_iter_size(cls, cfg) -> int:
+        return 1
+
+    @classmethod
+    def build_train_loader(cls, cfg):
+        return build_detection_train_loader(cfg)
+
+    @classmethod
+    def test(cls, cfg, model):
+        return test(cfg, model)
+
+    def build_hooks(self) -> List[hooks.HookBase]:
+        cfg = self.cfg
+        if cfg.VIS_PERIOD > 0 or cfg.TEST.PRECISE_BN.ENABLED:
+            logger.warning("VIS_PERIOD and TEST.PRECISE_BN are not ported; training without them")
+        ret = [
+            hooks.IterationTimer(),
+            hooks.LRScheduler(self.schedule),
+            hooks.PeriodicCheckpointerHook(PeriodicCheckpointer(self.checkpointer, cfg.SOLVER.CHECKPOINT_PERIOD,
+                                                                cfg.SOLVER.MAX_ITER)),
+        ]
+
+        def test_and_save_results():
+            self.model.eval()
+            try:
+                self._last_eval_results = self.test(self.cfg, self.model)
+            finally:
+                self.model.train()
+            return self._last_eval_results
+
+        if cfg.TEST.EVAL_PERIOD > 0:
+            ret.append(hooks.EvalHook(cfg.TEST.EVAL_PERIOD, test_and_save_results))
+        ret.append(hooks.PeriodicWriter(self.build_writers(), period=20))
+        return ret
+
+    def build_writers(self):
+        return [CommonMetricPrinter(self.max_iter), JSONWriter(os.path.join(self.cfg.OUTPUT_DIR, "metrics.json"))]
+
+    def resume_or_load(self, resume: bool = True) -> None:
+        """MODEL.WEIGHTS into the model; with ``resume`` and a checkpoint in
+        OUTPUT_DIR, that checkpoint with the optimizer's and the trainer's
+        state, and training goes on from the iteration after it. The loader
+        starts again from its seed, as in the JAX package."""
+        extra = self.checkpointer.resume_or_load(self.cfg.MODEL.WEIGHTS, resume=resume)
+        if resume and "iteration" in extra:
+            self.start_iter = int(extra["iteration"]) + 1
+
+    def train(self):
+        """Trains from ``start_iter`` to SOLVER.MAX_ITER; returns the last
+        scoring's results (checked against TEST.EXPECTED_RESULTS), if any."""
+        try:
+            super().train(self.start_iter, self.max_iter)
+        finally:
+            self._trainer.close()
+        if hasattr(self, "_last_eval_results"):
+            verify_results(self.cfg, self._last_eval_results)
+            return self._last_eval_results
+
+    def run_step(self):
+        self._trainer.iter = self.iter
+        self._trainer.storage = self.storage
+        self._trainer.run_step()
+
+    @property
+    def state(self):
+        return self._trainer.state

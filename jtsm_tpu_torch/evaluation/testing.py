@@ -1,6 +1,6 @@
 """Printing and checking results (reference:
-detectron2/evaluation/testing.py:10, :28; JAX package
-``evaluation/testing.py:17,31``)."""
+detectron2/evaluation/testing.py:10, :28, :64; JAX package
+``evaluation/testing.py:17,31,61``)."""
 
 from __future__ import annotations
 
@@ -44,3 +44,14 @@ def verify_results(cfg, results: Mapping) -> bool:
         sys.exit(1)
     logger.info("Results verification passed.")
     return ok
+
+
+def flatten_results_dict(results: Mapping) -> dict:
+    """Nested results as one dict of "a/b/c" keys."""
+    r = {}
+    for k, v in results.items():
+        if isinstance(v, Mapping):
+            r.update({f"{k}/{kk}": vv for kk, vv in flatten_results_dict(v).items()})
+        else:
+            r[k] = v
+    return r

@@ -8,6 +8,8 @@ from .wrappers import (
     exact_float32,
     interpolate_bilinear,
     interpolate_nearest,
+    normal,
+    variance_scaling,
 )
 
 __all__ = [
@@ -22,4 +24,6 @@ __all__ = [
     "GroupNorm32",
     "interpolate_bilinear",
     "interpolate_nearest",
+    "normal",
+    "variance_scaling",
 ]

@@ -13,9 +13,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import Conv2d, ShapeSpec, compute_dtype, get_norm, interpolate_nearest
+from ...layers import Conv2d, ShapeSpec, compute_dtype, get_norm, interpolate_nearest, variance_scaling
 from .resnet import ResNet, build_resnet_backbone
 
+
+_XAVIER_FILL = variance_scaling(1.0, "fan_in", "uniform")  # JAX package fpn.py:49,58
 
 class FPN(nn.Module):
     """Laterals, a nearest x2 top-down sum, 3x3 outputs and p6 as a
@@ -44,11 +46,11 @@ class FPN(nn.Module):
         for f, k in zip(self.in_features, self.stages):
             self.add_module(f"fpn_lateral{k}", Conv2d(
                 shapes[f].channels, out_channels, kernel_size=1, bias=not norm,
-                norm=get_norm(norm, out_channels), compute_dtype=compute_dtype,
+                norm=get_norm(norm, out_channels), compute_dtype=compute_dtype, kernel_init=_XAVIER_FILL,
             ))
             self.add_module(f"fpn_output{k}", Conv2d(
                 out_channels, out_channels, kernel_size=3, padding=1, bias=not norm,
-                norm=get_norm(norm, out_channels), compute_dtype=compute_dtype,
+                norm=get_norm(norm, out_channels), compute_dtype=compute_dtype, kernel_init=_XAVIER_FILL,
             ))
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -140,9 +140,11 @@ def resolve_device(device) -> torch.device:
 def build_model(cfg, device="cuda") -> nn.Module:
     """The model named by MODEL.META_ARCHITECTURE (``GeneralizedRCNN``, or
     the JTSM ``GeneralizedMCNNWSL``), in eval mode, on ``device``. Weights
-    are left at PyTorch's initialisation: load a state dict
-    (``checkpoint.convert``) before serving or training; call ``.train()``
-    to train (``engine.create_train_state`` does)."""
+    start from the JAX package's initialisers, drawn from PyTorch's global
+    generator (``layers.wrappers``; ``engine.default_setup`` seeds it):
+    train from there, or load a state dict (``checkpoint``) before serving
+    or training; call ``.train()`` to train (``engine.create_train_state``
+    does)."""
     name = cfg.MODEL.META_ARCHITECTURE
     if name == "GeneralizedRCNN":
         arch = GeneralizedRCNN

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import Conv2d, ShapeSpec, compute_dtype, get_norm, interpolate_bilinear
+from ...layers import Conv2d, ShapeSpec, compute_dtype, get_norm, interpolate_bilinear, normal, variance_scaling
 from ...ops.losses import softmax_cross_entropy
 
 
@@ -52,12 +52,14 @@ class SemSegFPNHead(nn.Module):
                 conv = Conv2d(
                     c, conv_dims, kernel_size=3, padding=1, bias=not norm,
                     norm=get_norm(norm, conv_dims), activation=F.relu, compute_dtype=compute_dtype,
+                    kernel_init=variance_scaling(1.0, "fan_out", "normal"),
                 )
                 self.add_module(f"{f}_head_conv{k}", conv)
                 convs.append(conv)
                 c = conv_dims
             self.heads[f] = (stride, convs)
-        self.predictor = Conv2d(conv_dims, num_classes, kernel_size=1, compute_dtype=compute_dtype)
+        self.predictor = Conv2d(conv_dims, num_classes, kernel_size=1, compute_dtype=compute_dtype,
+                                kernel_init=normal(0.001))
 
     def forward(self, features: Dict[str, torch.Tensor]) -> torch.Tensor:
         """NCHW maps -> (B, K, H/common_stride, W/common_stride) float32

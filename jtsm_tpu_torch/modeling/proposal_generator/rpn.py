@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import Conv2d, ShapeSpec, compute_dtype
+from ...layers import Conv2d, ShapeSpec, compute_dtype, normal
 from ...ops.box_regression import Box2BoxTransform
 from ...ops.losses import binary_cross_entropy_with_logits, smooth_l1_loss
 from ...ops.matcher import Matcher
@@ -40,10 +40,12 @@ class StandardRPNHead(nn.Module):
             raise NotImplementedError("an RPN head of several convs is not ported yet")
         out_c = in_channels if conv_dims[0] == -1 else conv_dims[0]
         dt = compute_dtype
-        self.conv = Conv2d(in_channels, out_c, kernel_size=3, padding=1, activation=F.relu,
+        self.conv = Conv2d(in_channels, out_c, kernel_size=3, padding=1, activation=F.relu, kernel_init=normal(0.01),
                            compute_dtype=dt)
-        self.objectness_logits = Conv2d(out_c, num_anchors, kernel_size=1, compute_dtype=dt)
-        self.anchor_deltas = Conv2d(out_c, num_anchors * box_dim, kernel_size=1, compute_dtype=dt)
+        self.objectness_logits = Conv2d(out_c, num_anchors, kernel_size=1, compute_dtype=dt,
+                                        kernel_init=normal(0.01))
+        self.anchor_deltas = Conv2d(out_c, num_anchors * box_dim, kernel_size=1, compute_dtype=dt,
+                                    kernel_init=normal(0.01))
 
     def forward(self, features: List[torch.Tensor]):
         logits, deltas = [], []

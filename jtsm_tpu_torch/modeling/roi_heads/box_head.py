@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import Conv2d, Linear, ShapeSpec, compute_dtype, get_norm
+from ...layers import Conv2d, Linear, ShapeSpec, compute_dtype, get_norm, variance_scaling
 
 
 class FastRCNNConvFCHead(nn.Module):
@@ -33,7 +33,8 @@ class FastRCNNConvFCHead(nn.Module):
         self.fcs = []
         in_dim = c * h * w
         for i in range(num_fc):
-            fc = Linear(in_dim, fc_dim, compute_dtype=compute_dtype)
+            fc = Linear(in_dim, fc_dim, compute_dtype=compute_dtype,
+                        kernel_init=variance_scaling(1.0, "fan_in", "uniform"))
             self.add_module(f"fc{i + 1}", fc)
             self.fcs.append(fc)
             in_dim = fc_dim

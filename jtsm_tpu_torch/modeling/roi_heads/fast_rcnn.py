@@ -14,7 +14,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from ...layers import Linear
+from ...layers import Linear, normal
 from ...ops.box_regression import Box2BoxTransform
 from ...ops.losses import smooth_l1_loss, softmax_cross_entropy
 from ...ops.nms import batched_nms_mask
@@ -29,9 +29,10 @@ class FastRCNNOutputLayers(nn.Module):
     def __init__(self, input_size: int, num_classes: int, cls_agnostic_bbox_reg: bool = False, box_dim: int = 4,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.cls_score = Linear(input_size, num_classes + 1, compute_dtype=compute_dtype)
+        self.cls_score = Linear(input_size, num_classes + 1, compute_dtype=compute_dtype, kernel_init=normal(0.01))
         num_bbox_reg_classes = 1 if cls_agnostic_bbox_reg else num_classes
-        self.bbox_pred = Linear(input_size, num_bbox_reg_classes * box_dim, compute_dtype=compute_dtype)
+        self.bbox_pred = Linear(input_size, num_bbox_reg_classes * box_dim, compute_dtype=compute_dtype,
+                                kernel_init=normal(0.001))
 
     def forward(self, x: torch.Tensor):
         x = x.flatten(1)

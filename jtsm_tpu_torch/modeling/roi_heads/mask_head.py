@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import Conv2d, ConvTranspose2d, ShapeSpec, compute_dtype, get_norm
+from ...layers import Conv2d, ConvTranspose2d, ShapeSpec, compute_dtype, get_norm, normal, variance_scaling
 from ...ops.losses import binary_cross_entropy_with_logits
 from ...structures.masks import crop_and_resize_masks
 
@@ -37,13 +37,15 @@ class MaskRCNNConvUpsampleHead(nn.Module):
             conv = Conv2d(
                 c, conv_dim, kernel_size=3, padding=1, bias=not norm,
                 norm=get_norm(norm, conv_dim), activation=F.relu, compute_dtype=compute_dtype,
+                kernel_init=variance_scaling(2.0, "fan_out", "normal"),
             )
             self.add_module(f"mask_fcn{i + 1}", conv)
             self.conv_norm_relus.append(conv)
             c = conv_dim
         self.deconv = ConvTranspose2d(c, conv_dim, kernel_size=2, stride=2, compute_dtype=compute_dtype)
         self.predictor = Conv2d(
-            conv_dim, 1 if cls_agnostic_mask else num_classes, kernel_size=1, compute_dtype=compute_dtype
+            conv_dim, 1 if cls_agnostic_mask else num_classes, kernel_size=1, compute_dtype=compute_dtype,
+            kernel_init=normal(0.001),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -66,7 +66,7 @@ class TTAWrapperBase:
         max_size: int = 1333,
         flip: bool = True,
         buckets: Sequence[Tuple[int, int]] = ((800, 1344), (1344, 800), (1024, 1024)),
-        device="cpu",
+        device="cuda",
         timings: Optional[Dict[str, float]] = None,
     ):
         self.predict_fn = predict_fn

@@ -1,4 +1,15 @@
 from .boxes import BoxMode, box_area, clip_boxes, nonempty_boxes, pairwise_iou
-from .masks import polygons_to_bitmask
+from .instances import Instances
+from .masks import PolygonMasks, polygons_to_bitmask, rasterize_polygons_within_box
 
-__all__ = ["BoxMode", "box_area", "clip_boxes", "nonempty_boxes", "pairwise_iou", "polygons_to_bitmask"]
+__all__ = [
+    "BoxMode",
+    "Instances",
+    "PolygonMasks",
+    "box_area",
+    "clip_boxes",
+    "nonempty_boxes",
+    "pairwise_iou",
+    "polygons_to_bitmask",
+    "rasterize_polygons_within_box",
+]

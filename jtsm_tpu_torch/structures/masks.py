@@ -1,7 +1,10 @@
 """Polygon rasterisation for ground truth (JAX package
-``structures/masks.py:27`` ``polygons_to_bitmask``) and mask resampling for
-mask targets (``structures/masks.py:71`` ``crop_and_resize_masks``, which
-replaces detectron2's route through the ROIAlign op).
+``structures/masks.py:27`` ``polygons_to_bitmask``, :52
+``rasterize_polygons_within_box``), the host's polygon masks
+(:class:`PolygonMasks`, JAX package ``structures/masks.py:212``) and mask
+resampling for mask targets (``structures/masks.py:71``
+``crop_and_resize_masks``, which replaces detectron2's route through the
+ROIAlign op).
 
 The JAX package fills polygons with Pillow (``ImageDraw.polygon(xy,
 outline=1, fill=1)``, which with the outline equal to the fill draws the
@@ -14,12 +17,19 @@ Pillow adds at top and bottom vertices found by experiment
 (every polygon of the synthetic COCO set) and for 400 random polygons
 (``tests/test_torch_data.py``); degenerate ones, with a vertex repeated
 apart or folded back on an edge, can still differ at a few pixels.
+
+Pillow takes float vertices to integers by C's cast, truncating toward
+zero (found by experiment against Pillow 12.1: a vertex at x = 2.6 or
+-0.6 starts its edge at 2 or 0), which ``int`` does here; the scan then
+runs on those integers. Float polygons, such as the mask crops'
+(``rasterize_polygons_within_box``), fill as Pillow fills them, held in
+``tests/test_torch_train_loader.py``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -147,6 +157,50 @@ def polygons_to_bitmask(polygons: List[np.ndarray], height: int, width: int) -> 
             continue
         _fill_polygon(mask, [int(v) for v in p[: p.size // 2 * 2]])
     return mask
+
+
+def rasterize_polygons_within_box(polygons: Sequence[np.ndarray], box: np.ndarray, mask_size: int) -> np.ndarray:
+    """The polygons (flat x, y lists) shifted to the box's corner and scaled
+    to ``mask_size`` cells a side, in float64, filled into a (mask_size,
+    mask_size) bool mask (reference masks.py:32-80)."""
+    w, h = box[2] - box[0], box[3] - box[1]
+    ratio_h = mask_size / max(h, 0.1)
+    ratio_w = mask_size / max(w, 0.1)
+    out = []
+    for p in polygons:
+        p = np.asarray(p, dtype=np.float64).copy()
+        p[0::2] = (p[0::2] - box[0]) * ratio_w
+        p[1::2] = (p[1::2] - box[1]) * ratio_h
+        out.append(p)
+    return polygons_to_bitmask(out, mask_size, mask_size)
+
+
+class PolygonMasks:
+    """Each instance's list of float64 polygons (reference masks.py:239),
+    as far as the train mapper needs them: each polygon has at least 3
+    points; an instance with no polygon is empty."""
+
+    def __init__(self, polygons: List[List[np.ndarray]]):
+        self.polygons = []
+        for per_instance in polygons:
+            per_instance = [np.asarray(p, dtype=np.float64) for p in per_instance]
+            for p in per_instance:
+                assert len(p) % 2 == 0 and len(p) >= 6, len(p)
+            self.polygons.append(per_instance)
+
+    def nonempty(self) -> np.ndarray:
+        return np.asarray([len(p) > 0 for p in self.polygons], dtype=bool)
+
+    def __getitem__(self, item) -> "PolygonMasks":
+        """The instances that a bool mask or indices select."""
+        item = np.asarray(item)
+        idx = item.nonzero()[0] if item.dtype == bool else item.reshape(-1)
+        ret = object.__new__(PolygonMasks)
+        ret.polygons = [self.polygons[int(i)] for i in idx]
+        return ret
+
+    def __len__(self) -> int:
+        return len(self.polygons)
 
 
 def _axis_weights(c0: torch.Tensor, bin_size: torch.Tensor, s: int, m: int) -> torch.Tensor:

@@ -3,12 +3,12 @@ projects/WSL/wsl/data/detection_utils.py:266, wsl/data/build.py; JAX package
 ``wsl/data.py`` :29 ``load_mcg_proposals``, :109 ``transform_proposals_seg``,
 :163 ``compute_superpixels_grid``, :172 ``oh_labels_from_boxes``, :196
 ``add_wsl_batch_fields``, :235 ``load_mcg_proposals_into_dataset``, :268
-``WSLDatasetMapper``, :298 ``WSLStaticBatchLoader``, :342
-``build_wsl_test_loader``, and the training fields of
-``data/detection_utils.py:418,476`` ``instances_to_static_targets`` and
-``build_static_batch``), copied so that the port serves, trains and scores
-JTSM without the JAX package. The MCG ``.mat`` converters and the train
-loader are not ported yet (ROADMAP).
+``WSLDatasetMapper``, :298 ``WSLStaticBatchLoader``, :322
+``build_wsl_train_loader``, :342 ``build_wsl_test_loader``, and the
+training fields of ``data/detection_utils.py:418,476``
+``instances_to_static_targets`` and ``build_static_batch``), copied so
+that the port serves, trains and scores JTSM without the JAX package. The
+MCG ``.mat`` converters are not ported yet (ROADMAP).
 
 An MCG-style proposal pickle is {ids, boxes, objectness_logits, bbox_mode,
 and optionally superpixels (H, W) ids and oh_labels (R, S) bool
@@ -28,9 +28,16 @@ from typing import Dict, List, Union
 
 import numpy as np
 
-from ..data.build import StaticBatchLoader, attach_proposals, build_detection_test_loader, load_proposal_file
+from ..data.build import (
+    StaticBatchLoader,
+    attach_proposals,
+    build_detection_test_loader,
+    build_detection_train_loader,
+    load_proposal_file,
+)
 from ..data.dataset_mapper import DatasetMapper
-from ..data.detection_utils import transformed_proposals
+from ..data.detection_utils import instances_to_static_targets, transformed_proposals
+from ..structures import Instances
 
 
 load_mcg_proposals = load_proposal_file  # a converted MCG pickle: a path, or the dict already loaded
@@ -130,34 +137,34 @@ def add_wsl_batch_fields(
 
 
 def add_wsl_train_fields(batch: Dict[str, np.ndarray], per_image: List[dict], max_instances: int) -> None:
-    """Collate the image-level targets of a JTSM train step into the static
-    batch, as the JAX package's ``build_static_batch`` does: each
-    per-image dict's ``gt_classes`` (and ``gt_boxes`` when present) fill the
-    first rows of a ``max_instances`` capacity, marked in ``gt_valid``; its
-    ``sem_seg`` (h, w), where any dict has one, fills ``gt_sem_seg``."""
+    """Collate image-level targets given as arrays (a JTSM train step's
+    synthetic requests) into the static batch, as the train loader's
+    ``build_static_batch`` collates ``instances``: each per-image dict's
+    ``gt_classes`` (and ``gt_boxes`` when present) in the slots of
+    ``detection_utils.instances_to_static_targets``; its ``sem_seg`` (h,
+    w), where any dict has one, fills ``gt_sem_seg``."""
     b = batch["image"].shape[0]
     bh, bw = batch["image"].shape[1:3]
-    g = max_instances
-    batch["gt_boxes"] = np.zeros((b, g, 4), np.float32)
-    batch["gt_classes"] = np.zeros((b, g), np.int32)
-    batch["gt_valid"] = np.zeros((b, g), bool)
+    targets = []
+    for d in per_image:
+        classes = np.asarray(d.get("gt_classes", ()), np.int64)
+        boxes = np.asarray(d.get("gt_boxes", np.zeros((len(classes), 4))), np.float32)
+        targets.append(instances_to_static_targets(Instances((bh, bw), gt_boxes=boxes, gt_classes=classes),
+                                                   max_instances))
+    for k in targets[0]:
+        batch[k] = np.stack([t[k] for t in targets])
     if any("sem_seg" in d for d in per_image):
         batch["gt_sem_seg"] = np.full((b, bh, bw), 255, np.int32)
-    for i, d in enumerate(per_image):
-        classes = np.asarray(d.get("gt_classes", ()), np.int32)[:g]
-        n = len(classes)
-        batch["gt_classes"][i, :n] = classes
-        batch["gt_valid"][i, :n] = True
-        if "gt_boxes" in d:
-            batch["gt_boxes"][i, :n] = np.asarray(d["gt_boxes"], np.float32)[:n]
-        if "sem_seg" in d:
-            h, w = d["sem_seg"].shape
-            batch["gt_sem_seg"][i, :h, :w] = d["sem_seg"]
+        for i, d in enumerate(per_image):
+            if "sem_seg" in d:
+                h, w = d["sem_seg"].shape
+                batch["gt_sem_seg"][i, :h, :w] = d["sem_seg"]
 
 
 class WSLDatasetMapper(DatasetMapper):
-    """The test ``DatasetMapper`` whose proposal step also transforms the
-    MCG superpixel map and membership (``transform_proposals_seg``)."""
+    """The ``DatasetMapper`` whose proposal step also transforms the MCG
+    superpixel map and membership (``transform_proposals_seg``); in
+    training the flip mirrors the map and the proposals with the image."""
 
     def __init__(self, cfg, is_train: bool = False):
         super().__init__(cfg, is_train)
@@ -190,5 +197,18 @@ def build_wsl_test_loader(cfg, dataset_name: str, batch_size: int = 1):
         return build_detection_test_loader(cfg, dataset_name, batch_size=batch_size)
     return build_detection_test_loader(
         cfg, dataset_name, WSLDatasetMapper(cfg, False), batch_size, load_mcg_proposals_into_dataset,
+        loader_class=functools.partial(WSLStaticBatchLoader, max_superpixels=cfg.WSL.MAX_SUPERPIXELS),
+    )
+
+
+def build_wsl_train_loader(cfg):
+    """The endless train loader of a WSL model (``data.build.
+    build_detection_train_loader``): under WSL.SP_ON the MCG proposal
+    loader, the train ``WSLDatasetMapper`` and the superpixel batch fields,
+    else the plain train loader."""
+    if not cfg.WSL.SP_ON:
+        return build_detection_train_loader(cfg)
+    return build_detection_train_loader(
+        cfg, WSLDatasetMapper(cfg, True), load_mcg_proposals_into_dataset,
         loader_class=functools.partial(WSLStaticBatchLoader, max_superpixels=cfg.WSL.MAX_SUPERPIXELS),
     )

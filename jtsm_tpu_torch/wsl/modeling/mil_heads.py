@@ -20,7 +20,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ...layers import Linear
+from ...layers import Linear, normal
 from ...modeling.proposal_generator.proposal_utils import topk_stable
 from ...ops.losses import smooth_l1_loss, softmax_cross_entropy
 from ...ops.nms import nms_mask
@@ -32,8 +32,8 @@ class MILOutputLayers(nn.Module):
 
     def __init__(self, input_size: int, num_classes: int, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.cls = Linear(input_size, num_classes, compute_dtype=compute_dtype)
-        self.det = Linear(input_size, num_classes, compute_dtype=compute_dtype)
+        self.cls = Linear(input_size, num_classes, compute_dtype=compute_dtype, kernel_init=normal(0.01))
+        self.det = Linear(input_size, num_classes, compute_dtype=compute_dtype, kernel_init=normal(0.01))
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.cls(x).float(), self.det(x).float()
@@ -58,9 +58,10 @@ class OICROutputLayers(nn.Module):
     def __init__(self, input_size: int, num_classes: int, with_reg: bool = False, reg_classes: int = 1,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.refine_score = Linear(input_size, num_classes + 1, compute_dtype=compute_dtype)
+        self.refine_score = Linear(input_size, num_classes + 1, compute_dtype=compute_dtype, kernel_init=normal(0.01))
         self.refine_reg = (
-            Linear(input_size, 4 * reg_classes, compute_dtype=compute_dtype) if with_reg else None
+            Linear(input_size, 4 * reg_classes, compute_dtype=compute_dtype, kernel_init=normal(0.001))
+            if with_reg else None
         )
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

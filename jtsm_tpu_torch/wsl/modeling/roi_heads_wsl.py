@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import Linear
+from ...layers import Linear, normal
 from ...modeling.proposal_generator.proposal_utils import topk_stable
 from ...ops.nms import batched_nms_mask
 from ...structures.boxes import clip_boxes, nonempty_boxes
@@ -50,7 +50,7 @@ class DiscriminativeAdaptionNeck(nn.Module):
         super().__init__()
         self.fcs = []
         for i, d in enumerate(dims):
-            fc = Linear(input_size, d, compute_dtype=compute_dtype)
+            fc = Linear(input_size, d, compute_dtype=compute_dtype, kernel_init=normal(0.005))
             self.add_module(f"dan{i + 1}", fc)
             self.fcs.append(fc)
             input_size = d

@@ -1,27 +1,34 @@
 """Command line of the port's WSL plane (reference:
 projects/WSL/tools/train_net.py; JAX package counterpart
-``projects/WSL/tools/train_net.py:64-92``). Scoring only:
+``projects/WSL/tools/train_net.py:24-92``):
 
-    python -m jtsm_tpu_torch.wsl.train_net --eval-only --config-file CFG.yaml \
-        [--device cpu] [KEY VALUE ...]
+    python -m jtsm_tpu_torch.wsl.train_net --config-file CFG.yaml \
+        [--resume] [--eval-only] [--device cpu] [KEY VALUE ...]
 
-builds the model on the card (or ``--device``) from the WSL config, loads
-MODEL.WEIGHTS, scores it on DATASETS.TEST through the WSL test loader (MCG
+Training runs ``Trainer``: ``engine.DefaultTrainer`` with the WSL train
+loader (MCG proposals with their superpixels, ``build_wsl_train_loader``)
+and WSL.ITER_SIZE mini-batches to an update (the mean of their
+gradients, as the JAX package's ``optax.MultiSteps``; SOLVER.MAX_ITER
+counts mini-batches, the schedule counts updates). The CPG batch
+transform of the CSC heads is not ported (those heads are not).
+
+``--eval-only`` builds the model on the card (or ``--device``) from the
+WSL config, loads MODEL.WEIGHTS (or with ``--resume`` the newest
+checkpoint of OUTPUT_DIR), scores it on DATASETS.TEST through the WSL
+test loader (MCG
 proposals with their superpixels, ``build_wsl_test_loader``) and the
 evaluators of the dataset's type, fuses panoptic outputs on the way
 (``engine.defaults.test``) and checks TEST.EXPECTED_RESULTS. With
 TEST.AUG.ENABLED (every shipped WSL yaml) it scores through
 ``test_with_TTA``: the views' scores and sem-seg logits averaged over the
 fixed proposals (TTA-AVG) and the masks re-run on the merged boxes.
-Datasets and proposal files resolve under ``$JTSM_DATASETS``. Training
-from this command waits for the train loader (ROADMAP queue 1).
+Datasets and proposal files resolve under ``$JTSM_DATASETS``.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-import sys
 import time
 from typing import Dict, Optional
 
@@ -32,15 +39,15 @@ from ..config import wsl_cfg
 from ..data import MetadataCatalog, get_detection_dataset_dicts
 from ..data.detection_utils import record_image
 from ..engine import defaults as engine_defaults
-from ..engine import test
+from ..engine import DefaultTrainer, test
 from ..evaluation import COCOEvaluator, COCOPanopticEvaluator, DatasetEvaluators, SemSegEvaluator, verify_results
 from ..evaluation.evaluator import add_time
 from ..modeling import build_model
 from ..modeling.meta_arch.panoptic_fpn import panoptic_fusion_postprocess
 from ..modeling.test_time_augmentation import GeneralizedRCNNWithTTAAVG
 from ..structures import BoxMode
-from ..tools.train_net import argument_parser, load_weights, setup
-from .data import build_wsl_test_loader, load_mcg_proposals_into_dataset
+from ..tools.train_net import argument_parser, configure_logging, load_weights, setup
+from .data import build_wsl_test_loader, build_wsl_train_loader, load_mcg_proposals_into_dataset
 
 
 def build_test_loader(cfg, dataset_name: str):
@@ -152,23 +159,47 @@ def test_with_TTA(cfg, model, timings: Optional[Dict[str, float]] = None,
     return engine_defaults.evaluate_datasets(cfg, tta_records(cfg), build_evaluator, timings, score)
 
 
-def main(args):
-    if not args.eval_only:
-        sys.exit("training from this command is not ported yet (ROADMAP queue 1, the train loader); "
-                 "pass --eval-only to score a model")
-    cfg = setup(args, wsl_cfg())
-    model = build_model(cfg, device=args.device)
-    load_weights(model, cfg.MODEL.WEIGHTS)
+def score(cfg, model):
+    """Scores ``model`` as the WSL command does: ``test_with_TTA`` under
+    TEST.AUG.ENABLED, else ``engine.test`` with the WSL loader and
+    evaluators."""
     if cfg.TEST.AUG.ENABLED:
-        res = test_with_TTA(cfg, model)
-    else:
-        res = test(cfg, model, build_test_loader=build_test_loader, build_evaluator=build_evaluator)
+        return test_with_TTA(cfg, model)
+    return test(cfg, model, build_test_loader=build_test_loader, build_evaluator=build_evaluator)
+
+
+class Trainer(DefaultTrainer):
+    """The WSL trainer (JAX package ``projects/WSL/tools/train_net.py:24``):
+    the WSL train loader, WSL.ITER_SIZE mini-batches to an update, and
+    scoring as the WSL command scores."""
+
+    @classmethod
+    def build_iter_size(cls, cfg) -> int:
+        return max(1, cfg.WSL.ITER_SIZE)
+
+    @classmethod
+    def build_train_loader(cls, cfg):
+        return build_wsl_train_loader(cfg)
+
+    @classmethod
+    def test(cls, cfg, model):
+        return score(cfg, model)
+
+
+def main(args):
+    cfg = setup(args, wsl_cfg())
+    if not args.eval_only:
+        trainer = Trainer(cfg, device=args.device)
+        trainer.resume_or_load(resume=args.resume)
+        return trainer.train()
+    model = build_model(cfg, device=args.device)
+    load_weights(model, cfg.MODEL.WEIGHTS, cfg.OUTPUT_DIR, args.resume)
+    res = score(cfg, model)
     if cfg.TEST.EXPECTED_RESULTS:
         verify_results(cfg, res)
     return res
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO, stream=sys.stdout,
-                        format="[%(asctime)s %(name)s]: %(levelname)s %(message)s", datefmt="%m/%d %H:%M:%S")
+    configure_logging()
     main(argument_parser().parse_args())

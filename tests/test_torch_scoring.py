@@ -90,10 +90,13 @@ def test_port_result_list_matches_the_jax_package(runs):
 
 
 def test_cli_without_eval_only_names_what_is_missing():
-    proc = subprocess.run([sys.executable, "-m", "jtsm_tpu_torch.tools.train_net", "--config-file", GATE_YAML],
+    """Without --eval-only the command trains (tests/test_torch_trainer.py);
+    a train option that is not ported yet stops it with its name."""
+    proc = subprocess.run([sys.executable, "-m", "jtsm_tpu_torch.tools.train_net", "--device", "cpu",
+                           "--config-file", GATE_YAML, "INPUT.CROP.ENABLED", "True"],
                           cwd=ROOT, capture_output=True, text=True, timeout=300, env=dict(os.environ, PYTHONPATH=ROOT))
     assert proc.returncode != 0
-    assert "ROADMAP queue 1 item 3" in proc.stderr
+    assert "INPUT.CROP is not ported yet (ROADMAP queue 1)" in proc.stderr
 
 
 def test_bf16_outputs_reach_the_paste_in_float32():

@@ -218,7 +218,7 @@ def _union(predict, min_sizes, buckets, image, **kw):
     """The merged result of both packages' UNION wrappers."""
     args = dict(min_sizes=min_sizes, max_size=200, flip=True, buckets=buckets)
     return (jax_tta.GeneralizedRCNNWithTTAUNION(predict, **args)(image, **kw),
-            tta.GeneralizedRCNNWithTTAUNION(predict, **args)(image, **kw))
+            tta.GeneralizedRCNNWithTTAUNION(predict, device="cpu", **args)(image, **kw))
 
 
 def _same(want, got):
@@ -278,7 +278,7 @@ def test_union_mask_rerun_averages_unflipped_views():
 def _avg(predict, image, proposals, scores, min_sizes=(64, 96), buckets=((256, 256),), **kw):
     args = dict(min_sizes=min_sizes, max_size=200, flip=True, buckets=buckets)
     return (jax_tta.GeneralizedRCNNWithTTAAVG(predict, **args)(image, proposals, scores, predict, **kw),
-            tta.GeneralizedRCNNWithTTAAVG(predict, **args)(image, proposals, scores, predict, **kw))
+            tta.GeneralizedRCNNWithTTAAVG(predict, device="cpu", **args)(image, proposals, scores, predict, **kw))
 
 
 def _same_avg(want, got):
