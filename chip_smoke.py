@@ -154,13 +154,44 @@ Phases, in order; any failure ends the run with a non-zero exit:
    never; s/iter, ``data_time`` and peak memory printed; (d) the Mask
    R-CNN gate (float32) for 3 iterations through the trainer on the card,
    once with K1/K2 and once with the plain ROIAlign, from the same weights
-   and data: the losses within 1e-4 relative.
+   and data: the losses within 1e-4 relative;
+15. families: the other core meta-architectures, served and scored. (a)
+   each committed gate checkpoint (Panoptic FPN, RetinaNet, the RPN alone,
+   Keypoint R-CNN; float32) scores the 8 in-memory synthetic scenes of its
+   gate (the separated panoptic set, the instance set, the person keypoint
+   set) through ``engine.defaults.test`` with the evaluators that
+   ``build_evaluator`` picks, on the card and on this machine's CPU (the
+   plain ROIAlign stubbed to raise on the card): detections (or proposals)
+   matched by image, class and box, boxes and keypoint x, y within 1e-3 px
+   of the network's input, scores, mask probabilities and sem-seg logits
+   within 1e-4 of their scale, a keypoint on another bin only where its two
+   maxima lie within 1e-4 of the logits' scale, a detection on one side
+   only at the cut or where the other side holds a higher-scored one of
+   its class overlapping it at the NMS threshold (less 1e-3) that
+   suppressed it there; bbox and segm AP, mIoU, PQ, AR@100 and
+   AR@1000, keypoints AP equal to the CPU's to four decimals; K1 twice an
+   image for Panoptic FPN (box and mask poolers) and Keypoint R-CNN (box and
+   keypoint poolers), never for RetinaNet and the RPN; (b) each family at
+   full width and depth (``panoptic_fpn_R_50_cfg()``,
+   ``retinanet_R_50_FPN_cfg()``, ``rpn_R_50_FPN_cfg()``,
+   ``keypoint_rcnn_R_50_FPN_cfg()``; random weights from a seed) serves 8
+   requests of one 800x1344 image in each of bf16 (as configured) and f32,
+   in turns: outputs of the expected shapes and finite, K1 launched 2, 0,
+   0 and 2 times a request; then the stage split (backbone, RPN or
+   RetinaNet head, decode with top-k and NMS, the box branch, the mask or
+   keypoint branch, the sem-seg head, the panoptic fusion) with its host
+   syncs, the weights' and the request's peak memory; (c) K1 against its
+   plain version at the keypoint pooler's shape (the 100 detections of a
+   Keypoint R-CNN request over an 800x1344 pyramid, C=256, P=14) in float32
+   and bfloat16, timed beside its bound.
 
 The last three lines are {"kernels": [...]} (``kernel_line`` says which
 times; ``l1_*`` are K1's single-level rows of phase 10, ``jt_*`` K1's and
 K2's rows at phase 11's train shape, ``js_launches`` its launches in phase
 12, ``tta_*`` K1's row at phase 13's largest view and its launches there,
-``tc_launches`` each kernel's launches under the trainers of phase 14),
+``tc_launches`` each kernel's launches under the trainers of phase 14,
+``kp_*`` K1's row at phase 15's keypoint pooler shape and that pooler's
+launches, ``fam_launches`` K1's launches in phase 15),
 the card's name and power limit as
 nvidia-smi gives them, and {"ok": true, "device": {...}}. Needs one card, torch, numpy and pytest;
 imports nothing of JAX. Without a card, or outside a checkout of the
@@ -2603,6 +2634,373 @@ def phase_train_cli(kernels, flagship_state, jtsm_state):
     return total, runs, jtsm_run
 
 
+# phase 15: the other core meta-architectures, served and scored
+FAMILIES = ("panoptic_fpn", "retinanet", "rpn", "keypoint_rcnn")
+FAMILY_TITLES = {"panoptic_fpn": "Panoptic FPN R50", "retinanet": "RetinaNet R50-FPN", "rpn": "RPN R50-FPN",
+                 "keypoint_rcnn": "Keypoint R-CNN R50-FPN"}
+FAMILY_K1 = {"panoptic_fpn": 2, "retinanet": 0, "rpn": 0, "keypoint_rcnn": 2}  # box + mask, box + keypoint
+FAMILY_METRICS = {"panoptic_fpn": (("bbox", "AP"), ("segm", "AP"), ("sem_seg", "mIoU"), ("panoptic_seg", "PQ")),
+                  "retinanet": (("bbox", "AP"),), "rpn": (("box_proposals", "AR@100"), ("box_proposals", "AR@1000")),
+                  "keypoint_rcnn": (("bbox", "AP"), ("keypoints", "AP"))}
+FAMILY_TOL_METRIC = 5e-5  # the gates' numbers, to the pins' four decimals
+
+
+def family_cfgs(family):
+    """The full-width and the gate config of ``family`` (the Python builders)."""
+    from jtsm_tpu_torch import config
+
+    full = {"panoptic_fpn": "panoptic_fpn_R_50_cfg", "retinanet": "retinanet_R_50_FPN_cfg",
+            "rpn": "rpn_R_50_FPN_cfg", "keypoint_rcnn": "keypoint_rcnn_R_50_FPN_cfg"}[family]
+    return getattr(config, full)(), getattr(config, f"{family}_gate_cfg")()
+
+
+def register_family_gate(family, name):
+    """The gate's synthetic scenes in memory (the dev script's ``coco`` tree
+    before JPEG): its separated panoptic set, its person keypoint set, or
+    its instance set."""
+    from jtsm_tpu_torch.data.datasets import synthetic
+
+    register = {"panoptic_fpn": synthetic.register_synthetic_coco_panoptic,
+                "keypoint_rcnn": synthetic.register_synthetic_coco_person}.get(family, synthetic.register_synthetic_coco)
+    register(name, num=GATE_SCENES, seed=0)
+
+
+def family_score_once(cfg, state, device, kernel):
+    """``engine.defaults.test`` of ``cfg`` on ``device`` with the evaluators
+    that ``build_evaluator`` picks (results written to a temporary
+    directory): the results, the model's raw outputs batch by batch (on the
+    host), K1's launches (count set to 0 just before) and the seconds."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from jtsm_tpu_torch.engine import test
+    from jtsm_tpu_torch.modeling import build_model
+
+    model = build_model(cfg, device=device)
+    model.load_state_dict(state)
+    inference, outputs = model.inference, []
+
+    def capture(batch):
+        out = inference(batch)
+        outputs.append({k: v.detach().cpu() if torch.is_tensor(v) else v for k, v in out.items()})
+        # the largest original-to-input size ratio of each image: the boxes'
+        # rescale multiplies their differences by it
+        sizes = [np.asarray(batch[k], np.float64) for k in ("orig_sizes", "image_sizes")]
+        outputs[-1]["upscale"] = (sizes[0] / sizes[1]).max(axis=1)
+        return out
+
+    model.inference = capture
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = cfg.clone()
+        cfg.OUTPUT_DIR = tmp
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        results = test(cfg, model)
+        seconds = time.perf_counter() - t0
+    return results, outputs, kernel.launches, seconds
+
+
+def match_family_outputs(card, host, nms_thresh, score_tol=1e-4, box_tol=1e-3):
+    """The detections (or proposals) of two runs on the same batch, matched
+    image by image by class and box (within ``box_tol`` px of the network's
+    input: times the image's ``upscale`` in its original coordinates) and
+    score (within ``score_tol`` of the scores' scale): the largest box
+    difference (in input pixels), score,
+    mask-probability and keypoint (x, y within ``box_tol``) differences, and
+    the keypoints that landed on another bin, whose two maxima must lie
+    within ``score_tol`` of the heatmap logits' scale (a near-tie). A
+    detection on one side only must be explained: it scores within the
+    tolerance of the lower of the two runs' last kept scores (the cut), or
+    the other side holds a higher-scored one of its class that overlaps it
+    at IoU at least ``nms_thresh`` - 1e-3 and suppressed it there (a greedy
+    NMS decision that float32 rounding flipped at the threshold, or one that
+    follows from such a flip)."""
+    import numpy as np
+    import torch
+
+    from jtsm_tpu_torch.structures import pairwise_iou
+
+    proposals = "proposals" in host
+    boxes_key = "proposals" if proposals else "boxes"
+    out = dict(matched=0, at_cut=0, suppressed=0, boxes=0.0, scores=0.0, masks=0.0, kp_xy=0.0, kp_moved=0,
+               kp_tie=0.0)
+    for i in range(host["scores"].shape[0]):
+        sides = []
+        for run in (card, host):
+            scores = run["scores"][i].numpy().astype(np.float64)
+            live = np.isfinite(scores) if proposals else run["valid"][i].numpy()
+            idx = np.nonzero(live)[0]
+            classes = np.zeros(len(idx), int) if proposals else run["classes"][i].numpy()[idx]
+            sides.append((idx, scores[idx], classes, run[boxes_key][i].numpy()[idx].astype(np.float64)))
+        (ic, sc, cc, bc), (ih, sh, ch, bh) = sides
+        up = float(host["upscale"][i])
+        tol = score_tol * max(1.0, float(np.abs(sh).max(initial=0.0)))
+        cut = min(sc.min(initial=np.inf), sh.min(initial=np.inf))
+
+        def explain(where, score, cls, box, other):
+            _, s_o, c_o, b_o = other
+            over = (c_o == cls) & (s_o >= score - tol)
+            iou = float(pairwise_iou(torch.from_numpy(box[None]), torch.from_numpy(b_o[over])).max()) if over.any() else 0.0
+            if score <= cut + tol:
+                out["at_cut"] += 1
+            elif iou >= nms_thresh - 1e-3:
+                out["suppressed"] += 1
+            else:
+                raise AssertionError(f"image {i}: a detection only on the {where} (score {score}, class {cls}, box "
+                                     f"{box.round(3).tolist()}), its largest IoU with a higher-scored one of its "
+                                     f"class on the other side {iou:.4f}, the cut {cut}")
+
+        free = np.ones(len(ih), bool)
+        for n in range(len(ic)):
+            cand = (free & (ch == cc[n]) & (np.abs(bh - bc[n]).max(-1, initial=0.0) <= box_tol * up)
+                    & (np.abs(sh - sc[n]) <= tol))
+            if not cand.any():
+                explain("card", sc[n], cc[n], bc[n], sides[1])
+                continue
+            m = int(np.argmax(cand))
+            free[m] = False
+            out["matched"] += 1
+            out["boxes"] = max(out["boxes"], float(np.abs(bh[m] - bc[n]).max()) / up)
+            out["scores"] = max(out["scores"], float(abs(sh[m] - sc[n])) / max(1.0, float(np.abs(sh).max())))
+            jc, jh = ic[n], ih[m]
+            if "masks" in host:
+                out["masks"] = max(out["masks"], float((card["masks"][i, jc] - host["masks"][i, jh]).abs().max()))
+            if "keypoints" in host:
+                kc, kh = card["keypoints"][i, jc].double().numpy(), host["keypoints"][i, jh].double().numpy()
+                moved = np.abs(kc[:, :2] - kh[:, :2]).max(-1) > box_tol * up
+                out["kp_moved"] += int(moved.sum())
+                out["kp_xy"] = max(out["kp_xy"], float(np.abs(kc[~moved, :2] - kh[~moved, :2]).max(initial=0.0)) / up)
+                scale = max(1.0, float(host["keypoints"][..., 2].abs().max()))
+                out["kp_tie"] = max(out["kp_tie"], float(np.abs(kc[moved, 2] - kh[moved, 2]).max(initial=0.0)) / scale)
+        for m in np.nonzero(free)[0]:
+            explain("CPU", sh[m], ch[m], bh[m], sides[0])
+    return out
+
+
+def family_stages(family, model, req, measure):
+    """The stages of one request through ``model``; ``measure`` makes each
+    call and returns its reading: the backbone (with the request's copy to
+    the card), the RPN head or RetinaNet head, the decode (top-k, NMS), the
+    ROI heads' box branch, the mask or keypoint branch (pooler, head,
+    decode), the sem-seg head with its upsample, and the panoptic fusion at
+    the original size."""
+    import torch
+
+    from jtsm_tpu_torch.layers import exact_float32
+    from jtsm_tpu_torch.modeling.meta_arch.panoptic_fpn import panoptic_fusion_postprocess
+    from jtsm_tpu_torch.modeling.meta_arch.semantic_seg import upsampled_sem_seg
+    from jtsm_tpu_torch.modeling.postprocessing import detector_postprocess_batched
+
+    r = {}
+    readings = {}
+    with torch.no_grad(), exact_float32(model.compute_dtype == torch.float32):
+        readings["backbone"] = measure(lambda: r.update(zip(("feats", "sizes"), model._features(req))))
+        if family == "retinanet":
+            readings["head"] = measure(lambda: r.update(zip(("anchors", "logits", "deltas"),
+                                                            model.head_outputs(r["feats"]))))
+            readings["decode"] = measure(lambda: r.update(det=model.decode(r["anchors"], r["logits"], r["deltas"])))
+            return readings
+        rpn = model.proposal_generator
+        readings["rpn_head"] = measure(lambda: r.update(zip(("anchors", "logits", "deltas"),
+                                                            rpn.head_outputs(r["feats"]))))
+        readings["rpn_decode"] = measure(lambda: r.update(zip(("proposals", "scores"), rpn.predict_proposals(
+            r["anchors"], r["logits"], r["deltas"], r["sizes"]))))
+        if family == "rpn":
+            return readings
+        readings["roi_box"] = measure(lambda: r.update(det=model.roi_heads.detect(
+            r["feats"], r["proposals"], r["scores"], r["sizes"])))
+        branch = "keypoint" if family == "keypoint_rcnn" else "mask"
+        readings[branch] = measure(lambda: r.update(det=model.roi_heads.forward_with_given_boxes(r["feats"], r["det"])))
+        if family != "panoptic_fpn":
+            return readings
+        readings["sem_seg"] = measure(lambda: r.update(sem=upsampled_sem_seg(
+            model.sem_seg_head(r["feats"]), req["image"].shape[1:3])))
+    orig = torch.as_tensor(req["orig_sizes"], device=r["sizes"].device)
+    out = dict(detector_postprocess_batched(r["det"], r["sizes"], orig), **r["sem"])
+    readings["fusion"] = measure(lambda: panoptic_fusion_postprocess(out, req["image_sizes"], req["orig_sizes"]))
+    return readings
+
+
+def check_family_output(family, cfg, out):
+    """Shapes and finite values of a served request's outputs."""
+    import torch
+
+    h, w = FLAGSHIP_HW
+    if family == "rpn":
+        want = {"proposals": (1, cfg.MODEL.RPN.POST_NMS_TOPK_TEST, 4), "scores": (1, cfg.MODEL.RPN.POST_NMS_TOPK_TEST)}
+    else:
+        d = cfg.TEST.DETECTIONS_PER_IMAGE
+        want = {"boxes": (1, d, 4), "scores": (1, d), "classes": (1, d), "valid": (1, d)}
+        if family == "panoptic_fpn":
+            s = 2 * cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION
+            k = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
+            want.update(masks=(1, d, s, s), sem_seg=(1, h, w), sem_seg_logits=(1, h, w, k))
+        if family == "keypoint_rcnn":
+            want["keypoints"] = (1, d, cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_KEYPOINTS, 4)
+    if sorted(out) != sorted(want):
+        raise AssertionError(f"{family}: outputs {sorted(out)}, expected {sorted(want)}")
+    for k, shape in want.items():
+        if tuple(out[k].shape) != shape:
+            raise AssertionError(f"{family} {k} has shape {tuple(out[k].shape)}, expected {shape}")
+        v = out[k].float()
+        if k == "scores" and family == "rpn":
+            v = v[torch.isfinite(v)]
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"{family} {k} holds non-finite values")
+
+
+def phase_families(kernel, gen, baseline, card):
+    """Phase 15: (a) the four gates on the card against the CPU; (b) the
+    four families at full width serving in bf16 and f32 in turns, by stage;
+    (c) K1 at the keypoint pooler's shape. Returns K1's launches in the
+    phase, the keypoint pooler's share of them, and K1's rows."""
+    import numpy as np
+    import torch
+
+    import jtsm_tpu_torch.ops.roi_align as roi_align
+    from jtsm_tpu_torch.checkpoint import load_gate_ckpt, random_state_dict, variables_to_state_dict
+    from jtsm_tpu_torch.engine import Predictor
+    from jtsm_tpu_torch.modeling import build_model
+    from jtsm_tpu_torch.modeling.poolers import assign_boxes_to_levels
+
+    routed = roi_align.roi_align_multilevel_plain_autograd
+
+    def plain_on_cpu_only(features, scales, boxes, *a, **k):
+        if boxes.device.type != "cpu":
+            raise AssertionError("the plain ROIAlign ran on the card in phase 15")
+        return routed(features, scales, boxes, *a, **k)
+
+    roi_align.roi_align_multilevel_plain_autograd = plain_on_cpu_only
+    total, kp_pooled = 0, 0
+    try:
+        # (a) each gate on the card against the CPU, float32
+        for family in FAMILIES:
+            _, cfg = family_cfgs(family)
+            name = f"chip_smoke_{family}_gate"
+            register_family_gate(family, name)
+            cfg.DATASETS.TEST = (name,)
+            state = variables_to_state_dict(load_gate_ckpt(os.path.join(REPO, cfg.MODEL.WEIGHTS)))
+            res_card, out_card, launches, s_card = family_score_once(cfg, state, DEVICE, kernel)
+            res_cpu, out_cpu, _, s_cpu = family_score_once(cfg, state, "cpu", kernel)
+            if launches != FAMILY_K1[family] * GATE_SCENES:
+                raise AssertionError(f"{family} gate on the card: roi_align_fwd launched {launches} times for "
+                                     f"{GATE_SCENES} images, not {FAMILY_K1[family]} each")
+            total += launches
+            kp_pooled += launches // 2 if family == "keypoint_rcnn" else 0
+            m = dict(matched=0, at_cut=0, suppressed=0, boxes=0.0, scores=0.0, masks=0.0, kp_xy=0.0, kp_moved=0,
+                     kp_tie=0.0)
+            nms = {"retinanet": cfg.MODEL.RETINANET.NMS_THRESH_TEST,
+                   "rpn": cfg.MODEL.RPN.NMS_THRESH}.get(family, cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST)
+            sem = 0.0
+            for bc, bh in zip(out_card, out_cpu):
+                one = match_family_outputs(bc, bh, nms)
+                for k in m:
+                    m[k] = m[k] + one[k] if k in ("matched", "at_cut", "suppressed", "kp_moved") else max(m[k], one[k])
+                if "sem_seg_logits" in bh:
+                    scale = max(1.0, bh["sem_seg_logits"].abs().max().item())
+                    sem = max(sem, (bc["sem_seg_logits"] - bh["sem_seg_logits"]).abs().max().item() / scale)
+            nums = {f"{t}/{k}": (res_card[t][k], res_cpu[t][k]) for t, k in FAMILY_METRICS[family]}
+            log(f"[families] {family} gate (float32, fixture weights) on the {GATE_SCENES} in-memory scenes | "
+                + " ".join(f"{k} card={a:.4f} cpu={b:.4f}" for k, (a, b) in nums.items())
+                + f" | matched {m['matched']} by image, class and box, {m['at_cut']} at the cut, {m['suppressed']} "
+                f"on one side where the other's NMS suppressed them (IoU at least {nms} - 1e-3 with a higher-scored "
+                f"one of their class); boxes "
+                f"max_abs_err={m['boxes']:.3e} input px (tol 1e-3), scores {m['scores']:.3e} of scale (tol 1e-4), mask "
+                f"probabilities {m['masks']:.3e} (tol 1e-4), keypoint x,y {m['kp_xy']:.3e} input px (tol 1e-3), "
+                f"{m['kp_moved']} keypoints on another bin with their maxima {m['kp_tie']:.3e} of scale apart (tol "
+                f"1e-4), sem-seg logits {sem:.3e} of scale (tol 1e-4) | roi_align_fwd_launches={launches} | "
+                f"seconds card {s_card:.1f} cpu {s_cpu:.1f} | {card}")
+            if not (m["boxes"] <= 1e-3 and m["scores"] <= 1e-4 and m["masks"] <= 1e-4 and m["kp_xy"] <= 1e-3
+                    and m["kp_tie"] <= 1e-4 and sem <= 1e-4):
+                raise AssertionError(f"{family} gate: the card's outputs disagree with the CPU's: {m}, sem {sem}")
+            if not all(abs(a - b) <= FAMILY_TOL_METRIC for a, b in nums.values()):
+                raise AssertionError(f"{family} gate: the card's numbers differ from the CPU's: {nums}")
+
+        # (b) each family at full width, random weights, bf16 and f32 in turns
+        rng = np.random.default_rng(15)
+        h, w = FLAGSHIP_HW
+        warm = request(rng, (h, w), (h, w), (h, w))
+        reqs = [request(rng, (h, w), (h, w), (h, w)), request(rng, (h, w), (h, w), (480, 640)),
+                request(rng, (h, w), (h - 50, w - 11), (h - 50, w - 11)), request(rng, (h, w), (h, w), (h, w))]
+        latency, kp_boxes = {}, None
+        for family in FAMILIES:
+            base, _ = family_cfgs(family)
+            dtypes = (base.TPU.COMPUTE_DTYPE, "float32")
+            state = random_state_dict(build_model(base, device="cpu"), seed=15)
+            predictors, mem = {}, {}
+            for d in dtypes:
+                c = base.clone()
+                c.TPU.COMPUTE_DTYPE = d
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                predictors[d] = Predictor(c, state)
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                predictors[d](warm)
+                torch.cuda.synchronize()
+                mem[d] = ((resident - before) / 2**30, (torch.cuda.max_memory_allocated() - resident) / 2**30)
+            lat = {d: [] for d in dtypes}
+            launches = dict.fromkeys(dtypes, 0)
+            for i in range(SERVE_ROUNDS):
+                req = reqs[i % len(reqs)]
+                for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+                    kernel.launches = 0
+                    t0 = time.perf_counter()
+                    out = predictors[d](req)
+                    torch.cuda.synchronize()
+                    lat[d].append((time.perf_counter() - t0) * 1e3)
+                    n = kernel.launches
+                    if n != FAMILY_K1[family]:
+                        raise AssertionError(f"{family} {d} request {i}: roi_align_fwd launched {n} times, "
+                                             f"not {FAMILY_K1[family]}")
+                    launches[d] += n
+                    check_family_output(family, predictors[d].cfg, out)
+                    if family == "keypoint_rcnn" and d == "float32" and kp_boxes is None:
+                        kp_boxes = out["boxes"][0]
+            total += sum(launches.values())
+            kp_pooled += sum(launches.values()) // 2 if family == "keypoint_rcnn" else 0
+
+            def timed(call):
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3
+
+            stage_ms = {d: {} for d in dtypes}
+            for i in range(STAGE_ROUNDS):
+                for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+                    for k, ms in family_stages(family, predictors[d].model, reqs[0], timed).items():
+                        stage_ms[d].setdefault(k, []).append(ms)
+            for d in dtypes:
+                syncs = family_stages(family, predictors[d].model, reqs[0], count_host_syncs)
+                latency[(family, d)] = sum(lat[d]) / len(lat[d])
+                log(f"[families] {FAMILY_TITLES[family]} {h}x{w} {DTYPE_NAMES[d]}, random weights (seed 15), "
+                    f"{SERVE_ROUNDS} requests in turns: latency_ms={[round(x, 3) for x in lat[d]]} "
+                    f"mean_ms={latency[(family, d)]:.3f} median_ms={sorted(lat[d])[len(lat[d]) // 2]:.3f} "
+                    f"roi_align_fwd_launches={launches[d]} ({FAMILY_K1[family]} a request) "
+                    f"weights_gib={mem[d][0]:.3f} request_peak_gib={mem[d][1]:.3f} | stages_ms (median of "
+                    f"{STAGE_ROUNDS}) " + " ".join(f"{k}={sorted(v)[len(v) // 2]:.3f}" for k, v in stage_ms[d].items())
+                    + " | host syncs " + " ".join(f"{k}={n}" for k, n in syncs.items()) + f" | {card}")
+            del predictors
+
+        # (c) K1 at the keypoint pooler's shape: the keypoint request's 100
+        # detection boxes over an 800x1344 pyramid, C=256, P=14
+        rows = {}
+        levels = assign_boxes_to_levels(kp_boxes, 2, 5)
+        bidx = torch.zeros(kp_boxes.shape[0], dtype=torch.int32, device=DEVICE)
+        pyr32 = flagship_pyramid(gen, dtype=torch.float32)
+        for tag, feats in (("f32", pyr32), ("bf16", [f.to(torch.bfloat16) for f in pyr32])):
+            rows[tag] = check_and_time_fwd(f"keypoint pooler {tag}", feats, [1.0 / s for s in LEVEL_STRIDES],
+                                           kp_boxes.float().contiguous(), bidx, levels, 14, baseline,
+                                           phase="families")
+    finally:
+        roi_align.roi_align_multilevel_plain_autograd = routed
+    return total, kp_pooled, rows, latency
+
+
 def kernel_line(kernel, launches, rows, f32_errs):
     """One entry of the kernels JSON line. ``ms``, ``plain_ms`` and
     ``bound_ms`` keep their long-standing meaning: the float32 box and mask
@@ -2804,6 +3202,13 @@ def main(argv=None) -> int:
     tc_launches, tc_runs, tc_jtsm = phase_train_cli(KERNELS, state, jtsm_state)
     log(f"[train_cli] done in {time.perf_counter() - t0:.1f}s")
 
+    # 15. the other core meta-architectures: their gates on the card against
+    # the CPU, each served at full width by stage, K1 at the keypoint
+    # pooler's shape
+    t0 = time.perf_counter()
+    fam_launches, kp_launches, kp_rows, fam_latency = phase_families(KERNEL, gen, baseline, card)
+    log(f"[families] done in {time.perf_counter() - t0:.1f}s")
+
     # per served request K1 pools boxes (R=1000, P=7) and masks (R=100,
     # P=14); per train step K1 and K2 pool and unpool boxes (R=1024, P=7)
     # and masks (R=256, P=14); per JTSM request K1 pools masks on one level
@@ -2813,9 +3218,11 @@ def main(argv=None) -> int:
     # P=14, C=512), and with TTA twice a view (R=100, P=14, C=512, up to
     # (1, 75, 100, 512) at the 1200 view). Times as kernel_line says;
     # launches: the main paths, serve, train, score, JTSM, JTSM train, JTSM
-    # score and TTA, in both dtypes.
+    # score and TTA, in both dtypes; phase 15's Panoptic FPN (box and mask
+    # poolers) and Keypoint R-CNN (box and keypoint poolers, R=100 P=14).
     k1_launches = (sum(launches.values()) + sum(t[0][KERNEL.name] for t in train.values()) + score_launches
-                   + jtsm_launches + jt_launches[KERNEL.name] + js_launches + tta_launches + tc_launches[KERNEL.name])
+                   + jtsm_launches + jt_launches[KERNEL.name] + js_launches + tta_launches + tc_launches[KERNEL.name]
+                   + fam_launches)
     k2_launches = (sum(t[0][BWD_KERNEL.name] for t in train.values()) + jt_launches[BWD_KERNEL.name]
                    + tc_launches[BWD_KERNEL.name])
     bwd = {k[4:]: v for k, v in tres.items() if k.startswith("bwd ")}
@@ -2871,6 +3278,25 @@ def main(argv=None) -> int:
             "jt_bf16_plain_ms": bf16["plain_ms"],
             "jt_bf16_bound_ms": bf16["bound_ms"],
         })
+    # the keypoint pooler's row (phase 15(c)): a Keypoint R-CNN request's
+    # 100 detections over an 800x1344 pyramid, C=256, P=14; its launches are
+    # the keypoint pooler's in phase 15, the phase's all in fam_launches
+    kp, kp_bf16 = kp_rows["f32"], kp_rows["bf16"]
+    kernels[0].update({
+        "kp_launches": kp_launches,
+        "kp_max_abs_err": kp["err"],
+        "kp_ms": kp["times"]["new"]["ms"],
+        "kp_device_ms": kp["times"]["new"]["device_ms"],
+        "kp_plain_ms": kp["plain_ms"],
+        "kp_bound_ms": kp["bound_ms"],
+        "kp_bound_by": kp["bound_by"],
+        "kp_bf16_max_abs_err": kp_bf16["err"],
+        "kp_bf16_ms": kp_bf16["times"]["new"]["ms"],
+        "kp_bf16_device_ms": kp_bf16["times"]["new"]["device_ms"],
+        "kp_bf16_plain_ms": kp_bf16["plain_ms"],
+        "kp_bf16_bound_ms": kp_bf16["bound_ms"],
+        "fam_launches": fam_launches,
+    })
     # the trainers' launches (phase 14): Mask R-CNN at NUM_WORKERS 0 and 4,
     # the resumed run, the JTSM flagship, the gate's kernel run
     for line in kernels:
@@ -2888,6 +3314,8 @@ def main(argv=None) -> int:
         + " ".join(f"{DTYPE_NAMES[d]}={ms:.3f}" for d, ms in jtsm_lat.items())
         + "; JTSM train step median ms " + " ".join(f"{DTYPE_NAMES[d]}={ms:.3f}" for d, ms in jt_med.items())
         + f", launches {jt_launches}")
+    log("[families] request mean ms " + " ".join(f"{f} {DTYPE_NAMES[d]}={ms:.3f}" for (f, d), ms in fam_latency.items())
+        + f"; K1 launches {fam_launches} (keypoint pooler {kp_launches}) | {card}")
     log(f"[done] {time.perf_counter() - t_run:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

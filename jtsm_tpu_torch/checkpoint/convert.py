@@ -7,13 +7,17 @@ inverts the JAX package's ``checkpoint/c2_model_loading.py:231-285``
 (``convert_d2_state_dict_to_variables``):
 
 * conv kernels HWIO -> OIHW;
-* the deconv kernel (kh, kw, in, out), stored spatially mirrored, -> torch's
-  (in, out, kh, kw);
+* the transposed convolutions' kernels (kh, kw, in, out) (the mask head's
+  ``deconv``, the keypoint head's ``score_lowres``), stored spatially
+  mirrored, -> torch's (in, out, kh, kw);
 * dense kernels (in, out) -> (out, in);
 * ``fc1`` rows, which the JAX package flattens (P, P, C), -> detectron2's
   (C, P, P);
 * flax paths -> detectron2 names (``res2_block0`` -> ``res2.0``, the RPN's
-  ``head`` -> ``rpn_head``, ``conv/kernel`` and ``dense/kernel`` ->
+  ``head`` -> ``rpn_head``, RetinaNet's tower convolutions
+  ``cls_subnet{i}`` and ``bbox_subnet{i}`` -> ``cls_subnet.{2i}`` (its
+  ``nn.Sequential`` of convolutions and ReLUs, JAX
+  ``c2_model_loading.py:114-118``), ``conv/kernel`` and ``dense/kernel`` ->
   ``weight``, a group norm's ``norm/GroupNorm_0/scale`` -> ``norm.weight``);
   the JTSM heads keep their flax names (``roi_heads.dan.dan1``,
   ``roi_heads.mil.cls``, ``roi_heads.refine0.refine_score``,
@@ -40,6 +44,12 @@ logger = logging.getLogger(__name__)
 
 # first fully connected layers that take flattened pooled maps
 _CONV_FLATTEN_FCS = ("fc1", "dan1")
+# transposed convolutions: (in, out, kh, kw) in torch, mirrored in flax
+_DECONVS = ("deconv", "score_lowres")
+
+
+def _is_deconv(name: str) -> bool:
+    return any(d in name for d in _DECONVS)
 
 
 def _flatten(tree: Dict, prefix=()) -> Dict[Tuple[str, ...], Any]:
@@ -56,8 +66,11 @@ def _d2_module_path(path: Tuple[str, ...]) -> list:
     out = []
     for p in path:
         m = re.match(r"^(res\d)_block(\d+)$", p)
+        tower = re.match(r"^(cls_subnet|bbox_subnet)(\d+)$", p)
         if m:
             out.extend(m.groups())
+        elif tower and out == ["head"]:
+            out.extend([tower.group(1), str(2 * int(tower.group(2)))])
         elif p == "head" and out == ["proposal_generator"]:
             out.append("rpn_head")
         else:
@@ -98,7 +111,7 @@ def variables_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor
                 key = f"{name}.{leaf}"
             elif leaf == "kernel":
                 key = f"{name}.weight"
-                if arr.ndim == 4 and any("deconv" in p for p in module):
+                if arr.ndim == 4 and any(_is_deconv(p) for p in module):
                     arr = np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))
                 elif arr.ndim == 4:
                     arr = np.transpose(arr, (3, 2, 0, 1))
@@ -149,7 +162,7 @@ def random_state_dict(model: torch.nn.Module, seed: int) -> Dict[str, torch.Tens
             a = rng.normal(0.0, 0.001, shape)
         else:
             # (out, in, ...) for conv and linear, (in, out, kh, kw) for the deconv
-            fan_in = int(np.prod(shape)) // shape[1 if "deconv" in key else 0]
+            fan_in = int(np.prod(shape)) // shape[1 if _is_deconv(key) else 0]
             a = rng.normal(0.0, 1.0 / np.sqrt(fan_in), shape)
         state[key] = torch.from_numpy(a.astype(np.float32))
     return state

@@ -377,30 +377,19 @@ def mask_rcnn_R_50_FPN_cfg() -> CN:
     return cfg
 
 
-def mask_rcnn_gate_cfg() -> CN:
-    """``configs/quick_schedules/mask_rcnn_R_18_FPN_synthetic_inference_acc_test.yaml``
-    (over its training twin and ``Base-RCNN-FPN.yaml``), set in Python: the
-    narrow bottleneck R50 of the committed ``tests/fixtures/gate_ckpts/
-    mask_rcnn.ckpt.gz`` weights. A test holds it equal to the merged yamls."""
-    cfg = mask_rcnn_R_50_FPN_cfg()
+def _narrow_gate(cfg: CN, family: str, expected_results, max_iter: int = 80, steps=(70,),
+                 base_lr: float = 0.002) -> CN:
+    """What the synthetic gates of ``configs/quick_schedules/`` share: the
+    narrow bottleneck R50 of ``tests/fixtures/gate_ckpts/<family>.ckpt.gz``
+    (32 channels to the FPN), scenes at short side 128 in two buckets,
+    float32, the gates' solver and their pins."""
     m = cfg.MODEL
-    m.WEIGHTS = "tests/fixtures/gate_ckpts/mask_rcnn.ckpt.gz"
+    m.WEIGHTS = f"tests/fixtures/gate_ckpts/{family}.ckpt.gz"
     m.BACKBONE.FREEZE_AT = 0
     m.RESNETS.STEM_OUT_CHANNELS = 32
     m.RESNETS.RES2_OUT_CHANNELS = 32
     m.RESNETS.WIDTH_PER_GROUP = 8
     m.FPN.OUT_CHANNELS = 32
-    m.RPN.PRE_NMS_TOPK_TRAIN = 512
-    m.RPN.POST_NMS_TOPK_TRAIN = 128
-    m.RPN.PRE_NMS_TOPK_TEST = 256
-    m.RPN.POST_NMS_TOPK_TEST = 64
-    m.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 64
-    m.ROI_BOX_HEAD.NUM_FC = 1
-    m.ROI_BOX_HEAD.FC_DIM = 64
-    m.ROI_MASK_HEAD.NUM_CONV = 1
-    m.ROI_MASK_HEAD.CONV_DIM = 32
-    cfg.DATASETS.TRAIN = ("coco_2017_val_100",)
-    cfg.DATASETS.TEST = ("coco_2017_val_100",)
     cfg.INPUT.MIN_SIZE_TRAIN = (128,)
     cfg.INPUT.MAX_SIZE_TRAIN = 176
     cfg.INPUT.MIN_SIZE_TEST = 128
@@ -409,15 +398,166 @@ def mask_rcnn_gate_cfg() -> CN:
     cfg.TPU.COMPUTE_DTYPE = "float32"
     s = cfg.SOLVER
     s.IMS_PER_BATCH = 4
-    s.BASE_LR = 0.002
-    s.MAX_ITER = 200
-    s.STEPS = (180,)
+    s.BASE_LR = base_lr
+    s.MAX_ITER = max_iter
+    s.STEPS = steps
     s.WARMUP_ITERS = 40
     s.WARMUP_FACTOR = 0.01
     s.CLIP_GRADIENTS.ENABLED = True
     s.CLIP_GRADIENTS.CLIP_TYPE = "norm"
     s.CLIP_GRADIENTS.CLIP_VALUE = 5.0
     cfg.DATALOADER.NUM_WORKERS = 0
-    cfg.TEST.EXPECTED_RESULTS = [["bbox", "AP", 63.5662, 0.02], ["segm", "AP", 64.9523, 0.02]]
+    cfg.TEST.EXPECTED_RESULTS = expected_results
     cfg.SEED = 42
+    return cfg
+
+
+def _rpn_gate_topk(cfg: CN, train=(512, 128), test=(256, 64)) -> None:
+    r = cfg.MODEL.RPN
+    r.PRE_NMS_TOPK_TRAIN, r.POST_NMS_TOPK_TRAIN = train
+    r.PRE_NMS_TOPK_TEST, r.POST_NMS_TOPK_TEST = test
+
+
+def mask_rcnn_gate_cfg() -> CN:
+    """``configs/quick_schedules/mask_rcnn_R_18_FPN_synthetic_inference_acc_test.yaml``
+    (over its training twin and ``Base-RCNN-FPN.yaml``), set in Python: the
+    narrow bottleneck R50 of the committed ``tests/fixtures/gate_ckpts/
+    mask_rcnn.ckpt.gz`` weights. A test holds it equal to the merged yamls."""
+    cfg = _narrow_gate(mask_rcnn_R_50_FPN_cfg(), "mask_rcnn",
+                       [["bbox", "AP", 63.5662, 0.02], ["segm", "AP", 64.9523, 0.02]], 200, (180,))
+    m = cfg.MODEL
+    _rpn_gate_topk(cfg)
+    m.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 64
+    m.ROI_BOX_HEAD.NUM_FC = 1
+    m.ROI_BOX_HEAD.FC_DIM = 64
+    m.ROI_MASK_HEAD.NUM_CONV = 1
+    m.ROI_MASK_HEAD.CONV_DIM = 32
+    cfg.DATASETS.TRAIN = ("coco_2017_val_100",)
+    cfg.DATASETS.TEST = ("coco_2017_val_100",)
+    return cfg
+
+
+def panoptic_fpn_R_50_cfg() -> CN:
+    """``configs/COCO-PanopticSegmentation/panoptic_fpn_R_50_1x.yaml`` (over
+    ``Base-Panoptic-FPN.yaml`` and ``Base-RCNN-FPN.yaml``), set in Python."""
+    cfg = mask_rcnn_R_50_FPN_cfg()
+    cfg.MODEL.META_ARCHITECTURE = "PanopticFPN"
+    cfg.MODEL.SEM_SEG_HEAD.LOSS_WEIGHT = 0.5
+    cfg.DATASETS.TRAIN = ("coco_2017_train_panoptic_separated",)
+    cfg.DATASETS.TEST = ("coco_2017_val_panoptic_separated",)
+    cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS = False
+    return cfg
+
+
+def retinanet_R_50_FPN_cfg() -> CN:
+    """``configs/COCO-Detection/retinanet_R_50_FPN_1x.yaml`` (over
+    ``Base-RetinaNet.yaml``), set in Python: P3-P7, the P6/P7 convolutions
+    from res5, three sizes by three ratios of anchors a level."""
+    cfg = get_cfg()
+    m = cfg.MODEL
+    m.META_ARCHITECTURE = "RetinaNet"
+    m.WEIGHTS = "detectron2://ImageNetPretrained/MSRA/R-50.pkl"
+    m.BACKBONE.NAME = "build_retinanet_resnet_fpn_backbone"
+    m.RESNETS.DEPTH = 50
+    m.RESNETS.OUT_FEATURES = ["res3", "res4", "res5"]
+    m.FPN.IN_FEATURES = ["res3", "res4", "res5"]
+    # sizes x, x * 2**(1/3), x * 2**(2/3), as the yaml writes them out
+    m.ANCHOR_GENERATOR.SIZES = [
+        [32.0, 40.3174735966, 50.796833663], [64.0, 80.6349471933, 101.593667326],
+        [128.0, 161.2698943865, 203.1873346519], [256.0, 322.5397887731, 406.3746693039],
+        [512.0, 645.0795775462, 812.7493386077],
+    ]
+    m.RETINANET.SMOOTH_L1_LOSS_BETA = 0.0
+    cfg.DATASETS.TRAIN = ("coco_2017_train",)
+    cfg.DATASETS.TEST = ("coco_2017_val",)
+    cfg.SOLVER.IMS_PER_BATCH = 16
+    cfg.SOLVER.BASE_LR = 0.01
+    cfg.SOLVER.STEPS = (60000, 80000)
+    cfg.SOLVER.MAX_ITER = 90000
+    cfg.INPUT.MIN_SIZE_TRAIN = (640, 672, 704, 736, 768, 800)
+    cfg.VERSION = 2
+    return cfg
+
+
+def rpn_R_50_FPN_cfg() -> CN:
+    """``configs/COCO-Detection/rpn_R_50_FPN_1x.yaml`` (over
+    ``Base-RCNN-FPN.yaml``), set in Python: the RPN alone."""
+    cfg = mask_rcnn_R_50_FPN_cfg()
+    cfg.MODEL.META_ARCHITECTURE = "ProposalNetwork"
+    cfg.MODEL.MASK_ON = False
+    cfg.MODEL.RPN.POST_NMS_TOPK_TEST = 2000
+    return cfg
+
+
+def keypoint_rcnn_R_50_FPN_cfg() -> CN:
+    """``configs/COCO-Keypoints/keypoint_rcnn_R_50_FPN_1x.yaml`` (over
+    ``Base-Keypoint-RCNN-FPN.yaml`` and ``Base-RCNN-FPN.yaml``), set in
+    Python: one class, the keypoint head, no masks."""
+    cfg = mask_rcnn_R_50_FPN_cfg()
+    m = cfg.MODEL
+    m.KEYPOINT_ON = True
+    m.MASK_ON = False
+    m.ROI_HEADS.NUM_CLASSES = 1
+    m.ROI_BOX_HEAD.SMOOTH_L1_BETA = 0.5
+    m.RPN.POST_NMS_TOPK_TRAIN = 1500
+    cfg.DATASETS.TRAIN = ("keypoints_coco_2017_train",)
+    cfg.DATASETS.TEST = ("keypoints_coco_2017_val",)
+    return cfg
+
+
+def panoptic_fpn_gate_cfg() -> CN:
+    """``configs/quick_schedules/panoptic_fpn_R_18_synthetic_inference_acc_test.yaml``
+    (the narrow R50 of ``panoptic_fpn.ckpt.gz``), set in Python."""
+    cfg = _narrow_gate(panoptic_fpn_R_50_cfg(), "panoptic_fpn", [
+        ["bbox", "AP", 21.5726, 0.02], ["segm", "AP", 21.6414, 0.02], ["sem_seg", "mIoU", 53.4529, 0.02],
+        ["panoptic_seg", "PQ", 21.9175, 0.02]])
+    m = cfg.MODEL
+    _rpn_gate_topk(cfg)
+    m.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 64
+    m.ROI_BOX_HEAD.NUM_FC = 1
+    m.ROI_BOX_HEAD.FC_DIM = 64
+    m.ROI_MASK_HEAD.NUM_CONV = 1
+    m.ROI_MASK_HEAD.CONV_DIM = 32
+    m.SEM_SEG_HEAD.CONVS_DIM = 32
+    m.PANOPTIC_FPN.COMBINE.INSTANCES_CONFIDENCE_THRESH = 0.2
+    cfg.DATASETS.TRAIN = ("coco_2017_val_100_panoptic_separated",)
+    cfg.DATASETS.TEST = ("coco_2017_val_100_panoptic_separated",)
+    return cfg
+
+
+def retinanet_gate_cfg() -> CN:
+    """``configs/quick_schedules/retinanet_R_18_synthetic_inference_acc_test.yaml``
+    (the narrow R50 of ``retinanet.ckpt.gz``), set in Python."""
+    cfg = _narrow_gate(retinanet_R_50_FPN_cfg(), "retinanet", [["bbox", "AP", 38.2114, 0.02]], 200, (180,))
+    cfg.MODEL.RETINANET.NUM_CONVS = 1
+    cfg.MODEL.RETINANET.TOPK_CANDIDATES_TEST = 256
+    cfg.DATASETS.TRAIN = ("coco_2017_val_100",)
+    cfg.DATASETS.TEST = ("coco_2017_val_100",)
+    return cfg
+
+
+def rpn_gate_cfg() -> CN:
+    """``configs/quick_schedules/rpn_R_18_synthetic_inference_acc_test.yaml``
+    (the narrow R50 of ``rpn.ckpt.gz``), set in Python."""
+    cfg = _narrow_gate(rpn_R_50_FPN_cfg(), "rpn", [["box_proposals", "AR@1000", 52.381, 0.02]])
+    _rpn_gate_topk(cfg, (512, 256), (512, 256))
+    cfg.DATASETS.TRAIN = ("coco_2017_val_100",)
+    cfg.DATASETS.TEST = ("coco_2017_val_100",)
+    return cfg
+
+
+def keypoint_rcnn_gate_cfg() -> CN:
+    """``configs/quick_schedules/keypoint_rcnn_R_18_synthetic_inference_acc_test.yaml``
+    (the narrow R50 of ``keypoint_rcnn.ckpt.gz``), set in Python."""
+    cfg = _narrow_gate(keypoint_rcnn_R_50_FPN_cfg(), "keypoint_rcnn",
+                       [["bbox", "AP", 6.3899, 0.02], ["keypoints", "AP", 10.3519, 0.02]], 400, (380,), 0.01)
+    m = cfg.MODEL
+    _rpn_gate_topk(cfg)
+    m.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 64
+    m.ROI_BOX_HEAD.NUM_FC = 1
+    m.ROI_BOX_HEAD.FC_DIM = 64
+    m.ROI_BOX_HEAD.SMOOTH_L1_BETA = 0.0
+    m.ROI_KEYPOINT_HEAD.CONV_DIMS = (64, 64)
+    cfg.DATASETS.TRAIN = ("keypoints_coco_2017_val_100",)
+    cfg.DATASETS.TEST = ("keypoints_coco_2017_val_100",)
     return cfg

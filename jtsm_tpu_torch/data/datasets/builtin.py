@@ -1,6 +1,7 @@
-"""The builtin COCO instance splits and the separated panoptic splits
-(reference: detectron2/data/datasets/builtin.py; JAX package
-``data/datasets/builtin.py:17,62,82,103,245``), registered when this module
+"""The builtin COCO instance splits, the person keypoint splits and the
+separated panoptic splits (reference: detectron2/data/datasets/builtin.py;
+JAX package ``data/datasets/builtin.py:17,43,62,82,103,245``), registered
+when this module
 is imported. Paths resolve under ``$JTSM_DATASETS`` (default
 ``./datasets``); nothing is read until a dataset is used. The standard
 panoptic variant (``load_coco_panoptic_json``) is not ported yet
@@ -29,6 +30,14 @@ _PREDEFINED_SPLITS_COCO = {
     "coco_2014_valminusminival": ("coco/val2014", "coco/annotations/instances_valminusminival2014.json"),
 }
 
+# the person keypoint splits (metadata "coco_person": the 17 keypoints, their
+# flip map and connection rules); the synthetic tree writes the _100 one
+_PREDEFINED_SPLITS_COCO_PERSON = {
+    "keypoints_coco_2017_train": ("coco/train2017", "coco/annotations/person_keypoints_train2017.json"),
+    "keypoints_coco_2017_val": ("coco/val2017", "coco/annotations/person_keypoints_val2017.json"),
+    "keypoints_coco_2017_val_100": ("coco/val2017", "coco/annotations/person_keypoints_val2017_100.json"),
+}
+
 # the panoptic splits: (panoptic PNGs, panoptic json, stuff sem-seg PNGs);
 # the synthetic trees of dev/make_synthetic_coco.py use the _100 names
 _PREDEFINED_SPLITS_COCO_PANOPTIC = {
@@ -45,12 +54,13 @@ _PREDEFINED_SPLITS_COCO_PANOPTIC = {
 
 
 def register_all_coco(root: str) -> None:
-    for name, (image_root, json_file) in _PREDEFINED_SPLITS_COCO.items():
-        if name in DatasetCatalog:
-            continue
-        register_coco_instances(
-            name, _get_builtin_metadata("coco"), os.path.join(root, json_file), os.path.join(root, image_root)
-        )
+    for splits, meta in ((_PREDEFINED_SPLITS_COCO, "coco"), (_PREDEFINED_SPLITS_COCO_PERSON, "coco_person")):
+        for name, (image_root, json_file) in splits.items():
+            if name in DatasetCatalog:
+                continue
+            register_coco_instances(
+                name, _get_builtin_metadata(meta), os.path.join(root, json_file), os.path.join(root, image_root)
+            )
 
 
 def register_coco_panoptic_separated(name: str, metadata: dict, image_root: str, panoptic_root: str,

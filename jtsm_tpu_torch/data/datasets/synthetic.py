@@ -1,7 +1,8 @@
 """The synthetic COCO sets of ``dev/make_synthetic_coco.py``, made in memory
 (a copy of the dev script's ``make_images``, ``make_instances``,
-``stuff_split_row``, ``paint_stuff``, ``render_images`` and
-``_write_panoptic_and_proposals``): the instance set of its ``coco`` tree,
+``stuff_split_row``, ``paint_stuff``, ``render_images``,
+``_write_person_jsons`` and ``_write_panoptic_and_proposals``): the
+instance, person keypoint and separated panoptic sets of its ``coco`` tree,
 and the panoptic set of its ``cocovar`` tree (the stuff bands' presence
 cycling per image) with its MCG-style proposals.
 
@@ -10,9 +11,10 @@ as the dev script does before it encodes them as JPEG, the same stuff and
 panoptic maps as its PNGs hold and the same proposal dict as its pickle,
 so the port scores on a machine without Pillow (the card's):
 
-* ``register_synthetic_coco(name, ...)``, ``register_synthetic_cocovar(name,
+* ``register_synthetic_coco(name, ...)``, ``register_synthetic_coco_person``,
+  ``register_synthetic_coco_panoptic``, ``register_synthetic_cocovar(name,
   ...)``: a dataset whose records carry their RGB pixels (``image``) and,
-  for the panoptic set, their stuff map (``sem_seg``) and panoptic id map
+  for the panoptic sets, their stuff map (``sem_seg``) and panoptic id map
   (``pan_seg``), which the mapper and the evaluators take in place of
   files, and whose metadata holds the json dicts;
 * ``write_synthetic_coco(root, ...)``: the dev script's ``coco`` files
@@ -31,7 +33,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from ..catalog import DatasetCatalog, MetadataCatalog
-from .builtin_meta import COCO_CATEGORIES, _get_builtin_metadata
+from .builtin_meta import COCO_CATEGORIES, COCO_PERSON_KEYPOINT_NAMES, _get_builtin_metadata
 from .coco import load_coco_json
 
 _THING = [c for c in COCO_CATEGORIES if c["isthing"]]
@@ -141,6 +143,44 @@ def register_synthetic_coco(name: str, num: int = 8, seed: int = 0,
     return coco
 
 
+def person_keypoints_json(coco: Dict) -> Dict:
+    """The person keypoint json of the dev script (``_write_person_jsons``):
+    every rectangle of ``coco`` a person (category 1) with its 17 keypoints,
+    all labelled visible, on a 5x4 grid over its box (x fractions 0.15 +
+    0.7 (k % 5) / 4, y fractions 0.15 + 0.7 (k // 5) / 3)."""
+    anns = []
+    for a in coco["annotations"]:
+        x, y, bw, bh = a["bbox"]
+        kps = []
+        for k in range(17):
+            fx = 0.15 + 0.7 * (k % 5) / 4.0
+            fy = 0.15 + 0.7 * (k // 5) / 3.0
+            kps += [x + fx * bw, y + fy * bh, 2]
+        anns.append(dict(a, category_id=1, keypoints=kps, num_keypoints=17))
+    return {"images": coco["images"], "annotations": anns,
+            "categories": [{"id": 1, "name": "person", "keypoints": list(COCO_PERSON_KEYPOINT_NAMES), "skeleton": []}]}
+
+
+def register_synthetic_coco_person(name: str, num: int = 8, seed: int = 0,
+                                   image_hw: Optional[Tuple[int, int]] = None) -> Dict:
+    """Registers ``name``: the scenes of ``make_synthetic_coco`` as the
+    person keypoint set (``person_keypoints_json``, metadata
+    ``coco_person``), pixels in the records. Returns the json dict."""
+    coco, images = make_synthetic_coco(num, seed, image_hw)
+    person = person_keypoints_json(coco)
+
+    def load():
+        records = load_coco_json(person, IMAGE_DIR, name)
+        for r in records:
+            r["image"] = images[r["image_id"]]
+        return records
+
+    DatasetCatalog.register(name, load)
+    MetadataCatalog.get(name).set(json_file=person, image_root=IMAGE_DIR, evaluator_type="coco",
+                                  **_get_builtin_metadata("coco_person"))
+    return person
+
+
 def write_synthetic_coco(root: str, num: int = 8, seed: int = 0) -> str:
     """Writes ``coco/annotations/instances_val2017_100.json`` and the scenes
     as JPEG under ``root``, as the dev script's ``coco`` tree (needs
@@ -162,9 +202,10 @@ VARIED_SEED = 7  # the dev script's seed of its cocovar tree
 PANOPTIC_DIR = "panoptic_val2017_100"
 
 
-def make_panoptic_and_proposals(coco: Dict):
-    """The panoptic and proposal side of the varied synthetic set: by image
-    id, the panoptic id map (H, W) uint32 (stuff band A 1, band B 2, then
+def make_panoptic_and_proposals(coco: Dict, varied: bool = True):
+    """The panoptic and proposal side of a synthetic set (the varied one by
+    default, as ``stuff_split_row`` splits it): by image id, the panoptic
+    id map (H, W) uint32 (stuff band A 1, band B 2, then
     the rectangles painted in order) and the stuff map (H, W) uint8
     (things 0, bands 1 and 2); the panoptic json dict; and the MCG-style
     proposal dict (jittered copies of the rectangles, the image, its bands
@@ -181,7 +222,7 @@ def make_panoptic_and_proposals(coco: Dict):
     for info in coco["images"]:
         h, w = info["height"], info["width"]
         ids = np.zeros((h, w), np.uint32)
-        split = stuff_split_row(info, varied=True)
+        split = stuff_split_row(info, varied)
         ids[:split] = 1
         ids[split:] = 2
         segments = [{"id": 1, "category_id": stuff[0]["id"], "iscrowd": 0, "area": int(split * w)},
@@ -209,7 +250,7 @@ def make_panoptic_and_proposals(coco: Dict):
     cell = 24
     for info in coco["images"]:
         h, w = info["height"], info["width"]
-        split = stuff_split_row(info, varied=True)
+        split = stuff_split_row(info, varied)
         ncols = (w + cell - 1) // cell
         row_a = np.arange(h)[:, None] // cell
         row_b = (split + cell - 1) // cell + (np.arange(h)[:, None] - split) // cell
@@ -282,3 +323,15 @@ def register_synthetic_cocovar(name: str, num: int = 12, seed: int = VARIED_SEED
     register_synthetic_panoptic(name, coco, images, sem_maps, pan_maps, pan_json,
                                 _get_builtin_metadata("coco_panoptic_separated"))
     return proposals
+
+
+def register_synthetic_coco_panoptic(name: str, num: int = 8, seed: int = 0,
+                                     image_hw: Optional[Tuple[int, int]] = None) -> None:
+    """Registers ``name``: the scenes of ``make_synthetic_coco`` as the
+    separated panoptic set of the dev script's ``coco`` tree (its
+    ``coco_2017_val_100_panoptic_separated``), pixels, stuff and panoptic
+    maps in the records."""
+    coco, images = make_synthetic_coco(num, seed, image_hw)
+    pan_maps, sem_maps, pan_json, _ = make_panoptic_and_proposals(coco, varied=False)
+    register_synthetic_panoptic(name, coco, images, sem_maps, pan_maps, pan_json,
+                                _get_builtin_metadata("coco_panoptic_separated"))

@@ -31,7 +31,16 @@ import numpy as np
 from ..checkpoint import DetectionCheckpointer, PeriodicCheckpointer
 from ..data import DatasetCatalog, MetadataCatalog, build_detection_test_loader, build_detection_train_loader
 from ..data.detection_utils import record_image
-from ..evaluation import COCOEvaluator, inference_on_dataset, print_csv_format, verify_results
+from ..evaluation import (
+    COCOEvaluator,
+    COCOPanopticEvaluator,
+    COCOProposalEvaluator,
+    DatasetEvaluators,
+    SemSegEvaluator,
+    inference_on_dataset,
+    print_csv_format,
+    verify_results,
+)
 from ..evaluation.evaluator import add_time
 from ..modeling import build_model
 from ..modeling.meta_arch.panoptic_fpn import panoptic_fusion_postprocess
@@ -50,12 +59,29 @@ def build_test_loader(cfg, dataset_name: str):
 
 
 def build_evaluator(cfg, dataset_name: str, timings: Optional[Dict[str, float]] = None):
-    """COCOEvaluator for a COCO dataset, writing its results under
-    OUTPUT_DIR/inference; other evaluators are not ported yet."""
+    """The evaluators of a dataset by its ``evaluator_type``, as the JAX
+    package chooses them (``engine/defaults.py:273-312``): on ``coco``,
+    ``COCOProposalEvaluator`` for a ``ProposalNetwork`` and ``COCOEvaluator``
+    (keypoints with TEST.KEYPOINT_OKS_SIGMAS) for the others, which a
+    ``coco_panoptic_seg`` set also gets; ``SemSegEvaluator`` on ``sem_seg``
+    and ``coco_panoptic_seg``; ``COCOPanopticEvaluator`` on
+    ``coco_panoptic_seg``. Results are written under OUTPUT_DIR/inference.
+    One evaluator is returned alone, several as ``DatasetEvaluators``."""
+    output_dir = os.path.join(cfg.OUTPUT_DIR, "inference")
     evaluator_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "coco")
-    if evaluator_type != "coco" or cfg.MODEL.META_ARCHITECTURE != "GeneralizedRCNN":
+    evaluators = []
+    if evaluator_type == "coco" and cfg.MODEL.META_ARCHITECTURE == "ProposalNetwork":
+        evaluators.append(COCOProposalEvaluator(dataset_name))
+    elif evaluator_type in ("coco", "coco_panoptic_seg"):
+        evaluators.append(COCOEvaluator(dataset_name, output_dir=output_dir, timings=timings,
+                                        kpt_oks_sigmas=cfg.TEST.KEYPOINT_OKS_SIGMAS))
+    if evaluator_type in ("sem_seg", "coco_panoptic_seg"):
+        evaluators.append(SemSegEvaluator(dataset_name, output_dir=output_dir, timings=timings))
+    if evaluator_type == "coco_panoptic_seg":
+        evaluators.append(COCOPanopticEvaluator(dataset_name, output_dir=output_dir, timings=timings))
+    if not evaluators:
         raise NotImplementedError(f"no evaluator ported yet for {dataset_name} ({evaluator_type})")
-    return COCOEvaluator(dataset_name, output_dir=os.path.join(cfg.OUTPUT_DIR, "inference"), timings=timings)
+    return evaluators[0] if len(evaluators) == 1 else DatasetEvaluators(evaluators)
 
 
 def test(cfg, model, evaluators: Optional[List] = None, timings: Optional[Dict[str, float]] = None,

@@ -1,9 +1,10 @@
 """Evaluation of the model's outputs (JAX package ``evaluation/``): COCO
-boxes and masks, semantic segmentation and panoptic quality, the scoring
-slices' output side. The other evaluators wait (ROADMAP)."""
+boxes, masks and keypoints, the proposals' recall, semantic segmentation and
+panoptic quality, the scoring slices' output side. The other evaluators
+wait (ROADMAP)."""
 
-from .coco_evaluation import COCOEvaluator, batched_outputs_to_coco_json
-from .cocoeval import COCOEval
+from .coco_evaluation import COCOEvaluator, COCOProposalEvaluator, batched_outputs_to_coco_json
+from .cocoeval import COCOEval, oks_iou
 from .evaluator import DatasetEvaluator, DatasetEvaluators, inference_on_dataset
 from .panoptic_evaluation import COCOPanopticEvaluator, pq_compute_single_image
 from .sem_seg_evaluation import SemSegEvaluator
@@ -13,11 +14,13 @@ __all__ = [
     "COCOEval",
     "COCOEvaluator",
     "COCOPanopticEvaluator",
+    "COCOProposalEvaluator",
     "DatasetEvaluator",
     "DatasetEvaluators",
     "SemSegEvaluator",
     "batched_outputs_to_coco_json",
     "inference_on_dataset",
+    "oks_iou",
     "pq_compute_single_image",
     "print_csv_format",
     "verify_results",

@@ -1,12 +1,13 @@
-"""COCO box and mask AP in numpy, no pycocotools (JAX package
-``evaluation/cocoeval.py:38,58,117,155,375``): greedy matching per (image,
-category) over IoU thresholds .50:.05:.95 with crowd and ignore handling,
-four area ranges, maxDets 1/10/100, and 101-point interpolated precision.
+"""COCO box, mask and keypoint AP in numpy, no pycocotools (JAX package
+``evaluation/cocoeval.py:38,58,83,117,155,375``): greedy matching per
+(image, category) over IoU (for keypoints OKS) thresholds .50:.05:.95 with
+crowd and ignore handling, four area ranges, maxDets 1/10/100, and
+101-point interpolated precision. Keypoints report the JAX package's ten
+numbers (no small range; ``cocoeval.py:255-260``).
 
 The JAX package routes the matching through a g++-built library when g++
 is present (``fast_eval_api.py``, ``rle_native.py``); this is its numpy
 path, which gives the same 12 numbers (``tests/test_torch_evaluation.py``).
-Keypoint OKS is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +28,10 @@ AREA_RNGS = {
     "large": (96.0**2, 1e10),
 }
 MAX_DETS = (1, 10, 100)
+# COCO's per-keypoint OKS sigmas of the 17 person keypoints
+OKS_SIGMAS = np.array(
+    [0.26, 0.25, 0.25, 0.35, 0.35, 0.79, 0.79, 0.72, 0.72, 0.62, 0.62, 1.07, 1.07, 0.87, 0.87, 0.89, 0.89]
+) / 10.0
 
 
 def box_iou_xywh(dets: np.ndarray, gts: np.ndarray, iscrowd: np.ndarray) -> np.ndarray:
@@ -65,13 +70,49 @@ def mask_iou(det_rles: List, gt_segms: List, iscrowd: np.ndarray, h: int, w: int
     return out
 
 
-class COCOEval:
-    """Detections against a COCO-format ground-truth dict."""
+def oks_iou(dets_kpts: List, gts: List[dict], sigmas: Optional[np.ndarray] = None) -> np.ndarray:
+    """(D, G) object keypoint similarity of detections' flat (x, y, v)
+    keypoints against ground-truth annotations: over the labelled keypoints
+    of each ground truth, or, where it has none, the distance outside its
+    box doubled on each side; each squared distance over (2 sigma)^2, the
+    ground truth's area and 2 (JAX package ``cocoeval.py:83``)."""
+    out = np.zeros((len(dets_kpts), len(gts)))
+    if out.size == 0:
+        return out
+    vars_ = ((OKS_SIGMAS if sigmas is None else np.asarray(sigmas)) * 2) ** 2
+    for j, gt in enumerate(gts):
+        gk = np.asarray(gt["keypoints"], dtype=np.float64).reshape(-1, 3)
+        xg, yg, vg = gk[:, 0], gk[:, 1], gk[:, 2]
+        k1 = int((vg > 0).sum())
+        bb = gt["bbox"]
+        x0, y0 = bb[0] - bb[2], bb[1] - bb[3]
+        x1, y1 = bb[0] + bb[2] * 2, bb[1] + bb[3] * 2
+        area = gt.get("area", bb[2] * bb[3])
+        for i, det in enumerate(dets_kpts):
+            dk = np.asarray(det, dtype=np.float64).reshape(-1, 3)
+            xd, yd = dk[:, 0], dk[:, 1]
+            if k1 > 0:
+                dx, dy = xd - xg, yd - yg
+            else:
+                dx = np.maximum(0, x0 - xd) + np.maximum(0, xd - x1)
+                dy = np.maximum(0, y0 - yd) + np.maximum(0, yd - y1)
+            e = (dx**2 + dy**2) / vars_ / (area + np.spacing(1)) / 2
+            if k1 > 0:
+                e = e[vg > 0]
+            out[i, j] = np.sum(np.exp(-e)) / e.shape[0] if e.shape[0] else 0.0
+    return out
 
-    def __init__(self, gt_dataset: Dict, iou_type: str = "bbox"):
-        if iou_type not in ("bbox", "segm"):
+
+class COCOEval:
+    """Detections against a COCO-format ground-truth dict. ``kpt_oks_sigmas``
+    (keypoints only): the per-keypoint sigmas, COCO's when empty."""
+
+    def __init__(self, gt_dataset: Dict, iou_type: str = "bbox", kpt_oks_sigmas=None):
+        if iou_type not in ("bbox", "segm", "keypoints"):
             raise NotImplementedError(f"COCO {iou_type!r} evaluation is not ported yet")
         self.iou_type = iou_type
+        self.oks_sigmas = (np.asarray(kpt_oks_sigmas, dtype=np.float64)
+                           if kpt_oks_sigmas is not None and len(kpt_oks_sigmas) else OKS_SIGMAS)
         self.max_dets = MAX_DETS
         self.imgs = {img["id"]: img for img in gt_dataset["images"]}
         self.cat_ids = sorted(c["id"] for c in gt_dataset.get("categories", []))
@@ -147,7 +188,24 @@ class COCOEval:
             valid = s[s > -1]
             return float(np.mean(valid)) if valid.size else float("nan")
 
-        stats = {
+        if self.iou_type == "keypoints":
+            stats = {
+                "AP": summarize(True), "AP50": summarize(True, 0.5), "AP75": summarize(True, 0.75),
+                "APm": summarize(True, area="medium"), "APl": summarize(True, area="large"),
+                "AR": summarize(False), "AR50": summarize(False, 0.5), "AR75": summarize(False, 0.75),
+                "ARm": summarize(False, area="medium"), "ARl": summarize(False, area="large"),
+            }
+        else:
+            stats = self._box_stats(summarize)
+        self.per_category_ap = {}
+        for ki, cat_id in enumerate(self.cat_ids):
+            s = precision[:, :, ki, 0, len(self.max_dets) - 1]
+            valid = s[s > -1]
+            self.per_category_ap[cat_id] = float(np.mean(valid)) if valid.size else float("nan")
+        return stats
+
+    def _box_stats(self, summarize) -> Dict[str, float]:
+        return {
             "AP": summarize(True),
             "AP50": summarize(True, iou_thr=0.5),
             "AP75": summarize(True, iou_thr=0.75),
@@ -159,12 +217,6 @@ class COCOEval:
             "ARm": summarize(False, area="medium"),
             "ARl": summarize(False, area="large"),
         }
-        self.per_category_ap = {}
-        for ki, cat_id in enumerate(self.cat_ids):
-            s = precision[:, :, ki, 0, len(self.max_dets) - 1]
-            valid = s[s > -1]
-            self.per_category_ap[cat_id] = float(np.mean(valid)) if valid.size else float("nan")
-        return stats
 
     def _compute_iou(self, dets: List[dict], gts: List[dict], img_id) -> np.ndarray:
         iscrowd = np.asarray([g.get("iscrowd", 0) for g in gts], dtype=bool)
@@ -172,6 +224,8 @@ class COCOEval:
             d = np.asarray([det["bbox"] for det in dets], dtype=np.float64).reshape(-1, 4)
             g = np.asarray([gt["bbox"] for gt in gts], dtype=np.float64).reshape(-1, 4)
             return box_iou_xywh(d, g, iscrowd)
+        if self.iou_type == "keypoints":
+            return oks_iou([det["keypoints"] for det in dets], gts, self.oks_sigmas)
         img = self.imgs[img_id]
         return mask_iou([d["segmentation"] for d in dets], [g["segmentation"] for g in gts], iscrowd,
                         img["height"], img["width"])

@@ -1,5 +1,6 @@
-"""Panoptic fusion at test time (reference:
-detectron2/modeling/meta_arch/panoptic_fpn.py:133
+"""``PanopticFPN`` (reference: detectron2/modeling/meta_arch/panoptic_fpn.py:20;
+JAX package ``modeling/meta_arch/panoptic_fpn.py:31``) and the panoptic
+fusion at test time (reference ``panoptic_fpn.py:133``
 ``combine_semantic_and_instance_outputs``; JAX package
 ``modeling/meta_arch/panoptic_fpn.py:112,176,201``): each image's stuff
 logits resized to its original size and argmaxed, its instance masks pasted
@@ -16,14 +17,45 @@ equal scores included).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ...layers import exact_float32
 from ...ops.paste_masks import paste_masks
+from ..postprocessing import detector_postprocess_batched
+from .rcnn import GeneralizedRCNN, serve_only
+from .semantic_seg import build_sem_seg_head, upsampled_sem_seg
 
 CHUNK_BYTES = 32 * 2**20  # one (rows, W, C) float64 array of the resize at most
+
+
+class PanopticFPN(GeneralizedRCNN):
+    """Mask R-CNN and the sem-seg head on one FPN (JAX package
+    ``panoptic_fpn.py:31-110``): the detection dict of ``GeneralizedRCNN``
+    (boxes at the original scale, masks) with ``sem_seg`` (B, H, W) and
+    ``sem_seg_logits`` (B, H, W, K) float32 at the padded input size;
+    ``engine.defaults.test`` fuses them (``panoptic_fusion_postprocess``).
+    Serving and scoring only: its training waits (ROADMAP queue 1)."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.sem_seg_head = build_sem_seg_head(cfg, self.backbone.output_shape())
+
+    @torch.no_grad()
+    def inference(self, batch: Dict) -> Dict[str, Any]:
+        with exact_float32(self.compute_dtype == torch.float32):
+            features, image_sizes = self._features(batch)
+            sem_logits = self.sem_seg_head(features)
+            proposals, proposal_scores, _ = self.proposal_generator(image_sizes, features)
+            detections = self.roi_heads(features, proposals, proposal_scores, image_sizes)
+            out = detector_postprocess_batched(detections, image_sizes, self.orig_sizes(batch, image_sizes))
+            out.update(upsampled_sem_seg(sem_logits, batch["image"].shape[1:3]))
+            return out
+
+    def forward(self, batch: Dict, generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        return serve_only(self, batch)
 
 
 def combine_semantic_and_instance_outputs(

@@ -1,5 +1,7 @@
-"""GeneralizedRCNN (reference: detectron2/modeling/meta_arch/rcnn.py:24,
-:177 ``inference``; JAX package ``modeling/meta_arch/rcnn.py``).
+"""GeneralizedRCNN and ProposalNetwork (reference:
+detectron2/modeling/meta_arch/rcnn.py:24, :177 ``inference``, :249
+``ProposalNetwork``; JAX package ``modeling/meta_arch/rcnn.py:37,123``), and
+``build_model`` for every ported meta-architecture.
 
 Input contract, the JAX package's batch dict:
   image:        (B, H, W, 3) float, raw pixel scale, channel order per cfg
@@ -11,7 +13,8 @@ Input contract, the JAX package's batch dict:
   gt_mask_crops:(B, G, M, M) bool           (training, MASK_ON)
 Output in eval mode: fixed (B, D) detections with a ``valid`` mask: ``boxes``
 (B, D, 4), ``scores`` (B, D), ``classes`` (B, D) int32, ``valid`` (B, D)
-bool and, with MASK_ON, ``masks`` (B, D, S, S) ROI probabilities; given
+bool and, with MASK_ON, ``masks`` (B, D, S, S) ROI probabilities, with
+KEYPOINT_ON ``keypoints`` (B, D, K, 4) (x, y, logit, probability); given
 ``detected_boxes``, only the per-box branches
 (:meth:`GeneralizedRCNN.inference`). In train mode (``model.train()``): the
 loss dict ``loss_rpn_cls``, ``loss_rpn_loc``, ``loss_cls``,
@@ -43,14 +46,15 @@ from ..proposal_generator.rpn import build_proposal_generator
 from ..roi_heads.roi_heads import build_roi_heads
 
 
-class GeneralizedRCNN(nn.Module):
+class BackboneModel(nn.Module):
+    """The backbone, the pixel statistics and the compute dtype that every
+    meta-architecture holds, and the normalisation in front of the
+    backbone."""
+
     def __init__(self, cfg):
         super().__init__()
         self.compute_dtype = compute_dtype(cfg)
         self.backbone = build_backbone(cfg)
-        shapes = self.backbone.output_shape()
-        self.proposal_generator = build_proposal_generator(cfg, shapes)
-        self.roi_heads = build_roi_heads(cfg, shapes)
         self.register_buffer(
             "pixel_mean", torch.tensor(cfg.MODEL.PIXEL_MEAN, dtype=torch.float32), persistent=False
         )
@@ -70,6 +74,17 @@ class GeneralizedRCNN(nn.Module):
         # channels-last, so the poolers read the maps without a copy
         x = ((images - self.pixel_mean) / self.pixel_std).permute(0, 3, 1, 2)
         return self.backbone(x.to(self.compute_dtype)), image_sizes
+
+    def orig_sizes(self, batch, image_sizes: torch.Tensor) -> torch.Tensor:
+        return torch.as_tensor(batch.get("orig_sizes", image_sizes), device=self.device)
+
+
+class GeneralizedRCNN(BackboneModel):
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        shapes = self.backbone.output_shape()
+        self.proposal_generator = build_proposal_generator(cfg, shapes)
+        self.roi_heads = build_roi_heads(cfg, shapes)
 
     def given_detections(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """The request's ``detected_boxes`` (B, D, 4) in network-input
@@ -100,10 +115,9 @@ class GeneralizedRCNN(nn.Module):
             features, image_sizes = self._features(batch)
             if "detected_boxes" in batch:
                 return self.roi_heads.forward_with_given_boxes(features, self.given_detections(batch))
-            orig_sizes = torch.as_tensor(batch.get("orig_sizes", image_sizes), device=self.device)
             proposals, proposal_scores, _ = self.proposal_generator(image_sizes, features)
             detections = self.roi_heads(features, proposals, proposal_scores, image_sizes)
-            return detector_postprocess_batched(detections, image_sizes, orig_sizes)
+            return detector_postprocess_batched(detections, image_sizes, self.orig_sizes(batch, image_sizes))
 
     def forward(
         self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None
@@ -128,6 +142,37 @@ class GeneralizedRCNN(nn.Module):
         return losses
 
 
+class ProposalNetwork(BackboneModel):
+    """The RPN alone (JAX package ``rcnn.py:123``): ``proposals``
+    (B, POST_NMS_TOPK_TEST, 4) in original-image coordinates (rescaled and
+    clipped as detections are) and their objectness logits ``scores``, -inf
+    on padding. Serving and scoring only: its training waits (ROADMAP queue
+    1)."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.proposal_generator = build_proposal_generator(cfg, self.backbone.output_shape())
+
+    @torch.no_grad()
+    def inference(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        with exact_float32(self.compute_dtype == torch.float32):
+            features, image_sizes = self._features(batch)
+            proposals, scores, _ = self.proposal_generator(image_sizes, features)
+            post = detector_postprocess_batched({"boxes": proposals}, image_sizes, self.orig_sizes(batch, image_sizes))
+            return {"proposals": post["boxes"], "scores": scores}
+
+    def forward(self, batch: Dict, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        return serve_only(self, batch)
+
+
+def serve_only(model: nn.Module, batch: Dict) -> Dict[str, torch.Tensor]:
+    """``model.inference(batch)`` in eval mode; a meta-architecture whose
+    training is not ported raises in train mode."""
+    if model.training:
+        raise NotImplementedError(f"training {type(model).__name__} is not ported yet (ROADMAP queue 1)")
+    return model.inference(batch)
+
+
 def resolve_device(device) -> torch.device:
     """The device to run on: the card unless the caller asks for another.
     Asking for the card on a machine without one raises."""
@@ -138,18 +183,31 @@ def resolve_device(device) -> torch.device:
 
 
 def build_model(cfg, device="cuda") -> nn.Module:
-    """The model named by MODEL.META_ARCHITECTURE (``GeneralizedRCNN``, or
-    the JTSM ``GeneralizedMCNNWSL``), in eval mode, on ``device``. Weights
+    """The model named by MODEL.META_ARCHITECTURE (``GeneralizedRCNN``,
+    ``ProposalNetwork``, ``RetinaNet``, ``PanopticFPN``,
+    ``SemanticSegmentor``, or the JTSM ``GeneralizedMCNNWSL``; JAX package
+    ``meta_arch/build.py:11``), in eval mode, on ``device``. Weights
     start from the JAX package's initialisers, drawn from PyTorch's global
     generator (``layers.wrappers``; ``engine.default_setup`` seeds it):
     train from there, or load a state dict (``checkpoint``) before serving
     or training; call ``.train()`` to train (``engine.create_train_state``
     does)."""
+    from .panoptic_fpn import PanopticFPN
+    from .retinanet import RetinaNet
+    from .semantic_seg import SemanticSegmentor
+
     name = cfg.MODEL.META_ARCHITECTURE
-    if name == "GeneralizedRCNN":
-        arch = GeneralizedRCNN
-    elif name == "GeneralizedMCNNWSL":
+    archs = {
+        "GeneralizedRCNN": GeneralizedRCNN,
+        "ProposalNetwork": ProposalNetwork,
+        "RetinaNet": RetinaNet,
+        "PanopticFPN": PanopticFPN,
+        "SemanticSegmentor": SemanticSegmentor,
+    }
+    if name == "GeneralizedMCNNWSL":
         from ...wsl.modeling.meta_arch import GeneralizedMCNNWSL as arch
+    elif name in archs:
+        arch = archs[name]
     else:
         raise NotImplementedError(f"meta architecture {name!r} is not ported yet")
     device = resolve_device(device)

@@ -1,6 +1,6 @@
-"""The FPN semantic-segmentation head (reference:
-detectron2/modeling/meta_arch/semantic_seg.py:104 ``SemSegFPNHead``; JAX
-package ``modeling/meta_arch/semantic_seg.py:30``, the loss :115-135):
+"""``SemanticSegmentor`` and the FPN semantic-segmentation head (reference:
+detectron2/modeling/meta_arch/semantic_seg.py:28, :104 ``SemSegFPNHead``; JAX
+package ``modeling/meta_arch/semantic_seg.py:30,146``, the loss :115-135):
 each input level goes through 3x3 conv-GN-ReLU layers, each followed by a
 2x bilinear upsample until it reaches the common stride; the levels are
 summed (cropped to the smallest grid) and a 1x1 predictor gives the logits
@@ -11,14 +11,24 @@ common stride over the pixels that are not ``IGNORE_VALUE``, times
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import Conv2d, ShapeSpec, compute_dtype, get_norm, interpolate_bilinear, normal, variance_scaling
+from ...layers import (
+    Conv2d,
+    ShapeSpec,
+    compute_dtype,
+    exact_float32,
+    get_norm,
+    interpolate_bilinear,
+    normal,
+    variance_scaling,
+)
 from ...ops.losses import softmax_cross_entropy
+from .rcnn import BackboneModel, serve_only
 
 
 class SemSegFPNHead(nn.Module):
@@ -108,3 +118,31 @@ def build_sem_seg_head(cfg, input_shape: Dict[str, ShapeSpec]) -> nn.Module:
 
         return TwoClassHead()
     raise NotImplementedError(f"sem-seg head {h.NAME!r} is not ported yet")
+
+
+def upsampled_sem_seg(logits: torch.Tensor, image_hw) -> Dict[str, torch.Tensor]:
+    """(B, K, h, w) float32 logits at the common stride, bilinearly
+    resized to the padded input size (B, H, W): ``sem_seg`` (B, H, W) int32,
+    the first of equal maxima, and ``sem_seg_logits`` (B, H, W, K) (JAX
+    package ``panoptic_fpn.py:101-105``, ``semantic_seg.py:177-180``)."""
+    up = interpolate_bilinear(logits, tuple(image_hw))
+    return {"sem_seg": up.argmax(dim=1).to(torch.int32), "sem_seg_logits": up.permute(0, 2, 3, 1)}
+
+
+class SemanticSegmentor(BackboneModel):
+    """The backbone and the sem-seg head (JAX package ``semantic_seg.py:146``):
+    ``sem_seg`` and ``sem_seg_logits`` at the padded input size. Serving and
+    scoring only: its training waits (ROADMAP queue 1)."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.sem_seg_head = build_sem_seg_head(cfg, self.backbone.output_shape())
+
+    @torch.no_grad()
+    def inference(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        with exact_float32(self.compute_dtype == torch.float32):
+            features, _ = self._features(batch)
+            return upsampled_sem_seg(self.sem_seg_head(features), batch["image"].shape[1:3])
+
+    def forward(self, batch: Dict, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        return serve_only(self, batch)

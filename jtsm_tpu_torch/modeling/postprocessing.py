@@ -16,9 +16,10 @@ def detector_postprocess_batched(
     orig_sizes: torch.Tensor,  # (B, 2) original image sizes
 ) -> Dict[str, torch.Tensor]:
     """Rescale boxes from network-input to original-image coordinates, clip
-    them there, and mark boxes that clipped to empty invalid. Masks stay
-    (D, S, S) ROI probabilities; ``ops.paste_masks`` pastes them into the
-    image."""
+    them there, and mark boxes that clipped to empty invalid (where there is
+    a ``valid``). Keypoints (B, D, K, 4) follow the boxes' scale in x and y.
+    Masks stay (D, S, S) ROI probabilities; ``ops.paste_masks`` pastes them
+    into the image."""
     scale = orig_sizes.to(torch.float32) / image_sizes.to(torch.float32).clamp(min=1.0)
     sy = scale[:, 0][:, None]
     sx = scale[:, 1][:, None]
@@ -27,6 +28,11 @@ def detector_postprocess_batched(
     boxes = clip_boxes(boxes, orig_sizes.to(torch.float32)[:, None, :])
     out = dict(detections)
     out["boxes"] = boxes
-    nonempty = (boxes[..., 2] > boxes[..., 0]) & (boxes[..., 3] > boxes[..., 1])
-    out["valid"] = out["valid"] & nonempty
+    if "valid" in out:
+        nonempty = (boxes[..., 2] > boxes[..., 0]) & (boxes[..., 3] > boxes[..., 1])
+        out["valid"] = out["valid"] & nonempty
+    if "keypoints" in out:
+        kp = out["keypoints"]
+        out["keypoints"] = torch.cat([kp[..., 0:1] * sx[..., None, None], kp[..., 1:2] * sy[..., None, None],
+                                      kp[..., 2:]], dim=-1)
     return out

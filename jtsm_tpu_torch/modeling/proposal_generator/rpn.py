@@ -99,20 +99,13 @@ class RPN(nn.Module):
         proposals and (B, K) objectness logits, -inf on padding, and in
         training the loss dict (``gt_boxes`` (B, G, 4) and ``gt_valid``
         (B, G) then required); in eval the dict is empty."""
-        feats = [features[f] for f in self.in_features]
-        logits, deltas = self.rpn_head(feats)
-        anchors = self.anchor_generator([tuple(f.shape[-2:]) for f in feats], feats[0].device)
-        b = feats[0].shape[0]
-        # (B, A, H, W) -> (B, H*W*A); (B, A*4, H, W) -> (B, H*W*A, 4):
-        # location-major like the anchors
-        logits = [lg.permute(0, 2, 3, 1).reshape(b, -1).float() for lg in logits]
-        deltas = [dl.permute(0, 2, 3, 1).reshape(b, -1, 4).float() for dl in deltas]
+        anchors, logits, deltas = self.head_outputs(features)
         losses = {}
         if self.training:
             if gt_boxes is None or gt_valid is None:
                 raise ValueError("training the RPN needs gt_boxes and gt_valid")
-            n = sum(a.shape[0] for a in anchors)
-            dev = feats[0].device
+            b, n = logits[0].shape[0], sum(a.shape[0] for a in anchors)
+            dev = logits[0].device
             u_pos, u_neg = (torch.rand((b, n), generator=generator, device=dev) for _ in range(2))
             losses = self.losses(
                 torch.cat(anchors), torch.cat(logits, dim=1), torch.cat(deltas, dim=1),
@@ -120,6 +113,18 @@ class RPN(nn.Module):
             )
         proposals, scores = self.predict_proposals(anchors, logits, deltas, image_sizes)
         return proposals, scores, losses
+
+    def head_outputs(self, features: Dict[str, torch.Tensor]):
+        """Per level the anchors (Hi*Wi*A, 4), and the head's objectness
+        logits (B, Hi*Wi*A) and deltas (B, Hi*Wi*A, 4) in float32, flattened
+        location-major like the anchors."""
+        feats = [features[f] for f in self.in_features]
+        logits, deltas = self.rpn_head(feats)
+        anchors = self.anchor_generator([tuple(f.shape[-2:]) for f in feats], feats[0].device)
+        b = feats[0].shape[0]
+        logits = [lg.permute(0, 2, 3, 1).reshape(b, -1).float() for lg in logits]
+        deltas = [dl.permute(0, 2, 3, 1).reshape(b, -1, 4).float() for dl in deltas]
+        return anchors, logits, deltas
 
     def predict_proposals(self, anchors, logits, deltas, image_sizes):
         """Top-k on the raw objectness of each level, then decode only the

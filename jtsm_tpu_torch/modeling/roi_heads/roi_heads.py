@@ -3,7 +3,10 @@
 
 Proposals are fixed (B, K, 4) with -inf-score padding; detections are fixed
 (B, D) with a validity mask. The box pooler pools all B*K proposals and the
-mask pooler all B*D detections, padding included, as the JAX package does.
+mask pooler all B*D detections, padding included, as the JAX package does;
+under KEYPOINT_ON the keypoint pooler (ROIAlignV2 at 14x14 over the box
+head's levels) does the same, and the detections gain ``keypoints`` (B, D,
+K, 4) in network-input coordinates (JAX ``roi_heads.py:174-192,305-315``).
 
 In training the heads sample ``BATCH_SIZE_PER_IMAGE`` slots per image and
 pick up to ``mask_fg_capacity`` foreground slots of them for the mask
@@ -25,6 +28,7 @@ from ..poolers import ROIPooler
 from ..proposal_generator.proposal_utils import topk_stable
 from .box_head import build_box_head
 from .fast_rcnn import FastRCNNOutputLayers, fast_rcnn_inference, fast_rcnn_losses
+from .keypoint_head import build_keypoint_head, keypoint_rcnn_inference
 from .mask_head import build_mask_head, mask_rcnn_inference, mask_rcnn_loss, mask_targets_from_crops
 from .proposal_sampling import sample_proposals
 
@@ -32,8 +36,6 @@ from .proposal_sampling import sample_proposals
 class StandardROIHeads(nn.Module):
     def __init__(self, cfg, input_shape: Dict[str, ShapeSpec]):
         super().__init__()
-        if cfg.MODEL.KEYPOINT_ON:
-            raise NotImplementedError("the keypoint head is not ported yet")
         self.in_features = tuple(cfg.MODEL.ROI_HEADS.IN_FEATURES)
         self.num_classes = cfg.MODEL.ROI_HEADS.NUM_CLASSES
         scales = tuple(1.0 / input_shape[k].stride for k in self.in_features)
@@ -76,6 +78,15 @@ class StandardROIHeads(nn.Module):
             # foreground slots per image that train the mask head (the JAX
             # package's field of the same name, roi_heads.py:93)
             self.mask_fg_capacity = 128
+        self.keypoint_on = cfg.MODEL.KEYPOINT_ON
+        if self.keypoint_on:
+            kh = cfg.MODEL.ROI_KEYPOINT_HEAD
+            self.keypoint_pooler = ROIPooler(
+                kh.POOLER_RESOLUTION, scales, kh.POOLER_SAMPLING_RATIO, kh.POOLER_TYPE
+            )
+            self.keypoint_head = build_keypoint_head(
+                cfg, ShapeSpec(channels=in_channels, height=kh.POOLER_RESOLUTION, width=kh.POOLER_RESOLUTION)
+            )
 
     def forward(
         self,
@@ -90,15 +101,28 @@ class StandardROIHeads(nn.Module):
         ``targets`` (the batch's ``gt_*`` fields) and uniform draws from
         ``generator``."""
         if self.training:
+            if self.keypoint_on:
+                raise NotImplementedError("training the keypoint head is not ported yet (ROADMAP queue 1)")
             if targets is None:
                 raise ValueError("training the ROI heads needs the gt_* targets")
             return self._forward_train(features, proposals, proposal_scores, targets, generator)
+        return self.forward_with_given_boxes(features, self.detect(features, proposals, proposal_scores, image_sizes))
+
+    def detect(
+        self,
+        features: Dict[str, torch.Tensor],
+        proposals: torch.Tensor,  # (B, K, 4)
+        proposal_scores: torch.Tensor,  # (B, K)
+        image_sizes: torch.Tensor,  # (B, 2)
+    ) -> Dict[str, torch.Tensor]:
+        """The box branch in eval mode: the box pooler over all B*K
+        proposals, the box head, and per-class NMS to (B, D) detections."""
         feats = [features[f] for f in self.in_features]
         b, k = proposals.shape[:2]
         batch_idx = torch.arange(b, dtype=torch.int32, device=proposals.device)
         box_feats = self.box_pooler(feats, proposals.reshape(b * k, 4), batch_idx.repeat_interleave(k))
         scores, deltas = self.box_predictor(self.box_head(box_feats))
-        detections = fast_rcnn_inference(
+        return fast_rcnn_inference(
             scores.reshape(b, k, -1),
             deltas.reshape(b, k, -1),
             proposals,
@@ -110,25 +134,30 @@ class StandardROIHeads(nn.Module):
             self.nms_thresh,
             self.detections_per_image,
         )
-        return self.forward_with_given_boxes(features, detections)
 
     def forward_with_given_boxes(
         self, features: Dict[str, torch.Tensor], detections: Dict[str, torch.Tensor]
     ) -> Dict[str, torch.Tensor]:
         """The per-box branches on (B, D) detections (``boxes``, ``classes``,
-        in network-input coordinates): with MASK_ON, ``masks`` (B, D, S, S)
-        probabilities from the mask pooler over all B*D boxes (JAX package
+        in network-input coordinates), each pooler over all B*D boxes: with
+        MASK_ON, ``masks`` (B, D, S, S) probabilities (JAX package
         ``roi_heads.py:319``; the test-time augmentation's mask re-run calls
-        it on merged boxes)."""
-        if not self.mask_on:
+        it on merged boxes); with KEYPOINT_ON, ``keypoints`` (B, D, K, 4)
+        (JAX ``roi_heads.py:305-315,320-335``)."""
+        if not (self.mask_on or self.keypoint_on):
             return detections
         feats = [features[f] for f in self.in_features]
         b, d = detections["boxes"].shape[:2]
-        batch_idx = torch.arange(b, dtype=torch.int32, device=detections["boxes"].device)
-        mask_feats = self.mask_pooler(feats, detections["boxes"].reshape(b * d, 4), batch_idx.repeat_interleave(d))
-        probs = mask_rcnn_inference(self.mask_head(mask_feats), detections["classes"].reshape(-1))
+        boxes = detections["boxes"].reshape(b * d, 4)
+        batch_idx = torch.arange(b, dtype=torch.int32, device=boxes.device).repeat_interleave(d)
         detections = dict(detections)
-        detections["masks"] = probs.reshape((b, d) + probs.shape[-2:])
+        if self.mask_on:
+            probs = mask_rcnn_inference(self.mask_head(self.mask_pooler(feats, boxes, batch_idx)),
+                                        detections["classes"].reshape(-1))
+            detections["masks"] = probs.reshape((b, d) + probs.shape[-2:])
+        if self.keypoint_on:
+            heatmaps = self.keypoint_head(self.keypoint_pooler(feats, boxes, batch_idx))
+            detections["keypoints"] = keypoint_rcnn_inference(heatmaps, boxes).reshape(b, d, -1, 4)
         return detections
 
     def _forward_train(self, features, proposals, proposal_scores, targets, generator):

@@ -1,5 +1,6 @@
 from .boxes import BoxMode, box_area, clip_boxes, nonempty_boxes, pairwise_iou
 from .instances import Instances
+from .keypoints import heatmaps_to_keypoints
 from .masks import PolygonMasks, polygons_to_bitmask, rasterize_polygons_within_box
 
 __all__ = [
@@ -8,6 +9,7 @@ __all__ = [
     "PolygonMasks",
     "box_area",
     "clip_boxes",
+    "heatmaps_to_keypoints",
     "nonempty_boxes",
     "pairwise_iou",
     "polygons_to_bitmask",

@@ -31,41 +31,27 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
-from torch import nn
 
-from ...layers import compute_dtype, exact_float32, interpolate_bilinear
-from ...modeling.backbone import build_backbone
-from ...modeling.meta_arch.rcnn import GeneralizedRCNN
-from ...modeling.meta_arch.semantic_seg import build_sem_seg_head
+from ...layers import exact_float32
+from ...modeling.meta_arch.rcnn import BackboneModel, GeneralizedRCNN
+from ...modeling.meta_arch.semantic_seg import build_sem_seg_head, upsampled_sem_seg
 from ...modeling.postprocessing import detector_postprocess_batched
 from .roi_heads_jtsm import JTSMROIHeads
 
 
-class GeneralizedMCNNWSL(nn.Module):
+class GeneralizedMCNNWSL(BackboneModel):
     def __init__(self, cfg):
-        super().__init__()
         if cfg.MODEL.ROI_HEADS.NAME != "JTSMROIHeads":
             raise NotImplementedError(f"ROI heads {cfg.MODEL.ROI_HEADS.NAME!r} are not ported yet")
-        self.compute_dtype = compute_dtype(cfg)
-        self.backbone = build_backbone(cfg)
+        super().__init__(cfg)
         shapes = self.backbone.output_shape()
         self.sem_seg_head = build_sem_seg_head(cfg, shapes)
         self.roi_heads = JTSMROIHeads(cfg, shapes, mine_sem_seg=self.sem_seg_head.has_loss)
-        self.register_buffer(
-            "pixel_mean", torch.tensor(cfg.MODEL.PIXEL_MEAN, dtype=torch.float32), persistent=False
-        )
-        self.register_buffer(
-            "pixel_std", torch.tensor(cfg.MODEL.PIXEL_STD, dtype=torch.float32), persistent=False
-        )
 
-    device = GeneralizedRCNN.device
-    # f32 normalisation, then the backbone in the compute dtype
-    _features = GeneralizedRCNN._features
     given_detections = GeneralizedRCNN.given_detections
 
     @torch.no_grad()
     def inference(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        dev = self.device
         with exact_float32(self.compute_dtype == torch.float32):
             features, image_sizes = self._features(batch)
             if "detected_boxes" in batch:
@@ -73,12 +59,8 @@ class GeneralizedMCNNWSL(nn.Module):
 
             proposals, scores, superpixels, oh_labels = self.request_fields(batch)
             det = self.roi_heads(features, proposals, scores, image_sizes, superpixels, oh_labels)
-            orig_sizes = torch.as_tensor(batch.get("orig_sizes", image_sizes), device=dev)
-            det = detector_postprocess_batched(det, image_sizes, orig_sizes)
-            h, w = batch["image"].shape[1:3]
-            logits = interpolate_bilinear(self.sem_seg_head(features), (h, w))  # (B, K, H, W)
-            det["sem_seg"] = logits.argmax(dim=1).to(torch.int32)
-            det["sem_seg_logits"] = logits.permute(0, 2, 3, 1)
+            det = detector_postprocess_batched(det, image_sizes, self.orig_sizes(batch, image_sizes))
+            det.update(upsampled_sem_seg(self.sem_seg_head(features), batch["image"].shape[1:3]))
             return det
 
     def request_fields(self, batch: Dict):

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 K1 (ROIAlign forward), K2 (ROIAlign backward) and one tiny train step
 through both against the same step through the plain versions; the JTSM
-gate model's mask pooler, which must launch K1 once a request; and JTSM
-scoring, whose panoptic fusion on the card must give the CPU's maps.
+gate model's mask pooler, which must launch K1 once a request; JTSM
+scoring, whose panoptic fusion on the card must give the CPU's maps; K1 at
+the keypoint pooler's shape, and the Keypoint R-CNN and Panoptic FPN gate
+models, which must launch it twice a request.
 
 Every test here needs an NVIDIA card and skips without one. The card's
 machine has no JAX, which ``tests/conftest.py`` imports, so run them there
@@ -502,3 +504,62 @@ def test_jtsm_scoring_fuses_on_the_card_as_on_the_cpu(monkeypatch):
     finally:
         DatasetCatalog.remove(name)
         MetadataCatalog.remove(name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_kernel_at_the_keypoint_pooler_shape(dtype):
+    """K1 at the keypoint pooler's shape: 100 detection boxes of all sizes
+    over a 4-level 800x1344 pyramid, C=256, P=14, sampling ratio 0."""
+    _card()
+    from jtsm_tpu_torch.modeling.poolers import assign_boxes_to_levels
+
+    rng = np.random.RandomState(3)
+    h, w, r = 800, 1344, 100
+    feats = [torch.from_numpy(rng.randn(1, h // s, w // s, 256).astype(np.float32)).cuda().to(dtype)
+             for s in (4, 8, 16, 32)]
+    boxes = torch.from_numpy(_spread_boxes(rng, r, h, w)).cuda()
+    args = (feats, [0.25, 0.125, 0.0625, 0.03125], boxes, torch.zeros(r, dtype=torch.int32, device="cuda"),
+            assign_boxes_to_levels(boxes, 2, 5), 14, 0, True)
+    before = KERNEL.launches
+    got = roi_align_multilevel_cuda(*args)
+    want = roi_align_multilevel_plain(*args)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    assert got.shape == (r, 14, 14, 256) and got.dtype == dtype
+    tol = (2.0**-7 if dtype == torch.bfloat16 else 1e-5) * max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["keypoint_rcnn", "panoptic_fpn"])
+def test_gate_models_launch_k1_twice_a_request(monkeypatch, family):
+    """The Keypoint R-CNN gate model (box and keypoint poolers) and the
+    Panoptic FPN gate model (box and mask poolers) on the card: K1 twice a
+    request, the plain ROIAlign never."""
+    _card()
+    import os
+
+    import jtsm_tpu_torch.ops.roi_align as roi_align
+    from jtsm_tpu_torch import config
+    from jtsm_tpu_torch.checkpoint import load_gate_ckpt, variables_to_state_dict
+    from jtsm_tpu_torch.engine import Predictor
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain ROIAlign ran on the card")
+
+    monkeypatch.setattr(roi_align, "roi_align_multilevel_plain_autograd", plain)
+    cfg = getattr(config, f"{family}_gate_cfg")()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    predictor = Predictor(cfg, variables_to_state_dict(load_gate_ckpt(os.path.join(root, cfg.MODEL.WEIGHTS))))
+    rng = np.random.RandomState(0)
+    request = {"image": (rng.rand(1, 128, 176, 3) * 255).astype(np.float32),
+               "image_sizes": np.array([[128, 170]], np.int32), "orig_sizes": np.array([[256, 340]], np.int32)}
+    before = KERNEL.launches
+    out = predictor(request)
+    torch.cuda.synchronize()
+    assert KERNEL.launches - before == 2
+    if family == "keypoint_rcnn":
+        assert out["keypoints"].shape == (1, 100, 17, 4)
+    else:
+        assert out["masks"].shape == (1, 100, 28, 28) and out["sem_seg"].shape == (1, 128, 176)
