@@ -183,7 +183,36 @@ Phases, in order; any failure ends the run with a non-zero exit:
    syncs, the weights' and the request's peak memory; (c) K1 against its
    plain version at the keypoint pooler's shape (the 100 detections of a
    Keypoint R-CNN request over an 800x1344 pyramid, C=256, P=14) in float32
-   and bfloat16, timed beside its bound.
+   and bfloat16, timed beside its bound;
+16. wsod: the WSOD baselines (``GeneralizedRCNNWSL`` with WSDDN, OICR and PCL
+   on WSR-18 DC5, OICR on VGG16 DC5). (d) K1 at their box pooler's shapes,
+   one level of the 1024x1024 bucket of a 688x917 request at P=7 with
+   2000 proposals a request (serve: (1, 64, 64, 512) res5 and (1, 128,
+   128, 512) plain5; train: 4 images, R=8000), and K2 at VGG16's train
+   shape, in float32 and bfloat16 against the plain versions, timed beside
+   their bounds; (a) the narrow configurations (``wsod_*_narrow_cfg``,
+   seeded weights) on the card against this machine's CPU: a two-request
+   batch's detections matched by (source proposal, class), 8 in-memory VOC
+   scenes (``data.datasets.synthetic_voc``) scored through the WSL test
+   loader and the VOC evaluator, AP and CorLoc within 1e-4, three train
+   steps (dropout 0, no clip, at rates under which each update moves the
+   next losses) with the losses within 1e-4 relative and each update
+   within 2e-3 of its norm, and OICR scored with TEST.AUG (TTA-AVG) within
+   1e-4; these launches count in no total; (b) each of the
+   four full-width configurations (random weights from a seed) serves 8
+   requests of one 375x500 image at 688x917 with 2000 seeded proposals in
+   each of bf16 (as configured) and f32, in turns: K1 once a request, the
+   detections finite, PCL without per-proposal class scores; then the
+   stage split (backbone, pool, dan, heads, nms) with its host syncs, the
+   weights' and the request's peak memory; (c) each full-width config's
+   train step at IMS_PER_BATCH 4 in bf16 and f32, in turns (median of steps
+   2-5, the stage split, the step's peak memory; K1 once a step, K2 once
+   under VGG16's FREEZE_AT 2 and never under WSR-18's FREEZE_AT 5), and
+   OICR on each backbone through the WSL trainer on 8 in-memory VOC scenes
+   with 2000 proposals (ITER_SIZE 4 for WSR-18, 1 for VGG16; s/iter,
+   ``data_time``, the parameters moving at each ITER_SIZE-th mini-batch
+   only). Any phase that fails logs ``[<phase>] FAILED: <type>: <message>``
+   and its traceback, and the run ends there with a non-zero exit.
 
 The last three lines are {"kernels": [...]} (``kernel_line`` says which
 times; ``l1_*`` are K1's single-level rows of phase 10, ``jt_*`` K1's and
@@ -191,7 +220,10 @@ K2's rows at phase 11's train shape, ``js_launches`` its launches in phase
 12, ``tta_*`` K1's row at phase 13's largest view and its launches there,
 ``tc_launches`` each kernel's launches under the trainers of phase 14,
 ``kp_*`` K1's row at phase 15's keypoint pooler shape and that pooler's
-launches, ``fam_launches`` K1's launches in phase 15),
+launches, ``fam_launches`` K1's launches in phase 15, ``wsod_*`` K1's and
+K2's rows at phase 16's shapes and ``wsod_launches`` their launches on its
+main paths, (b) and (c), each counted from 0 just before it and read just
+after),
 the card's name and power limit as
 nvidia-smi gives them, and {"ok": true, "device": {...}}. Needs one card, torch, numpy and pytest;
 imports nothing of JAX. Without a card, or outside a checkout of the
@@ -1271,8 +1303,8 @@ def jtsm_stages(model, batch, measure):
 def match_detections(card, host, score_tol):
     """The detections of two runs on the same request matched by their
     (source proposal, class), which names a detection uniquely: scores,
-    boxes and mask probabilities are compared pair by pair, and the masks'
-    IoU at 0.5 is reported with the largest distance from 0.5 of a pixel
+    boxes and (where the model has masks) mask probabilities are compared
+    pair by pair, and the masks' IoU at 0.5 is reported with the largest distance from 0.5 of a pixel
     that lands on the other side of it. Two
     detections whose scores lie within ``score_tol`` may take each other's
     slots, and one within ``score_tol`` of the last kept score may fall on
@@ -1280,8 +1312,9 @@ def match_detections(card, host, score_tol):
     import torch
 
     out = dict(matched=0, reordered=0, at_cut=0, reorder_gap=0.0, boxes=0.0, scores=0.0, masks=0.0, iou=1.0,
-               flip_margin=0.0,
-               class_scores=(card["proposal_class_scores"] - host["proposal_class_scores"]).abs().max().item())
+               flip_margin=0.0, class_scores=0.0)
+    if "proposal_class_scores" in host:  # PCL returns none
+        out["class_scores"] = (card["proposal_class_scores"] - host["proposal_class_scores"]).abs().max().item()
     for i in range(host["valid"].shape[0]):
         sides = []
         for run in (card, host):
@@ -1292,7 +1325,7 @@ def match_detections(card, host, score_tol):
         for key in set(kc) ^ set(kh):
             run, j = (0, kc[key]) if key in kc else (1, kh[key])
             if float(scores[run][j]) > cut + score_tol:
-                raise AssertionError(f"jtsm gate image {i}: detection {key} (score {float(scores[run][j])}) "
+                raise AssertionError(f"image {i}: detection {key} (score {float(scores[run][j])}) "
                                      f"only on the {'card' if run == 0 else 'CPU'}")
             out["at_cut"] += 1
         for key in set(kc) & set(kh):
@@ -1303,6 +1336,8 @@ def match_detections(card, host, score_tol):
                 out["reorder_gap"] = max(out["reorder_gap"], abs(float(scores[1][jh] - scores[1][jc])))
             out["boxes"] = max(out["boxes"], (card["boxes"][i, jc] - host["boxes"][i, jh]).abs().max().item())
             out["scores"] = max(out["scores"], abs(float(scores[0][jc] - scores[1][jh])))
+            if "masks" not in host:  # the WSOD baselines have no mask branch
+                continue
             pc, ph = card["masks"][i, jc], host["masks"][i, jh]
             out["masks"] = max(out["masks"], (pc - ph).abs().max().item())
             a, b = pc >= 0.5, ph >= 0.5
@@ -1310,7 +1345,7 @@ def match_detections(card, host, score_tol):
             out["iou"] = min(out["iou"], int((a & b).sum()) / union if union else 1.0)
             out["flip_margin"] = max(out["flip_margin"], (ph[a != b] - 0.5).abs().max().item() if (a != b).any() else 0.0)
     if out["reorder_gap"] > score_tol:
-        raise AssertionError(f"jtsm gate: detections swapped slots across a score gap of {out['reorder_gap']}")
+        raise AssertionError(f"detections swapped slots across a score gap of {out['reorder_gap']}")
     return out
 
 
@@ -3001,6 +3036,539 @@ def phase_families(kernel, gen, baseline, card):
     return total, kp_pooled, rows, latency
 
 
+WSOD_IMAGE_HW = (375, 500)  # a VOC-size image: 688x917 at MIN_SIZE_TEST 688
+WSOD_CASES = (  # name, builder, ROI heads
+    ("wsddn_WSR_18", "wsod_WSR_18_DC5_cfg", "WSDDNROIHeads"),
+    ("oicr_WSR_18", "wsod_WSR_18_DC5_cfg", "OICRROIHeads"),
+    ("pcl_WSR_18", "wsod_WSR_18_DC5_cfg", "PCLROIHeads"),
+    ("oicr_V_16", "wsod_V_16_DC5_cfg", "OICRROIHeads"),
+)
+WSOD_ROUNDS = 8  # requests in each dtype
+WSOD_STAGE_ROUNDS = 2
+WSOD_TRAIN_STEPS = 5
+WSOD_NARROW_SCENES = 8
+WSOD_NARROW_STEPS = 3
+# 16(a)'s solver: no clip, a warmup over the steps, at rates under which
+# each update moves the next step's losses by 0.3-30% and the losses still
+# fall at each step (at 3x these rates WSDDN's and PCL's third step
+# overshoots, and the card and the CPU part; PCL's gradients are an order of
+# magnitude smaller than WSDDN's and OICR's, VGG16's two orders)
+WSOD_NARROW_SOLVER = {
+    case: ["SOLVER.CLIP_GRADIENTS.ENABLED", "False", "SOLVER.BASE_LR", lr, "SOLVER.WARMUP_FACTOR", "0.5",
+           "SOLVER.WARMUP_ITERS", str(WSOD_NARROW_STEPS)]
+    for case, lr in (("wsddn_WSR_18", "1e-6"), ("oicr_WSR_18", "1e-6"), ("pcl_WSR_18", "1e-5"), ("oicr_V_16", "1e-4"))
+}
+# an update's change in float32 parameters rounds apart wherever the two
+# devices' gradients differ in their last bits (measured on the H100 at
+# most 5.5e-4 of its norm, VGG16's); a skipped, doubled or mis-scheduled
+# update is 0.25-1 of its norm away
+WSOD_UPDATE_TOL = 2e-3
+WSOD_TRAINER_SCENES = 8
+WSOD_TRAINER_ITERS = {"oicr_WSR_18": 8, "oicr_V_16": 4}  # 2 updates at ITER_SIZE 4; 4 at ITER_SIZE 1
+
+
+def wsod_cfg(name, narrow=False):
+    """The full-width configuration of a WSOD_CASES entry (its Python
+    builder), or its narrow form."""
+    import jtsm_tpu_torch.config as config
+
+    _, builder, head = next(c for c in WSOD_CASES if c[0] == name)
+    return getattr(config, builder.replace("_DC5_cfg", "_narrow_cfg") if narrow else builder)(head)
+
+
+def wsod_model(cfg, states):
+    """``build_model(cfg)`` on the card with the seeded weights of its
+    backbone's entry in ``states`` (``wsod_states``), those of its keys."""
+    from jtsm_tpu_torch.modeling import build_model
+
+    model = build_model(cfg, device=DEVICE)
+    state = states["V_16" if cfg.MODEL.BACKBONE.NAME == "build_vgg_backbone" else "WSR_18"]
+    model.load_state_dict({k: state[k] for k in model.state_dict()}, strict=True)
+    return model
+
+
+def wsod_states():
+    """Seeded full-width weights (``random_state_dict``) of OICR on WSR-18
+    (its keys hold WSDDN's and PCL's), and for VGG16 the same heads over a
+    seeded VGG16 backbone (both pool 512 channels at P=7)."""
+    from jtsm_tpu_torch.checkpoint import random_state_dict
+    from jtsm_tpu_torch.modeling import build_model
+    from jtsm_tpu_torch.wsl.modeling.vgg import build_vgg_backbone
+
+    wsr = random_state_dict(build_model(wsod_cfg("oicr_WSR_18"), device="cpu"), seed=0)
+    vgg = {"backbone." + k: v for k, v in random_state_dict(build_vgg_backbone(wsod_cfg("oicr_V_16")), seed=0).items()}
+    vgg.update({k: v for k, v in wsr.items() if k.startswith("roi_heads.")})
+    return {"WSR_18": wsr, "V_16": vgg}
+
+
+def wsod_request(cfg, seed):
+    """One WSOD request: a seeded WSOD_IMAGE_HW image resized to the
+    config's test size, padded into its bucket, and
+    PRECOMPUTED_PROPOSAL_TOPK_TEST seeded proposals of log-uniform sizes
+    with descending objectness."""
+    import numpy as np
+
+    from jtsm_tpu_torch.data.detection_utils import pick_bucket
+    from jtsm_tpu_torch.data.transforms.augmentation import ResizeShortestEdge
+
+    rng = np.random.default_rng(seed)
+    oh, ow = WSOD_IMAGE_HW
+    h, w = ResizeShortestEdge.get_output_shape(oh, ow, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
+    bh, bw = pick_bucket(h, w, cfg.TPU.IMAGE_BUCKETS)
+    image = np.zeros((1, bh, bw, 3), np.float32)
+    image[0, :h, :w] = rng.uniform(0, 255, (h, w, 3))
+    r = cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST
+    size = np.minimum(np.exp(rng.uniform(np.log(16), np.log(600), (r, 2))), [w, h])
+    xy = rng.uniform(0, 1, (r, 2)) * ([w, h] - size)
+    return {
+        "image": image,
+        "image_sizes": np.array([[h, w]], np.int32),
+        "orig_sizes": np.array([[oh, ow]], np.int32),
+        "proposals": np.concatenate([xy, xy + size], 1).astype(np.float32)[None],
+        "proposal_scores": np.sort(rng.uniform(0, 1, r))[::-1].astype(np.float32)[None],
+    }
+
+
+def wsod_train_batch(cfg, seeds):
+    """``wsod_request`` for each seed, stacked, with 1 to 3 seeded image
+    labels each (``wsl.data.add_wsl_train_fields``)."""
+    import numpy as np
+
+    from jtsm_tpu_torch.wsl.data import add_wsl_train_fields
+
+    reqs = [wsod_request(cfg, seed) for seed in seeds]
+    batch = {k: np.concatenate([r[k] for r in reqs]) for k in reqs[0]}
+    rng = np.random.default_rng(seeds[0])
+    add_wsl_train_fields(batch, [{"gt_classes": rng.choice(20, rng.integers(1, 4), replace=False)} for _ in reqs],
+                         cfg.TPU.MAX_GT_INSTANCES)
+    return batch
+
+
+def wsod_stages(model, batch, measure, train=None):
+    """The request ``batch`` through a ``GeneralizedRCNNWSL`` stage by
+    stage (backbone, pool: K1, dan, heads, nms), or with ``train`` (the
+    optimizer, the schedule and the train state) its train step
+    (backbone, pool, dan, heads, losses, backward: K2 where the map
+    trains, sgd); ``measure`` makes each call and returns its reading."""
+    import torch
+
+    from jtsm_tpu_torch.engine.train_loop import sgd_update
+    from jtsm_tpu_torch.layers import exact_float32
+
+    heads = model.roi_heads
+    r = {}
+
+    def backbone():
+        r["feats"], r["sizes"] = model._features(batch)
+        r["props"], r["scores"] = model.request_fields(batch)
+        r["targets"] = {k: torch.as_tensor(batch[k], device=model.device) for k in ("gt_classes", "gt_valid")
+                        if k in batch}
+
+    stages = {
+        "backbone": backbone,
+        "pool": lambda: r.update(pooled=heads.pool(r["feats"], r["props"])),
+        "dan": lambda: r.update(x=heads.dan(r["pooled"], train[2].generator if train else None)),
+        "heads": lambda: r.update(zip(("mil", "branches"), heads.predict(r["x"], r["scores"]))),
+    }
+    if train is None:
+        stages["nms"] = lambda: heads.detect(r["props"], r["scores"], r["mil"], r["branches"], r["sizes"])
+    else:
+        optimizer, schedule, state = train
+
+        def backward():
+            optimizer.zero_grad(set_to_none=True)
+            sum(r["losses"].values()).backward()
+
+        def sgd():
+            sgd_update(optimizer, schedule(state.step))
+            state.step += 1
+
+        stages["losses"] = lambda: r.update(losses=heads.losses(r["props"], r["scores"], r["mil"], r["branches"],
+                                                                r["targets"]))
+        stages.update(backward=backward, sgd=sgd)
+    with exact_float32(model.compute_dtype == torch.float32), torch.set_grad_enabled(train is not None):
+        return {k: measure(fn) for k, fn in stages.items()}
+
+
+def timed_ms(call):
+    import torch
+
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def format_voc(results):
+    return " ".join(f"{k}={v:.4f}" for t in ("bbox", "bbox CorLoc") for k, v in results[t].items())
+
+
+def wsod_narrow_checks(kernels):
+    """Phase 16(a): each narrow configuration on the card against this
+    machine's CPU from the same seeded weights: a two-request batch's
+    detections matched by (source proposal, class); WSOD_NARROW_SCENES
+    in-memory VOC scenes scored through the WSL test loader and the VOC
+    evaluator, every number within 1e-4; WSOD_NARROW_STEPS train steps
+    (dropout 0) under WSOD_NARROW_SOLVER, the losses within 1e-4 relative
+    and each step's update within WSOD_UPDATE_TOL of its norm; then OICR
+    on WSR-18 scored with TEST.AUG (TTA-AVG) on both, every number within
+    1e-4. These launches compare the card with the CPU and count in no
+    main path's total."""
+    import numpy as np
+    import torch
+
+    from jtsm_tpu_torch.checkpoint import random_state_dict
+    from jtsm_tpu_torch.data.datasets.synthetic_voc import register_synthetic_voc
+    from jtsm_tpu_torch.engine import create_train_state, make_train_step, test
+    from jtsm_tpu_torch.modeling import build_model
+    from jtsm_tpu_torch.solver import build_lr_schedule, build_optimizer
+    from jtsm_tpu_torch.wsl.train_net import build_evaluator, build_test_loader, test_with_TTA
+
+    name = "chip_smoke_voc_narrow"
+    props = register_synthetic_voc(name, num=WSOD_NARROW_SCENES, seed=0, image_hw=(96, 128), num_proposals=64)
+    rng = np.random.RandomState(0)
+    h, w, r = 128, 176, 64
+    xy = rng.rand(2, r, 2) * [w - 30, h - 30]
+    batch = {
+        "image": (rng.rand(2, h, w, 3) * 255).astype(np.float32),
+        "image_sizes": np.array([[h, w], [h - 16, w - 32]], np.int32),
+        "orig_sizes": np.array([[2 * h, 2 * w], [h - 16, w - 32]], np.int32),
+        "proposals": np.concatenate([xy, xy + rng.rand(2, r, 2) * 60 + 10], -1).astype(np.float32),
+        "proposal_scores": rng.rand(2, r).astype(np.float32),
+        "gt_classes": np.array([[3, 7, 0], [12, 0, 0]], np.int32),
+        "gt_valid": np.array([[1, 1, 0], [1, 0, 0]], bool),
+    }
+    batch["proposal_scores"][1, -5:] = -np.inf
+    before = [k.launches for k in kernels]
+    failed = []
+    torch.backends.cudnn.deterministic = True
+
+    def narrow(case):
+        cfg = wsod_cfg(case, narrow=True)
+        cfg.DATASETS.TEST = (name,)
+        cfg.DATASETS.PROPOSAL_FILES_TEST = (props,)
+        return cfg, random_state_dict(build_model(cfg, device="cpu"), seed=1)
+
+    def trained(cfg, model):
+        """WSOD_NARROW_STEPS steps: each one's losses and update (the
+        parameters' change, float64 on the CPU)."""
+        model.roi_heads.dan.dropout = 0.0  # the two devices' generators draw other bits
+        optimizer = build_optimizer(cfg, model)
+        state = create_train_state(model, optimizer, seed=0)
+        step = make_train_step(model, optimizer, build_lr_schedule(cfg))
+        params = [p for p in model.parameters() if p.requires_grad]
+
+        def flat():
+            return torch.cat([p.detach().double().flatten().cpu() for p in params])
+
+        losses, updates = [], []
+        for _ in range(WSOD_NARROW_STEPS):
+            start = flat()
+            losses.append({k: v.item() for k, v in step(state, batch).items()})
+            updates.append(flat() - start)
+        return losses, updates
+
+    for case, _, _ in WSOD_CASES:
+        cfg, weights = narrow(case)
+        cfg.merge_from_list(WSOD_NARROW_SOLVER[case])
+        runs = {}
+        for device in (DEVICE, "cpu"):
+            model = build_model(cfg, device=device)
+            model.load_state_dict(weights)
+            det = {k: v.cpu() for k, v in model.inference(batch).items()}
+            scored = test(cfg, model, build_test_loader=build_test_loader, build_evaluator=build_evaluator)
+            runs[device] = (det, scored, *trained(cfg, model))
+            del model
+        (d_card, s_card, l_card, u_card), (d_cpu, s_cpu, l_cpu, u_cpu) = runs[DEVICE], runs["cpu"]
+        m = match_detections(d_card, d_cpu, score_tol=1e-4)
+        num_err = max(abs(s_card[t][k] - s_cpu[t][k]) for t in s_cpu for k in s_cpu[t])
+        norms = [float(u.norm()) for u in u_cpu]
+        upd_errs = [float((a - b).norm()) / n for a, b, n in zip(u_card, u_cpu, norms)]
+        step_errs = [max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b) for a, b in zip(l_card, l_cpu)]
+        log(f"[wsod] (a) {case} narrow (float32, DAN {list(cfg.MODEL.ROI_BOX_HEAD.DAN_DIM)}, {r} proposals): card "
+            f"vs CPU: detections {m['matched']} matched by (source proposal, class), {m['reordered']} in another "
+            f"slot, {m['at_cut']} at the cut, boxes max_abs_err={m['boxes']:.3e} px (tol 1e-3), scores "
+            f"{m['scores']:.3e} (tol 1e-4), proposal class scores {m['class_scores']:.3e}; "
+            f"{WSOD_NARROW_SCENES} VOC scenes: CPU {format_voc(s_cpu)}, card numbers max_abs_err={num_err:.3e} "
+            f"(tol 1e-4); {WSOD_NARROW_STEPS} train steps at BASE_LR {cfg.SOLVER.BASE_LR:g}: losses' rel_err by "
+            f"step {[f'{e:.3e}' for e in step_errs]} (tol 1e-4), updates' L2 norms {[f'{n:.4g}' for n in norms]} "
+            f"rel_err {[f'{e:.3e}' for e in upd_errs]} (tol {WSOD_UPDATE_TOL:g}), total_loss card "
+            f"{[round(x['total_loss'], 6) for x in l_card]} CPU {[round(x['total_loss'], 6) for x in l_cpu]}")
+        if not (m["boxes"] <= 1e-3 and m["scores"] <= 1e-4 and m["class_scores"] <= 1e-4 and num_err <= 1e-4
+                and max(step_errs) <= 1e-4 and min(norms) > 0 and max(upd_errs) <= WSOD_UPDATE_TOL
+                and all(math.isfinite(v) for x in l_card for v in x.values())):
+            failed.append(case)
+
+    cfg, weights = narrow("oicr_WSR_18")
+    cfg.TEST.AUG.ENABLED = True
+    cfg.TEST.EVAL_TRAIN = False  # the yamls' train set is not on this machine
+    scored = {}
+    for device in (DEVICE, "cpu"):
+        model = build_model(cfg, device=device)
+        model.load_state_dict(weights)
+        scored[device] = test_with_TTA(cfg, model)
+        del model
+    num_err = max(abs(scored[DEVICE][t][k] - scored["cpu"][t][k]) for t in scored["cpu"] for k in scored["cpu"][t])
+    log(f"[wsod] (a) oicr_WSR_18 narrow with TEST.AUG (TTA-AVG, short sides {tuple(cfg.TEST.AUG.MIN_SIZES)}, flip "
+        f"{cfg.TEST.AUG.FLIP}): {WSOD_NARROW_SCENES} VOC scenes: CPU {format_voc(scored['cpu'])}, card numbers "
+        f"max_abs_err={num_err:.3e} (tol 1e-4)")
+    if not num_err <= 1e-4:
+        failed.append("oicr_WSR_18 with TEST.AUG")
+    if failed:
+        raise AssertionError(f"wsod narrow checks: the card disagrees with the CPU in {failed}")
+    torch.backends.cudnn.deterministic = False
+    got = {k.name: k.launches - n for k, n in zip(kernels, before)}
+    log(f"[wsod] (a) launches on the card in these checks (no main path's): {got}")
+    if not got[kernels[0].name]:
+        raise AssertionError("wsod narrow checks: K1 never launched on the card")
+
+
+def wsod_serve(kernel, states):
+    """Phase 16(b): each full-width configuration serves WSOD_ROUNDS
+    requests in each of bf16 (as configured) and f32, in turns, then the
+    stage split with its host syncs. Returns K1's launches and the mean
+    latencies."""
+    import torch
+
+    launches, latency = 0, {}
+    for case, _, _ in WSOD_CASES:
+        base = wsod_cfg(case)
+        base.TEST.AUG.ENABLED = False  # one view a request
+        dtypes = (base.TPU.COMPUTE_DTYPE, "float32")
+        reqs = [wsod_request(base, seed) for seed in (1, 2)]
+        models, mem = {}, {}
+        for d in dtypes:
+            cfg = base.clone()
+            cfg.TPU.COMPUTE_DTYPE = d
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            models[d] = wsod_model(cfg, states)
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            models[d].inference(reqs[0])  # warm-up
+            torch.cuda.synchronize()
+            mem[d] = ((resident - before) / 2**30, (torch.cuda.max_memory_allocated() - resident) / 2**30)
+        lat = {d: [] for d in dtypes}
+        kernel.launches = 0
+        for i in range(WSOD_ROUNDS):
+            for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+                before = kernel.launches
+                t0 = time.perf_counter()
+                out = models[d].inference(reqs[i % 2])
+                torch.cuda.synchronize()
+                lat[d].append((time.perf_counter() - t0) * 1e3)
+                if kernel.launches - before != 1:
+                    raise AssertionError(f"wsod {case} {d} request {i}: K1 launched {kernel.launches - before} times")
+                if (tuple(out["boxes"].shape) != (1, 100, 4) or not torch.isfinite(out["scores"]).all()
+                        or not bool(out["valid"].any())):
+                    raise AssertionError(f"wsod {case} {d} request {i}: boxes {tuple(out['boxes'].shape)}, "
+                                         f"{int(out['valid'].sum())} valid")
+                if ("proposal_class_scores" in out) == case.startswith("pcl"):
+                    raise AssertionError(f"wsod {case}: proposal_class_scores present: {'proposal_class_scores' in out}")
+        launches += kernel.launches
+        stage_ms = {d: {} for d in dtypes}
+        for i in range(WSOD_STAGE_ROUNDS):
+            for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+                for k, ms in wsod_stages(models[d], reqs[0], timed_ms).items():
+                    stage_ms[d].setdefault(k, []).append(ms)
+        req = reqs[0]
+        for d in dtypes:
+            syncs = wsod_stages(models[d], req, count_host_syncs)
+            latency[(case, d)] = sum(lat[d]) / len(lat[d])
+            log(f"[wsod] (b) {case} {DTYPE_NAMES[d]} {'x'.join(map(str, req['image_sizes'][0]))} in "
+                f"{'x'.join(map(str, req['image'].shape[1:3]))}, R={req['proposals'].shape[1]}: latency_ms="
+                f"{[round(x, 3) for x in lat[d]]} mean_ms={latency[(case, d)]:.3f} | stages_ms (median of "
+                f"{WSOD_STAGE_ROUNDS}) " + " ".join(f"{k}={median(v):.3f}" for k, v in stage_ms[d].items())
+                + " | host syncs " + " ".join(f"{k}={n}" for k, n in syncs.items())
+                + f" | weights_gib={mem[d][0]:.3f} request_peak_gib={mem[d][1]:.3f}")
+        del models
+    return launches, latency
+
+
+def wsod_train(kernels, states):
+    """Phase 16(c), the steps: each full-width configuration takes
+    WSOD_TRAIN_STEPS steps on IMS_PER_BATCH seeded requests in each of
+    bf16 and f32, in turns; K1 once a step, K2 once a step where the map
+    trains (VGG16's FREEZE_AT 2) and never under FREEZE_AT 5 (WSR-18);
+    then the stage split with its host syncs. Returns each kernel's
+    launches and the median step times."""
+    import torch
+
+    from jtsm_tpu_torch.engine import create_train_state, make_train_step
+    from jtsm_tpu_torch.solver import build_lr_schedule, build_optimizer
+
+    launches = {k.name: 0 for k in kernels}
+    med = {}
+    for case, _, _ in WSOD_CASES:
+        base = wsod_cfg(case)
+        dtypes = (base.TPU.COMPUTE_DTYPE, "float32")
+        batch = wsod_train_batch(base, list(range(3, 3 + base.SOLVER.IMS_PER_BATCH)))
+        k2_per_step = 1 if base.MODEL.BACKBONE.FREEZE_AT < 5 else 0
+        runs, times, peak = {}, {d: [] for d in dtypes}, {}
+        for d in dtypes:
+            cfg = base.clone()
+            cfg.TPU.COMPUTE_DTYPE = d
+            model = wsod_model(cfg, states).train()
+            optimizer = build_optimizer(cfg, model)
+            schedule = build_lr_schedule(cfg)
+            runs[d] = (model, optimizer, schedule, create_train_state(model, optimizer, seed=0),
+                       make_train_step(model, optimizer, schedule))
+        for k in kernels:
+            k.launches = 0
+        for i in range(WSOD_TRAIN_STEPS):
+            for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base_mem = torch.cuda.memory_allocated()
+                before = [k.launches for k in kernels]
+                t0 = time.perf_counter()
+                metrics = runs[d][4](runs[d][3], batch)
+                torch.cuda.synchronize()
+                times[d].append((time.perf_counter() - t0) * 1e3)
+                peak[d] = max(peak.get(d, 0.0), (torch.cuda.max_memory_allocated() - base_mem) / 2**30)
+                values = {k: v.item() for k, v in metrics.items()}
+                if not all(math.isfinite(v) for v in values.values()):
+                    raise AssertionError(f"wsod train {case} {d} step {i}: losses {values}")
+                per_step = [k.launches - n for k, n in zip(kernels, before)]
+                if per_step != [1, k2_per_step]:
+                    raise AssertionError(f"wsod train {case} {d} step {i}: launches {per_step}, not [1, {k2_per_step}]")
+        for k in kernels:
+            launches[k.name] += k.launches
+        for d in dtypes:
+            med[(case, d)] = median(times[d][1:])
+            model, optimizer, schedule, state, _ = runs[d]
+            stage_ms = wsod_stages(model, batch, timed_ms, (optimizer, schedule, state))
+            syncs = wsod_stages(model, batch, count_host_syncs, (optimizer, schedule, state))
+            log(f"[wsod] (c) {case} train {DTYPE_NAMES[d]}{' (TF32 off)' if d == 'float32' else ''}, "
+                f"{base.SOLVER.IMS_PER_BATCH} images {'x'.join(map(str, batch['image_sizes'][0]))} in "
+                f"{'x'.join(map(str, batch['image'].shape[1:3]))}, R={batch['proposals'].shape[1]} each: step_ms="
+                f"{[round(t, 3) for t in times[d]]} median_of_steps_2_to_{WSOD_TRAIN_STEPS}_ms={med[(case, d)]:.3f} "
+                f"step_peak_gib={peak[d]:.3f} | stages_ms " + " ".join(f"{k}={v:.3f}" for k, v in stage_ms.items())
+                + " | host syncs " + " ".join(f"{k}={n}" for k, n in syncs.items())
+                + f" | losses {', '.join(f'{k}={v.item():.5g}' for k, v in metrics.items())}")
+        del runs, model, optimizer, state
+    return launches, med
+
+
+def wsod_trainers(kernels, states):
+    """Phase 16(c), the trainer: OICR on WSR-18 (ITER_SIZE 4) and on VGG16
+    (ITER_SIZE 1) through the WSL trainer on WSOD_TRAINER_SCENES in-memory
+    VOC scenes of WSOD_IMAGE_HW with their 2000 proposals, the yamls' five
+    train scales and the flip, IMS_PER_BATCH 4, with TPU.IMAGE_BUCKETS that
+    hold the 1200 scale: the parameters move at each ITER_SIZE-th
+    mini-batch only, K1 once a mini-batch, K2 once where the map trains.
+    Returns each kernel's launches and each run's s/iter, data_time and
+    peak memory."""
+    import tempfile
+
+    import torch
+
+    from jtsm_tpu_torch.data.datasets.synthetic_voc import register_synthetic_voc
+    from jtsm_tpu_torch.wsl.train_net import Trainer
+
+    name = "chip_smoke_voc_train"
+    props = register_synthetic_voc(name, num=WSOD_TRAINER_SCENES, seed=5, image_hw=WSOD_IMAGE_HW,
+                                   num_proposals=2000)
+    launches, out = {k.name: 0 for k in kernels}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wsod_") as tmp:
+        for case, iters in WSOD_TRAINER_ITERS.items():
+            cfg = wsod_cfg(case)
+            cfg.DATASETS.TRAIN = (name,)
+            cfg.DATASETS.PROPOSAL_FILES_TRAIN = (props,)
+            cfg.TPU.IMAGE_BUCKETS = TC_JTSM_BUCKETS
+            cfg.SOLVER.MAX_ITER = iters
+            cfg.TEST.EVAL_PERIOD = 0
+            cfg.MODEL.WEIGHTS = ""
+            cfg.OUTPUT_DIR = os.path.join(tmp, case)
+            cfg.SEED = 0
+            k = cfg.WSL.ITER_SIZE
+            per_iteration = {kernels[0].name: 1, kernels[1].name: 1 if cfg.MODEL.BACKBONE.FREEZE_AT < 5 else 0}
+            trainer, rec, got, peak = run_trainer(
+                Trainer, cfg, kernels, states[case.split("_", 1)[1]],
+                watch=lambda m: [p for p in m.parameters() if p.requires_grad])
+            check_launches(f"wsod trainer {case}", rec, per_iteration)
+            moved = [sum(not torch.equal(a, b) for a, b in zip(rec.params[i], rec.params[i - 1]))
+                     for i in range(1, iters + 1)]
+            if any((i % k == 0) != (n > 0) for i, n in enumerate(moved, 1)):
+                raise AssertionError(f"wsod trainer {case}: watched parameters moved {moved} (ITER_SIZE {k})")
+            metrics = read_metrics(cfg.OUTPUT_DIR)
+            if not all(math.isfinite(v) for m in metrics[1:] for key, v in m.items() if key.startswith("loss")):
+                raise AssertionError(f"wsod trainer {case}: non-finite losses {metrics[-1]}")
+            if trainer.state.step != iters // k:
+                raise AssertionError(f"wsod trainer {case}: {trainer.state.step} updates in {iters} mini-batches")
+            for key, n in got.items():
+                launches[key] += n
+            loader = trainer.data_loader
+            out[case] = dict(s_iter=median(iteration_times(trainer, "time", 1)),
+                             data_time=median(iteration_times(trainer, "data_time", 1)), peak=peak)
+            log(f"[wsod] (c) {case} {cfg.TPU.COMPUTE_DTYPE} through the WSL trainer: ITER_SIZE {k}, IMS_PER_BATCH "
+                f"{cfg.SOLVER.IMS_PER_BATCH}, short sides {tuple(cfg.INPUT.MIN_SIZE_TRAIN)} and the flip, "
+                f"{WSOD_TRAINER_SCENES} VOC scenes {WSOD_IMAGE_HW} with 2000 proposals, {iters} mini-batches: "
+                f"moved at {[i for i, n in enumerate(moved, 1) if n]}, s/iter median {out[case]['s_iter']:.4f} "
+                f"data_time median {out[case]['data_time']:.4f} loader s/batch "
+                f"{loader.busy_seconds / loader.batches:.4f} launches {got} peak_mem_gib {peak:.3f} | cut: "
+                f"TPU.IMAGE_BUCKETS {TC_JTSM_BUCKETS} (no default bucket holds the 1200 scale), random weights")
+            del trainer
+    return launches, out
+
+
+def phase_wsod(kernels, gen, baseline):
+    """Phase 16: the WSOD baselines. (d) K1 at their box pooler's serve and
+    train shapes and K2 at VGG16's train shape against the plain versions;
+    (a) the narrow configurations on the card against the CPU; (b) each
+    full-width configuration served; (c) its train steps and the WSL
+    trainer. Returns the kernel rows, each kernel's launches on the main
+    paths and the latencies and step times."""
+    import torch
+
+    from jtsm_tpu_torch.ops import roi_align
+
+    # (d) the kernels at the heads' shapes: one level of the 1024x1024
+    # bucket of a 688x917 request, WSR-18's res5 at stride 16 and VGG16's
+    # plain5 at stride 8, 2000 proposals a request, P=7, sampling ratio 0
+    rows = {}
+    for kind, batch, stride in (("serve", 1, 16), ("serve", 1, 8), ("train", 4, 16), ("train", 4, 8)):
+        r = 2000 * batch
+        boxes = jtsm_mask_boxes(gen, r, (688, 917))
+        bidx = torch.arange(batch, device=DEVICE, dtype=torch.int32).repeat_interleave(2000)
+        levels = torch.zeros(r, dtype=torch.int32, device=DEVICE)
+        net = "WSR-18 res5" if stride == 16 else "VGG16 plain5"
+        for dtype in (torch.float32, torch.bfloat16):
+            feat = torch.randn((batch, 1024 // stride, 1024 // stride, 512), generator=gen, device=DEVICE).to(dtype)
+            tag = f"{kind} {net} {dtype_tag(feat)}"
+            rows[f"fwd {tag}"] = check_and_time_fwd(tag, [feat], [1.0 / stride], boxes, bidx, levels, 7, baseline,
+                                                    phase="wsod")
+            if kind == "train" and stride == 8:
+                rows[f"bwd {tag}"] = check_and_time_bwd(tag, [feat], [1.0 / stride], boxes, bidx, levels, 7, gen,
+                                                        baseline, phase="wsod")
+
+    routed = roi_align.roi_align_multilevel_plain_autograd
+
+    def plain_on_cpu_only(features, scales, boxes, *a, **k):
+        if boxes.device.type != "cpu":
+            raise AssertionError("the plain ROIAlign ran on the card in phase 16")
+        return routed(features, scales, boxes, *a, **k)
+
+    roi_align.roi_align_multilevel_plain_autograd = plain_on_cpu_only
+    try:
+        wsod_narrow_checks(kernels)
+        t0 = time.perf_counter()
+        states = wsod_states()
+        log(f"[wsod] seeded full-width weights of WSR-18 and VGG16 in {time.perf_counter() - t0:.1f}s")
+        serve_launches, latency = wsod_serve(kernels[0], states)
+        launches = {k.name: 0 for k in kernels}
+        launches[kernels[0].name] = serve_launches
+        train_launches, steps = wsod_train(kernels, states)
+        trainer_launches, trainers = wsod_trainers(kernels, states)
+        for got in (train_launches, trainer_launches):
+            for k, n in got.items():
+                launches[k] += n
+    finally:
+        roi_align.roi_align_multilevel_plain_autograd = routed
+    return rows, launches, latency, steps, trainers
+
+
 def kernel_line(kernel, launches, rows, f32_errs):
     """One entry of the kernels JSON line. ``ms``, ``plain_ms`` and
     ``bound_ms`` keep their long-standing meaning: the float32 box and mask
@@ -3084,6 +3652,24 @@ def build_baseline(src_dir):
         shutil.rmtree(out_dir)
 
 
+def run_phase(name, fn, *args):
+    """``fn(*args)``, the phase ``name``: its time logged when it ends; a
+    failure logs ``[name] FAILED: <type>: <message>`` and the traceback,
+    then goes on up, so that the run ends with a non-zero exit and nothing
+    runs after it."""
+    import traceback
+
+    t0 = time.perf_counter()
+    try:
+        out = fn(*args)
+    except BaseException as e:
+        log(f"[{name}] FAILED: {type(e).__name__}: {e}")
+        log(traceback.format_exc().rstrip())
+        raise
+    log(f"[{name}] done in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main(argv=None) -> int:
     t_run = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3101,38 +3687,42 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
 
     # 1. device
-    t0 = time.perf_counter()
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]} | TF32 (matmul, cuDNN) as found: {tf32_flags()}; the port "
-        f"turns both off in float32 | {time.perf_counter() - t0:.1f}s")
+    def device():
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+        log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
+            f"python {sys.version.split()[0]} | TF32 (matmul, cuDNN) as found: {tf32_flags()}; the port "
+            f"turns both off in float32")
+        return card
+
+    card = run_phase("device", device)
 
     # 2. build
-    t0 = time.perf_counter()
     from concurrent.futures import ThreadPoolExecutor
 
     from jtsm_tpu_torch.ops.roi_align_cuda import BWD_KERNEL, KERNEL, KERNELS, load_kernels
 
-    with ThreadPoolExecutor(1) as pool:
-        pending = pool.submit(build_baseline, args.baseline) if args.baseline else None
-        for k, built in zip(KERNELS, load_kernels()):
-            log(f"[build] {k.source} -> {os.path.relpath(built.path, REPO)} in {built.seconds:.1f}s (nvcc)")
-            for line in built.ptxas_log.splitlines():
-                log(f"[build] {line.strip()}")
-        baseline = pending and pending.result()
-    for k in baseline or ():
-        log(f"[build] baseline {k.built.path} in {k.built.seconds:.1f}s (nvcc, into a temporary directory)")
-    log(f"[build] done in {time.perf_counter() - t0:.1f}s (one nvcc per source, in parallel)"
-        + ("" if baseline else "; no --baseline: times beside an earlier version not measured"))
+    def build():
+        with ThreadPoolExecutor(1) as pool:
+            pending = pool.submit(build_baseline, args.baseline) if args.baseline else None
+            for k, built in zip(KERNELS, load_kernels()):
+                log(f"[build] {k.source} -> {os.path.relpath(built.path, REPO)} in {built.seconds:.1f}s (nvcc)")
+                for line in built.ptxas_log.splitlines():
+                    log(f"[build] {line.strip()}")
+            baseline = pending and pending.result()
+        for k in baseline or ():
+            log(f"[build] baseline {k.built.path} in {k.built.seconds:.1f}s (nvcc, into a temporary directory)")
+        log("[build] one nvcc per source, in parallel"
+            + ("" if baseline else "; no --baseline: times beside an earlier version not measured"))
+        return baseline
+
+    baseline = run_phase("build", build)
 
     # 3. K1 against its plain version at the served shapes
-    t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    res = phase_kernels(gen, baseline)
-    log(f"[kernels] done in {time.perf_counter() - t0:.1f}s")
+    res = run_phase("kernels", phase_kernels, gen, baseline)
 
     # 4. serve the flagship at its configured dtype, then in float32
     from jtsm_tpu_torch.checkpoint import random_state_dict
@@ -3144,70 +3734,53 @@ def main(argv=None) -> int:
     if main_dtype != "bfloat16":
         raise AssertionError(f"the flagship's TPU.COMPUTE_DTYPE is {main_dtype}, not bfloat16")
     state = random_state_dict(build_model(flagship, device="cpu"), seed=0)
-    t0 = time.perf_counter()
-    launches = phase_serve(KERNEL, (main_dtype, "float32"), state)
-    log(f"[serve] done in {time.perf_counter() - t0:.1f}s")
+    launches = run_phase("serve", phase_serve, KERNEL, (main_dtype, "float32"), state)
 
     # 5. trained weights, kernel against plain on the card
-    t0 = time.perf_counter()
-    phase_trained()
-    log(f"[trained] done in {time.perf_counter() - t0:.1f}s")
+    run_phase("trained", phase_trained)
 
     # 6. the training kernels against their plain versions
-    t0 = time.perf_counter()
-    tres = phase_train_kernels(gen, baseline)
-    log(f"[train_kernels] done in {time.perf_counter() - t0:.1f}s")
+    tres = run_phase("train_kernels", phase_train_kernels, gen, baseline)
 
     # 7. train the flagship (cuDNN's own algorithm choice, as a user trains)
-    t0 = time.perf_counter()
     torch.backends.cudnn.deterministic = False
-    train = {d: phase_train(KERNELS, d, state) for d in (main_dtype, "float32")}
-    log(f"[train] done in {time.perf_counter() - t0:.1f}s")
+    train = run_phase("train", lambda: {d: phase_train(KERNELS, d, state) for d in (main_dtype, "float32")})
 
     # 8. a train step from trained weights, kernels against plain
-    t0 = time.perf_counter()
-    phase_train_trained()
-    log(f"[train_trained] done in {time.perf_counter() - t0:.1f}s")
+    run_phase("train_trained", phase_train_trained)
 
     # 9. score: the gate on the card against the CPU; the flagship by stage
-    t0 = time.perf_counter()
-    score_launches = phase_score(KERNEL, state)
-    log(f"[score] done in {time.perf_counter() - t0:.1f}s")
+    score_launches = run_phase("score", phase_score, KERNEL, state)
 
     # 10. the JTSM flagship: K1 at its mask pooler's shape, serving, the gate
-    t0 = time.perf_counter()
-    jtsm_rows, jtsm_launches, jtsm_lat, jtsm_state = phase_jtsm(KERNEL, gen, baseline)
-    log(f"[jtsm] done in {time.perf_counter() - t0:.1f}s")
+    jtsm_rows, jtsm_launches, jtsm_lat, jtsm_state = run_phase("jtsm", phase_jtsm, KERNEL, gen, baseline)
 
     # 11. JTSM training: K1 and K2 at its mask pooler's shape, the flagship's
     # step in both dtypes, the gate's steps on the card against the CPU
-    t0 = time.perf_counter()
-    jt_rows, jt_launches, jt_med = phase_jtsm_train(KERNELS, gen, baseline, jtsm_state)
-    log(f"[jtsm_train] done in {time.perf_counter() - t0:.1f}s")
+    jt_rows, jt_launches, jt_med = run_phase("jtsm_train", phase_jtsm_train, KERNELS, gen, baseline, jtsm_state)
 
     # 12. JTSM scoring: the gate on the card against the CPU; the flagship by stage
-    t0 = time.perf_counter()
-    js_launches = phase_jtsm_score(KERNEL, jtsm_state)
-    log(f"[jtsm_score] done in {time.perf_counter() - t0:.1f}s")
+    js_launches = run_phase("jtsm_score", phase_jtsm_score, KERNEL, jtsm_state)
 
     # 13. TTA: the JTSM gate on the card against the CPU, K1 at the largest
     # view's shape, the flagship by stage, the Mask R-CNN gate
-    t0 = time.perf_counter()
-    tta_rows, tta_launches = phase_jtsm_tta(KERNEL, gen, baseline, jtsm_state, card)
-    log(f"[jtsm_tta] done in {time.perf_counter() - t0:.1f}s")
+    tta_rows, tta_launches = run_phase("jtsm_tta", phase_jtsm_tta, KERNEL, gen, baseline, jtsm_state, card)
 
     # 14. training as the command line trains: both flagships through their
     # trainers, resume, and the gate through the trainer against plain
-    t0 = time.perf_counter()
-    tc_launches, tc_runs, tc_jtsm = phase_train_cli(KERNELS, state, jtsm_state)
-    log(f"[train_cli] done in {time.perf_counter() - t0:.1f}s")
+    tc_launches, tc_runs, tc_jtsm = run_phase("train_cli", phase_train_cli, KERNELS, state, jtsm_state)
 
     # 15. the other core meta-architectures: their gates on the card against
     # the CPU, each served at full width by stage, K1 at the keypoint
     # pooler's shape
-    t0 = time.perf_counter()
-    fam_launches, kp_launches, kp_rows, fam_latency = phase_families(KERNEL, gen, baseline, card)
-    log(f"[families] done in {time.perf_counter() - t0:.1f}s")
+    fam_launches, kp_launches, kp_rows, fam_latency = run_phase("families", phase_families, KERNEL, gen, baseline,
+                                                                card)
+
+    # 16. the WSOD baselines: K1 and K2 at their box pooler's shapes, the
+    # narrow configs on the card against the CPU, the four full-width
+    # configs served, trained and through the WSL trainer
+    wsod_rows, wsod_launches, wsod_lat, wsod_steps, wsod_trainer_runs = run_phase(
+        "wsod", phase_wsod, KERNELS, gen, baseline)
 
     # per served request K1 pools boxes (R=1000, P=7) and masks (R=100,
     # P=14); per train step K1 and K2 pool and unpool boxes (R=1024, P=7)
@@ -3219,12 +3792,14 @@ def main(argv=None) -> int:
     # (1, 75, 100, 512) at the 1200 view). Times as kernel_line says;
     # launches: the main paths, serve, train, score, JTSM, JTSM train, JTSM
     # score and TTA, in both dtypes; phase 15's Panoptic FPN (box and mask
-    # poolers) and Keypoint R-CNN (box and keypoint poolers, R=100 P=14).
+    # poolers) and Keypoint R-CNN (box and keypoint poolers, R=100 P=14);
+    # phase 16's WSOD box pooler (one level, R=2000 a request, P=7) and,
+    # under VGG16's step, its backward.
     k1_launches = (sum(launches.values()) + sum(t[0][KERNEL.name] for t in train.values()) + score_launches
                    + jtsm_launches + jt_launches[KERNEL.name] + js_launches + tta_launches + tc_launches[KERNEL.name]
-                   + fam_launches)
+                   + fam_launches + wsod_launches[KERNEL.name])
     k2_launches = (sum(t[0][BWD_KERNEL.name] for t in train.values()) + jt_launches[BWD_KERNEL.name]
-                   + tc_launches[BWD_KERNEL.name])
+                   + tc_launches[BWD_KERNEL.name] + wsod_launches[BWD_KERNEL.name])
     bwd = {k[4:]: v for k, v in tres.items() if k.startswith("bwd ")}
     kernels = [
         kernel_line(KERNEL, k1_launches, res, [r["err"] for n, r in res.items() if "f32" in n]),
@@ -3297,6 +3872,19 @@ def main(argv=None) -> int:
         "kp_bf16_bound_ms": kp_bf16["bound_ms"],
         "fam_launches": fam_launches,
     })
+    # the WSOD rows (phase 16(d)): one level of a 1024x1024 bucket, P=7,
+    # R=2000 a request (serve: B=1; train: B=4, R=8000); K1 at WSR-18's res5
+    # (stride 16) and VGG16's plain5 (stride 8), K2 at VGG16's train shape;
+    # their launches on phase 16's main paths
+    for line, kind in ((kernels[0], "fwd"), (kernels[1], "bwd")):
+        line["wsod_launches"] = wsod_launches[line["name"]]
+        for key, row in wsod_rows.items():
+            if not key.startswith(kind + " "):
+                continue
+            tag = "wsod_" + key[len(kind) + 1:].replace(" ", "_").replace("-", "").lower()
+            line.update({f"{tag}_max_abs_err": row["err"], f"{tag}_ms": row["times"]["new"]["ms"],
+                         f"{tag}_device_ms": row["times"]["new"]["device_ms"], f"{tag}_plain_ms": row["plain_ms"],
+                         f"{tag}_bound_ms": row["bound_ms"], f"{tag}_bound_by": row["bound_by"]})
     # the trainers' launches (phase 14): Mask R-CNN at NUM_WORKERS 0 and 4,
     # the resumed run, the JTSM flagship, the gate's kernel run
     for line in kernels:
@@ -3316,6 +3904,11 @@ def main(argv=None) -> int:
         + f", launches {jt_launches}")
     log("[families] request mean ms " + " ".join(f"{f} {DTYPE_NAMES[d]}={ms:.3f}" for (f, d), ms in fam_latency.items())
         + f"; K1 launches {fam_launches} (keypoint pooler {kp_launches}) | {card}")
+    log("[wsod] request mean ms " + " ".join(f"{case} {DTYPE_NAMES[d]}={ms:.3f}" for (case, d), ms in wsod_lat.items())
+        + "; train step median ms " + " ".join(f"{case} {DTYPE_NAMES[d]}={ms:.3f}" for (case, d), ms in wsod_steps.items())
+        + "; WSL trainer " + " ".join(f"{case}: s/iter {r['s_iter']:.4f} data_time {r['data_time']:.4f} peak_gib "
+                                      f"{r['peak']:.3f};" for case, r in wsod_trainer_runs.items())
+        + f" launches {wsod_launches} | {card}")
     log(f"[done] {time.perf_counter() - t_run:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

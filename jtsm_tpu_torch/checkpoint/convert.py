@@ -19,9 +19,11 @@ inverts the JAX package's ``checkpoint/c2_model_loading.py:231-285``
   ``nn.Sequential`` of convolutions and ReLUs, JAX
   ``c2_model_loading.py:114-118``), ``conv/kernel`` and ``dense/kernel`` ->
   ``weight``, a group norm's ``norm/GroupNorm_0/scale`` -> ``norm.weight``);
-  the JTSM heads keep their flax names (``roi_heads.dan.dan1``,
-  ``roi_heads.mil.cls``, ``roi_heads.refine0.refine_score``,
-  ``roi_heads.mask_refinery_0.mask_fcn1``, ``sem_seg_head.res5_head_conv0``).
+  the WSL modules keep their flax names: VGG16's ``backbone.conv1_1`` to
+  ``backbone.conv5_3``, the WSOD and JTSM heads' ``roi_heads.dan.dan1``,
+  ``roi_heads.mil.cls``, ``roi_heads.refine0.refine_score`` and
+  ``roi_heads.refine0.refine_reg``, ``roi_heads.mask_refinery_0.mask_fcn1``,
+  ``sem_seg_head.res5_head_conv0``.
 
 ``load_gate_ckpt`` reads the committed ``tests/fixtures/gate_ckpts/*.ckpt.gz``
 files: gzip-pickled plain dicts of numpy arrays, float16 on disk, upcast

@@ -170,3 +170,140 @@ def jtsm_gate_cfg() -> CN:
     cfg.SEED = 42
     cfg.VERSION = 2
     return cfg
+
+
+# the WSOD baselines' ROI heads and the prefix of their yamls
+WSOD_HEADS = {"WSDDNROIHeads": "wsddn", "OICRROIHeads": "oicr", "PCLROIHeads": "pcl"}
+
+
+def _wsod_cfg(head: str) -> CN:
+    """What ``Base-WSL-WSR.yaml`` and ``Base-WSL-VGG16.yaml`` share, with
+    ``head`` as the ROI heads; the WSDDN yamls sum the MIL loss over the
+    classes (WSL.MEAN_LOSS False)."""
+    if head not in WSOD_HEADS:
+        raise ValueError(f"{head!r} is not one of the WSOD heads {sorted(WSOD_HEADS)}")
+    cfg = wsl_cfg()
+    m = cfg.MODEL
+    m.META_ARCHITECTURE = "GeneralizedRCNNWSL"
+    m.LOAD_PROPOSALS = True
+    m.PROPOSAL_GENERATOR.NAME = "PrecomputedProposals"
+    m.ROI_HEADS.NAME = head
+    m.ROI_HEADS.NUM_CLASSES = 20
+    m.ROI_HEADS.SCORE_THRESH_TEST = 0.00001
+    m.ROI_HEADS.NMS_THRESH_TEST = 0.3
+    m.ROI_BOX_HEAD.POOLER_RESOLUTION = 7
+    m.ROI_BOX_HEAD.DAN_DIM = [4096, 4096]
+    d = cfg.DATASETS
+    d.TRAIN = ("voc_2007_trainval",)
+    d.TEST = ("voc_2007_test",)
+    d.PRECOMPUTED_PROPOSAL_TOPK_TRAIN = 2000
+    d.PRECOMPUTED_PROPOSAL_TOPK_TEST = 2000
+    s = cfg.SOLVER
+    s.IMS_PER_BATCH = 4
+    s.STEPS = (35000,)
+    s.MAX_ITER = 50000
+    cfg.INPUT.MIN_SIZE_TRAIN = (480, 576, 688, 864, 1200)
+    cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING = "choice"
+    cfg.INPUT.MAX_SIZE_TRAIN = 2000
+    cfg.INPUT.MIN_SIZE_TEST = 688
+    cfg.INPUT.MAX_SIZE_TEST = 4000
+    cfg.VERSION = 2
+    if head == "WSDDNROIHeads":
+        cfg.WSL.MEAN_LOSS = False
+    return cfg
+
+
+def wsod_WSR_18_DC5_cfg(head: str) -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/{wsddn,oicr,pcl}_WSR_18_DC5_1x.yaml``
+    over ``Base-WSL-WSR.yaml``: WSR-18 with the res5 dilation of DC5
+    (FREEZE_AT 5), 2000 precomputed proposals on VOC 2007, the 4096-wide
+    DAN and ``head`` (``WSDDNROIHeads``, ``OICRROIHeads`` or
+    ``PCLROIHeads``), ITER_SIZE 4, biases at twice the rate without decay,
+    test-time augmentation over 5 scales and the flips."""
+    cfg = _wsod_cfg(head)
+    m = cfg.MODEL
+    m.WEIGHTS = "models/DRN-WSOD/resnet18_ws_model_120_d2.pkl"
+    m.BACKBONE.NAME = "build_wsl_resnet_backbone"
+    m.BACKBONE.FREEZE_AT = 5
+    m.RESNETS.DEPTH = 18
+    m.RESNETS.RES2_OUT_CHANNELS = 64
+    m.RESNETS.RES5_DILATION = 2
+    m.RESNETS.OUT_FEATURES = ["res5"]
+    m.PROPOSAL_GENERATOR.MIN_SIZE = 20
+    m.ROI_HEADS.IN_FEATURES = ["res5"]
+    m.ROI_BOX_HEAD.POOLER_TYPE = "ROIPool"  # the WSOD heads pool by ROIAlignV2 whatever it says
+    s = cfg.SOLVER
+    s.BASE_LR = 0.01
+    s.WEIGHT_DECAY = 0.0005
+    s.BIAS_LR_FACTOR = 2.0
+    s.WEIGHT_DECAY_BIAS = 0.0
+    t = cfg.TEST
+    t.AUG.ENABLED = True
+    t.AUG.MIN_SIZES = (480, 576, 688, 864, 1200)
+    t.AUG.MAX_SIZE = 4000
+    t.AUG.FLIP = True
+    t.EVAL_PERIOD = 10000
+    cfg.WSL.ITER_SIZE = 4
+    return cfg
+
+
+def wsod_V_16_DC5_cfg(head: str) -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/{wsddn,oicr,pcl}_V_16_DC5_1x.yaml``
+    over ``Base-WSL-VGG16.yaml``: VGG16 with conv5 dilated (``plain5`` at
+    stride 8, FREEZE_AT 2), 2000 precomputed proposals on VOC 2007, the
+    4096-wide DAN and ``head``, no test-time augmentation."""
+    cfg = _wsod_cfg(head)
+    m = cfg.MODEL
+    m.WEIGHTS = "models/VGG/VGG_ILSVRC_16_layers_v1_d2.pkl"
+    m.BACKBONE.NAME = "build_vgg_backbone"
+    m.VGG.DEPTH = 16
+    m.VGG.CONV5_DILATION = 2
+    m.VGG.OUT_FEATURES = ["plain5"]
+    m.ROI_HEADS.IN_FEATURES = ["plain5"]
+    cfg.SOLVER.BASE_LR = 0.001
+    return cfg
+
+
+def _wsod_narrow(cfg: CN) -> CN:
+    """The narrow form of a WSOD configuration for tests and the card's
+    checks against the CPU, cut as ``jtsm_gate_cfg`` cuts the JTSM
+    flagship: its short side 128 (long side at most 176, in its buckets),
+    64 proposals an image, a DAN 64 wide, 2 refinement branches, float32,
+    2 images a batch and its solver (no bias rule, the full-model clip),
+    no test-time augmentation and no expected results."""
+    gate = jtsm_gate_cfg()
+    cfg.MODEL.WEIGHTS = ""
+    cfg.MODEL.ROI_BOX_HEAD.DAN_DIM = [64, 64]
+    cfg.WSL.REFINE_NUM = 2
+    cfg.WSL.ITER_SIZE = 1
+    d = cfg.DATASETS
+    d.PRECOMPUTED_PROPOSAL_TOPK_TRAIN = gate.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN
+    d.PRECOMPUTED_PROPOSAL_TOPK_TEST = gate.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST
+    for k in ("MIN_SIZE_TRAIN", "MAX_SIZE_TRAIN", "MIN_SIZE_TEST", "MAX_SIZE_TEST"):
+        cfg.INPUT[k] = gate.INPUT[k]
+    cfg.TPU.IMAGE_BUCKETS = gate.TPU.IMAGE_BUCKETS
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.SOLVER = gate.SOLVER.clone()
+    cfg.DATALOADER.NUM_WORKERS = 0
+    cfg.TEST.AUG.ENABLED = False
+    cfg.TEST.AUG.MIN_SIZES = (112, 128)
+    cfg.TEST.AUG.MAX_SIZE = 176
+    cfg.TEST.EVAL_PERIOD = 0
+    cfg.TEST.EXPECTED_RESULTS = []
+    cfg.SEED = gate.SEED
+    return cfg
+
+
+def wsod_WSR_18_narrow_cfg(head: str) -> CN:
+    """``wsod_WSR_18_DC5_cfg(head)`` cut by ``_wsod_narrow``, its stem 16
+    wide and every stage training (FREEZE_AT 0), as the JTSM gate's."""
+    cfg = _wsod_narrow(wsod_WSR_18_DC5_cfg(head))
+    cfg.MODEL.RESNETS.STEM_OUT_CHANNELS = 16
+    cfg.MODEL.BACKBONE.FREEZE_AT = 0
+    return cfg
+
+
+def wsod_V_16_narrow_cfg(head: str) -> CN:
+    """``wsod_V_16_DC5_cfg(head)`` cut by ``_wsod_narrow``; VGG16 keeps its
+    widths and FREEZE_AT 2."""
+    return _wsod_narrow(wsod_V_16_DC5_cfg(head))

@@ -219,7 +219,7 @@ class StaticBatchLoader:
                 # keep the batch shape static: repeat the last image
                 group = group + [group[-1]] * (self.batch_size - real)
             batch = self.collate(group)
-            batch["image_ids"] = np.asarray([g.get("image_id", -1) for g in group[:real]], dtype=np.int64)
+            batch["image_ids"] = image_ids([g.get("image_id", -1) for g in group[:real]])
             self.busy_seconds += time.perf_counter() - t0
             self.batches += 1
             yield batch
@@ -263,6 +263,14 @@ class StaticBatchLoader:
 
     def __len__(self):
         return (len(self.sampler) + self.batch_size - 1) // self.batch_size
+
+
+def image_ids(ids: List) -> np.ndarray:
+    """A batch's image ids: int64, or strings where the dataset's ids are
+    strings (Pascal VOC's file ids). The JAX package casts every id to
+    int64, so that a VOC id "000005" becomes 5 and its detections miss
+    their ground truth (ROADMAP §3)."""
+    return np.asarray(ids) if any(isinstance(i, str) for i in ids) else np.asarray(ids, dtype=np.int64)
 
 
 def build_batch_data_loader(dataset: MapDataset, sampler, total_batch_size: int, *, buckets,

@@ -1,8 +1,8 @@
 """The builtin COCO instance splits, the person keypoint splits and the
-separated panoptic splits (reference: detectron2/data/datasets/builtin.py;
-JAX package ``data/datasets/builtin.py:17,43,62,82,103,245``), registered
-when this module
-is imported. Paths resolve under ``$JTSM_DATASETS`` (default
+separated panoptic splits, and the Pascal VOC 2007 and 2012 detection
+splits (reference: detectron2/data/datasets/builtin.py; JAX package
+``data/datasets/builtin.py:17,43,62,82,103,245,273``), registered when this
+module is imported. Paths resolve under ``$JTSM_DATASETS`` (default
 ``./datasets``); nothing is read until a dataset is used. The standard
 panoptic variant (``load_coco_panoptic_json``) is not ported yet
 (ROADMAP)."""
@@ -14,6 +14,7 @@ import os
 from ..catalog import DatasetCatalog, MetadataCatalog
 from .builtin_meta import _get_builtin_metadata
 from .coco import load_coco_json, load_sem_seg, register_coco_instances
+from .pascal_voc import register_pascal_voc
 
 _PREDEFINED_SPLITS_COCO = {
     "coco_2017_train": ("coco/train2017", "coco/annotations/instances_train2017.json"),
@@ -106,6 +107,25 @@ def register_all_coco_panoptic(root: str) -> None:
         )
 
 
+_PREDEFINED_SPLITS_VOC = (
+    ("voc_2007_trainval", "VOC2007", "trainval", 2007),
+    ("voc_2007_train", "VOC2007", "train", 2007),
+    ("voc_2007_val", "VOC2007", "val", 2007),
+    ("voc_2007_test", "VOC2007", "test", 2007),
+    ("voc_2012_trainval", "VOC2012", "trainval", 2012),
+    ("voc_2012_train", "VOC2012", "train", 2012),
+    ("voc_2012_val", "VOC2012", "val", 2012),
+)
+
+
+def register_all_pascal_voc(root: str) -> None:
+    for name, dirname, split, year in _PREDEFINED_SPLITS_VOC:
+        if name in DatasetCatalog:
+            continue
+        register_pascal_voc(name, os.path.join(root, dirname), split, year)
+
+
 _root = os.environ.get("JTSM_DATASETS", "datasets")
 register_all_coco(_root)
 register_all_coco_panoptic(_root)
+register_all_pascal_voc(_root)

@@ -142,6 +142,7 @@ def build_retinanet_resnet_fpn_backbone(cfg) -> FPN:
 
 def build_backbone(cfg) -> nn.Module:
     from ...wsl.modeling.resnet_wsl import build_wsl_resnet_backbone, build_wsl_resnet_v2_backbone
+    from ...wsl.modeling.vgg import build_vgg_backbone
 
     name = cfg.MODEL.BACKBONE.NAME
     builders = {
@@ -150,6 +151,7 @@ def build_backbone(cfg) -> nn.Module:
         "build_retinanet_resnet_fpn_backbone": build_retinanet_resnet_fpn_backbone,
         "build_wsl_resnet_backbone": build_wsl_resnet_backbone,
         "build_wsl_resnet_v2_backbone": build_wsl_resnet_v2_backbone,
+        "build_vgg_backbone": build_vgg_backbone,
     }
     if name not in builders:
         raise NotImplementedError(f"backbone {name!r} is not ported yet")

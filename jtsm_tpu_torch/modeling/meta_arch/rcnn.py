@@ -185,7 +185,8 @@ def resolve_device(device) -> torch.device:
 def build_model(cfg, device="cuda") -> nn.Module:
     """The model named by MODEL.META_ARCHITECTURE (``GeneralizedRCNN``,
     ``ProposalNetwork``, ``RetinaNet``, ``PanopticFPN``,
-    ``SemanticSegmentor``, or the JTSM ``GeneralizedMCNNWSL``; JAX package
+    ``SemanticSegmentor``, the JTSM ``GeneralizedMCNNWSL`` or the WSOD
+    ``GeneralizedRCNNWSL``; JAX package
     ``meta_arch/build.py:11``), in eval mode, on ``device``. Weights
     start from the JAX package's initialisers, drawn from PyTorch's global
     generator (``layers.wrappers``; ``engine.default_setup`` seeds it):
@@ -206,6 +207,8 @@ def build_model(cfg, device="cuda") -> nn.Module:
     }
     if name == "GeneralizedMCNNWSL":
         from ...wsl.modeling.meta_arch import GeneralizedMCNNWSL as arch
+    elif name == "GeneralizedRCNNWSL":
+        from ...wsl.modeling.meta_arch import GeneralizedRCNNWSL as arch
     elif name in archs:
         arch = archs[name]
     else:

@@ -233,7 +233,12 @@ class GeneralizedRCNNWithTTAAVG(TTAWrapperBase):
                 request["oh_labels"] = oh_labels[None]
             t0 = time.perf_counter()
             raw = predict(request)
-            out = {k: _host(raw[k]) for k in ("proposal_class_scores",) if k in raw}
+            if "proposal_class_scores" not in raw:
+                # PCLROIHeads returns none, as in the JAX package, whose
+                # TTA-AVG fails here with a KeyError (ROADMAP §3)
+                raise ValueError("TTA-AVG averages each proposal's class scores, and the model returns no "
+                                 "proposal_class_scores (PCLROIHeads returns none)")
+            out = {"proposal_class_scores": _host(raw["proposal_class_scores"])}
             saw_masks = saw_masks or "masks" in raw or "masks_full" in raw
             add_time(self.timings, "tta_views", time.perf_counter() - t0)
             scores = out["proposal_class_scores"][0]

@@ -1,3 +1,4 @@
-"""WSL models: the WS-ResNet backbones, the MIL and OICR layers, the DAN,
-the JTSM ROI heads, the WSL mask head, the stuff heads and
-``GeneralizedMCNNWSL`` (JAX package ``wsl/modeling/``)."""
+"""WSL models: the WS-ResNet and VGG backbones, the MIL and OICR layers,
+the DAN, the WSDDN, OICR, PCL and JTSM ROI heads, the WSL mask head, the
+stuff heads, ``GeneralizedRCNNWSL`` and ``GeneralizedMCNNWSL`` (JAX
+package ``wsl/modeling/``)."""

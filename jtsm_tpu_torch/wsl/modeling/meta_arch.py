@@ -1,4 +1,5 @@
-"""GeneralizedMCNNWSL, the JTSM meta-architecture (reference:
+"""GeneralizedMCNNWSL, the JTSM meta-architecture, and GeneralizedRCNNWSL,
+the WSOD baselines' (at the end of this module). JTSM (reference:
 projects/WSL/wsl/modeling/meta_arch/mcnn.py:25; JAX package
 ``wsl/modeling/meta_arch.py:114``, train branch :158-208, inference
 :137-223).
@@ -94,3 +95,63 @@ class GeneralizedMCNNWSL(BackboneModel):
                 self.sem_seg_head(features), aux["pgt_sem_seg"], aux["pgt_sem_seg_stride"]
             ))
         return losses
+
+
+def build_wsl_roi_heads(cfg, input_shape):
+    """The WSOD heads named by ROI_HEADS.NAME (JAX package registry
+    ``ROI_HEADS_REGISTRY``): ``WSDDNROIHeads``, ``OICRROIHeads`` or
+    ``PCLROIHeads``."""
+    from .roi_heads_wsl import OICRROIHeads, WSDDNROIHeads
+    from .wsod_zoo import PCLROIHeads
+
+    heads = {"WSDDNROIHeads": WSDDNROIHeads, "OICRROIHeads": OICRROIHeads, "PCLROIHeads": PCLROIHeads}
+    name = cfg.MODEL.ROI_HEADS.NAME
+    if name not in heads:
+        raise NotImplementedError(f"ROI heads {name!r} under GeneralizedRCNNWSL are not ported yet "
+                                  "(ROADMAP queue 1 item 6)")
+    return heads[name](cfg, input_shape)
+
+
+class GeneralizedRCNNWSL(BackboneModel):
+    """The WSOD meta-architecture (reference
+    projects/WSL/wsl/modeling/meta_arch/rcnn.py:24; JAX package
+    ``wsl/modeling/meta_arch.py:34-111``): the image normalised in float32,
+    the backbone, the request's precomputed ``proposals`` (B, R, 4) and
+    ``proposal_scores`` (B, R) (-inf marks padding), the WSOD heads
+    (``build_wsl_roi_heads``), and the detections mapped to ``orig_sizes``
+    (``boxes``, ``scores``, ``classes``, ``valid``, ``prop_idx`` and, but
+    for PCL, ``proposal_class_scores``). In train mode, with the image
+    labels ``gt_classes`` and ``gt_valid`` (B, G), the heads' loss dict;
+    ``generator`` draws the DAN's dropout. The learned proposal generator
+    (UWSOD's ``RPNWSL``) is not ported."""
+
+    def __init__(self, cfg):
+        if cfg.MODEL.PROPOSAL_GENERATOR.NAME != "PrecomputedProposals":
+            raise NotImplementedError(
+                f"GeneralizedRCNNWSL with the proposal generator {cfg.MODEL.PROPOSAL_GENERATOR.NAME!r} (UWSOD's "
+                "RPNWSL) is not ported yet (ROADMAP queue 1 item 6)")
+        super().__init__(cfg)
+        self.roi_heads = build_wsl_roi_heads(cfg, self.backbone.output_shape())
+
+    def request_fields(self, batch: Dict):
+        dev = self.device
+        return (torch.as_tensor(batch["proposals"], dtype=torch.float32, device=dev),
+                torch.as_tensor(batch["proposal_scores"], dtype=torch.float32, device=dev))
+
+    @torch.no_grad()
+    def inference(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        with exact_float32(self.compute_dtype == torch.float32):
+            features, image_sizes = self._features(batch)
+            proposals, scores = self.request_fields(batch)
+            det = self.roi_heads(features, proposals, scores, image_sizes)
+            return detector_postprocess_batched(det, image_sizes, self.orig_sizes(batch, image_sizes))
+
+    def forward(self, batch: Dict, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """In train mode the loss dict; in eval mode :meth:`inference`."""
+        if not self.training:
+            return self.inference(batch)
+        features, image_sizes = self._features(batch)
+        proposals, scores = self.request_fields(batch)
+        targets = {k: torch.as_tensor(batch[k], device=self.device) for k in ("gt_classes", "gt_valid")}
+        return self.roi_heads(features, proposals, scores, image_sizes, targets=targets, train=True,
+                              generator=generator)

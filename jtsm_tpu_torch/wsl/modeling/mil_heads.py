@@ -255,3 +255,75 @@ def oicr_reg_loss_sum(
         d = torch.gather(deltas.reshape(b, r, nrc, 4), 2, idx[..., None, None].expand(b, r, 1, 4))[:, :, 0]
     per = smooth_l1_loss(d, t, beta).sum(dim=-1)
     return (per * weights * fg.to(per.dtype)).sum(dim=-1)
+
+
+def oicr_refine_losses(
+    proposals: torch.Tensor,  # (B, R, 4)
+    valid: torch.Tensor,  # (B, R)
+    source: torch.Tensor,  # (B, R, C) the MIL scores that supervise the first branch
+    branches: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]],  # (logits, deltas or None)
+    image_labels: torch.Tensor,  # (B, C)
+    img_probs: torch.Tensor,  # (B, C) the top-k miner's weights
+    box2box_transform,
+    refine_mist: bool = False,
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+    """The OICR refinement cascade (JAX ``roi_heads_wsl.py:424-509``, and
+    the JTSM heads' over their thing classes): branch k learns from the PGT
+    mined from branch k-1's detached softmax (the MIL scores for k = 0) and
+    boxes (per class once a branch regresses), by top-1 per class weighted
+    by the image probabilities, or by MIST with the first branch weighted 3.
+    Each branch's cross entropy is normalised over the batch's weighted
+    proposals, its box regression over the batch's valid proposals.
+    Returns (losses, the last branch's (B, R, C) scores, their boxes)."""
+    b, r = valid.shape
+    c = image_labels.shape[-1]
+    n_prop = valid.sum().float().clamp(min=1.0)
+    src_boxes = proposals  # (B, R, 4); per class (B, R, C, 4) after a regressing branch
+    losses = {}
+    for k, (logits, deltas) in enumerate(branches):
+        if refine_mist:
+            pgt = get_pgt_mist(src_boxes.detach(), source.detach(), valid, image_labels)
+        else:
+            pgt = get_pgt_top_k(src_boxes.detach(), source.detach(), valid, image_labels, 1, img_probs)
+        sup = label_proposals_by_pgt(proposals, valid, pgt, c)
+        cls_sum, cls_cnt = oicr_branch_loss_terms(logits, sup["labels"], sup["weights"])
+        term_weight = 3.0 if (refine_mist and k == 0) else 1.0
+        losses[f"loss_refine_cls{k}"] = cls_sum.sum() / cls_cnt.sum().clamp(min=1.0) * term_weight
+        if deltas is not None:
+            reg_sum = oicr_reg_loss_sum(
+                deltas, sup["labels"], sup["weights"], sup["fg"], proposals, sup["matched_pgt_boxes"],
+                box2box_transform,
+            )
+            losses[f"loss_refine_reg{k}"] = reg_sum.sum() / n_prop * term_weight
+            src_boxes = box2box_transform.apply_deltas(
+                deltas.reshape(-1, 4), proposals[:, :, None, :].expand(b, r, c, 4).reshape(-1, 4)
+            ).reshape(b, r, c, 4)
+        else:
+            src_boxes = proposals
+        source = torch.softmax(logits, dim=-1)[:, :, :c]
+    return losses, source, src_boxes
+
+
+def branch_average(
+    proposals: torch.Tensor,  # (B, R, 4)
+    branches: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]],
+    num_classes: int,
+    box2box_transform,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inference over the refinement branches (reference
+    fast_rcnn_oicr.py:712-786): their foreground softmax averaged, (B, R,
+    C), and their class-specific deltas averaged and decoded once, (B, R,
+    C, 4), or the proposals where no branch regresses."""
+    b, r = proposals.shape[:2]
+    avg = proposals.new_zeros((b, r, num_classes))
+    for logits, _ in branches:
+        avg = avg + torch.softmax(logits, dim=-1)[..., :num_classes]
+    avg = avg / max(len(branches), 1)
+    reg = [d for _, d in branches if d is not None]
+    if not reg:
+        return avg, proposals
+    mean_deltas = sum(reg) / len(reg)
+    boxes = box2box_transform.apply_deltas(
+        mean_deltas.reshape(-1, 4), proposals[:, :, None, :].expand(b, r, num_classes, 4).reshape(-1, 4)
+    ).reshape(b, r, num_classes, 4)
+    return avg, boxes

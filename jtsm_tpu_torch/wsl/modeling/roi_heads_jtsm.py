@@ -51,12 +51,10 @@ from ..ops import moi_pool, moi_pool_exact, roi_pool, sample_membership_grid, su
 from .mil_heads import (
     MILOutputLayers,
     OICROutputLayers,
-    get_pgt_mist,
+    branch_average,
     get_pgt_top_k,
-    label_proposals_by_pgt,
     mil_image_loss,
-    oicr_branch_loss_terms,
-    oicr_reg_loss_sum,
+    oicr_refine_losses,
     wsddn_scores,
 )
 from .roi_heads_wsl import DiscriminativeAdaptionNeck, image_level_gt, image_level_gt_stuff, wsl_inference
@@ -299,7 +297,7 @@ class JTSMROIHeads(nn.Module):
         """The MIL loss, the refinement cascade with its mining and losses,
         the pseudo sem-seg painting and the mask mining: returns (losses,
         aux, the mined mask ROIs or None)."""
-        b, r = proposal_scores.shape
+        b = proposal_scores.shape[0]
         ct = self.num_classes
         valid = torch.isfinite(proposal_scores)
         img_labels = self._joint_labels(targets, b, proposals.device)
@@ -307,34 +305,12 @@ class JTSMROIHeads(nn.Module):
         # image-level class probabilities: the weights of every top-k
         # mining step (reference predict_probs_img, fast_rcnn_tsm.py:840)
         img_probs = mil.sum(dim=1).clamp(1e-6, 1.0 - 1e-6)
-        n_prop = valid.sum().float().clamp(min=1.0)
         # the cascade runs over the thing classes; stuff is MIL-only
-        source = mil[:, :, :ct]
-        src_boxes = proposals  # (B, R, 4); per class (B, R, Ct, 4) after a regressing branch
-        for k, (logits, deltas) in enumerate(branches):
-            if self.refine_mist:
-                pgt = get_pgt_mist(src_boxes.detach(), source.detach(), valid, img_labels[:, :ct])
-            else:
-                pgt = get_pgt_top_k(
-                    src_boxes.detach(), source.detach(), valid, img_labels[:, :ct], 1, img_probs[:, :ct]
-                )
-            sup = label_proposals_by_pgt(proposals, valid, pgt, ct)
-            cls_sum, cls_cnt = oicr_branch_loss_terms(logits, sup["labels"], sup["weights"])
-            # under MIST the first branch weighs 3x (reference :681-686)
-            term_weight = 3.0 if (self.refine_mist and k == 0) else 1.0
-            losses[f"loss_refine_cls{k}"] = cls_sum.sum() / cls_cnt.sum().clamp(min=1.0) * term_weight
-            if deltas is not None:
-                reg_sum = oicr_reg_loss_sum(
-                    deltas, sup["labels"], sup["weights"], sup["fg"], proposals, sup["matched_pgt_boxes"],
-                    self.box2box_transform,
-                )
-                losses[f"loss_refine_reg{k}"] = reg_sum.sum() / n_prop * term_weight
-                src_boxes = self.box2box_transform.apply_deltas(
-                    deltas.reshape(-1, 4), proposals[:, :, None, :].expand(b, r, ct, 4).reshape(-1, 4)
-                ).reshape(b, r, ct, 4)
-            else:
-                src_boxes = proposals
-            source = torch.softmax(logits, dim=-1)[:, :, :ct]
+        refine, source, src_boxes = oicr_refine_losses(
+            proposals, valid, mil[:, :, :ct], branches, img_labels[:, :ct], img_probs[:, :ct],
+            self.box2box_transform, self.refine_mist,
+        )
+        losses.update(refine)
 
         aux = {}
         if self.ps_on and self.mine_sem_seg and superpixels is not None:
@@ -437,20 +413,7 @@ class JTSMROIHeads(nn.Module):
         """The branches' softmax and class-specific deltas averaged before
         one decode (reference fast_rcnn_oicr.py:712-786), then
         ``wsl_inference``."""
-        b, r = proposals.shape[:2]
-        ct = self.num_classes
-        avg = proposals.new_zeros((b, r, ct))
-        for logits, _ in branches:
-            avg = avg + torch.softmax(logits, dim=-1)[..., :ct]
-        avg = avg / max(self.refine_num, 1)
-        final_boxes = proposals
-        reg = [d for _, d in branches if d is not None]
-        if reg:
-            mean_deltas = sum(reg) / len(reg)
-            final_boxes = self.box2box_transform.apply_deltas(
-                mean_deltas.reshape(-1, 4),
-                proposals[:, :, None, :].expand(b, r, ct, 4).reshape(-1, 4),
-            ).reshape(b, r, ct, 4)
+        avg, final_boxes = branch_average(proposals, branches, self.num_classes, self.box2box_transform)
         det = wsl_inference(
             final_boxes, avg, torch.isfinite(proposal_scores), image_sizes, self.score_thresh_test,
             self.nms_thresh_test, self.detections_per_image,

@@ -1,22 +1,46 @@
-"""WSOD ROI-head pieces of the JTSM path (reference:
+"""WSOD ROI heads and their pieces (reference:
 projects/WSL/wsl/modeling/roi_heads/roi_heads.py:146, roi_heads_jtsm.py:166,
-box_head.py:106 and fast_rcnn_oicr.py:712-786; JAX package
-``wsl/modeling/roi_heads_wsl.py`` :50 ``image_level_gt``, :56
-``image_level_gt_stuff``, :68 ``DiscriminativeAdaptionNeck``, :108
-``wsl_inference_single``)."""
+box_head.py:106, roi_heads_wsddn.py, roi_heads_oicr.py and
+fast_rcnn_oicr.py:712-786; JAX package ``wsl/modeling/roi_heads_wsl.py``
+:50 ``image_level_gt``, :56 ``image_level_gt_stuff``, :68
+``DiscriminativeAdaptionNeck``, :108 ``wsl_inference_single``, :164
+``WSDDNROIHeads``, :275 ``OICRROIHeads``).
+
+``WSDDNROIHeads`` and ``OICRROIHeads`` (and PCL's, ``wsod_zoo.py``) pool
+the precomputed proposals on their one input map by ROIAlignV2 at
+POOLER_SAMPLING_RATIO, whatever POOLER_TYPE says, as the JAX heads do: K1
+on the card, and K2 under it where the map trains. Then the DAN, the MIL
+layers (``cls`` and ``det``) and their WSDDN scores; OICR adds its
+refinement branches. Called as ``heads(features, proposals,
+proposal_scores, image_sizes)`` they return the detections of
+``wsl_inference`` and each proposal's class scores
+(``proposal_class_scores``, which TTA-AVG averages); with ``targets``
+(``gt_classes``, ``gt_valid``) and ``train=True``, the loss dict. Each
+stage is a method of its own (``pool``, ``dan``, ``predict``, ``detect``,
+``losses``), so that it can be timed."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import Linear, normal
+from ...layers import Linear, ShapeSpec, compute_dtype, normal
+from ...modeling.poolers import ROIPooler
 from ...modeling.proposal_generator.proposal_utils import topk_stable
+from ...ops.box_regression import Box2BoxTransform
 from ...ops.nms import batched_nms_mask
 from ...structures.boxes import clip_boxes, nonempty_boxes
+from .mil_heads import (
+    MILOutputLayers,
+    OICROutputLayers,
+    branch_average,
+    mil_image_loss,
+    oicr_refine_losses,
+    wsddn_scores,
+)
 
 
 def image_level_gt(gt_classes: torch.Tensor, gt_valid: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -133,3 +157,133 @@ def wsl_inference_single(
     out = wsl_inference(boxes[None], scores[None], valid[None], torch.as_tensor(image_size)[None], score_thresh,
                         nms_thresh, topk_per_image, nms_candidates)
     return {k: v[0] for k, v in out.items()}
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 item 6)")
+
+
+class WSDDNROIHeads(nn.Module):
+    """The MIL-only head (reference roi_heads_wsddn.py; JAX :164): the
+    image-level binary cross entropy of the summed WSDDN scores, as the
+    mean over classes or, under WSL.MEAN_LOSS False, their sum."""
+
+    def __init__(self, cfg, input_shape: Dict[str, ShapeSpec]):
+        super().__init__()
+        if cfg.WSL.HAS_GAM:
+            raise _not_ported("WSL.HAS_GAM (GAMLayer)")
+        self.in_features = tuple(cfg.MODEL.ROI_HEADS.IN_FEATURES)
+        if len(self.in_features) != 1:
+            raise _not_ported(f"WSOD heads over several maps {self.in_features}")
+        self.num_classes = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+        p = cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION
+        self.pooler = ROIPooler(
+            output_size=p,
+            scales=tuple(1.0 / input_shape[f].stride for f in self.in_features),
+            sampling_ratio=cfg.MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO,
+            pooler_type="ROIAlignV2",
+        )
+        dt = compute_dtype(cfg)
+        channels = input_shape[self.in_features[0]].channels
+        self.dan = DiscriminativeAdaptionNeck(channels * p * p, cfg.MODEL.ROI_BOX_HEAD.DAN_DIM, 0.5, dt)
+        self.mil = MILOutputLayers(self.dan.output_size, self.num_classes, dt)
+        self.mean_loss = cfg.WSL.MEAN_LOSS
+        self.score_thresh_test = cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST
+        self.nms_thresh_test = cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST
+        self.detections_per_image = cfg.TEST.DETECTIONS_PER_IMAGE
+
+    def pool(self, features: Dict[str, torch.Tensor], proposals: torch.Tensor) -> torch.Tensor:
+        """NCHW maps and (B, R, 4) proposals -> (B*R, P, P, C), one K1
+        launch on the card."""
+        b, r = proposals.shape[:2]
+        batch_idx = torch.arange(b, dtype=torch.int32, device=proposals.device).repeat_interleave(r)
+        return self.pooler([features[f] for f in self.in_features], proposals.reshape(b * r, 4), batch_idx)
+
+    def predict(self, x: torch.Tensor, proposal_scores: torch.Tensor):
+        """(B*R, D) neck features -> the (B, R, C) WSDDN scores and the
+        refinement branches' [(logits, deltas or None)] (none here)."""
+        b, r = proposal_scores.shape
+        cls_logit, det_logit = self.mil(x)
+        mil = wsddn_scores(cls_logit.reshape(b, r, -1), det_logit.reshape(b, r, -1), torch.isfinite(proposal_scores))
+        return mil, []
+
+    def detect(self, proposals, proposal_scores, mil, branches, image_sizes) -> Dict[str, torch.Tensor]:
+        """The detections of the WSDDN scores over the proposals."""
+        det = wsl_inference(proposals, mil, torch.isfinite(proposal_scores), image_sizes, self.score_thresh_test,
+                            self.nms_thresh_test, self.detections_per_image)
+        det["proposal_class_scores"] = mil
+        return det
+
+    def losses(self, proposals, proposal_scores, mil, branches, targets) -> Dict[str, torch.Tensor]:
+        img_labels = image_level_gt(targets["gt_classes"], targets["gt_valid"], self.num_classes)
+        return {"loss_mil": mil_image_loss(mil, img_labels, self.mean_loss).mean()}
+
+    def forward(
+        self,
+        features: Dict[str, torch.Tensor],  # NCHW maps
+        proposals: torch.Tensor,  # (B, R, 4)
+        proposal_scores: torch.Tensor,  # (B, R), non-finite on padding
+        image_sizes: torch.Tensor,  # (B, 2)
+        targets: Optional[Dict[str, torch.Tensor]] = None,  # gt_classes, gt_valid
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,  # the DAN's dropout draws
+    ) -> Dict[str, torch.Tensor]:
+        """Detections, or with ``train`` the loss dict."""
+        x = self.dan(self.pool(features, proposals), generator)
+        mil, branches = self.predict(x, proposal_scores)
+        if train:
+            return self.losses(proposals, proposal_scores, mil, branches, targets)
+        return self.detect(proposals, proposal_scores, mil, branches, image_sizes)
+
+
+class OICRROIHeads(WSDDNROIHeads):
+    """WSDDN's MIL and WSL.REFINE_NUM refinement branches (reference
+    roi_heads_oicr.py, fast_rcnn_oicr.py; JAX :275): each a (C+1)-way
+    classifier ``refine{k}.refine_score`` and, under WSL.REFINE_REG[k],
+    class-specific deltas ``refine{k}.refine_reg``, trained by
+    ``oicr_refine_losses`` (WSL.REFINE_MIST: MIST mining); inference
+    averages the branches (``branch_average``)."""
+
+    def __init__(self, cfg, input_shape: Dict[str, ShapeSpec]):
+        super().__init__(cfg, input_shape)
+        if cfg.WSL.SAMPLING.SAMPLING_ON:
+            raise _not_ported("WSL.SAMPLING.SAMPLING_ON (per-branch proposal sampling)")
+        w = cfg.WSL
+        self.refine_mist = w.REFINE_MIST
+        self.box2box_transform = Box2BoxTransform(weights=cfg.MODEL.ROI_BOX_HEAD.BBOX_REG_WEIGHTS)
+        refine_reg = tuple(w.REFINE_REG[: w.REFINE_NUM])
+        self.refine: List[OICROutputLayers] = []
+        for k in range(w.REFINE_NUM):
+            branch = OICROutputLayers(
+                self.dan.output_size, self.num_classes,
+                with_reg=refine_reg[k] if k < len(refine_reg) else False,
+                reg_classes=self.num_classes, compute_dtype=self.mil.cls.compute_dtype,
+            )
+            self.add_module(f"refine{k}", branch)
+            self.refine.append(branch)
+
+    def predict(self, x: torch.Tensor, proposal_scores: torch.Tensor):
+        mil, _ = super().predict(x, proposal_scores)
+        b, r = proposal_scores.shape
+        branches: List[Tuple[torch.Tensor, Optional[torch.Tensor]]] = []
+        for head in self.refine:
+            logits, deltas = head(x)
+            branches.append((logits.reshape(b, r, -1), None if deltas is None else deltas.reshape(b, r, -1)))
+        return mil, branches
+
+    def detect(self, proposals, proposal_scores, mil, branches, image_sizes) -> Dict[str, torch.Tensor]:
+        avg, boxes = branch_average(proposals, branches, self.num_classes, self.box2box_transform)
+        return super().detect(boxes, proposal_scores, avg, branches, image_sizes)
+
+    def losses(self, proposals, proposal_scores, mil, branches, targets) -> Dict[str, torch.Tensor]:
+        losses = super().losses(proposals, proposal_scores, mil, branches, targets)
+        img_labels = image_level_gt(targets["gt_classes"], targets["gt_valid"], self.num_classes)
+        # the image probabilities weight the top-k miner's PGT
+        # (reference roi_heads_oicr.py:752); they keep their gradient
+        img_probs = mil.sum(dim=1).clamp(1e-6, 1.0 - 1e-6)
+        refine, _, _ = oicr_refine_losses(
+            proposals, torch.isfinite(proposal_scores), mil, branches, img_labels, img_probs,
+            self.box2box_transform, self.refine_mist,
+        )
+        losses.update(refine)
+        return losses

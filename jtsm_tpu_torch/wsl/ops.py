@@ -287,3 +287,40 @@ def roi_pool(
                 out[a:b, ph, pw] = torch.where(keep_w[a:b, :, pw, None], colmax, neg_inf).amax(dim=1)
     valid = (hend > hstart)[:, :, None] & (wend > wstart)[:, None, :]
     return torch.where(valid[..., None], out, torch.zeros_like(out)), valid
+
+
+def pcl_losses(
+    pcl_probs: torch.Tensor,  # (B, R, 1+C) proposal probabilities, BACKGROUND FIRST
+    labels: torch.Tensor,  # (B, R) cluster classes in [0, C], 0 the background
+    cls_loss_weights: torch.Tensor,  # (B, R) the assigned cluster's score (0 ignores)
+    gt_assignment: torch.Tensor,  # (B, R) each proposal's cluster, -1 for the background
+    pc_labels: torch.Tensor,  # (B, G) each cluster's class, from 1
+    pc_count: torch.Tensor,  # (B, G) each cluster's member count
+    img_cls_loss_weights: torch.Tensor,  # (B, G) each cluster's summed member weights
+    im_labels: torch.Tensor,  # (B, 1+C), 1 at 0 (the background is always present)
+) -> torch.Tensor:
+    """(B,) proposal-cluster-learning losses (JAX package ``wsl/ops.py:407``,
+    the reference's ``csrc/pcl_loss`` forward normalised by R): each
+    background proposal's weighted cross entropy on channel 0, plus, for
+    each cluster of a present class, -weight * log of its members' mean
+    probability at the cluster's class; both over R. Autograd gives the
+    gradient, which the JAX docstring holds equal to the reference's
+    hand-written backward."""
+    b, r, k = pcl_probs.shape
+    g = pc_labels.shape[-1]
+    eps = 1e-6
+    bg = (labels == 0) & (im_labels[:, :1] != 0)
+    p_bg = pcl_probs[..., 0].clamp(min=eps)
+    loss_bg = (-cls_loss_weights * torch.log(p_bg) * bg.to(pcl_probs.dtype)).sum(dim=-1)
+    member = gt_assignment >= 0
+    seg = torch.where(member, gt_assignment, torch.full_like(gt_assignment, g))
+    cols = pc_labels.long().clamp(0, k - 1)
+    p_at_cls = torch.gather(pcl_probs, 2, cols[:, None, :].expand(b, r, g))  # (B, R, G)
+    onehot = (seg[..., None] == torch.arange(g, device=seg.device)).to(pcl_probs.dtype)
+    pc_probs = (p_at_cls * onehot).sum(dim=1) / pc_count.clamp(min=1)
+    present = torch.gather(im_labels, 1, pc_labels.long().clamp(0, k - 1)) != 0
+    cluster_present = (pc_count > 0) & present & (pc_labels > 0)
+    loss_fg = torch.where(
+        cluster_present, -img_cls_loss_weights * torch.log(pc_probs.clamp(min=eps)), torch.zeros_like(pc_probs)
+    ).sum(dim=-1)
+    return (loss_bg + loss_fg) * _inv(max(r, 1), pcl_probs)

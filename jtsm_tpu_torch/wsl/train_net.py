@@ -17,7 +17,8 @@ WSL config, loads MODEL.WEIGHTS (or with ``--resume`` the newest
 checkpoint of OUTPUT_DIR), scores it on DATASETS.TEST through the WSL
 test loader (MCG
 proposals with their superpixels, ``build_wsl_test_loader``) and the
-evaluators of the dataset's type, fuses panoptic outputs on the way
+evaluators of the dataset's type (VOC AP and CorLoc for a Pascal VOC
+set), fuses panoptic outputs on the way
 (``engine.defaults.test``) and checks TEST.EXPECTED_RESULTS. With
 TEST.AUG.ENABLED (every shipped WSL yaml) it scores through
 ``test_with_TTA``: the views' scores and sem-seg logits averaged over the
@@ -40,7 +41,14 @@ from ..data import MetadataCatalog, get_detection_dataset_dicts
 from ..data.detection_utils import record_image
 from ..engine import defaults as engine_defaults
 from ..engine import DefaultTrainer, test
-from ..evaluation import COCOEvaluator, COCOPanopticEvaluator, DatasetEvaluators, SemSegEvaluator, verify_results
+from ..evaluation import (
+    COCOEvaluator,
+    COCOPanopticEvaluator,
+    DatasetEvaluators,
+    PascalVOCDetectionEvaluator,
+    SemSegEvaluator,
+    verify_results,
+)
 from ..evaluation.evaluator import add_time
 from ..modeling import build_model
 from ..modeling.meta_arch.panoptic_fpn import panoptic_fusion_postprocess
@@ -55,12 +63,14 @@ def build_test_loader(cfg, dataset_name: str):
 
 
 def build_evaluator(cfg, dataset_name: str, timings: Optional[Dict[str, float]] = None):
-    """COCO for a ``coco`` dataset; COCO, SemSeg and panoptic quality for a
-    ``coco_panoptic_seg`` one. Pascal VOC detection is not ported yet."""
+    """As the JAX command chooses (``projects/WSL/tools/train_net.py:
+    74-95``): VOC AP and CorLoc for a ``pascal_voc`` dataset; COCO for a
+    ``coco`` one; COCO, SemSeg and panoptic quality for a
+    ``coco_panoptic_seg`` one."""
     output_folder = os.path.join(cfg.OUTPUT_DIR, "inference")
     evaluator_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "coco")
     if evaluator_type == "pascal_voc":
-        raise NotImplementedError("PascalVOCDetectionEvaluator is not ported yet (ROADMAP queue 1)")
+        return PascalVOCDetectionEvaluator(dataset_name, timings=timings)
     if evaluator_type not in ("coco", "coco_panoptic_seg"):
         raise NotImplementedError(f"no evaluator ported yet for {dataset_name} ({evaluator_type})")
     evaluators = [COCOEvaluator(dataset_name, output_dir=output_folder, timings=timings)]
