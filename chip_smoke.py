@@ -211,8 +211,38 @@ Phases, in order; any failure ends the run with a non-zero exit:
    OICR on each backbone through the WSL trainer on 8 in-memory VOC scenes
    with 2000 proposals (ITER_SIZE 4 for WSR-18, 1 for VGG16; s/iter,
    ``data_time``, the parameters moving at each ITER_SIZE-th mini-batch
-   only). Any phase that fails logs ``[<phase>] FAILED: <type>: <message>``
-   and its traceback, and the run ends there with a non-zero exit.
+   only);
+17. dense_train: RetinaNet and the RPN alone train. (a) each narrow gate
+   config (the committed gate weights, float32) takes 3 steps on the card
+   and on this machine's CPU from the same weights on one seeded batch of
+   2 images of 128x176, in the sampling regime in which both sample the
+   same slots (an RPN slot for every anchor and an ROI slot for every
+   proposal and ground-truth row, at positive fraction 1.0), without a
+   clip, at rates under which the total loss falls at each step: each
+   step's losses within 1e-4 relative and each update within 3e-3 of its
+   norm (``FAM_LOSS_TOL``, ``FAM_UPDATE_TOL``); (b) each at full width and
+   depth (``retinanet_R_50_FPN_cfg()``, ``rpn_R_50_FPN_cfg()``; seeded
+   weights, ``family_train_state``) takes 6 steps of 2 seeded images at
+   800x1344 in each of bf16 (as configured) and f32, in turns: every loss
+   finite, no kernel launched; the median of steps 2-6, the stage split
+   (backbone, head or RPN, losses, backward, SGD) with its host syncs, the
+   step's peak memory;
+18. families_train: Keypoint R-CNN, Panoptic FPN and SemanticSegmentor
+   train. (c) K1 and K2 against their plain versions at the keypoint
+   pooler's train shape (B=2, 128 foreground ROIs an image, P=14, C=256
+   over an 800x1344 pyramid) in float32 and bfloat16, timed beside their
+   bounds; (a) as 17(a) for their narrow configs (SemanticSegmentor:
+   Panoptic FPN's gate without its instance branches); (b) as 17(b) for
+   ``keypoint_rcnn_R_50_FPN_cfg()``, ``panoptic_fpn_R_50_cfg()`` and
+   ``semantic_R_50_FPN_cfg()``: K1 and K2 2 and 2 times a step (box and
+   keypoint, box and mask poolers), 0 for SemanticSegmentor, the plain
+   ROIAlign stubbed to raise on the card; (d) Keypoint R-CNN at full
+   width in bf16 through ``engine.DefaultTrainer`` on 8 in-memory person
+   keypoint scenes of 480x640 (the yaml's short sides and the flip,
+   IMS_PER_BATCH 2, 6 iterations): K1 and K2 twice an iteration, s/iter,
+   ``data_time`` and peak memory. Any phase that fails logs ``[<phase>]
+   FAILED: <type>: <message>`` and its traceback, and the run ends there
+   with a non-zero exit.
 
 The last three lines are {"kernels": [...]} (``kernel_line`` says which
 times; ``l1_*`` are K1's single-level rows of phase 10, ``jt_*`` K1's and
@@ -223,7 +253,12 @@ K2's rows at phase 11's train shape, ``js_launches`` its launches in phase
 launches, ``fam_launches`` K1's launches in phase 15, ``wsod_*`` K1's and
 K2's rows at phase 16's shapes and ``wsod_launches`` their launches on its
 main paths, (b) and (c), each counted from 0 just before it and read just
-after),
+after; ``kp_train_*`` K1's and K2's rows at phase 18's keypoint train
+shape and their launches under the keypoint train steps of 18(b) and the
+trainer of 18(d), ``pan_train_*`` Panoptic FPN's poolers, whose train
+shapes are phase 6's box and mask rows, and their launches under its
+steps in 18(b), ``fam_train_launches`` all of phase 18's main paths;
+phase 17's launch none),
 the card's name and power limit as
 nvidia-smi gives them, and {"ok": true, "device": {...}}. Needs one card, torch, numpy and pytest;
 imports nothing of JAX. Without a card, or outside a checkout of the
@@ -3190,6 +3225,30 @@ def wsod_stages(model, batch, measure, train=None):
         return {k: measure(fn) for k, fn in stages.items()}
 
 
+def steps_and_updates(cfg, model, batch, steps):
+    """``steps`` train steps of ``model`` on ``batch``: each one's losses
+    and update (the parameters' change, float64 on the CPU)."""
+    import torch
+
+    from jtsm_tpu_torch.engine import create_train_state, make_train_step
+    from jtsm_tpu_torch.solver import build_lr_schedule, build_optimizer
+
+    optimizer = build_optimizer(cfg, model)
+    state = create_train_state(model, optimizer, seed=0)
+    step = make_train_step(model, optimizer, build_lr_schedule(cfg))
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def flat():
+        return torch.cat([p.detach().double().flatten().cpu() for p in params])
+
+    losses, updates = [], []
+    for _ in range(steps):
+        start = flat()
+        losses.append({k: v.item() for k, v in step(state, batch).items()})
+        updates.append(flat() - start)
+    return losses, updates
+
+
 def timed_ms(call):
     import torch
 
@@ -3219,9 +3278,8 @@ def wsod_narrow_checks(kernels):
 
     from jtsm_tpu_torch.checkpoint import random_state_dict
     from jtsm_tpu_torch.data.datasets.synthetic_voc import register_synthetic_voc
-    from jtsm_tpu_torch.engine import create_train_state, make_train_step, test
+    from jtsm_tpu_torch.engine import test
     from jtsm_tpu_torch.modeling import build_model
-    from jtsm_tpu_torch.solver import build_lr_schedule, build_optimizer
     from jtsm_tpu_torch.wsl.train_net import build_evaluator, build_test_loader, test_with_TTA
 
     name = "chip_smoke_voc_narrow"
@@ -3250,23 +3308,8 @@ def wsod_narrow_checks(kernels):
         return cfg, random_state_dict(build_model(cfg, device="cpu"), seed=1)
 
     def trained(cfg, model):
-        """WSOD_NARROW_STEPS steps: each one's losses and update (the
-        parameters' change, float64 on the CPU)."""
         model.roi_heads.dan.dropout = 0.0  # the two devices' generators draw other bits
-        optimizer = build_optimizer(cfg, model)
-        state = create_train_state(model, optimizer, seed=0)
-        step = make_train_step(model, optimizer, build_lr_schedule(cfg))
-        params = [p for p in model.parameters() if p.requires_grad]
-
-        def flat():
-            return torch.cat([p.detach().double().flatten().cpu() for p in params])
-
-        losses, updates = [], []
-        for _ in range(WSOD_NARROW_STEPS):
-            start = flat()
-            losses.append({k: v.item() for k, v in step(state, batch).items()})
-            updates.append(flat() - start)
-        return losses, updates
+        return steps_and_updates(cfg, model, batch, WSOD_NARROW_STEPS)
 
     for case, _, _ in WSOD_CASES:
         cfg, weights = narrow(case)
@@ -3569,6 +3612,413 @@ def phase_wsod(kernels, gen, baseline):
     return rows, launches, latency, steps, trainers
 
 
+TRAIN_FAMILIES = ("retinanet", "rpn", "keypoint_rcnn", "panoptic_fpn", "semantic")
+TRAIN_TITLES = dict(FAMILY_TITLES, semantic="SemanticSegmentor R50-FPN")
+TRAIN_K = {"retinanet": (0, 0), "rpn": (0, 0), "keypoint_rcnn": (2, 2), "panoptic_fpn": (2, 2), "semantic": (0, 0)}
+TRAIN_LOSSES = {
+    "retinanet": ["loss_box_reg", "loss_cls"],
+    "rpn": ["loss_rpn_cls", "loss_rpn_loc"],
+    "keypoint_rcnn": ["loss_box_reg", "loss_cls", "loss_keypoint", "loss_rpn_cls", "loss_rpn_loc"],
+    "panoptic_fpn": ["loss_box_reg", "loss_cls", "loss_mask", "loss_rpn_cls", "loss_rpn_loc", "loss_sem_seg"],
+    "semantic": ["loss_sem_seg"],
+}
+FAM_TRAIN_STEPS = 6  # each dtype, in turns; the medians take steps 2-6
+FAM_NARROW_STEPS = 3
+FAM_NARROW_HW = (128, 176)  # the gates' larger bucket
+# the narrow steps' rates, no clip: the total loss falls at each step and
+# each update moves the next losses (a CPU rehearsal shows the trajectory:
+# at 0.002 Keypoint R-CNN's and Panoptic FPN's rise by the third step).
+# Of a two-stage model the ROI heads' own losses may rise where a step
+# moves a proposal into or out of the foreground
+FAM_NARROW_LR = {"retinanet": 2e-4, "rpn": 5e-4, "keypoint_rcnn": 5e-4, "panoptic_fpn": 2e-4, "semantic": 2e-3}
+# card against CPU, set from two card runs (H100 80GB HBM3, 700 W) with a
+# margin: each step's losses relative (measured 1.0e-5 at most, Panoptic
+# FPN's third step), each update of its L2 norm (measured 1.709e-3 at
+# most, the RPN's third, where an anchor's delta crosses the L1 loss's
+# kink on one side only; 6.1e-4 the next)
+FAM_LOSS_TOL = 1e-4
+FAM_UPDATE_TOL = 3e-3
+FAM_TRAINER_SCENES = 8
+FAM_TRAINER_ITERS = 6
+
+
+def train_family_cfg(family, narrow=False):
+    """The full-width config of ``family`` (the Python builders; the
+    semantic one of ``configs/Misc/semantic_R_50_FPN_1x.yaml``) or its
+    narrow gate config (SemanticSegmentor: Panoptic FPN's gate without its
+    instance branches) in the sampling regime in which the card and the CPU
+    sample the same slots: an RPN slot for every anchor and an ROI slot for
+    every proposal and ground-truth row, at positive fraction 1.0, so that
+    the mask and keypoint picks take every foreground slot and no draw
+    matters; FAM_NARROW_LR, no clip."""
+    from jtsm_tpu_torch.config import semantic_R_50_FPN_cfg
+
+    if family == "semantic":
+        if not narrow:
+            return semantic_R_50_FPN_cfg()
+        cfg = family_cfgs("panoptic_fpn")[1]
+        cfg.MODEL.META_ARCHITECTURE = "SemanticSegmentor"
+        cfg.MODEL.MASK_ON = False
+    else:
+        cfg = family_cfgs(family)[0 if not narrow else 1]
+    if not narrow:
+        return cfg
+    m = cfg.MODEL
+    m.RPN.BATCH_SIZE_PER_IMAGE = 8192  # the 128x176 bucket has 5634 anchors
+    m.RPN.POSITIVE_FRACTION = 1.0
+    cfg.TPU.MAX_GT_INSTANCES = 4
+    m.ROI_HEADS.BATCH_SIZE_PER_IMAGE = m.RPN.POST_NMS_TOPK_TRAIN + 4
+    m.ROI_HEADS.POSITIVE_FRACTION = 1.0
+    cfg.SOLVER.BASE_LR = FAM_NARROW_LR[family]
+    cfg.SOLVER.WARMUP_ITERS = 0
+    cfg.SOLVER.CLIP_GRADIENTS.ENABLED = False
+    return cfg
+
+
+def family_train_state(cfg, seed):
+    """Seeded weights to train from, as a user fine-tunes from an ImageNet
+    backbone: the ResNet's from ``random_state_dict``, with each FrozenBN's
+    statistics set to those of its input on a batch of two seeded 256x384
+    images (one pass, in order), so that it normalises as a trained one does (without
+    that, a seeded ResNet-50's res3-res5 maps have a spread near 100, and
+    RetinaNet's focal loss starts near 700 and reaches NaN in bf16 by the
+    third step); the FPN and the heads from the JAX package's initialisers
+    (RetinaNet's towers at std 0.01 and its focal prior)."""
+    import torch
+
+    from jtsm_tpu_torch.checkpoint import random_state_dict
+    from jtsm_tpu_torch.layers.batch_norm import FrozenBatchNorm2d
+    from jtsm_tpu_torch.modeling import build_model
+
+    torch.manual_seed(seed)
+    model = build_model(cfg, device="cpu")
+    state = model.state_dict()
+    state.update({k: v for k, v in random_state_dict(model, seed).items() if k.startswith("backbone.bottom_up.")})
+    model.load_state_dict(state)
+    bottom_up = model.backbone.bottom_up
+
+    def calibrate(bn, inputs):
+        x = inputs[0].float()
+        bn.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+        bn.running_var.copy_(x.var(dim=(0, 2, 3)))
+
+    hooks = [m.register_forward_pre_hook(calibrate) for m in bottom_up.modules() if isinstance(m, FrozenBatchNorm2d)]
+    g = torch.Generator().manual_seed(seed)
+    images = torch.rand((2, 256, 384, 3), generator=g) * 255  # the pixels' scale: PIXEL_STD is 1
+    with torch.no_grad():
+        bottom_up(((images - model.pixel_mean) / model.pixel_std).permute(0, 3, 1, 2))
+    for h in hooks:
+        h.remove()
+    return model.state_dict()
+
+
+def family_train_batch(cfg, seed, b, hw, g, valid):
+    """``synthetic_train_batch`` with what each family trains on: classes
+    within MODEL.ROI_HEADS.NUM_CLASSES, 17 keypoints on a grid in each box
+    (a fifth of them invisible) under KEYPOINT_ON, and a stuff map of four
+    horizontal bands (255 past each image) for the sem-seg head."""
+    import numpy as np
+
+    batch = synthetic_train_batch(seed, b, hw, g, valid)
+    rng = np.random.default_rng(seed + 1)
+    batch["gt_classes"] %= cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    batch["orig_sizes"] = batch["image_sizes"].copy()
+    if cfg.MODEL.KEYPOINT_ON:
+        bx = batch["gt_boxes"]
+        k = np.arange(17)
+        fx, fy = 0.15 + 0.7 * (k % 5) / 4.0, 0.15 + 0.7 * (k // 5) / 3.0
+        kp = np.zeros((b, g, 17, 3), np.float32)
+        kp[..., 0] = bx[..., 0:1] + fx * (bx[..., 2:3] - bx[..., 0:1])
+        kp[..., 1] = bx[..., 1:2] + fy * (bx[..., 3:4] - bx[..., 1:2])
+        kp[..., 2] = np.where(rng.uniform(size=(b, g, 17)) < 0.2, 0, 2)
+        batch["gt_keypoints"] = kp
+    if cfg.MODEL.META_ARCHITECTURE in ("PanopticFPN", "SemanticSegmentor"):
+        h, w = hw
+        band = (np.arange(h) * 4 // h).astype(np.int32)
+        sem = np.broadcast_to(band[None, :, None] % cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES, (b, h, w)).copy()
+        batch["gt_sem_seg"] = sem
+    if cfg.MODEL.META_ARCHITECTURE != "PanopticFPN" and not cfg.MODEL.MASK_ON:
+        batch.pop("gt_mask_crops")
+    return batch
+
+
+def family_train_stages(family, model, optimizer, schedule, state, batch, measure):
+    """One train step of ``model`` split by stage, ``measure`` making each
+    call and returning its reading: the backbone (with the batch's copy to
+    the card), RetinaNet's head and losses, or the sem-seg head with its
+    loss, the RPN (head, draws, losses, proposals) and the ROI heads (box
+    branch, the mask or keypoint branch, their losses); the backward; the
+    SGD update."""
+    import torch
+
+    from jtsm_tpu_torch.engine.train_loop import sgd_update
+    from jtsm_tpu_torch.layers import exact_float32
+
+    r = {"losses": {}}
+
+    def backbone():
+        r["feats"], r["sizes"] = model._features(batch)
+        r["t"] = model.targets(batch)
+
+    def rpn():
+        proposals, scores, losses = model.proposal_generator(r["sizes"], r["feats"], r["t"]["gt_boxes"],
+                                                             r["t"]["gt_valid"], state.generator)
+        r.update(props=proposals, scores=scores)
+        r["losses"].update(losses)
+
+    def roi_heads():
+        losses = model.roi_heads(r["feats"], r["props"], r["scores"], r["sizes"], r["t"], state.generator)
+        w = getattr(model, "instance_loss_weight", 1.0)
+        r["losses"].update({k: v * w for k, v in losses.items()})
+
+    def backward():
+        optimizer.zero_grad(set_to_none=True)
+        sum(r["losses"].values()).backward()
+
+    def sgd():
+        sgd_update(optimizer, schedule(state.step))
+        state.step += 1
+
+    stages = {"backbone": backbone}
+    if family == "retinanet":
+        stages["head"] = lambda: r.update(zip(("anchors", "logits", "deltas"), model.head_outputs(r["feats"])))
+        stages["losses"] = lambda: r["losses"].update(model.losses(r["anchors"], r["logits"], r["deltas"], batch))
+    else:
+        if family in ("panoptic_fpn", "semantic"):
+            stages["sem_seg"] = lambda: r["losses"].update(model.sem_seg_head.losses(
+                model.sem_seg_head(r["feats"]), r["t"]["gt_sem_seg"]))
+        if family != "semantic":
+            stages["rpn"] = rpn
+        if family in ("keypoint_rcnn", "panoptic_fpn"):
+            stages["roi_heads"] = roi_heads
+    stages.update(backward=backward, sgd=sgd)
+    with exact_float32(model.compute_dtype == torch.float32):
+        return {k: measure(fn) for k, fn in stages.items()}
+
+
+def families_narrow_checks(families, kernels):
+    """17(a) and 18(a): each family's narrow gate config (the committed gate
+    weights; SemanticSegmentor Panoptic FPN's backbone and sem-seg head)
+    takes FAM_NARROW_STEPS steps on the card and on this machine's CPU from
+    the same weights on one seeded batch of 2 images of FAM_NARROW_HW:
+    each step's losses within FAM_LOSS_TOL relative, each update (the
+    parameters' change, float64 on the CPU) within FAM_UPDATE_TOL of its
+    norm; the total loss falls at each step. These launches compare the
+    card with the CPU and count in no main path's total."""
+    from jtsm_tpu_torch.checkpoint import load_gate_ckpt, variables_to_state_dict
+    from jtsm_tpu_torch.modeling import build_model
+
+    before = [k.launches for k in kernels]
+    failed = []
+    for family in families:
+        cfg = train_family_cfg(family, narrow=True)
+        weights = variables_to_state_dict(load_gate_ckpt(os.path.join(REPO, cfg.MODEL.WEIGHTS)))
+        batch = family_train_batch(cfg, 11, 2, FAM_NARROW_HW, cfg.TPU.MAX_GT_INSTANCES, 3)
+        runs = {}
+        for device in (DEVICE, "cpu"):
+            model = build_model(cfg, device=device)
+            keys = model.state_dict().keys()
+            model.load_state_dict({k: v for k, v in weights.items() if k in keys})
+            runs[device] = steps_and_updates(cfg, model, batch, FAM_NARROW_STEPS)
+            del model
+        (l_card, u_card), (l_cpu, u_cpu) = runs[DEVICE], runs["cpu"]
+        norms = [float(u.norm()) for u in u_cpu]
+        upd_errs = [float((a - b).norm()) / n for a, b, n in zip(u_card, u_cpu, norms)]
+        step_errs = [max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b) for a, b in zip(l_card, l_cpu)]
+        falls = all(l_cpu[i + 1]["total_loss"] < l_cpu[i]["total_loss"] for i in range(FAM_NARROW_STEPS - 1))
+        rose = sorted({k for i in range(FAM_NARROW_STEPS - 1) for k in TRAIN_LOSSES[family]
+                       if l_cpu[i + 1][k] >= l_cpu[i][k]})
+        log(f"[{'dense_train' if family in ('retinanet', 'rpn') else 'families_train'}] (a) {family} narrow gate "
+            f"(float32, gate weights, {FAM_NARROW_HW[0]}x{FAM_NARROW_HW[1]}, 2 images): {FAM_NARROW_STEPS} steps at "
+            f"BASE_LR {cfg.SOLVER.BASE_LR:g}, no clip: losses' rel_err by step {[f'{e:.3e}' for e in step_errs]} "
+            f"(tol {FAM_LOSS_TOL:g}), updates' L2 norms {[f'{n:.4g}' for n in norms]} rel_err "
+            f"{[f'{e:.3e}' for e in upd_errs]} (tol {FAM_UPDATE_TOL:g}), the total loss falls at each step: {falls} "
+            f"(losses that rose at a step: {rose or 'none'}); CPU "
+            + " | ".join(", ".join(f"{k}={x[k]:.6g}" for k in TRAIN_LOSSES[family]) for x in l_cpu))
+        if not (sorted(l_cpu[0]) == sorted(TRAIN_LOSSES[family] + ["total_loss"]) and max(step_errs) <= FAM_LOSS_TOL
+                and min(norms) > 0 and max(upd_errs) <= FAM_UPDATE_TOL and falls
+                and all(math.isfinite(v) for x in l_card for v in x.values())):
+            failed.append(family)
+    if failed:
+        raise AssertionError(f"narrow train checks: the card disagrees with the CPU, or the loss rose, in {failed}")
+    got = {k.name: k.launches - n for k, n in zip(kernels, before)}
+    log(f"[train checks] launches on the card in these checks (no main path's): {got}")
+    return got
+
+
+def families_full_train(families, kernels, phase):
+    """17(b) and 18(b): each family at full width and depth
+    (``family_train_state``) takes FAM_TRAIN_STEPS steps on a seeded batch of
+    TRAIN_BATCH images of FLAGSHIP_HW in each of bf16 (as configured) and
+    f32, in turns: every loss finite, K1 and K2 launched TRAIN_K[family]
+    times a step; the median of steps 2-6, the stage split with its host
+    syncs, the step's peak memory. Returns each family's kernel launches as
+    the counters read after its steps, the medians and the weights (by
+    family) for the trainer."""
+    import torch
+
+    from jtsm_tpu_torch.engine import create_train_state, make_train_step
+    from jtsm_tpu_torch.modeling import build_model
+    from jtsm_tpu_torch.solver import build_lr_schedule, build_optimizer
+
+    launches, med, states = {}, {}, {}
+    for family in families:
+        base = train_family_cfg(family)
+        dtypes = (base.TPU.COMPUTE_DTYPE, "float32")
+        batch = family_train_batch(base, 17, TRAIN_BATCH, FLAGSHIP_HW, base.TPU.MAX_GT_INSTANCES, 8)
+        t0 = time.perf_counter()
+        states[family] = family_train_state(base, seed=17)
+        log(f"[{phase}] {family}: seeded full-width weights in {time.perf_counter() - t0:.1f}s")
+        runs, times, peak = {}, {d: [] for d in dtypes}, {}
+        for d in dtypes:
+            cfg = base.clone()
+            cfg.TPU.COMPUTE_DTYPE = d
+            model = build_model(cfg)
+            model.load_state_dict(states[family])
+            optimizer = build_optimizer(cfg, model)
+            schedule = build_lr_schedule(cfg)
+            runs[d] = (model, optimizer, schedule, create_train_state(model, optimizer, seed=0),
+                       make_train_step(model, optimizer, schedule))
+        for k in kernels:
+            k.launches = 0
+        want = list(TRAIN_K[family])
+        for i in range(FAM_TRAIN_STEPS):
+            for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base_mem = torch.cuda.memory_allocated()
+                before = [k.launches for k in kernels]
+                t0 = time.perf_counter()
+                metrics = runs[d][4](runs[d][3], batch)
+                torch.cuda.synchronize()
+                times[d].append((time.perf_counter() - t0) * 1e3)
+                peak[d] = max(peak.get(d, 0.0), (torch.cuda.max_memory_allocated() - base_mem) / 2**30)
+                values = {k: v.item() for k, v in metrics.items()}
+                if sorted(values) != sorted(TRAIN_LOSSES[family] + ["total_loss"]):
+                    raise AssertionError(f"{family} {d} step {i}: loss keys {sorted(values)}")
+                if not all(math.isfinite(v) for v in values.values()):
+                    raise AssertionError(f"{family} {d} step {i}: losses {values}")
+                per_step = [k.launches - n for k, n in zip(kernels, before)]
+                if per_step != want:
+                    raise AssertionError(f"{family} {d} step {i}: launches {per_step}, not {want}")
+        launches[family] = {k.name: k.launches for k in kernels}
+        for d in dtypes:
+            med[(family, d)] = median(times[d][1:])
+            model, optimizer, schedule, state, _ = runs[d]
+            stage_ms = family_train_stages(family, model, optimizer, schedule, state, batch, timed_ms)
+            syncs = family_train_stages(family, model, optimizer, schedule, state, batch, count_host_syncs)
+            log(f"[{phase}] (b) {TRAIN_TITLES[family]} train {DTYPE_NAMES[d]}"
+                f"{' (TF32 off)' if d == 'float32' else ''}, {TRAIN_BATCH} images {FLAGSHIP_HW[0]}x{FLAGSHIP_HW[1]}, "
+                f"seeded weights (seed 17): step_ms={[round(t, 3) for t in times[d]]} "
+                f"median_of_steps_2_to_{FAM_TRAIN_STEPS}_ms={med[(family, d)]:.3f} step_peak_gib={peak[d]:.3f} "
+                f"launches a step K1={want[0]} K2={want[1]} | stages_ms "
+                + " ".join(f"{k}={v:.3f}" for k, v in stage_ms.items())
+                + " | host syncs " + " ".join(f"{k}={n}" for k, n in syncs.items())
+                + f" | losses {', '.join(f'{k}={v.item():.5g}' for k, v in metrics.items())}")
+        del runs, model, optimizer, state
+    return launches, med, states
+
+
+def phase_dense_train(kernels):
+    """Phase 17: RetinaNet and the RPN alone train. (a) their narrow gate
+    configs on the card against the CPU; (b) each at full width in bf16
+    and f32 by stage. Returns the kernels' launches on (b) (none: no ROIs
+    are pooled) and the median step times."""
+    families_narrow_checks(("retinanet", "rpn"), kernels)
+    by_family, med, _ = families_full_train(("retinanet", "rpn"), kernels, "dense_train")
+    launches = {k.name: sum(f[k.name] for f in by_family.values()) for k in kernels}
+    if any(launches.values()):
+        raise AssertionError(f"dense_train: a kernel launched on the dense detectors' steps: {by_family}")
+    return launches, med
+
+
+def phase_families_train(kernels, gen, baseline):
+    """Phase 18: Keypoint R-CNN, Panoptic FPN and SemanticSegmentor train.
+    (c) K1 and K2 at the keypoint pooler's train shape against their plain
+    versions; (a) the narrow configs on the card against the CPU; (b) each
+    at full width in bf16 and f32 by stage, K1 and K2 counted a step;
+    (d) Keypoint R-CNN through ``DefaultTrainer`` on the in-memory person
+    set. Returns the kernel rows, each kernel's launches on (b) and (d),
+    those of Keypoint R-CNN's steps and trainer and those of Panoptic FPN's
+    steps as the counters read them, the median step times and the
+    trainer's run."""
+    import tempfile
+
+    import torch
+
+    import jtsm_tpu_torch.ops.roi_align as roi_align
+    from jtsm_tpu_torch.data.datasets.synthetic import register_synthetic_coco_person
+    from jtsm_tpu_torch.engine import DefaultTrainer
+    from jtsm_tpu_torch.modeling.poolers import assign_boxes_to_levels
+
+    # (c) the keypoint pick: up to 128 foreground slots an image, B=2, P=14,
+    # C=256 over an 800x1344 pyramid
+    rows = {}
+    scales = [1.0 / s for s in LEVEL_STRIDES]
+    pyr32 = flagship_pyramid(gen, dtype=torch.float32, batch=TRAIN_BATCH)
+    boxes = spread_boxes(gen, 128 * TRAIN_BATCH)
+    levels = assign_boxes_to_levels(boxes, 2, 5)
+    bidx = torch.arange(TRAIN_BATCH, dtype=torch.int32, device=DEVICE).repeat_interleave(128)
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = [f.to(dtype) for f in pyr32]
+        tag = f"keypoint pooler train {dtype_tag(feats[0])} B={TRAIN_BATCH}"
+        rows[f"fwd {dtype_tag(feats[0])}"] = check_and_time_fwd(tag, feats, scales, boxes, bidx, levels, 14,
+                                                                baseline, "families_train")
+        rows[f"bwd {dtype_tag(feats[0])}"] = check_and_time_bwd(tag, feats, scales, boxes, bidx, levels, 14, gen,
+                                                                baseline, "families_train")
+    del pyr32
+
+    routed = roi_align.roi_align_multilevel_plain_autograd
+
+    def plain_on_cpu_only(features, scales, boxes, *a, **k):
+        if boxes.device.type != "cpu":
+            raise AssertionError("the plain ROIAlign ran on the card in phase 18")
+        return routed(features, scales, boxes, *a, **k)
+
+    roi_align.roi_align_multilevel_plain_autograd = plain_on_cpu_only
+    try:
+        families_narrow_checks(("keypoint_rcnn", "panoptic_fpn", "semantic"), kernels)
+        by_family, med, states = families_full_train(("keypoint_rcnn", "panoptic_fpn", "semantic"), kernels,
+                                                     "families_train")
+
+        # (d) Keypoint R-CNN through the trainer on the person set
+        name = "chip_smoke_person_train"
+        register_synthetic_coco_person(name, num=FAM_TRAINER_SCENES, seed=3, image_hw=SCORE_HW)
+        cfg = train_family_cfg("keypoint_rcnn")
+        cfg.DATASETS.TRAIN = (name,)
+        cfg.SOLVER.IMS_PER_BATCH = TRAIN_BATCH
+        cfg.SOLVER.MAX_ITER = FAM_TRAINER_ITERS
+        cfg.SOLVER.CHECKPOINT_PERIOD = 10 * FAM_TRAINER_ITERS
+        cfg.TEST.EVAL_PERIOD = 0
+        cfg.MODEL.WEIGHTS = ""
+        cfg.SEED = 0
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_kp_") as tmp:
+            cfg.OUTPUT_DIR = tmp
+            trainer, rec, got, peak = run_trainer(DefaultTrainer, cfg, kernels, states["keypoint_rcnn"])
+            check_launches("keypoint trainer", rec, dict(zip([k.name for k in kernels], TRAIN_K["keypoint_rcnn"])))
+            metrics = read_metrics(tmp)
+            if [m["iteration"] for m in metrics] != list(range(FAM_TRAINER_ITERS)) or not all(
+                    math.isfinite(m[k]) for m in metrics[1:] for k in m if k.startswith("loss")):
+                raise AssertionError(f"keypoint trainer: metrics.json {metrics[-1]}")
+            loader = trainer.data_loader
+            run = dict(s_iter=median(iteration_times(trainer, "time", 1)),
+                       data_time=median(iteration_times(trainer, "data_time", 1)), peak=peak,
+                       loader=loader.busy_seconds / loader.batches)
+            log(f"[families_train] (d) Keypoint R-CNN R50-FPN {cfg.TPU.COMPUTE_DTYPE} through DefaultTrainer: "
+                f"{FAM_TRAINER_SCENES} in-memory person scenes {SCORE_HW[0]}x{SCORE_HW[1]}, short sides "
+                f"{tuple(cfg.INPUT.MIN_SIZE_TRAIN)} (max {cfg.INPUT.MAX_SIZE_TRAIN}) and the flip, IMS_PER_BATCH "
+                f"{TRAIN_BATCH}, {FAM_TRAINER_ITERS} iterations: s/iter median {run['s_iter']:.4f} data_time median "
+                f"{run['data_time']:.4f} loader s/batch {run['loader']:.4f} launches {got} peak_mem_gib {peak:.3f} "
+                f"| losses at the last iteration "
+                + ", ".join(f"{k}={v:.5g}" for k, v in metrics[-1].items() if k.startswith("loss")))
+            del trainer
+    finally:
+        roi_align.roi_align_multilevel_plain_autograd = routed
+    kp_train = {k.name: by_family["keypoint_rcnn"][k.name] + got[k.name] for k in kernels}
+    launches = {k.name: sum(f[k.name] for f in by_family.values()) + got[k.name] for k in kernels}
+    return rows, launches, kp_train, by_family["panoptic_fpn"], med, run
+
+
 def kernel_line(kernel, launches, rows, f32_errs):
     """One entry of the kernels JSON line. ``ms``, ``plain_ms`` and
     ``bound_ms`` keep their long-standing meaning: the float32 box and mask
@@ -3782,6 +4232,16 @@ def main(argv=None) -> int:
     wsod_rows, wsod_launches, wsod_lat, wsod_steps, wsod_trainer_runs = run_phase(
         "wsod", phase_wsod, KERNELS, gen, baseline)
 
+    # 17. the dense detectors train: RetinaNet and the RPN alone, their
+    # narrow gates on the card against the CPU, full width by stage
+    dense_launches, dense_med = run_phase("dense_train", phase_dense_train, KERNELS)
+
+    # 18. Keypoint R-CNN, Panoptic FPN and SemanticSegmentor train: K1 and
+    # K2 at the keypoint pooler's train shape, the narrow configs on the
+    # card against the CPU, full width by stage, the keypoint trainer
+    ft_rows, ft_launches, kp_train, pan_train, ft_med, kp_trainer = run_phase(
+        "families_train", phase_families_train, KERNELS, gen, baseline)
+
     # per served request K1 pools boxes (R=1000, P=7) and masks (R=100,
     # P=14); per train step K1 and K2 pool and unpool boxes (R=1024, P=7)
     # and masks (R=256, P=14); per JTSM request K1 pools masks on one level
@@ -3797,9 +4257,11 @@ def main(argv=None) -> int:
     # under VGG16's step, its backward.
     k1_launches = (sum(launches.values()) + sum(t[0][KERNEL.name] for t in train.values()) + score_launches
                    + jtsm_launches + jt_launches[KERNEL.name] + js_launches + tta_launches + tc_launches[KERNEL.name]
-                   + fam_launches + wsod_launches[KERNEL.name])
+                   + fam_launches + wsod_launches[KERNEL.name] + dense_launches[KERNEL.name]
+                   + ft_launches[KERNEL.name])
     k2_launches = (sum(t[0][BWD_KERNEL.name] for t in train.values()) + jt_launches[BWD_KERNEL.name]
-                   + tc_launches[BWD_KERNEL.name] + wsod_launches[BWD_KERNEL.name])
+                   + tc_launches[BWD_KERNEL.name] + wsod_launches[BWD_KERNEL.name] + dense_launches[BWD_KERNEL.name]
+                   + ft_launches[BWD_KERNEL.name])
     bwd = {k[4:]: v for k, v in tres.items() if k.startswith("bwd ")}
     kernels = [
         kernel_line(KERNEL, k1_launches, res, [r["err"] for n, r in res.items() if "f32" in n]),
@@ -3885,6 +4347,41 @@ def main(argv=None) -> int:
             line.update({f"{tag}_max_abs_err": row["err"], f"{tag}_ms": row["times"]["new"]["ms"],
                          f"{tag}_device_ms": row["times"]["new"]["device_ms"], f"{tag}_plain_ms": row["plain_ms"],
                          f"{tag}_bound_ms": row["bound_ms"], f"{tag}_bound_by": row["bound_by"]})
+    # the train rows of phase 18: the keypoint pooler's train shape (B=2,
+    # R=2x128, P=14, C=256 over an 800x1344 pyramid), measured in 18(c);
+    # Panoptic FPN's box (R=1024, P=7) and mask (R=256, P=14) poolers have
+    # the flagship's train shapes, whose rows phase 6 measured in this run.
+    # Their launches: the keypoint and Panoptic FPN train steps of 18(b)
+    # (and the keypoint trainer of 18(d)); fam_train_launches all of 18's
+    for line, kind in ((kernels[0], "fwd"), (kernels[1], "bwd")):
+        f32, bf16 = ft_rows[f"{kind} f32"], ft_rows[f"{kind} bf16"]
+        box, mask = tres[f"{kind} box pooler f32"], tres[f"{kind} mask pooler f32"]
+        box16, mask16 = tres[f"{kind} box pooler bf16"], tres[f"{kind} mask pooler bf16"]
+        pan_bound, pan_by = bound(box["nbytes"] + mask["nbytes"], box["flops"] + mask["flops"])
+        line.update({
+            "kp_train_launches": kp_train[line["name"]],
+            "kp_train_max_abs_err": f32["err"],
+            "kp_train_ms": f32["times"]["new"]["ms"],
+            "kp_train_device_ms": f32["times"]["new"]["device_ms"],
+            "kp_train_plain_ms": f32["plain_ms"],
+            "kp_train_bound_ms": f32["bound_ms"],
+            "kp_train_bound_by": f32["bound_by"],
+            "kp_train_bf16_max_abs_err": bf16["err"],
+            "kp_train_bf16_ms": bf16["times"]["new"]["ms"],
+            "kp_train_bf16_device_ms": bf16["times"]["new"]["device_ms"],
+            "kp_train_bf16_plain_ms": bf16["plain_ms"],
+            "kp_train_bf16_bound_ms": bf16["bound_ms"],
+            "pan_train_launches": pan_train[line["name"]],
+            "pan_train_max_abs_err": max(box["err"], mask["err"]),
+            "pan_train_ms": box["times"]["new"]["ms"] + mask["times"]["new"]["ms"],
+            "pan_train_device_ms": box["times"]["new"]["device_ms"] + mask["times"]["new"]["device_ms"],
+            "pan_train_plain_ms": box["plain_ms"] + mask["plain_ms"],
+            "pan_train_bound_ms": pan_bound,
+            "pan_train_bound_by": pan_by,
+            "pan_train_bf16_ms": box16["times"]["new"]["ms"] + mask16["times"]["new"]["ms"],
+            "pan_train_bf16_device_ms": box16["times"]["new"]["device_ms"] + mask16["times"]["new"]["device_ms"],
+            "fam_train_launches": ft_launches[line["name"]],
+        })
     # the trainers' launches (phase 14): Mask R-CNN at NUM_WORKERS 0 and 4,
     # the resumed run, the JTSM flagship, the gate's kernel run
     for line in kernels:
@@ -3909,6 +4406,12 @@ def main(argv=None) -> int:
         + "; WSL trainer " + " ".join(f"{case}: s/iter {r['s_iter']:.4f} data_time {r['data_time']:.4f} peak_gib "
                                       f"{r['peak']:.3f};" for case, r in wsod_trainer_runs.items())
         + f" launches {wsod_launches} | {card}")
+    log("[dense_train] train step median ms " + " ".join(
+        f"{f} {DTYPE_NAMES[d]}={ms:.3f}" for (f, d), ms in dense_med.items()) + f" | {card}")
+    log("[families_train] train step median ms " + " ".join(
+        f"{f} {DTYPE_NAMES[d]}={ms:.3f}" for (f, d), ms in ft_med.items())
+        + f"; keypoint trainer s/iter {kp_trainer['s_iter']:.4f} data_time {kp_trainer['data_time']:.4f} peak_gib "
+        f"{kp_trainer['peak']:.3f}; launches {ft_launches} (keypoint {kp_train}, Panoptic FPN {pan_train}) | {card}")
     log(f"[done] {time.perf_counter() - t_run:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

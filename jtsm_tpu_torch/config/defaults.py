@@ -505,6 +505,18 @@ def keypoint_rcnn_R_50_FPN_cfg() -> CN:
     return cfg
 
 
+def semantic_R_50_FPN_cfg() -> CN:
+    """``configs/Misc/semantic_R_50_FPN_1x.yaml`` (over
+    ``Base-RCNN-FPN.yaml``), set in Python: the FPN and the sem-seg head
+    alone, on COCO's stuff maps."""
+    cfg = mask_rcnn_R_50_FPN_cfg()
+    cfg.MODEL.META_ARCHITECTURE = "SemanticSegmentor"
+    cfg.MODEL.MASK_ON = False
+    cfg.DATASETS.TRAIN = ("coco_2017_train_panoptic_stuffonly",)
+    cfg.DATASETS.TEST = ("coco_2017_val_panoptic_stuffonly",)
+    return cfg
+
+
 def panoptic_fpn_gate_cfg() -> CN:
     """``configs/quick_schedules/panoptic_fpn_R_18_synthetic_inference_acc_test.yaml``
     (the narrow R50 of ``panoptic_fpn.ckpt.gz``), set in Python."""

@@ -102,15 +102,28 @@ def filter_images_with_only_crowd_annotations(dataset_dicts: List[dict]) -> List
     return out
 
 
+def filter_images_with_few_keypoints(dataset_dicts: List[dict], min_keypoints_per_image: int) -> List[dict]:
+    """The records with at least ``min_keypoints_per_image`` visible
+    keypoints over their annotations (reference build.py:74)."""
+
+    def visible(d):
+        return sum((np.asarray(a["keypoints"][2::3]) > 0).sum() for a in d["annotations"] if "keypoints" in a)
+
+    out = [d for d in dataset_dicts if visible(d) >= min_keypoints_per_image]
+    logger.info(f"Removed {len(dataset_dicts) - len(out)} images with fewer than {min_keypoints_per_image} keypoints.")
+    return out
+
+
 def get_detection_dataset_dicts(names, proposal_files=None, proposal_loader: Optional[Callable] = None,
-                                filter_empty: bool = False) -> List[dict]:
+                                filter_empty: bool = False, min_keypoints: int = 0) -> List[dict]:
     """The dataset dicts of ``names``, concatenated. With ``proposal_files``
     (one per name), each dataset's records take their proposals through
     ``proposal_loader`` (default ``load_proposals_into_dataset``; the WSL
     loader also attaches the superpixels). With ``filter_empty`` (the
     train loader's DATALOADER.FILTER_EMPTY_ANNOTATIONS), records whose
     annotations are all crowds, or that have none, are dropped when the
-    records carry annotations."""
+    records carry annotations; with ``min_keypoints`` > 0 so are those
+    with fewer visible keypoints (``filter_images_with_few_keypoints``)."""
     if isinstance(names, str):
         names = [names]
     assert len(names), names
@@ -123,8 +136,11 @@ def get_detection_dataset_dicts(names, proposal_files=None, proposal_loader: Opt
         loader = proposal_loader or load_proposals_into_dataset
         dataset_dicts = [loader(dicts, f) for dicts, f in zip(dataset_dicts, proposal_files)]
     dataset_dicts = list(itertools.chain.from_iterable(dataset_dicts))
-    if filter_empty and "annotations" in dataset_dicts[0]:
+    has_instances = "annotations" in dataset_dicts[0]
+    if filter_empty and has_instances:
         dataset_dicts = filter_images_with_only_crowd_annotations(dataset_dicts)
+    if min_keypoints > 0 and has_instances:
+        dataset_dicts = filter_images_with_few_keypoints(dataset_dicts, min_keypoints)
     return dataset_dicts
 
 
@@ -289,7 +305,8 @@ def build_batch_data_loader(dataset: MapDataset, sampler, total_batch_size: int,
 def build_detection_train_loader(cfg, mapper: Optional[Callable] = None, proposal_loader: Optional[Callable] = None,
                                  loader_class=StaticBatchLoader) -> StaticBatchLoader:
     """The endless train loader of DATASETS.TRAIN (reference build.py:348):
-    records filtered under DATALOADER.FILTER_EMPTY_ANNOTATIONS, with the
+    records filtered under DATALOADER.FILTER_EMPTY_ANNOTATIONS and, under
+    MODEL.KEYPOINT_ON, ROI_KEYPOINT_HEAD.MIN_KEYPOINTS_PER_IMAGE, with the
     precomputed proposals of DATASETS.PROPOSAL_FILES_TRAIN under
     MODEL.LOAD_PROPOSALS, through ``mapper`` (the train ``DatasetMapper``
     by default), in the order of DATALOADER.SAMPLER_TRAIN, SOLVER.IMS_PER_BATCH
@@ -300,7 +317,9 @@ def build_detection_train_loader(cfg, mapper: Optional[Callable] = None, proposa
     mapper = mapper or DatasetMapper(cfg, True)
     proposals = cfg.MODEL.LOAD_PROPOSALS
     dicts = get_detection_dataset_dicts(cfg.DATASETS.TRAIN, cfg.DATASETS.PROPOSAL_FILES_TRAIN if proposals else None,
-                                        proposal_loader, filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS)
+                                        proposal_loader, filter_empty=cfg.DATALOADER.FILTER_EMPTY_ANNOTATIONS,
+                                        min_keypoints=cfg.MODEL.ROI_KEYPOINT_HEAD.MIN_KEYPOINTS_PER_IMAGE
+                                        if cfg.MODEL.KEYPOINT_ON else 0)
     rng = np.random.RandomState(cfg.SEED % 2**31 if cfg.SEED >= 0 else None)
     sampler_seed = int(rng.randint(2**31))
     mapper.rng = rng

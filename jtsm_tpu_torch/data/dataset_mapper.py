@@ -4,7 +4,9 @@
 and apply the augmentations to the image and its sem-seg ground truth,
 transform the precomputed proposals, keep the image HWC float32 and, in
 training, turn the annotations that are not crowds into ``instances``
-(boxes, classes and, under MODEL.MASK_ON, masks), the empty ones dropped.
+(boxes, classes and, under MODEL.MASK_ON, masks, under MODEL.KEYPOINT_ON
+keypoints, mirrored through ``keypoint_hflip_indices`` under a flip), the
+empty ones dropped.
 
 A record that carries its pixels (``image``, uint8 RGB) or its stuff map
 (``sem_seg``, uint8, at the image's size), as ``datasets.synthetic`` makes
@@ -35,14 +37,16 @@ class DatasetMapper:
     def __init__(self, cfg, is_train: bool = False):
         if is_train and cfg.INPUT.CROP.ENABLED:
             raise NotImplementedError("INPUT.CROP is not ported yet (ROADMAP queue 1)")
-        if is_train and cfg.MODEL.KEYPOINT_ON:
-            raise NotImplementedError("keypoint training is not ported yet (ROADMAP queue 1)")
         augmentations = utils.build_augmentation(cfg, is_train)
         self.is_train = is_train
         self.augmentations = T.AugmentationList(augmentations)
         self.image_format = cfg.INPUT.FORMAT
         self.use_instance_mask = cfg.MODEL.MASK_ON
         self.instance_mask_format = cfg.INPUT.MASK_FORMAT
+        self.use_keypoint = cfg.MODEL.KEYPOINT_ON
+        self.keypoint_hflip_indices = (
+            utils.create_keypoint_hflip_indices(cfg.DATASETS.TRAIN) if is_train and cfg.MODEL.KEYPOINT_ON else None
+        )
         self.rng = np.random.RandomState()
         topk = cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN if is_train else cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST
         self.proposal_topk: Optional[int] = topk if cfg.MODEL.LOAD_PROPOSALS else None
@@ -84,8 +88,10 @@ class DatasetMapper:
         for anno in annos:
             if not self.use_instance_mask:
                 anno.pop("segmentation", None)
-            anno.pop("keypoints", None)
-        annos = [utils.transform_instance_annotations(obj, transforms, image_shape)
+            if not self.use_keypoint:
+                anno.pop("keypoints", None)
+        annos = [utils.transform_instance_annotations(obj, transforms, image_shape,
+                                                      keypoint_hflip_indices=self.keypoint_hflip_indices)
                  for obj in annos if obj.get("iscrowd", 0) == 0]
         instances = utils.annotations_to_instances(annos, image_shape, mask_format=self.instance_mask_format)
         dataset_dict["instances"] = utils.filter_empty_instances(instances)

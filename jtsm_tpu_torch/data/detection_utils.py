@@ -1,10 +1,11 @@
 """Image decoding, the augmentations, precomputed proposals, instance
-annotations and the static-batch collator (reference:
+annotations with their keypoints and the static-batch collator (reference:
 detectron2/data/detection_utils.py:165 ``read_image``, :212
-``transform_proposals``, :260 ``transform_instance_annotations``, :366
-``annotations_to_instances``, :460 ``filter_empty_instances``, :571
-``build_augmentation``; JAX package ``data/detection_utils.py:64,83,91,106,
-133,197,275,379,405,418,468,476``).
+``transform_proposals``, :260 ``transform_instance_annotations``, :320
+``transform_keypoint_annotations``, :366 ``annotations_to_instances``,
+:460 ``filter_empty_instances``, :494 ``create_keypoint_hflip_indices``,
+:571 ``build_augmentation``; JAX package ``data/detection_utils.py:64,83,
+91,106,133,169,197,275,303,379,405,418,468,476``).
 
 ``read_image`` and ``read_sem_seg`` decode with Pillow, imported when they
 are called; where Pillow is absent they raise. Images and ground truth made
@@ -20,6 +21,7 @@ import numpy as np
 
 from ..structures import BoxMode, Instances, PolygonMasks, polygons_to_bitmask, rasterize_polygons_within_box
 from . import transforms as T
+from .catalog import MetadataCatalog
 from .rle import decode_segmentation
 
 
@@ -131,12 +133,14 @@ def build_augmentation(cfg, is_train: bool) -> List[T.Augmentation]:
     return augmentation
 
 
-def transform_instance_annotations(annotation: dict, transforms, image_size: Tuple[int, int]) -> dict:
+def transform_instance_annotations(annotation: dict, transforms, image_size: Tuple[int, int], *,
+                                   keypoint_hflip_indices: Optional[np.ndarray] = None) -> dict:
     """One annotation through ``transforms`` in place (reference
     detection_utils.py:260): its box, as the envelope of its transformed
     corners clipped to the image of ``image_size`` (h, w), in XYXY_ABS;
     its polygons point by point; an RLE segmentation decoded and
-    transformed as a mask (bool)."""
+    transformed as a mask (bool); its keypoints
+    (``transform_keypoint_annotations``)."""
     if isinstance(transforms, (tuple, list)):
         transforms = T.TransformList(transforms)
     bbox = BoxMode.convert(annotation["bbox"], annotation["bbox_mode"], BoxMode.XYXY_ABS)
@@ -156,8 +160,43 @@ def transform_instance_annotations(annotation: dict, transforms, image_size: Tup
         else:
             raise ValueError(f"Unsupported segmentation type {type(segm)}")
     if "keypoints" in annotation:
-        raise NotImplementedError("keypoint annotations are not ported yet (ROADMAP queue 1)")
+        annotation["keypoints"] = transform_keypoint_annotations(
+            annotation["keypoints"], transforms, image_size, keypoint_hflip_indices
+        )
     return annotation
+
+
+def transform_keypoint_annotations(keypoints, transforms, image_size: Tuple[int, int],
+                                   keypoint_hflip_indices: Optional[np.ndarray] = None) -> np.ndarray:
+    """Flat (x, y, v, ...) keypoints through ``transforms``: (K, 3) float64,
+    reordered by ``keypoint_hflip_indices`` when the transforms flip left to
+    right an odd number of times, a point outside the image of
+    ``image_size`` (h, w) made invisible, and every invisible point zeroed
+    (JAX package ``detection_utils.py:169-194``)."""
+    keypoints = np.asarray(keypoints, dtype="float64").reshape(-1, 3)
+    xy = transforms.apply_coords(keypoints[:, :2])
+    parts = transforms.transforms if isinstance(transforms, T.TransformList) else [transforms]
+    do_hflip = sum(isinstance(t, T.HFlipTransform) for t in parts) % 2 == 1
+    keypoints[:, :2] = xy
+    if do_hflip and keypoint_hflip_indices is not None:
+        keypoints = keypoints[np.asarray(keypoint_hflip_indices, dtype=np.int32), :]
+    inside = ((xy >= np.array([0, 0])) & (xy <= np.array(image_size[::-1]))).all(axis=1)
+    keypoints[:, 2][~inside] = 0
+    keypoints[keypoints[:, 2] == 0] = 0
+    return keypoints
+
+
+def create_keypoint_hflip_indices(dataset_names) -> np.ndarray:
+    """For each keypoint of the first dataset's ``keypoint_names``, the index
+    of its mirror image under the metadata's ``keypoint_flip_map`` (itself
+    where it has none; reference detection_utils.py:494)."""
+    if isinstance(dataset_names, str):
+        dataset_names = [dataset_names]
+    meta = MetadataCatalog.get(dataset_names[0])
+    names = list(meta.keypoint_names)
+    flip_map = dict(meta.keypoint_flip_map)
+    flip_map.update({v: k for k, v in flip_map.items()})
+    return np.asarray([names.index(flip_map.get(n, n)) for n in names])
 
 
 def annotations_to_instances(annos: List[dict], image_size: Tuple[int, int],
@@ -167,7 +206,8 @@ def annotations_to_instances(annos: List[dict], image_size: Tuple[int, int],
     ``gt_classes`` (N,) int64 and, where the annotations have a
     segmentation, ``gt_masks``: ``PolygonMasks`` in the "polygon" format
     (every segmentation must be polygons there, as in detectron2), else
-    (N, h, w) bool masks."""
+    (N, h, w) bool masks; where they have keypoints, ``gt_keypoints``
+    (N, K, 3) float32."""
     boxes = (np.stack([BoxMode.convert(o["bbox"], o["bbox_mode"], BoxMode.XYXY_ABS) for o in annos]).astype(np.float32)
              if annos else np.zeros((0, 4), np.float32))
     target = Instances(image_size)
@@ -189,6 +229,10 @@ def annotations_to_instances(annos: List[dict], image_size: Tuple[int, int],
                 else:
                     masks.append(np.asarray(segm).astype(bool))
             target.gt_masks = np.stack(masks)
+    if annos and "keypoints" in annos[0]:
+        target.gt_keypoints = np.stack(
+            [np.asarray(o.get("keypoints", np.zeros(0))).reshape(-1, 3) for o in annos]
+        ).astype(np.float32)
     return target
 
 
@@ -262,7 +306,9 @@ def instances_to_static_targets(instances: Instances, max_instances: int,
     (G, 4) float32, ``gt_classes`` (G,) int32, ``gt_valid`` (G,) bool and,
     with ``mask_crop_size``, ``gt_mask_crops`` (G, M, M) bool, each mask
     cut to its box (polygons rasterised in the box, bit masks sampled at
-    the cells' centres), zero where an instance has no mask."""
+    the cells' centres), zero where an instance has no mask; where the
+    instances have keypoints, ``gt_keypoints`` (G, K, 3) float32, zero in
+    the padding."""
     n = min(len(instances), max_instances)
     g = max_instances
     out = {
@@ -283,6 +329,10 @@ def instances_to_static_targets(instances: Instances, max_instances: int,
                     out["gt_mask_crops"][i] = rasterize_polygons_within_box(gm.polygons[i], boxes[i], mask_crop_size)
                 else:
                     out["gt_mask_crops"][i] = _crop_bitmask(gm[i], boxes[i], mask_crop_size)
+    if instances.has("gt_keypoints"):
+        k = np.asarray(instances.gt_keypoints)
+        out["gt_keypoints"] = np.zeros((g, k.shape[1] if k.ndim == 3 else 17, 3), np.float32)
+        out["gt_keypoints"][:n] = k[:n]
     return out
 
 
@@ -307,8 +357,8 @@ def build_static_batch(per_image: List[dict], buckets: Sequence[Sequence[int]], 
     slots; where any dict has a resized ``sem_seg``, ``gt_sem_seg`` (B, H,
     W) int32 with 255 outside each image. With ``max_instances``, the
     dicts' ``instances`` in ``instances_to_static_targets``'s slots
-    (``gt_boxes``, ``gt_classes``, ``gt_valid``, ``gt_mask_crops``), zero
-    for a dict without them. A batch that no bucket holds raises a
+    (``gt_boxes``, ``gt_classes``, ``gt_valid``, ``gt_mask_crops``,
+    ``gt_keypoints``), zero for a dict without them. A batch that no bucket holds raises a
     ValueError (the JAX package pads into the largest bucket and fails in
     numpy's broadcast)."""
     b = len(per_image)

@@ -25,7 +25,7 @@ import torch
 from ...layers import exact_float32
 from ...ops.paste_masks import paste_masks
 from ..postprocessing import detector_postprocess_batched
-from .rcnn import GeneralizedRCNN, serve_only
+from .rcnn import GeneralizedRCNN
 from .semantic_seg import build_sem_seg_head, upsampled_sem_seg
 
 CHUNK_BYTES = 32 * 2**20  # one (rows, W, C) float64 array of the resize at most
@@ -37,11 +37,15 @@ class PanopticFPN(GeneralizedRCNN):
     (boxes at the original scale, masks) with ``sem_seg`` (B, H, W) and
     ``sem_seg_logits`` (B, H, W, K) float32 at the padded input size;
     ``engine.defaults.test`` fuses them (``panoptic_fusion_postprocess``).
-    Serving and scoring only: its training waits (ROADMAP queue 1)."""
+    In train mode (JAX ``panoptic_fpn.py:65-97``) the sem-seg head's
+    ``loss_sem_seg``, then the ROI heads' losses times
+    PANOPTIC_FPN.INSTANCE_LOSS_WEIGHT, then the RPN's, in that order;
+    the draws are ``GeneralizedRCNN``'s."""
 
     def __init__(self, cfg):
         super().__init__(cfg)
         self.sem_seg_head = build_sem_seg_head(cfg, self.backbone.output_shape())
+        self.instance_loss_weight = cfg.MODEL.PANOPTIC_FPN.INSTANCE_LOSS_WEIGHT
 
     @torch.no_grad()
     def inference(self, batch: Dict) -> Dict[str, Any]:
@@ -55,7 +59,15 @@ class PanopticFPN(GeneralizedRCNN):
             return out
 
     def forward(self, batch: Dict, generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
-        return serve_only(self, batch)
+        if not self.training:
+            return self.inference(batch)
+        features, image_sizes = self._features(batch)
+        targets = self.targets(batch)
+        losses = self.sem_seg_head.losses(self.sem_seg_head(features), targets["gt_sem_seg"])
+        rpn_losses, roi_losses = self.instance_losses(features, image_sizes, targets, generator)
+        losses.update({k: v * self.instance_loss_weight for k, v in roi_losses.items()})
+        losses.update(rpn_losses)
+        return losses
 
 
 def combine_semantic_and_instance_outputs(

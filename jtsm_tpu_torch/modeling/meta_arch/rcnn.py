@@ -18,12 +18,14 @@ KEYPOINT_ON ``keypoints`` (B, D, K, 4) (x, y, logit, probability); given
 ``detected_boxes``, only the per-box branches
 (:meth:`GeneralizedRCNN.inference`). In train mode (``model.train()``): the
 loss dict ``loss_rpn_cls``, ``loss_rpn_loc``, ``loss_cls``,
-``loss_box_reg`` and, with MASK_ON, ``loss_mask``.
+``loss_box_reg`` and, with MASK_ON, ``loss_mask``, with KEYPOINT_ON
+``loss_keypoint``.
 
 Sampling in training draws uniforms from the generator passed to
 ``forward``, in this order: the RPN's positive and negative anchor draws
 (B, anchors) each, the ROI heads' positive, negative and slot-order draws
-(B, proposals + G) each, and the mask branch's draw (B, slots).
+(B, proposals + G) each, the mask branch's draw (B, slots) and the
+keypoint branch's draw (B, slots).
 
 Precision: ``TPU.COMPUTE_DTYPE`` (``compute_dtype``). Images are normalised
 in float32, as in the JAX package (``rcnn.py:63``), and the backbone takes
@@ -78,6 +80,10 @@ class BackboneModel(nn.Module):
     def orig_sizes(self, batch, image_sizes: torch.Tensor) -> torch.Tensor:
         return torch.as_tensor(batch.get("orig_sizes", image_sizes), device=self.device)
 
+    def targets(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """The batch's ``gt_*`` fields on the model's device."""
+        return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items() if k.startswith("gt_")}
+
 
 class GeneralizedRCNN(BackboneModel):
     def __init__(self, cfg):
@@ -128,26 +134,26 @@ class GeneralizedRCNN(BackboneModel):
         :meth:`inference`."""
         if not self.training:
             return self.inference(batch)
-        dev = self.device
         features, image_sizes = self._features(batch)
-        targets = {
-            k: torch.as_tensor(v, device=dev) for k, v in batch.items() if k.startswith("gt_")
-        }
-        proposals, proposal_scores, losses = self.proposal_generator(
+        rpn_losses, roi_losses = self.instance_losses(features, image_sizes, self.targets(batch), generator)
+        return {**rpn_losses, **roi_losses}
+
+    def instance_losses(self, features, image_sizes, targets, generator=None):
+        """The RPN's losses and the ROI heads' losses of one train step on
+        ``features``, sampling with draws from ``generator``."""
+        proposals, proposal_scores, rpn_losses = self.proposal_generator(
             image_sizes, features, targets["gt_boxes"], targets["gt_valid"], generator
         )
-        losses.update(
-            self.roi_heads(features, proposals, proposal_scores, image_sizes, targets, generator)
-        )
-        return losses
+        roi_losses = self.roi_heads(features, proposals, proposal_scores, image_sizes, targets, generator)
+        return rpn_losses, roi_losses
 
 
 class ProposalNetwork(BackboneModel):
     """The RPN alone (JAX package ``rcnn.py:123``): ``proposals``
     (B, POST_NMS_TOPK_TEST, 4) in original-image coordinates (rescaled and
     clipped as detections are) and their objectness logits ``scores``, -inf
-    on padding. Serving and scoring only: its training waits (ROADMAP queue
-    1)."""
+    on padding; in train mode the RPN's ``loss_rpn_cls`` and
+    ``loss_rpn_loc``, sampling with the RPN's draws from ``generator``."""
 
     def __init__(self, cfg):
         super().__init__(cfg)
@@ -162,15 +168,14 @@ class ProposalNetwork(BackboneModel):
             return {"proposals": post["boxes"], "scores": scores}
 
     def forward(self, batch: Dict, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        return serve_only(self, batch)
-
-
-def serve_only(model: nn.Module, batch: Dict) -> Dict[str, torch.Tensor]:
-    """``model.inference(batch)`` in eval mode; a meta-architecture whose
-    training is not ported raises in train mode."""
-    if model.training:
-        raise NotImplementedError(f"training {type(model).__name__} is not ported yet (ROADMAP queue 1)")
-    return model.inference(batch)
+        if not self.training:
+            return self.inference(batch)
+        features, image_sizes = self._features(batch)
+        targets = self.targets(batch)
+        _, _, losses = self.proposal_generator(
+            image_sizes, features, targets["gt_boxes"], targets["gt_valid"], generator
+        )
+        return losses
 
 
 def resolve_device(device) -> torch.device:

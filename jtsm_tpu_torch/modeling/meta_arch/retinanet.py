@@ -1,6 +1,6 @@
-"""RetinaNet inference (reference: detectron2/modeling/meta_arch/retinanet.py:40,
-:505 ``RetinaNetHead``, :449 ``inference_single_image``; JAX package
-``modeling/meta_arch/retinanet.py:29,103,234``).
+"""RetinaNet (reference: detectron2/modeling/meta_arch/retinanet.py:40, :505
+``RetinaNetHead``, :449 ``inference_single_image``; JAX package
+``modeling/meta_arch/retinanet.py:29,103,195,234``).
 
 The head's two towers are detectron2's ``cls_subnet`` and ``bbox_subnet``
 (convolutions at 0, 2, 4, ... with ReLUs between), then ``cls_score`` and
@@ -19,7 +19,14 @@ on. Decoding follows the JAX package's fixed-capacity form:
 * the ``DETECTIONS_PER_IMAGE`` best survivors, then ``detector_postprocess``
   (the clip to the original image happens only there).
 
-The losses (``sigmoid_focal_loss``) wait for the training slice.
+In training (``model.train()``) the loss dict ``loss_cls`` and
+``loss_box_reg`` (``retinanet_losses``): each image's anchors matched to its
+padded ground truth by MODEL.RETINANET.IOU_THRESHOLDS and IOU_LABELS with
+the low-quality matches, the focal loss over the anchors that are not
+ignored, smooth-L1 at SMOOTH_L1_LOSS_BETA over the positives, both over the
+batch's positive count. The JAX package takes that count as it is; the
+reference keeps a moving average of it (ROADMAP §3). No draws: the
+generator is not read.
 """
 
 from __future__ import annotations
@@ -28,15 +35,19 @@ import math
 from typing import Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...layers import Conv2d, compute_dtype, exact_float32, get_norm, normal
 from ...ops.box_regression import Box2BoxTransform
+from ...ops.losses import sigmoid_focal_loss, smooth_l1_loss
+from ...ops.matcher import Matcher
 from ...ops.nms import batched_nms_mask
+from ...structures.boxes import pairwise_iou
 from ..anchor_generator import build_anchor_generator
 from ..postprocessing import detector_postprocess_batched
 from ..proposal_generator.proposal_utils import topk_stable
-from .rcnn import BackboneModel, serve_only
+from .rcnn import BackboneModel
 
 NMS_CANDIDATES_TEST = 1024  # the JAX package's cap (retinanet.py:113; the reference: none)
 
@@ -114,10 +125,43 @@ def retinanet_inference(
     }
 
 
+def retinanet_losses(
+    anchors: torch.Tensor,  # (N, 4), every level's
+    logits: torch.Tensor,  # (B, N, K) float32
+    deltas: torch.Tensor,  # (B, N, 4) float32
+    gt_boxes: torch.Tensor,  # (B, G, 4)
+    gt_classes: torch.Tensor,  # (B, G)
+    gt_valid: torch.Tensor,  # (B, G)
+    matcher: Matcher,
+    box2box_transform: Box2BoxTransform,
+    focal_alpha: float,
+    focal_gamma: float,
+    smooth_l1_beta: float,
+) -> Dict[str, torch.Tensor]:
+    """``loss_cls`` and ``loss_box_reg`` (JAX package ``retinanet.py:
+    195-232``): the focal loss of every anchor the matcher does not ignore
+    against its one-hot class (none for background), smooth-L1 of the
+    positives' deltas, each summed over the batch and divided by the
+    batch's positive count (at least 1)."""
+    b, n, k = logits.shape
+    gt_boxes = gt_boxes.to(torch.float32)
+    matched_idx, match_labels = matcher(pairwise_iou(gt_boxes, anchors), gt_valid=gt_valid.bool())
+    fg = match_labels == 1
+    valid = match_labels != -1
+    classes = torch.where(fg, torch.gather(gt_classes.long(), 1, matched_idx), torch.full_like(matched_idx, k))
+    targets = F.one_hot(classes, k + 1)[..., :k].to(torch.float32)
+    cls_loss = (sigmoid_focal_loss(logits, targets, focal_alpha, focal_gamma).sum(-1) * valid).sum()
+    matched_gt = torch.gather(gt_boxes, 1, matched_idx[..., None].expand(b, n, 4))
+    target_deltas = box2box_transform.get_deltas(anchors, matched_gt)
+    reg_loss = (smooth_l1_loss(deltas, target_deltas, smooth_l1_beta).sum(-1) * fg).sum()
+    normalizer = fg.sum().to(torch.float32).clamp(min=1.0)
+    return {"loss_cls": cls_loss / normalizer, "loss_box_reg": reg_loss / normalizer}
+
+
 class RetinaNet(BackboneModel):
-    """Single-stage detector (JAX package ``retinanet.py:103``). Serving and
-    scoring only: its training waits (ROADMAP queue 1). Outputs the
-    detection dict of ``GeneralizedRCNN`` without masks."""
+    """Single-stage detector (JAX package ``retinanet.py:103``): in eval
+    mode the detection dict of ``GeneralizedRCNN`` without masks, in train
+    mode ``retinanet_losses`` of the batch's ``gt_*`` fields."""
 
     def __init__(self, cfg):
         super().__init__(cfg)
@@ -131,6 +175,10 @@ class RetinaNet(BackboneModel):
         self.head = RetinaNetHead(shapes[0].channels, r.NUM_CLASSES, num_anchors[0], r.NUM_CONVS, r.PRIOR_PROB,
                                   r.NORM, compute_dtype(cfg))
         self.box2box_transform = Box2BoxTransform(weights=r.BBOX_REG_WEIGHTS)
+        self.anchor_matcher = Matcher(r.IOU_THRESHOLDS, r.IOU_LABELS, allow_low_quality_matches=True)
+        self.focal_loss_alpha = r.FOCAL_LOSS_ALPHA
+        self.focal_loss_gamma = r.FOCAL_LOSS_GAMMA
+        self.smooth_l1_beta = r.SMOOTH_L1_LOSS_BETA
         self.num_classes = r.NUM_CLASSES
         self.topk_candidates = r.TOPK_CANDIDATES_TEST
         self.score_thresh = r.SCORE_THRESH_TEST
@@ -157,5 +205,23 @@ class RetinaNet(BackboneModel):
             detections = self.decode(*self.head_outputs(features))
             return detector_postprocess_batched(detections, image_sizes, self.orig_sizes(batch, image_sizes))
 
+    def losses(self, anchors, logits, deltas, batch) -> Dict[str, torch.Tensor]:
+        """``retinanet_losses`` of the head's per-level outputs, flattened
+        in (H, W, A) order as the anchors are."""
+        b, k, dev = logits[0].shape[0], self.num_classes, self.device
+        return retinanet_losses(
+            torch.cat(anchors),
+            torch.cat([lg.permute(0, 2, 3, 1).reshape(b, -1, k) for lg in logits], dim=1),
+            torch.cat([dl.permute(0, 2, 3, 1).reshape(b, -1, 4) for dl in deltas], dim=1),
+            *(torch.as_tensor(batch[f], device=dev) for f in ("gt_boxes", "gt_classes", "gt_valid")),
+            self.anchor_matcher, self.box2box_transform, self.focal_loss_alpha, self.focal_loss_gamma,
+            self.smooth_l1_beta,
+        )
+
     def forward(self, batch: Dict, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        return serve_only(self, batch)
+        """The loss dict in train mode (``generator`` unused), else
+        :meth:`inference`."""
+        if not self.training:
+            return self.inference(batch)
+        features, _ = self._features(batch)
+        return self.losses(*self.head_outputs(features), batch)

@@ -28,7 +28,7 @@ from ...layers import (
     variance_scaling,
 )
 from ...ops.losses import softmax_cross_entropy
-from .rcnn import BackboneModel, serve_only
+from .rcnn import BackboneModel
 
 
 class SemSegFPNHead(nn.Module):
@@ -131,8 +131,9 @@ def upsampled_sem_seg(logits: torch.Tensor, image_hw) -> Dict[str, torch.Tensor]
 
 class SemanticSegmentor(BackboneModel):
     """The backbone and the sem-seg head (JAX package ``semantic_seg.py:146``):
-    ``sem_seg`` and ``sem_seg_logits`` at the padded input size. Serving and
-    scoring only: its training waits (ROADMAP queue 1)."""
+    ``sem_seg`` and ``sem_seg_logits`` at the padded input size; in train
+    mode the head's ``loss_sem_seg`` against the batch's ``gt_sem_seg``
+    (B, H, W) (JAX ``semantic_seg.py:167-175``; no draws)."""
 
     def __init__(self, cfg):
         super().__init__(cfg)
@@ -145,4 +146,8 @@ class SemanticSegmentor(BackboneModel):
             return upsampled_sem_seg(self.sem_seg_head(features), batch["image"].shape[1:3])
 
     def forward(self, batch: Dict, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        return serve_only(self, batch)
+        if not self.training:
+            return self.inference(batch)
+        features, _ = self._features(batch)
+        targets = torch.as_tensor(batch["gt_sem_seg"], device=self.device)
+        return self.sem_seg_head.losses(self.sem_seg_head(features), targets)

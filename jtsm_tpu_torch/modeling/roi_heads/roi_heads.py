@@ -10,9 +10,11 @@ K, 4) in network-input coordinates (JAX ``roi_heads.py:174-192,305-315``).
 
 In training the heads sample ``BATCH_SIZE_PER_IMAGE`` slots per image and
 pick up to ``mask_fg_capacity`` foreground slots of them for the mask
-branch, with uniform draws from the caller's generator; the ROIs of each
-branch are image-major, so each pooler runs once per step, and the heads
-return the losses ``loss_cls``, ``loss_box_reg`` and ``loss_mask``."""
+branch, and as many again for the keypoint branch, with uniform draws from
+the caller's generator; the ROIs of each branch are image-major, so each
+pooler runs once per step, and the heads return the losses ``loss_cls``,
+``loss_box_reg``, ``loss_mask`` and ``loss_keypoint`` (the last where the
+targets hold ``gt_keypoints``, JAX ``roi_heads.py:270-272``)."""
 
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from ..poolers import ROIPooler
 from ..proposal_generator.proposal_utils import topk_stable
 from .box_head import build_box_head
 from .fast_rcnn import FastRCNNOutputLayers, fast_rcnn_inference, fast_rcnn_losses
-from .keypoint_head import build_keypoint_head, keypoint_rcnn_inference
+from .keypoint_head import build_keypoint_head, keypoint_rcnn_inference, keypoint_rcnn_loss
 from .mask_head import build_mask_head, mask_rcnn_inference, mask_rcnn_loss, mask_targets_from_crops
 from .proposal_sampling import sample_proposals
 
@@ -65,6 +67,9 @@ class StandardROIHeads(nn.Module):
         self.score_thresh = cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST
         self.nms_thresh = cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST
         self.detections_per_image = cfg.TEST.DETECTIONS_PER_IMAGE
+        # foreground slots per image that train the mask and keypoint heads
+        # (the JAX package's field of the same name, roi_heads.py:93)
+        self.mask_fg_capacity = 128
         self.mask_on = cfg.MODEL.MASK_ON
         if self.mask_on:
             mh = cfg.MODEL.ROI_MASK_HEAD
@@ -75,9 +80,6 @@ class StandardROIHeads(nn.Module):
                 cfg, ShapeSpec(channels=in_channels, height=mh.POOLER_RESOLUTION, width=mh.POOLER_RESOLUTION)
             )
             self.mask_size = 2 * mh.POOLER_RESOLUTION
-            # foreground slots per image that train the mask head (the JAX
-            # package's field of the same name, roi_heads.py:93)
-            self.mask_fg_capacity = 128
         self.keypoint_on = cfg.MODEL.KEYPOINT_ON
         if self.keypoint_on:
             kh = cfg.MODEL.ROI_KEYPOINT_HEAD
@@ -87,6 +89,8 @@ class StandardROIHeads(nn.Module):
             self.keypoint_head = build_keypoint_head(
                 cfg, ShapeSpec(channels=in_channels, height=kh.POOLER_RESOLUTION, width=kh.POOLER_RESOLUTION)
             )
+            self.normalize_loss_by_visible_keypoints = kh.NORMALIZE_LOSS_BY_VISIBLE_KEYPOINTS
+            self.keypoint_loss_weight = kh.LOSS_WEIGHT
 
     def forward(
         self,
@@ -101,8 +105,6 @@ class StandardROIHeads(nn.Module):
         ``targets`` (the batch's ``gt_*`` fields) and uniform draws from
         ``generator``."""
         if self.training:
-            if self.keypoint_on:
-                raise NotImplementedError("training the keypoint head is not ported yet (ROADMAP queue 1)")
             if targets is None:
                 raise ValueError("training the ROI heads needs the gt_* targets")
             return self._forward_train(features, proposals, proposal_scores, targets, generator)
@@ -184,30 +186,56 @@ class StandardROIHeads(nn.Module):
         )
         if self.mask_on:
             losses["loss_mask"] = self._forward_mask_train(feats, sampled, targets, generator)
+        if self.keypoint_on and "gt_keypoints" in targets:
+            losses["loss_keypoint"] = self._forward_keypoint_train(feats, sampled, targets, generator)
         return losses
 
-    def _forward_mask_train(self, feats, sampled, targets, generator):
-        """Up to ``mask_fg_capacity`` random foreground slots per image,
-        pooled at 14x14, BCE against the resampled crops (JAX
-        ``roi_heads.py:347``)."""
+    def _pick_foreground(self, sampled, generator):
+        """Up to ``mask_fg_capacity`` foreground slots per image by priority
+        1 + u, u uniform from ``generator`` (-inf off the foreground): the
+        slots' indices (B, Sm), whether each holds a foreground slot, and
+        their boxes (B, Sm, 4)."""
         fg = sampled["fg"]  # (B, S)
         b, s = fg.shape
         sm = min(self.mask_fg_capacity, s)
         u = torch.rand((b, s), generator=generator, device=fg.device)
         priority = torch.where(fg, 1.0 + u, torch.full_like(u, float("-inf")))
         vals, idx = topk_stable(priority, sm)
-        boxes = torch.gather(sampled["boxes"], 1, idx[..., None].expand(b, sm, 4))
+        return idx, torch.isfinite(vals), torch.gather(sampled["boxes"], 1, idx[..., None].expand(b, sm, 4))
+
+    def _forward_mask_train(self, feats, sampled, targets, generator):
+        """The foreground pick (``_pick_foreground``) pooled at 14x14, BCE
+        against the resampled crops (JAX ``roi_heads.py:347``)."""
+        idx, picked, boxes = self._pick_foreground(sampled, generator)
+        b, sm = idx.shape
         classes = torch.gather(sampled["gt_classes"], 1, idx)
         matched = torch.gather(sampled["matched_idx"], 1, idx)
         mask_targets = mask_targets_from_crops(
             targets["gt_mask_crops"], targets["gt_boxes"], matched, boxes, self.mask_size
         )
-        batch_idx = torch.arange(b, dtype=torch.int32, device=fg.device).repeat_interleave(sm)
+        batch_idx = torch.arange(b, dtype=torch.int32, device=idx.device).repeat_interleave(sm)
         logits = self.mask_head(self.mask_pooler(feats, boxes.reshape(b * sm, 4), batch_idx))
         return mask_rcnn_loss(
             logits, classes.reshape(-1), mask_targets.reshape(b * sm, self.mask_size, self.mask_size),
-            torch.isfinite(vals).reshape(-1),
+            picked.reshape(-1),
         )
+
+    def _forward_keypoint_train(self, feats, sampled, targets, generator):
+        """The foreground pick (``_pick_foreground``, its own draw) pooled by
+        the keypoint pooler, the heatmap cross entropy against each slot's
+        matched ground truth keypoints, times ROI_KEYPOINT_HEAD.LOSS_WEIGHT
+        (JAX ``roi_heads.py:403-436``)."""
+        idx, picked, boxes = self._pick_foreground(sampled, generator)
+        b, sm = idx.shape
+        matched = torch.gather(sampled["matched_idx"], 1, idx).long()
+        gt = targets["gt_keypoints"].to(torch.float32)
+        kpts = torch.gather(gt, 1, matched[..., None, None].expand((b, sm) + gt.shape[2:]))
+        flat_boxes = boxes.reshape(b * sm, 4)
+        batch_idx = torch.arange(b, dtype=torch.int32, device=idx.device).repeat_interleave(sm)
+        logits = self.keypoint_head(self.keypoint_pooler(feats, flat_boxes, batch_idx))
+        loss = keypoint_rcnn_loss(logits, kpts.reshape(b * sm, -1, 3), flat_boxes, picked.reshape(-1),
+                                  self.normalize_loss_by_visible_keypoints)
+        return loss * self.keypoint_loss_weight
 
 
 def build_roi_heads(cfg, input_shape: Dict[str, ShapeSpec]) -> StandardROIHeads:

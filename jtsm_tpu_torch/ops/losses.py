@@ -1,7 +1,7 @@
 """Elementwise losses of the detectors (reference: fvcore's
 ``smooth_l1_loss`` as detectron2's RPN and Fast R-CNN use it; JAX package
-``ops/losses.py`` :17, :65, :74). Each returns per-element (or per-row)
-losses; the callers mask and normalise."""
+``ops/losses.py`` :17, :52, :65, :74). Each returns per-element (or
+per-row) losses; the callers mask and normalise."""
 
 from __future__ import annotations
 
@@ -19,6 +19,25 @@ def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor, beta: float) -> tor
 def binary_cross_entropy_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Binary cross entropy per element, in the JAX package's stable form."""
     return logits.clamp(min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+
+
+def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor, alpha: float = 0.25,
+                       gamma: float = 2.0) -> torch.Tensor:
+    """Focal loss per element for targets in {0, 1} (RetinaNet's, in the JAX
+    package's form: the stable binary cross entropy times (1 - p_t)^gamma
+    and, for ``alpha`` >= 0, the alpha weighting; a negative ``alpha``
+    turns the weighting off). At ``gamma`` 0 the factor is 1, and so is
+    its gradient where p_t saturates to 1 (a power's gradient there is
+    0 * inf in PyTorch, 0 in JAX)."""
+    ce = binary_cross_entropy_with_logits(logits, targets)
+    loss = ce
+    if gamma != 0:
+        p = torch.sigmoid(logits)
+        p_t = p * targets + (1 - p) * (1 - targets)
+        loss = ce * (1 - p_t) ** gamma
+    if alpha >= 0:
+        loss = (alpha * targets + (1 - alpha) * (1 - targets)) * loss
+    return loss
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

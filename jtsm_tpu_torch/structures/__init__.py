@@ -1,6 +1,6 @@
 from .boxes import BoxMode, box_area, clip_boxes, nonempty_boxes, pairwise_iou
 from .instances import Instances
-from .keypoints import heatmaps_to_keypoints
+from .keypoints import heatmaps_to_keypoints, keypoints_to_heatmap
 from .masks import PolygonMasks, polygons_to_bitmask, rasterize_polygons_within_box
 
 __all__ = [

@@ -492,14 +492,6 @@ def test_python_config_equals_merged_yaml(builder, path):
     assert jcfg.to_dict() == cfg.to_dict()
 
 
-def test_keypoint_training_is_not_ported_yet():
-    cfg = get_cfg()
-    cfg.merge_from_other_cfg(_tiny("keypoint_rcnn"))
-    model = build_model(cfg, device="cpu").train()
-    with pytest.raises(NotImplementedError, match="keypoint head"):
-        model.roi_heads({}, torch.zeros(1, 4, 4), torch.zeros(1, 4), torch.tensor([[64, 64]]), {})
-
-
 @pytest.mark.parametrize("head", ["retinanet", "keypoint"])
 def test_bf16_heads_match_jax(head):
     """Both packages' heads in bf16 over float32 parameters, from the same
