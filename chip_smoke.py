@@ -240,9 +240,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
    width in bf16 through ``engine.DefaultTrainer`` on 8 in-memory person
    keypoint scenes of 480x640 (the yaml's short sides and the flip,
    IMS_PER_BATCH 2, 6 iterations): K1 and K2 twice an iteration, s/iter,
-   ``data_time`` and peak memory. Any phase that fails logs ``[<phase>]
-   FAILED: <type>: <message>`` and its traceback, and the run ends there
-   with a non-zero exit.
+   ``data_time`` and peak memory;
+19. train_surface: (a) the narrow giou, pred-boxes and SyncBN Mask R-CNNs
+   (the gate config with each variant's losses, TRAIN_ON_PRED_BOXES or
+   norms) take 3 steps (SyncBN 1) on the card, on this machine's CPU in
+   float32 and in float64: the card's losses, updates and SyncBN's running
+   statistics within 3 times the CPU's float32-to-float64 gap (at least
+   18(a)'s tolerances), and WSDDN R-18 DC5 narrowed takes 3 steps on a
+   batch of its cropped train loader (INPUT.CROP), as 16(a) checks; the
+   CPU runs with PyTorch's own convolutions; (b) ``mask_rcnn_R_50_FPN_{giou,pred_boxes,syncbn}_cfg()``
+   at full width as 18(b): K1 and K2 twice a step, the median of steps
+   2-6, the stage split with its host syncs, the peak memory; then K1 and
+   K2 against their plain versions at the pred-boxes mask pooler's own
+   inputs (the predicted boxes, some past the image); (c) WSDDN R-18 DC5
+   at full width through the WSL trainer on 8 in-memory VOC scenes with
+   2000 proposals, the yaml's 24 scales with the crop first (buckets up to
+   1216x1824 added), 4 iterations of 4 images: K1 and K2 once an
+   iteration; then both against their plain versions at its res5 train
+   shape (the batch's 4000 proposal slots an image, the padded ones with a
+   zero cotangent); (d) the SyncBN model at full width through ``DefaultTrainer`` on
+   8 in-memory COCO scenes, 6 iterations, with TEST.PRECISE_BN (every 3
+   iterations over 2 batches), then with ADAM and WarmupPolyLR: K1 and K2
+   twice an iteration (K1 twice more a PreciseBN batch), every running
+   statistic moved, s/iter, ``data_time`` and PreciseBN's time. Any phase
+   that fails logs ``[<phase>] FAILED: <type>: <message>`` and its
+   traceback, and the run ends there with a non-zero exit.
 
 The last three lines are {"kernels": [...]} (``kernel_line`` says which
 times; ``l1_*`` are K1's single-level rows of phase 10, ``jt_*`` K1's and
@@ -258,7 +280,11 @@ shape and their launches under the keypoint train steps of 18(b) and the
 trainer of 18(d), ``pan_train_*`` Panoptic FPN's poolers, whose train
 shapes are phase 6's box and mask rows, and their launches under its
 steps in 18(b), ``fam_train_launches`` all of phase 18's main paths;
-phase 17's launch none),
+phase 17's launch none; ``pred_mask_*`` K1's and K2's rows at the
+pred-boxes mask pooler of 19(b) and their launches under its steps,
+``wsddn_train_*`` their rows at WSDDN R-18's cropped res5 train shape and
+their launches under the trainer of 19(c), ``ts_launches`` all of phase
+19's main paths),
 the card's name and power limit as
 nvidia-smi gives them, and {"ok": true, "device": {...}}. Needs one card, torch, numpy and pytest;
 imports nothing of JAX. Without a card, or outside a checkout of the
@@ -499,8 +525,10 @@ def check_and_time_fwd(tag, feats, scales, boxes, bidx, levels, p, baseline, pha
     return dict(err=err, times=times, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, nbytes=nbytes, flops=flops)
 
 
-def check_and_time_bwd(tag, feats, scales, boxes, bidx, levels, p, gen, baseline, phase="train_kernels"):
-    """K2 against its plain version, as ``check_and_time_fwd``."""
+def check_and_time_bwd(tag, feats, scales, boxes, bidx, levels, p, gen, baseline, phase="train_kernels", live=None):
+    """K2 against its plain version, as ``check_and_time_fwd``; the
+    cotangent is random, and zero on the ROIs that ``live`` (R,) excludes,
+    as the loss leaves padded proposal slots."""
     import torch
 
     from jtsm_tpu_torch.ops.roi_align import roi_align_multilevel_backward_plain
@@ -508,7 +536,10 @@ def check_and_time_bwd(tag, feats, scales, boxes, bidx, levels, p, gen, baseline
 
     dtype = feats[0].dtype
     shapes = [tuple(f.shape) for f in feats]
-    grad = torch.randn((boxes.shape[0], p, p, shapes[0][3]), generator=gen, device=DEVICE).to(dtype)
+    grad = torch.randn((boxes.shape[0], p, p, shapes[0][3]), generator=gen, device=DEVICE)
+    if live is not None:
+        grad = grad * live[:, None, None, None]
+    grad = grad.to(dtype)
     args = (grad, shapes, scales, boxes, bidx, levels, p, 0, True)
     got = roi_align_multilevel_backward_cuda(*args)
     want = roi_align_multilevel_backward_plain(*args)
@@ -3613,14 +3644,24 @@ def phase_wsod(kernels, gen, baseline):
 
 
 TRAIN_FAMILIES = ("retinanet", "rpn", "keypoint_rcnn", "panoptic_fpn", "semantic")
-TRAIN_TITLES = dict(FAMILY_TITLES, semantic="SemanticSegmentor R50-FPN")
-TRAIN_K = {"retinanet": (0, 0), "rpn": (0, 0), "keypoint_rcnn": (2, 2), "panoptic_fpn": (2, 2), "semantic": (0, 0)}
+# phase 19's Mask R-CNN variants: their Python builders
+SURFACE_BUILDERS = {"giou": "mask_rcnn_R_50_FPN_giou_cfg", "pred_boxes": "mask_rcnn_R_50_FPN_pred_boxes_cfg",
+                    "syncbn": "mask_rcnn_R_50_FPN_syncbn_cfg"}
+SURFACE_FAMILIES = tuple(SURFACE_BUILDERS)
+TRAIN_TITLES = dict(FAMILY_TITLES, semantic="SemanticSegmentor R50-FPN", giou="Mask R-CNN R50-FPN giou",
+                    pred_boxes="Mask R-CNN R50-FPN pred boxes", syncbn="Mask R-CNN R50-FPN SyncBN")
+TRAIN_K = {"retinanet": (0, 0), "rpn": (0, 0), "keypoint_rcnn": (2, 2), "panoptic_fpn": (2, 2), "semantic": (0, 0),
+           "giou": (2, 2), "pred_boxes": (2, 2), "syncbn": (2, 2)}
+MASK_RCNN_LOSSES = ["loss_box_reg", "loss_cls", "loss_mask", "loss_rpn_cls", "loss_rpn_loc"]
 TRAIN_LOSSES = {
     "retinanet": ["loss_box_reg", "loss_cls"],
     "rpn": ["loss_rpn_cls", "loss_rpn_loc"],
     "keypoint_rcnn": ["loss_box_reg", "loss_cls", "loss_keypoint", "loss_rpn_cls", "loss_rpn_loc"],
     "panoptic_fpn": ["loss_box_reg", "loss_cls", "loss_mask", "loss_rpn_cls", "loss_rpn_loc", "loss_sem_seg"],
     "semantic": ["loss_sem_seg"],
+    "giou": MASK_RCNN_LOSSES,
+    "pred_boxes": MASK_RCNN_LOSSES,
+    "syncbn": MASK_RCNN_LOSSES,
 }
 FAM_TRAIN_STEPS = 6  # each dtype, in turns; the medians take steps 2-6
 FAM_NARROW_STEPS = 3
@@ -3630,7 +3671,8 @@ FAM_NARROW_HW = (128, 176)  # the gates' larger bucket
 # at 0.002 Keypoint R-CNN's and Panoptic FPN's rise by the third step).
 # Of a two-stage model the ROI heads' own losses may rise where a step
 # moves a proposal into or out of the foreground
-FAM_NARROW_LR = {"retinanet": 2e-4, "rpn": 5e-4, "keypoint_rcnn": 5e-4, "panoptic_fpn": 2e-4, "semantic": 2e-3}
+FAM_NARROW_LR = {"retinanet": 2e-4, "rpn": 5e-4, "keypoint_rcnn": 5e-4, "panoptic_fpn": 2e-4, "semantic": 2e-3,
+                 "giou": 2e-4, "pred_boxes": 2e-4, "syncbn": 2e-4}
 # card against CPU, set from two card runs (H100 80GB HBM3, 700 W) with a
 # margin: each step's losses relative (measured 1.0e-5 at most, Panoptic
 # FPN's third step), each update of its L2 norm (measured 1.709e-3 at
@@ -3651,9 +3693,18 @@ def train_family_cfg(family, narrow=False):
     every proposal and ground-truth row, at positive fraction 1.0, so that
     the mask and keypoint picks take every foreground slot and no draw
     matters; FAM_NARROW_LR, no clip."""
+    from jtsm_tpu_torch import config
     from jtsm_tpu_torch.config import semantic_R_50_FPN_cfg
 
-    if family == "semantic":
+    if family in SURFACE_BUILDERS:
+        full = getattr(config, SURFACE_BUILDERS[family])()
+        if not narrow:
+            return full
+        cfg = surface_changes(config.mask_rcnn_gate_cfg(), full)
+        # 124 proposals and 4 ground-truth rows: 128 ROI slots, so that the
+        # mask pick (128 a image) takes every foreground slot without a draw
+        cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = 124
+    elif family == "semantic":
         if not narrow:
             return semantic_R_50_FPN_cfg()
         cfg = family_cfgs("panoptic_fpn")[1]
@@ -3672,6 +3723,21 @@ def train_family_cfg(family, narrow=False):
     cfg.SOLVER.BASE_LR = FAM_NARROW_LR[family]
     cfg.SOLVER.WARMUP_ITERS = 0
     cfg.SOLVER.CLIP_GRADIENTS.ENABLED = False
+    return cfg
+
+
+def surface_changes(cfg, full):
+    """``cfg`` (a narrow Mask R-CNN) with what sets ``full``'s variant apart:
+    the box losses and their weights, TRAIN_ON_PRED_BOXES, the norms and the
+    box head's convolutions (32 wide, the gate's FPN width), STRIDE_IN_1X1."""
+    m, f = cfg.MODEL, full.MODEL
+    for node, key in (("RPN", "BBOX_REG_LOSS_TYPE"), ("RPN", "BBOX_REG_LOSS_WEIGHT"),
+                      ("ROI_BOX_HEAD", "BBOX_REG_LOSS_TYPE"), ("ROI_BOX_HEAD", "BBOX_REG_LOSS_WEIGHT"),
+                      ("ROI_BOX_HEAD", "TRAIN_ON_PRED_BOXES"), ("RESNETS", "NORM"), ("RESNETS", "STRIDE_IN_1X1"),
+                      ("FPN", "NORM"), ("ROI_BOX_HEAD", "NORM"), ("ROI_BOX_HEAD", "NUM_CONV"),
+                      ("ROI_MASK_HEAD", "NORM")):
+        m[node][key] = f[node][key]
+    m.ROI_BOX_HEAD.CONV_DIM = m.FPN.OUT_CHANNELS
     return cfg
 
 
@@ -3752,7 +3818,7 @@ def family_train_stages(family, model, optimizer, schedule, state, batch, measur
     import torch
 
     from jtsm_tpu_torch.engine.train_loop import sgd_update
-    from jtsm_tpu_torch.layers import exact_float32
+    from jtsm_tpu_torch.layers import batch_statistics, exact_float32
 
     r = {"losses": {}}
 
@@ -3789,10 +3855,10 @@ def family_train_stages(family, model, optimizer, schedule, state, batch, measur
                 model.sem_seg_head(r["feats"]), r["t"]["gt_sem_seg"]))
         if family != "semantic":
             stages["rpn"] = rpn
-        if family in ("keypoint_rcnn", "panoptic_fpn"):
+        if family in ("keypoint_rcnn", "panoptic_fpn") + SURFACE_FAMILIES:
             stages["roi_heads"] = roi_heads
     stages.update(backward=backward, sgd=sgd)
-    with exact_float32(model.compute_dtype == torch.float32):
+    with exact_float32(model.compute_dtype == torch.float32), batch_statistics():
         return {k: measure(fn) for k, fn in stages.items()}
 
 
@@ -4019,6 +4085,476 @@ def phase_families_train(kernels, gen, baseline):
     return rows, launches, kp_train, by_family["panoptic_fpn"], med, run
 
 
+SURFACE_STATS_TOL = 1e-4  # the SyncBN narrow run's running statistics, card against CPU, after 3 steps
+# 19(a): the card may sit this many times further from the CPU's float32
+# run than that run sits from the CPU's float64 run (two float32 runs that
+# round apart, each about as far from the exact value)
+SURFACE_NOISE = 3.0
+# 19(a)'s steps: the SyncBN narrow model (the gate's convolutions under
+# batch statistics) proposes from near-tied objectness, and after its first
+# update float32 and float64 on the CPU alone part by 0.21 of the second
+# update's norm and 0.60 of the third's (one proposal more or less), so
+# the card is held to its first step
+SURFACE_STEPS = {"giou": FAM_NARROW_STEPS, "pred_boxes": FAM_NARROW_STEPS, "syncbn": 1}
+SURFACE_VOC_SCENES = 8
+WSDDN_TRAINER_ITERS = 4
+# TPU.IMAGE_BUCKETS of 19(c): a 375x500 VOC image cropped to 0.9-1 of each
+# side and resized to the short side 1216 is up to 1216x1801, which no
+# default bucket holds
+WSDDN_BUCKETS = [[800, 1344], [1344, 800], [1024, 1024], [1216, 1824], [1824, 1216]]
+SURFACE_TRAINER_ITERS = 6
+SURFACE_PRECISE_BN = (3, 2)  # TEST.EVAL_PERIOD (PreciseBN's period) and TEST.PRECISE_BN.NUM_ITER
+
+
+def ieee_cpu():
+    """A context in which this machine's CPU convolutions are PyTorch's own:
+    under batch statistics a weight's gradient is a small difference of
+    large terms, and oneDNN's float32 convolutions lose digits there
+    (``tests/test_torch_syncbn_train.py``)."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = torch.backends.mkldnn.enabled
+        torch.backends.mkldnn.enabled = False
+        try:
+            yield
+        finally:
+            torch.backends.mkldnn.enabled = saved
+
+    return ctx()
+
+
+def running_stats(model):
+    """Each trainable batch norm's running mean and variance, float64 on
+    the CPU."""
+    from jtsm_tpu_torch.layers import batch_norms
+
+    return [(bn.running_mean.detach().double().cpu(), bn.running_var.detach().double().cpu())
+            for bn in batch_norms(model)]
+
+
+def stats_gap(want, got):
+    """The largest gap of ``got``'s statistics from ``want``'s: a mean's over
+    the activations' scale (the root of the largest E[x^2]), a variance's
+    over its own largest value."""
+    gap = 0.0
+    for (wm, wv), (gm, gv) in zip(want, got):
+        gap = max(gap, float((wm - gm).abs().max() / (wv + wm * wm).sqrt().max()),
+                  float((wv - gv).abs().max() / wv.abs().max()))
+    return gap
+
+
+def float64_model(model):
+    """``model`` (on the CPU) computing in float64 throughout: the
+    parameters, the buffers and every layer's compute dtype."""
+    import torch
+
+    model.double()
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float64
+    return model
+
+
+def surface_narrow_checks(kernels):
+    """Phase 19(a): the narrow forms of the giou, pred-boxes and SyncBN Mask
+    R-CNNs (``surface_changes`` on the gate config: the gate's weights, and
+    for SyncBN the initialisers' batch norms and box-head convolutions,
+    drawn once on the CPU from seed 0) take FAM_NARROW_STEPS steps on the
+    card, on this machine's CPU in float32 and on the CPU in float64, from
+    the same weights on one seeded batch, in the sampling regime in which
+    all sample the same slots (SyncBN one step, SURFACE_STEPS). The float64 run measures how far float32
+    rounding alone moves each step (on this gate 2.5e-3 to 1.4e-2 of the
+    first update's norm, and more at each later step: deep gradients, and
+    under batch statistics E[x^2] - E[x]^2, cancel digits): each step's
+    losses within max(FAM_LOSS_TOL, SURFACE_NOISE x that step's float32
+    gap), each update within max(FAM_UPDATE_TOL, SURFACE_NOISE x its
+    gap), SyncBN's running statistics within max(SURFACE_STATS_TOL,
+    SURFACE_NOISE x theirs); the total loss falls at each step on the CPU.
+    Then WSDDN R-18 DC5 narrowed (``wsddn_R_18_narrow_cfg``, INPUT.CROP on)
+    on the first batch of the WSL train loader over in-memory VOC scenes,
+    as 16(a) checks its steps. The CPU runs with PyTorch's own
+    convolutions (``ieee_cpu``). These launches compare the card with the
+    CPU and count in no main path's total."""
+    import torch
+
+    from jtsm_tpu_torch.checkpoint import load_gate_ckpt, random_state_dict, variables_to_state_dict
+    from jtsm_tpu_torch.config import wsddn_R_18_narrow_cfg
+    from jtsm_tpu_torch.data import DatasetCatalog, MetadataCatalog
+    from jtsm_tpu_torch.data.datasets.synthetic_voc import register_synthetic_voc
+    from jtsm_tpu_torch.modeling import build_model
+    from jtsm_tpu_torch.wsl.train_net import Trainer
+
+    before = [k.launches for k in kernels]
+    failed = []
+    torch.backends.cudnn.deterministic = True
+
+    def runs_of(cfg, weights, batch, prepare, precisions, steps=FAM_NARROW_STEPS):
+        runs = {}
+        for device, f64 in precisions:
+            model = build_model(cfg, device=device)
+            model.load_state_dict(weights)
+            prepare(float64_model(model) if f64 else model)
+            if device == "cpu":
+                with ieee_cpu():
+                    runs[(device, f64)] = (*steps_and_updates(cfg, model, batch, steps), running_stats(model))
+            else:
+                runs[(device, f64)] = (*steps_and_updates(cfg, model, batch, steps), running_stats(model))
+            del model
+        return runs
+
+    def gaps(a, b):
+        """``a``'s losses, updates and statistics against ``b``'s."""
+        (la, ua, sa), (lb, ub, sb) = a, b
+        return dict(step=[max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-12) for k in y) for x, y in zip(la, lb)],
+                    upd=[float((x - y).norm() / y.norm()) for x, y in zip(ua, ub)],
+                    stats=stats_gap(sb, sa) if sb else None)
+
+    for family in SURFACE_FAMILIES:
+        cfg = train_family_cfg(family, narrow=True)
+        gate = variables_to_state_dict(load_gate_ckpt(os.path.join(REPO, cfg.MODEL.WEIGHTS)))
+        torch.manual_seed(0)  # the initialisers of what the gate lacks
+        weights = build_model(cfg, device="cpu").state_dict()
+        weights.update({k: v for k, v in gate.items() if k in weights and v.shape == weights[k].shape})
+        batch = family_train_batch(cfg, 11, 2, FAM_NARROW_HW, cfg.TPU.MAX_GT_INSTANCES, 3)
+        runs = runs_of(cfg, weights, batch, lambda m: None, ((DEVICE, False), ("cpu", False), ("cpu", True)),
+                       SURFACE_STEPS[family])
+        card, cpu, cpu64 = runs[(DEVICE, False)], runs[("cpu", False)], runs[("cpu", True)]
+        got, noise = gaps(card, cpu), gaps(cpu, cpu64)
+        l_cpu, norms = cpu[0], [float(u.norm()) for u in cpu[1]]
+        tol = dict(step=[max(FAM_LOSS_TOL, SURFACE_NOISE * n) for n in noise["step"]],
+                   upd=[max(FAM_UPDATE_TOL, SURFACE_NOISE * n) for n in noise["upd"]],
+                   stats=None if noise["stats"] is None else max(SURFACE_STATS_TOL, SURFACE_NOISE * noise["stats"]))
+        falls = all(l_cpu[i + 1]["total_loss"] < l_cpu[i]["total_loss"] for i in range(len(l_cpu) - 1))
+        log(f"[train_surface] (a) {family} narrow (the gate's R50, float32, {FAM_NARROW_HW[0]}x{FAM_NARROW_HW[1]}, "
+            f"2 images): {len(l_cpu)} step(s) at BASE_LR {cfg.SOLVER.BASE_LR:g}, no clip: card against CPU "
+            f"losses' rel_err by step {[f'{e:.3e}' for e in got['step']]} (tol {[f'{t:.3e}' for t in tol['step']]}), "
+            f"updates' L2 norms {[f'{n:.4g}' for n in norms]} rel_err {[f'{e:.3e}' for e in got['upd']]} (tol "
+            f"{[f'{t:.3e}' for t in tol['upd']]}), "
+            + (f"running statistics gap {got['stats']:.3e} (tol {tol['stats']:.3e}), " if got["stats"] is not None
+               else "") + "float32 against float64 on the CPU: losses "
+            f"{[f'{e:.3e}' for e in noise['step']]}, updates {[f'{e:.3e}' for e in noise['upd']]}"
+            + (f", statistics {noise['stats']:.3e}" if noise["stats"] is not None else "")
+            + f"; the total loss falls at each step: {falls}; CPU "
+            + " | ".join(", ".join(f"{k}={x[k]:.6g}" for k in MASK_RCNN_LOSSES) for x in l_cpu))
+        if not (sorted(l_cpu[0]) == sorted(MASK_RCNN_LOSSES + ["total_loss"]) and min(norms) > 0 and falls
+                and all(e <= t for e, t in zip(got["step"], tol["step"]))
+                and all(e <= t for e, t in zip(got["upd"], tol["upd"]))
+                and (got["stats"] is None) == (family != "syncbn") and (got["stats"] or 0.0) <= (tol["stats"] or 0.0)
+                and all(math.isfinite(v) for x in card[0] for v in x.values())):
+            failed.append(family)
+
+    name = "chip_smoke_voc_crop_narrow"
+    props = register_synthetic_voc(name, num=SURFACE_VOC_SCENES, seed=2, image_hw=(150, 200), num_proposals=64)
+    try:
+        cfg = wsddn_R_18_narrow_cfg()
+        cfg.merge_from_list(WSOD_NARROW_SOLVER["wsddn_WSR_18"])
+        cfg.DATASETS.TRAIN = (name,)
+        cfg.DATASETS.PROPOSAL_FILES_TRAIN = (props,)
+        cfg.SOLVER.IMS_PER_BATCH = 2
+        it = iter(Trainer.build_train_loader(cfg))
+        batch = {k: v for k, v in next(it).items() if k != "image_ids"}
+        it.close()
+    finally:
+        DatasetCatalog.remove(name)
+        MetadataCatalog.remove(name)
+
+    def no_dropout(model):
+        model.roi_heads.dan.dropout = 0.0  # the two devices' generators draw other bits
+
+    runs = runs_of(cfg, random_state_dict(build_model(cfg, device="cpu"), seed=1), batch, no_dropout,
+                   ((DEVICE, False), ("cpu", False)))
+    got = gaps(runs[(DEVICE, False)], runs[("cpu", False)])
+    norms = [float(u.norm()) for u in runs[("cpu", False)][1]]
+    log(f"[train_surface] (a) wsddn_R_18 narrow (float32, INPUT.CROP {cfg.INPUT.CROP.TYPE} {list(cfg.INPUT.CROP.SIZE)}, "
+        f"a cropped batch of 2 images {'x'.join(map(str, batch['image'].shape[1:3]))}, sizes "
+        f"{batch['image_sizes'].tolist()}, {batch['proposals'].shape[1]} proposal slots each): {FAM_NARROW_STEPS} "
+        f"steps at BASE_LR {cfg.SOLVER.BASE_LR:g}: losses' rel_err by step {[f'{e:.3e}' for e in got['step']]} (tol "
+        f"1e-4), updates' L2 norms {[f'{n:.4g}' for n in norms]} rel_err {[f'{e:.3e}' for e in got['upd']]} (tol "
+        f"{WSOD_UPDATE_TOL:g}), total_loss CPU {[round(x['total_loss'], 6) for x in runs[('cpu', False)][0]]}")
+    if not (max(got["step"]) <= 1e-4 and min(norms) > 0 and max(got["upd"]) <= WSOD_UPDATE_TOL
+            and all(math.isfinite(v) for x in runs[(DEVICE, False)][0] for v in x.values())):
+        failed.append("wsddn_R_18")
+    torch.backends.cudnn.deterministic = False
+    if failed:
+        raise AssertionError(f"train_surface narrow checks: the card disagrees with the CPU beyond float32's own "
+                             f"rounding, or the loss rose, in {failed}")
+    got = {k.name: k.launches - n for k, n in zip(kernels, before)}
+    log(f"[train_surface] (a) launches on the card in these checks (no main path's): {got}")
+    return got
+
+
+def pred_box_pooler_rows(states, gen, baseline):
+    """K1 and K2 against their plain versions at the mask pooler of the
+    pred-boxes step: the maps, the boxes that the box head's deltas decode
+    to (some past the image's edges) and their levels, captured from one
+    full-width forward of TRAIN_BATCH seeded images of FLAGSHIP_HW in each
+    dtype. Returns the rows."""
+    import torch
+
+    from jtsm_tpu_torch.layers import batch_statistics, exact_float32
+    from jtsm_tpu_torch.modeling import build_model, poolers
+
+    base = train_family_cfg("pred_boxes")
+    batch = family_train_batch(base, 17, TRAIN_BATCH, FLAGSHIP_HW, base.TPU.MAX_GT_INSTANCES, 8)
+    rows = {}
+    for d in (base.TPU.COMPUTE_DTYPE, "float32"):
+        cfg = base.clone()
+        cfg.TPU.COMPUTE_DTYPE = d
+        model = build_model(cfg)
+        model.load_state_dict(states["pred_boxes"])
+        model.train()
+        seen = []
+        routed = poolers.roi_align_multilevel
+
+        def capture(maps, scales, boxes, bidx, levels, size, *args):
+            if size[0] == 14:
+                seen.append(([m.detach() for m in maps], scales, boxes.detach(), bidx, levels))
+            return routed(maps, scales, boxes, bidx, levels, size, *args)
+
+        poolers.roi_align_multilevel = capture
+        try:
+            with torch.no_grad(), exact_float32(d == "float32"), batch_statistics():
+                model(batch, generator=torch.Generator(device=DEVICE).manual_seed(0))
+        finally:
+            poolers.roi_align_multilevel = routed
+        maps, scales, boxes, bidx, levels = seen[0]
+        h, w = FLAGSHIP_HW
+        outside = int(((boxes[:, 0] < 0) | (boxes[:, 1] < 0) | (boxes[:, 2] > w) | (boxes[:, 3] > h)).sum())
+        tag = f"pred-boxes mask pooler {dtype_tag(maps[0])} B={TRAIN_BATCH} ({outside} of {boxes.shape[0]} boxes " \
+              f"past the image)"
+        rows[f"fwd {dtype_tag(maps[0])}"] = check_and_time_fwd(tag, maps, list(scales), boxes, bidx, levels, 14,
+                                                               baseline, "train_surface")
+        rows[f"bwd {dtype_tag(maps[0])}"] = check_and_time_bwd(tag, maps, list(scales), boxes, bidx, levels, 14,
+                                                               gen, baseline, "train_surface")
+        del model, seen, maps
+    return rows
+
+
+def wsddn_trainer(kernels, gen, baseline):
+    """Phase 19(c): WSDDN R-18 DC5 at full width (``wsddn_R_18_DC5_cfg()``,
+    seeded weights) through the WSL trainer on SURFACE_VOC_SCENES in-memory
+    VOC scenes of WSOD_IMAGE_HW with 2000 proposals, at the yaml's 24 train
+    scales (480 to 1216) with INPUT.CROP first and the flip, IMS_PER_BATCH
+    4, WSDDN_TRAINER_ITERS iterations, TPU.IMAGE_BUCKETS WSDDN_BUCKETS: K1
+    and K2 once an iteration (res3 to res5 train). Then K1 and K2 against
+    their plain versions at its train shape: the res5 map of one of its
+    batches (stride 16) and that batch's proposal slots, P=7. Returns the
+    kernel rows, the launches and the run's s/iter, data_time and peak
+    memory. The padded proposal slots (zero-size boxes at the origin) are
+    pooled, and take a zero cotangent, as the loss leaves them."""
+    import tempfile
+
+    import torch
+
+    from jtsm_tpu_torch.checkpoint import random_state_dict
+    from jtsm_tpu_torch.config import wsddn_R_18_DC5_cfg
+    from jtsm_tpu_torch.data import DatasetCatalog, MetadataCatalog
+    from jtsm_tpu_torch.data.datasets.synthetic_voc import register_synthetic_voc
+    from jtsm_tpu_torch.modeling import build_model
+    from jtsm_tpu_torch.wsl.train_net import Trainer
+
+    name = "chip_smoke_voc_crop"
+    props = register_synthetic_voc(name, num=SURFACE_VOC_SCENES, seed=5, image_hw=WSOD_IMAGE_HW,
+                                   num_proposals=2000)
+    cfg = wsddn_R_18_DC5_cfg()
+    cfg.DATASETS.TRAIN = (name,)
+    cfg.DATASETS.PROPOSAL_FILES_TRAIN = (props,)
+    cfg.TPU.IMAGE_BUCKETS = WSDDN_BUCKETS
+    cfg.SOLVER.MAX_ITER = WSDDN_TRAINER_ITERS
+    cfg.TEST.EVAL_PERIOD = 0
+    cfg.MODEL.WEIGHTS = ""
+    cfg.SEED = 0
+    t0 = time.perf_counter()
+    state = random_state_dict(build_model(cfg, device="cpu"), seed=0)
+    log(f"[train_surface] (c) seeded full-width WSDDN R-18 DC5 weights in {time.perf_counter() - t0:.1f}s")
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_wsddn_") as tmp:
+            cfg.OUTPUT_DIR = tmp
+            trainer, rec, got, peak = run_trainer(Trainer, cfg, kernels, state)
+            check_launches("wsddn trainer", rec, {k.name: 1 for k in kernels})
+            metrics = read_metrics(tmp)
+            if [m["iteration"] for m in metrics] != list(range(WSDDN_TRAINER_ITERS)) or not all(
+                    math.isfinite(v) for m in metrics[1:] for key, v in m.items() if key.startswith("loss")):
+                raise AssertionError(f"wsddn trainer: metrics.json {metrics[-1]}")
+            run = dict(s_iter=median(iteration_times(trainer, "time", 1)),
+                       data_time=median(iteration_times(trainer, "data_time", 1)), peak=peak)
+            it = iter(trainer.data_loader)
+            batch = next(it)
+            it.close()
+            log(f"[train_surface] (c) WSDDN R-18 DC5 {cfg.TPU.COMPUTE_DTYPE} through the WSL trainer: INPUT.CROP "
+                f"{cfg.INPUT.CROP.TYPE} {list(cfg.INPUT.CROP.SIZE)} first, short sides {cfg.INPUT.MIN_SIZE_TRAIN[0]}-"
+                f"{cfg.INPUT.MIN_SIZE_TRAIN[-1]} (24 scales, max {cfg.INPUT.MAX_SIZE_TRAIN}) and the flip, "
+                f"IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH}, {SURFACE_VOC_SCENES} VOC scenes {WSOD_IMAGE_HW} with 2000 "
+                f"proposals in {cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN} slots, {WSDDN_TRAINER_ITERS} iterations: "
+                f"s/iter median {run['s_iter']:.4f} data_time median {run['data_time']:.4f} launches {got} "
+                f"peak_mem_gib {peak:.3f} | losses at the last iteration "
+                + ", ".join(f"{k}={v:.5g}" for k, v in metrics[-1].items() if k.startswith("loss"))
+                + f" | cut: TPU.IMAGE_BUCKETS {WSDDN_BUCKETS} (no default bucket holds the 1216 scale of a crop), "
+                "random weights")
+            del trainer
+    finally:
+        DatasetCatalog.remove(name)
+        MetadataCatalog.remove(name)
+    b, hh, ww = batch["image"].shape[:3]
+    k = batch["proposals"].shape[1]
+    boxes = torch.as_tensor(batch["proposals"], device=DEVICE).reshape(-1, 4).contiguous()
+    live = torch.isfinite(torch.as_tensor(batch["proposal_scores"], device=DEVICE)).reshape(-1)
+    bidx = torch.arange(b, device=DEVICE, dtype=torch.int32).repeat_interleave(k)
+    levels = torch.zeros(b * k, dtype=torch.int32, device=DEVICE)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        feat = torch.randn((b, hh // 16, ww // 16, 512), generator=gen, device=DEVICE).to(dtype)
+        tag = (f"WSDDN R-18 res5 train {dtype_tag(feat)} ({b}, {hh // 16}, {ww // 16}, 512) of a cropped batch, "
+               f"{int(live.sum())} live proposals")
+        rows[f"fwd {dtype_tag(feat)}"] = check_and_time_fwd(tag, [feat], [1.0 / 16], boxes, bidx, levels, 7,
+                                                            baseline, "train_surface")
+        rows[f"bwd {dtype_tag(feat)}"] = check_and_time_bwd(tag, [feat], [1.0 / 16], boxes, bidx, levels, 7, gen,
+                                                            baseline, "train_surface", live)
+    return rows, got, run
+
+
+def syncbn_trainers(kernels, state):
+    """Phase 19(d): the SyncBN Mask R-CNN at full width through
+    ``DefaultTrainer`` on SURFACE_VOC_SCENES in-memory COCO scenes of
+    SCORE_HW (the yaml's short sides and the flip, IMS_PER_BATCH
+    TRAIN_BATCH, SURFACE_TRAINER_ITERS iterations, the scoring hook left
+    out): once with TEST.PRECISE_BN (every SURFACE_PRECISE_BN[0]
+    iterations over SURFACE_PRECISE_BN[1] batches: K1 twice more a batch
+    there, the running statistics moved), once with SOLVER.OPTIMIZER ADAM
+    and WarmupPolyLR (the logged rates the schedule's). K1 and K2 twice an
+    iteration. Returns the launches and each run's s/iter, data_time,
+    PreciseBN's seconds and peak memory."""
+    import tempfile
+
+    from jtsm_tpu_torch.data import DatasetCatalog, MetadataCatalog
+    from jtsm_tpu_torch.data.datasets.synthetic import register_synthetic_coco
+    from jtsm_tpu_torch.engine import DefaultTrainer, hooks
+    from jtsm_tpu_torch.layers import batch_norms
+    from jtsm_tpu_torch.solver import Adam, build_lr_schedule
+
+    import torch
+
+    class Trainer(DefaultTrainer):
+        precise_bn_seconds = []
+
+        def build_hooks(self):
+            return [h for h in super().build_hooks() if not isinstance(h, hooks.EvalHook)]
+
+        def update_precise_bn(self, num_iter=200):
+            t0 = time.perf_counter()
+            super().update_precise_bn(num_iter)
+            torch.cuda.synchronize()
+            self.precise_bn_seconds.append(time.perf_counter() - t0)
+
+    name = "chip_smoke_coco_syncbn"
+    register_synthetic_coco(name, num=SURFACE_VOC_SCENES, seed=4, image_hw=SCORE_HW)
+    period, num_iter = SURFACE_PRECISE_BN
+    launches, runs = {k.name: 0 for k in kernels}, {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_syncbn_") as tmp:
+            for run_name, opts in (("precise_bn", ["TEST.PRECISE_BN.ENABLED", "True", "TEST.PRECISE_BN.NUM_ITER",
+                                                   str(num_iter), "TEST.EVAL_PERIOD", str(period)]),
+                                   ("adam_poly", ["SOLVER.OPTIMIZER", "ADAM", "SOLVER.LR_SCHEDULER_NAME",
+                                                  "WarmupPolyLR", "SOLVER.BASE_LR", "1e-4", "TEST.EVAL_PERIOD", "0"])):
+                cfg = train_family_cfg("syncbn")
+                cfg.merge_from_list(opts)
+                cfg.DATASETS.TRAIN = (name,)
+                cfg.SOLVER.IMS_PER_BATCH = TRAIN_BATCH
+                cfg.SOLVER.MAX_ITER = SURFACE_TRAINER_ITERS
+                cfg.SOLVER.CHECKPOINT_PERIOD = 10 * SURFACE_TRAINER_ITERS
+                cfg.MODEL.WEIGHTS = ""
+                cfg.SEED = 0
+                cfg.OUTPUT_DIR = os.path.join(tmp, run_name)
+                Trainer.precise_bn_seconds = []
+                stats = {}
+
+                def watch(model):
+                    stats["start"] = [bn.running_var.detach().clone() for bn in batch_norms(model)]
+                    return ()
+
+                trainer, rec, got, peak = run_trainer(Trainer, cfg, kernels, state, watch=watch)
+                calls = len(Trainer.precise_bn_seconds)
+                for i, per in enumerate(rec.launches):
+                    extra = 2 * num_iter if run_name == "precise_bn" and (i + 1) % period == 0 else 0
+                    if per != [2 + extra, 2]:
+                        raise AssertionError(f"syncbn trainer {run_name} iteration {i}: launches {per}, not "
+                                             f"[{2 + extra}, 2]")
+                moved = sum(not bool((a == bn.running_var).all()) for a, bn in
+                            zip(stats["start"], batch_norms(trainer.model)))
+                metrics = read_metrics(cfg.OUTPUT_DIR)
+                if (not all(math.isfinite(v) for m in metrics[1:] for k, v in m.items() if k.startswith("loss"))
+                        or moved != len(stats["start"])):
+                    raise AssertionError(f"syncbn trainer {run_name}: {moved} of {len(stats['start'])} statistics "
+                                         f"moved; metrics.json {metrics[-1]}")
+                if run_name == "precise_bn" and calls != SURFACE_TRAINER_ITERS // period:
+                    raise AssertionError(f"syncbn trainer: PreciseBN ran {calls} times")
+                if run_name == "adam_poly":
+                    schedule = build_lr_schedule(cfg)
+                    lr_gap = max(abs(m["lr"] - schedule(m["iteration"])) / schedule(m["iteration"]) for m in metrics)
+                    if type(trainer.optimizer) is not Adam or lr_gap > 1e-6:
+                        raise AssertionError(f"syncbn trainer adam_poly: {type(trainer.optimizer).__name__}, logged "
+                                             f"rates off the schedule by {lr_gap:.3e}")
+                for k, n in got.items():
+                    launches[k] += n
+                runs[run_name] = dict(s_iter=median(iteration_times(trainer, "time", 1)),
+                                      data_time=median(iteration_times(trainer, "data_time", 1)), peak=peak,
+                                      precise_bn_s=median(Trainer.precise_bn_seconds))
+                log(f"[train_surface] (d) Mask R-CNN R50-FPN SyncBN {cfg.TPU.COMPUTE_DTYPE} through DefaultTrainer, "
+                    f"{run_name}: SOLVER.OPTIMIZER {cfg.SOLVER.OPTIMIZER} {cfg.SOLVER.LR_SCHEDULER_NAME}, "
+                    + (f"TEST.PRECISE_BN every {period} iterations over {num_iter} batches ({calls} runs, median "
+                       f"{runs[run_name]['precise_bn_s']:.4f} s), " if calls else "")
+                    + f"{SURFACE_VOC_SCENES} in-memory COCO scenes {SCORE_HW[0]}x{SCORE_HW[1]}, short sides "
+                    f"{tuple(cfg.INPUT.MIN_SIZE_TRAIN)} (max {cfg.INPUT.MAX_SIZE_TRAIN}) and the flip, IMS_PER_BATCH "
+                    f"{TRAIN_BATCH}, {SURFACE_TRAINER_ITERS} iterations: s/iter median {runs[run_name]['s_iter']:.4f} "
+                    f"data_time median {runs[run_name]['data_time']:.4f} launches {got} peak_mem_gib {peak:.3f}, "
+                    f"{moved} batch norms' statistics moved | losses at the last iteration "
+                    + ", ".join(f"{k}={v:.5g}" for k, v in metrics[-1].items() if k.startswith("loss")))
+                del trainer
+    finally:
+        DatasetCatalog.remove(name)
+        MetadataCatalog.remove(name)
+    return launches, runs
+
+
+def phase_train_surface(kernels, gen, baseline):
+    """Phase 19: the training surface of this slice. (a) the narrow giou,
+    pred-boxes and SyncBN Mask R-CNNs and the cropped WSDDN R-18 on the card
+    against the CPU; (b) the three at full width in bf16 and f32 by stage,
+    K1 and K2 twice a step, and K1 and K2 against their plain versions at
+    the pred-boxes mask pooler's inputs; (c) WSDDN R-18 DC5 through the WSL
+    trainer with the crop, and K1 and K2 at its train shape; (d) the SyncBN
+    Mask R-CNN through ``DefaultTrainer`` with PreciseBN, and with ADAM and
+    WarmupPolyLR. The plain ROIAlign raises on the card. Returns the kernel
+    rows (by site), each kernel's launches on (b)-(d), the median step times
+    and the trainers' runs."""
+    from jtsm_tpu_torch.ops import roi_align
+
+    routed = roi_align.roi_align_multilevel_plain_autograd
+
+    def plain_on_cpu_only(features, scales, boxes, *a, **k):
+        if boxes.device.type != "cpu":
+            raise AssertionError("the plain ROIAlign ran on the card in phase 19")
+        return routed(features, scales, boxes, *a, **k)
+
+    roi_align.roi_align_multilevel_plain_autograd = plain_on_cpu_only
+    try:
+        surface_narrow_checks(kernels)
+        by_family, med, states = families_full_train(SURFACE_FAMILIES, kernels, "train_surface")
+        rows = {"pred": pred_box_pooler_rows(states, gen, baseline)}
+        rows["wsddn"], wsddn_launches, wsddn_run = wsddn_trainer(kernels, gen, baseline)
+        trainer_launches, runs = syncbn_trainers(kernels, states["syncbn"])
+    finally:
+        roi_align.roi_align_multilevel_plain_autograd = routed
+    runs["wsddn"] = wsddn_run
+    launches = {k.name: sum(f[k.name] for f in by_family.values()) + wsddn_launches[k.name]
+                + trainer_launches[k.name] for k in kernels}
+    return rows, launches, by_family["pred_boxes"], wsddn_launches, med, runs
+
+
 def kernel_line(kernel, launches, rows, f32_errs):
     """One entry of the kernels JSON line. ``ms``, ``plain_ms`` and
     ``bound_ms`` keep their long-standing meaning: the float32 box and mask
@@ -4242,6 +4778,14 @@ def main(argv=None) -> int:
     ft_rows, ft_launches, kp_train, pan_train, ft_med, kp_trainer = run_phase(
         "families_train", phase_families_train, KERNELS, gen, baseline)
 
+    # 19. the training surface: the giou, pred-boxes and SyncBN Mask R-CNNs
+    # (narrow on the card against the CPU, full width by stage, K1 and K2 at
+    # the predicted mask boxes), WSDDN R-18 with the crop through the WSL
+    # trainer (K1 and K2 at its res5 train shape), the SyncBN model through
+    # the trainer with PreciseBN and with ADAM and WarmupPolyLR
+    ts_rows, ts_launches, pred_launches, wsddn_launches, ts_med, ts_runs = run_phase(
+        "train_surface", phase_train_surface, KERNELS, gen, baseline)
+
     # per served request K1 pools boxes (R=1000, P=7) and masks (R=100,
     # P=14); per train step K1 and K2 pool and unpool boxes (R=1024, P=7)
     # and masks (R=256, P=14); per JTSM request K1 pools masks on one level
@@ -4258,10 +4802,10 @@ def main(argv=None) -> int:
     k1_launches = (sum(launches.values()) + sum(t[0][KERNEL.name] for t in train.values()) + score_launches
                    + jtsm_launches + jt_launches[KERNEL.name] + js_launches + tta_launches + tc_launches[KERNEL.name]
                    + fam_launches + wsod_launches[KERNEL.name] + dense_launches[KERNEL.name]
-                   + ft_launches[KERNEL.name])
+                   + ft_launches[KERNEL.name] + ts_launches[KERNEL.name])
     k2_launches = (sum(t[0][BWD_KERNEL.name] for t in train.values()) + jt_launches[BWD_KERNEL.name]
                    + tc_launches[BWD_KERNEL.name] + wsod_launches[BWD_KERNEL.name] + dense_launches[BWD_KERNEL.name]
-                   + ft_launches[BWD_KERNEL.name])
+                   + ft_launches[BWD_KERNEL.name] + ts_launches[BWD_KERNEL.name])
     bwd = {k[4:]: v for k, v in tres.items() if k.startswith("bwd ")}
     kernels = [
         kernel_line(KERNEL, k1_launches, res, [r["err"] for n, r in res.items() if "f32" in n]),
@@ -4382,6 +4926,30 @@ def main(argv=None) -> int:
             "pan_train_bf16_device_ms": box16["times"]["new"]["device_ms"] + mask16["times"]["new"]["device_ms"],
             "fam_train_launches": ft_launches[line["name"]],
         })
+    # the rows of phase 19: the pred-boxes mask pooler (B=2, R=2x128, P=14,
+    # C=256 over an 800x1344 pyramid, the boxes the box head predicts) and
+    # WSDDN R-18's res5 at its train shape (one level, a cropped batch of 4,
+    # P=7, 4000 proposal slots an image); their launches under the pred-boxes
+    # steps of 19(b) and the WSDDN trainer of 19(c); ts_launches all of
+    # phase 19's main paths, (b) to (d)
+    for line, kind in ((kernels[0], "fwd"), (kernels[1], "bwd")):
+        for site, key, counts in (("pred_mask", "pred", pred_launches), ("wsddn_train", "wsddn", wsddn_launches)):
+            f32, bf16 = ts_rows[key][f"{kind} f32"], ts_rows[key][f"{kind} bf16"]
+            line.update({
+                f"{site}_launches": counts[line["name"]],
+                f"{site}_max_abs_err": f32["err"],
+                f"{site}_ms": f32["times"]["new"]["ms"],
+                f"{site}_device_ms": f32["times"]["new"]["device_ms"],
+                f"{site}_plain_ms": f32["plain_ms"],
+                f"{site}_bound_ms": f32["bound_ms"],
+                f"{site}_bound_by": f32["bound_by"],
+                f"{site}_bf16_max_abs_err": bf16["err"],
+                f"{site}_bf16_ms": bf16["times"]["new"]["ms"],
+                f"{site}_bf16_device_ms": bf16["times"]["new"]["device_ms"],
+                f"{site}_bf16_plain_ms": bf16["plain_ms"],
+                f"{site}_bf16_bound_ms": bf16["bound_ms"],
+            })
+        line["ts_launches"] = ts_launches[line["name"]]
     # the trainers' launches (phase 14): Mask R-CNN at NUM_WORKERS 0 and 4,
     # the resumed run, the JTSM flagship, the gate's kernel run
     for line in kernels:
@@ -4412,6 +4980,12 @@ def main(argv=None) -> int:
         f"{f} {DTYPE_NAMES[d]}={ms:.3f}" for (f, d), ms in ft_med.items())
         + f"; keypoint trainer s/iter {kp_trainer['s_iter']:.4f} data_time {kp_trainer['data_time']:.4f} peak_gib "
         f"{kp_trainer['peak']:.3f}; launches {ft_launches} (keypoint {kp_train}, Panoptic FPN {pan_train}) | {card}")
+    log("[train_surface] train step median ms " + " ".join(
+        f"{f} {DTYPE_NAMES[d]}={ms:.3f}" for (f, d), ms in ts_med.items())
+        + "; trainers " + " ".join(f"{k}: s/iter {r['s_iter']:.4f} data_time {r['data_time']:.4f} peak_gib "
+                                   f"{r['peak']:.3f};" for k, r in ts_runs.items())
+        + f" PreciseBN s {ts_runs['precise_bn']['precise_bn_s']:.4f}; launches {ts_launches} (pred-boxes steps "
+        f"{pred_launches}, WSDDN trainer {wsddn_launches}) | {card}")
     log(f"[done] {time.perf_counter() - t_run:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

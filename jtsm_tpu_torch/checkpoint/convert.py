@@ -1,7 +1,8 @@
 """Weights carried across from the JAX package.
 
 ``variables_to_state_dict`` takes the JAX package's flax variables (a nested
-dict of numpy arrays with the ``params`` and ``frozen`` collections) and
+dict of numpy arrays with the ``params``, ``frozen`` and ``batch_stats``
+collections) and
 returns the detectron2-named state dict that the port's modules load. It
 inverts the JAX package's ``checkpoint/c2_model_loading.py:231-285``
 (``convert_d2_state_dict_to_variables``):
@@ -18,7 +19,10 @@ inverts the JAX package's ``checkpoint/c2_model_loading.py:231-285``
   ``cls_subnet{i}`` and ``bbox_subnet{i}`` -> ``cls_subnet.{2i}`` (its
   ``nn.Sequential`` of convolutions and ReLUs, JAX
   ``c2_model_loading.py:114-118``), ``conv/kernel`` and ``dense/kernel`` ->
-  ``weight``, a group norm's ``norm/GroupNorm_0/scale`` -> ``norm.weight``);
+  ``weight``, a group norm's ``norm/GroupNorm_0/scale``, a layer norm's
+  ``norm/LayerNorm_0/scale`` and a batch norm's ``norm/scale`` ->
+  ``norm.weight``, a batch norm's ``batch_stats`` ``mean`` and ``var`` ->
+  ``norm.running_mean`` and ``norm.running_var``);
   the WSL modules keep their flax names: VGG16's ``backbone.conv1_1`` to
   ``backbone.conv5_3``, the WSOD and JTSM heads' ``roi_heads.dan.dan1``,
   ``roi_heads.mil.cls``, ``roi_heads.refine0.refine_score`` and
@@ -46,6 +50,8 @@ logger = logging.getLogger(__name__)
 
 # first fully connected layers that take flattened pooled maps
 _CONV_FLATTEN_FCS = ("fc1", "dan1")
+# trainable batch norms' statistics: flax names -> detectron2's
+_RUNNING = {"mean": "running_mean", "var": "running_var"}
 # transposed convolutions: (in, out, kh, kw) in torch, mirrored in flax
 _DECONVS = ("deconv", "score_lowres")
 
@@ -94,21 +100,24 @@ def _chw_rows_from_hwc(w: np.ndarray) -> np.ndarray:
 
 
 def variables_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax ``{'params': ..., 'frozen': ...}`` of numpy arrays -> a
-    detectron2-named state dict of float32 CPU tensors."""
+    """flax ``{'params': ..., 'frozen': ..., 'batch_stats': ...}`` of numpy
+    arrays -> a detectron2-named state dict of float32 CPU tensors."""
     state = {}
-    for collection in ("params", "frozen"):
+    for collection in ("params", "frozen", "batch_stats"):
         for path, arr in _flatten(variables.get(collection, {})).items():
             arr = np.asarray(arr, dtype=np.float32)
             *module, leaf = path
             if leaf in ("kernel", "bias") and module and module[-1] in ("conv", "dense"):
                 module = module[:-1]
-            if module and module[-1] == "GroupNorm_0":
+            if module and module[-1] in ("GroupNorm_0", "LayerNorm_0"):
                 module = module[:-1]
-                leaf = {"scale": "weight"}.get(leaf, leaf)
+            if leaf == "scale":  # a norm's scale: GN's, LN's, BN's
+                leaf = "weight"
             name = ".".join(_d2_module_path(tuple(module)))
             if collection == "frozen":
                 key = f"{name}.{leaf}"  # FrozenBN: weight, bias, running_mean, running_var
+            elif collection == "batch_stats":
+                key = f"{name}.{_RUNNING[leaf]}"
             elif leaf in ("bias", "weight"):
                 key = f"{name}.{leaf}"
             elif leaf == "kernel":

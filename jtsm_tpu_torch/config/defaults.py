@@ -437,6 +437,61 @@ def mask_rcnn_gate_cfg() -> CN:
     return cfg
 
 
+def mask_rcnn_R_50_FPN_giou_cfg() -> CN:
+    """``configs/COCO-InstanceSegmentation/mask_rcnn_R_50_FPN_1x_giou.yaml``,
+    set in Python: the flagship with the GIoU box loss in the RPN (weight
+    2) and the ROI heads (weight 10, which the JAX package does not read,
+    ROADMAP §3)."""
+    cfg = mask_rcnn_R_50_FPN_cfg()
+    m = cfg.MODEL
+    m.RPN.BBOX_REG_LOSS_TYPE = "giou"
+    m.RPN.BBOX_REG_LOSS_WEIGHT = 2.0
+    m.ROI_BOX_HEAD.BBOX_REG_LOSS_TYPE = "giou"
+    m.ROI_BOX_HEAD.BBOX_REG_LOSS_WEIGHT = 10.0
+    return cfg
+
+
+def mask_rcnn_R_50_FPN_pred_boxes_cfg() -> CN:
+    """``configs/quick_schedules/mask_rcnn_R_50_FPN_pred_boxes_training_acc_test.yaml``
+    (over ``mask_rcnn_R_50_FPN_training_acc_test.yaml``), set in Python:
+    the mask branch trains on the box head's predicted boxes."""
+    cfg = mask_rcnn_R_50_FPN_cfg()
+    cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 256
+    cfg.MODEL.ROI_BOX_HEAD.TRAIN_ON_PRED_BOXES = True
+    cfg.DATASETS.TRAIN = ("coco_2017_val_100",)
+    cfg.DATASETS.TEST = ("coco_2017_val_100",)
+    i = cfg.INPUT
+    i.MIN_SIZE_TRAIN = (600,)
+    i.MAX_SIZE_TRAIN = 1000
+    i.MIN_SIZE_TEST = 800
+    i.MAX_SIZE_TEST = 1000
+    s = cfg.SOLVER
+    s.WARMUP_FACTOR = 0.3333333
+    s.WARMUP_ITERS = 100
+    s.STEPS = (5500, 5800)
+    s.MAX_ITER = 6000
+    cfg.TEST.EXPECTED_RESULTS = [["bbox", "AP", 42.6, 1.0], ["segm", "AP", 35.8, 0.8]]
+    return cfg
+
+
+def mask_rcnn_R_50_FPN_syncbn_cfg() -> CN:
+    """``configs/Misc/mask_rcnn_R_50_FPN_3x_syncbn.yaml``, set in Python:
+    SyncBN in the ResNet (stride in the 3x3), the FPN, a box head of four
+    convolutions and one fc, and the mask head; the 3x schedule."""
+    cfg = mask_rcnn_R_50_FPN_cfg()
+    m = cfg.MODEL
+    m.RESNETS.NORM = "SyncBN"
+    m.RESNETS.STRIDE_IN_1X1 = False
+    m.FPN.NORM = "SyncBN"
+    m.ROI_BOX_HEAD.NUM_CONV = 4
+    m.ROI_BOX_HEAD.NUM_FC = 1
+    m.ROI_BOX_HEAD.NORM = "SyncBN"
+    m.ROI_MASK_HEAD.NORM = "SyncBN"
+    cfg.SOLVER.STEPS = (210000, 250000)
+    cfg.SOLVER.MAX_ITER = 270000
+    return cfg
+
+
 def panoptic_fpn_R_50_cfg() -> CN:
     """``configs/COCO-PanopticSegmentation/panoptic_fpn_R_50_1x.yaml`` (over
     ``Base-Panoptic-FPN.yaml`` and ``Base-RCNN-FPN.yaml``), set in Python."""

@@ -307,3 +307,74 @@ def wsod_V_16_narrow_cfg(head: str) -> CN:
     """``wsod_V_16_DC5_cfg(head)`` cut by ``_wsod_narrow``; VGG16 keeps its
     widths and FREEZE_AT 2."""
     return _wsod_narrow(wsod_V_16_DC5_cfg(head))
+
+
+def wsddn_R_18_DC5_cfg() -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/wsddn_R_18_DC5_1x.yaml``
+    over ``Base-RCNN-DilatedC5.yaml`` (both of them), set in Python: WSDDN
+    over the plain ResNet-18 with the res5 dilation of DC5 (FREEZE_AT 2:
+    res3 to res5 train), 4000 MCG proposals on VOC 2007, the 4096-wide
+    DAN, 24 train scales from 480 to 1216 with INPUT.CROP (relative_range
+    0.9) first, test-time augmentation over 8 scales and the flips."""
+    cfg = wsl_cfg()
+    m = cfg.MODEL
+    m.META_ARCHITECTURE = "GeneralizedRCNNWSL"
+    m.WEIGHTS = "models/DRN-WSOD/resnet18_model_120.pkl"
+    m.PIXEL_MEAN = [102.9801, 115.9465, 122.7717]
+    m.LOAD_PROPOSALS = True
+    m.PROPOSAL_GENERATOR.NAME = "PrecomputedProposals"
+    m.PROPOSAL_GENERATOR.MIN_SIZE = 20
+    m.RESNETS.DEPTH = 18
+    m.RESNETS.RES2_OUT_CHANNELS = 64
+    m.RESNETS.RES5_DILATION = 2
+    m.RESNETS.OUT_FEATURES = ["res5"]
+    m.RPN.IN_FEATURES = ["res5"]
+    h = m.ROI_HEADS
+    h.NAME = "WSDDNROIHeads"
+    h.IN_FEATURES = ["res5"]
+    h.NUM_CLASSES = 20
+    h.BATCH_SIZE_PER_IMAGE = 4096
+    h.POSITIVE_FRACTION = 1.0
+    h.PROPOSAL_APPEND_GT = False
+    h.SCORE_THRESH_TEST = 0.000000001
+    m.ROI_BOX_HEAD.NAME = "DiscriminativeAdaptionNeck"
+    m.ROI_BOX_HEAD.NUM_FC = 2
+    m.ROI_BOX_HEAD.POOLER_RESOLUTION = 7
+    m.ROI_MASK_HEAD.NUM_CONV = 4
+    d = cfg.DATASETS
+    d.TRAIN = ("voc_2007_train", "voc_2007_val")
+    d.PROPOSAL_FILES_TRAIN = ("datasets/proposals/mcg_voc_2007_train_d2.pkl",
+                              "datasets/proposals/mcg_voc_2007_val_d2.pkl")
+    d.PRECOMPUTED_PROPOSAL_TOPK_TRAIN = 4000
+    d.TEST = ("voc_2007_test",)
+    d.PROPOSAL_FILES_TEST = ("datasets/proposals/mcg_voc_2007_test_d2.pkl",)
+    d.PRECOMPUTED_PROPOSAL_TOPK_TEST = 4000
+    i = cfg.INPUT
+    i.MIN_SIZE_TRAIN = tuple(range(480, 1217, 32))
+    i.MAX_SIZE_TRAIN = 2000
+    i.MIN_SIZE_TEST = 688
+    i.MAX_SIZE_TEST = 2000
+    i.CROP.ENABLED = True
+    s = cfg.SOLVER
+    s.STEPS = (35000, 35000)
+    s.MAX_ITER = 35000
+    s.WARMUP_ITERS = 0
+    s.IMS_PER_BATCH = 4
+    s.BASE_LR = 0.001
+    s.WEIGHT_DECAY = 0.0005
+    s.BIAS_LR_FACTOR = 2.0
+    s.WEIGHT_DECAY_BIAS = 0.0
+    t = cfg.TEST
+    t.AUG.ENABLED = True
+    t.AUG.MIN_SIZES = (480, 576, 672, 768, 864, 960, 1056, 1152)
+    t.AUG.MAX_SIZE = 4000
+    t.AUG.FLIP = True
+    t.EVAL_PERIOD = 10000
+    return cfg
+
+
+def wsddn_R_18_narrow_cfg() -> CN:
+    """``wsddn_R_18_DC5_cfg()`` cut by ``_wsod_narrow`` (its short side 128,
+    64 proposals, a DAN 64 wide, float32), keeping the yaml's INPUT.CROP
+    and FREEZE_AT 2."""
+    return _wsod_narrow(wsddn_R_18_DC5_cfg())

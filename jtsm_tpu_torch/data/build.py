@@ -196,14 +196,14 @@ class StaticBatchLoader:
 
         if self.num_workers <= 0:
             for idx in self.sampler:
-                yield timed(self._timed_map(idx, self.dataset.draw()))
+                yield timed(self._timed_map(idx, self.dataset.draw(idx)))
             return
         depth = max(self.num_workers * 2, self.batch_size)
         with ThreadPoolExecutor(self.num_workers) as pool:
             pending: collections.deque = collections.deque()
             try:
                 for idx in self.sampler:
-                    pending.append(pool.submit(self._timed_map, idx, self.dataset.draw()))
+                    pending.append(pool.submit(self._timed_map, idx, self.dataset.draw(idx)))
                     if len(pending) >= depth:
                         yield timed(pending.popleft().result())
                 while pending:

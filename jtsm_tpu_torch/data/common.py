@@ -23,11 +23,14 @@ class MapDataset:
     def __getitem__(self, idx):
         return self._map_func(self._dataset[idx])
 
-    def draw(self):
-        """The map function's random draws for one item (its ``draw()``),
+    def draw(self, idx=None):
+        """The map function's random draws for item ``idx`` (its
+        ``draw()``, or ``draw(record)`` where they depend on the record),
         or None for a function without draws."""
         draw = getattr(self._map_func, "draw", None)
-        return draw() if draw is not None else None
+        if draw is None:
+            return None
+        return draw(self._dataset[idx]) if getattr(self._map_func, "draws_on_record", False) else draw()
 
     def map(self, idx, drawn):
         """Item ``idx`` mapped with the draws ``drawn`` (from ``draw()``)."""

@@ -4,8 +4,8 @@ detectron2/data/detection_utils.py:165 ``read_image``, :212
 ``transform_proposals``, :260 ``transform_instance_annotations``, :320
 ``transform_keypoint_annotations``, :366 ``annotations_to_instances``,
 :460 ``filter_empty_instances``, :494 ``create_keypoint_hflip_indices``,
-:571 ``build_augmentation``; JAX package ``data/detection_utils.py:64,83,
-91,106,133,169,197,275,303,379,405,418,468,476``).
+:512 ``gen_crop_transform_with_instance``, :571 ``build_augmentation``; JAX package ``data/detection_utils.py:64,83,
+91,106,133,169,197,275,303,357,379,405,418,468,476``).
 
 ``read_image`` and ``read_sem_seg`` decode with Pillow, imported when they
 are called; where Pillow is absent they raise. Images and ground truth made
@@ -115,6 +115,25 @@ def check_image_size(dataset_dict: dict, image: np.ndarray) -> None:
             )
     dataset_dict.setdefault("width", image.shape[1])
     dataset_dict.setdefault("height", image.shape[0])
+
+
+def gen_crop_transform_with_instance(crop_size, image_size, instance, rng=np.random) -> T.CropTransform:
+    """A ``crop_size`` (h, w) window of an image of ``image_size`` (h, w)
+    that holds the centre of ``instance``'s box (reference
+    detection_utils.py:512, JAX package ``detection_utils.py:357-376``),
+    its corner drawn with ``randint`` from ``rng``, y0 then x0."""
+    crop_size = np.asarray(crop_size, dtype=np.int32)
+    bbox = BoxMode.convert(instance["bbox"], instance["bbox_mode"], BoxMode.XYXY_ABS)
+    center_yx = (bbox[1] + bbox[3]) * 0.5, (bbox[0] + bbox[2]) * 0.5
+    assert image_size[0] >= center_yx[0] and image_size[1] >= center_yx[1], \
+        "The annotation bounding box is outside of the image!"
+    assert image_size[0] >= crop_size[0] and image_size[1] >= crop_size[1], "Crop size is larger than image size!"
+    min_yx = np.maximum(np.floor(center_yx).astype(np.int32) - crop_size, 0)
+    max_yx = np.maximum(np.asarray(image_size, dtype=np.int32) - crop_size, 0)
+    max_yx = np.minimum(max_yx, np.ceil(center_yx).astype(np.int32))
+    y0 = rng.randint(min_yx[0], max_yx[0] + 1)
+    x0 = rng.randint(min_yx[1], max_yx[1] + 1)
+    return T.CropTransform(x0, y0, crop_size[1], crop_size[0])
 
 
 def build_augmentation(cfg, is_train: bool) -> List[T.Augmentation]:

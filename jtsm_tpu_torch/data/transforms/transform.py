@@ -1,7 +1,7 @@
 """Deterministic image transforms on the host, in numpy (reference:
 detectron2/data/transforms/transform.py:94 ``ResizeTransform``; JAX package
-``data/transforms/transform.py:34,97,111,173,203``): resizes and flips of
-images, coordinates, boxes, polygons and segmentations.
+``data/transforms/transform.py:34,97,111,173,203,219``): resizes, flips and
+crops of images, coordinates, boxes, polygons and segmentations.
 
 The JAX package resizes uint8 images with Pillow's ``BILINEAR`` filter.
 Pillow is absent where the port runs on the card, so ``resize_bilinear_uint8``
@@ -267,3 +267,24 @@ class ResizeTransform(Transform):
         if seg.dtype == np.uint8 or seg.dtype == bool:
             return resize_nearest(seg, self.new_h, self.new_w)
         return resize_nearest(seg.astype(np.float32), self.new_h, self.new_w)
+
+
+class CropTransform(Transform):
+    """The window of ``w`` x ``h`` at (``x0``, ``y0``) (reference
+    transform.py ``CropTransform``; JAX package ``transform.py:219-231``):
+    images and segmentations are sliced, coordinates shifted. Polygons are
+    shifted point by point and not clipped to the window, as in the JAX
+    package (detectron2 clips them with shapely; ROADMAP §3); boxes take
+    the envelope of their shifted corners, which the callers clip."""
+
+    def __init__(self, x0: int, y0: int, w: int, h: int):
+        self.x0, self.y0, self.w, self.h = x0, y0, w, h
+
+    def apply_image(self, img):
+        return img[self.y0:self.y0 + self.h, self.x0:self.x0 + self.w]
+
+    def apply_coords(self, coords):
+        coords = np.asarray(coords, dtype=np.float64).copy()
+        coords[:, 0] -= self.x0
+        coords[:, 1] -= self.y0
+        return coords

@@ -8,11 +8,13 @@ loader and the evaluator are arguments, so that the WSL command
 (``wsl/train_net.py``) runs the same loop with its own.
 
 ``DefaultTrainer(cfg)`` builds the model on the card (or ``device``), the
-train loader, the SGD optimizer and the schedule, and trains with the
+train loader, the optimizer of SOLVER.OPTIMIZER and the schedule, and trains with the
 hooks of ``build_hooks``: the iteration timer, the learning rate, the
-periodic checkpoints, scoring every TEST.EVAL_PERIOD iterations (none
-when it is 0, as in the JAX package) and the writers (the console and
-``metrics.json``, every 20 iterations). ``resume_or_load()`` loads
+periodic checkpoints, under TEST.PRECISE_BN and with trainable batch
+norms PreciseBN every TEST.EVAL_PERIOD iterations, scoring every
+TEST.EVAL_PERIOD iterations (none when it is 0, as in the JAX package)
+and the writers (the console, ``metrics.json`` and TensorBoard's event
+files in OUTPUT_DIR, every 20 iterations). ``resume_or_load()`` loads
 MODEL.WEIGHTS or, with ``resume``, the newest checkpoint of OUTPUT_DIR
 with the optimizer's and the trainer's state; ``train()`` runs to
 SOLVER.MAX_ITER."""
@@ -42,12 +44,13 @@ from ..evaluation import (
     verify_results,
 )
 from ..evaluation.evaluator import add_time
+from ..layers import batch_norms
 from ..modeling import build_model
 from ..modeling.meta_arch.panoptic_fpn import panoptic_fusion_postprocess
 from ..modeling.test_time_augmentation import GeneralizedRCNNWithTTA
 from ..solver import build_lr_schedule, build_optimizer
 from ..utils.env import seed_all_rng
-from ..utils.events import CommonMetricPrinter, JSONWriter
+from ..utils.events import CommonMetricPrinter, JSONWriter, TensorboardXWriter
 from . import hooks
 from .trainer import SimpleTrainer, TrainerBase
 
@@ -245,8 +248,8 @@ class DefaultTrainer(TrainerBase):
 
     def build_hooks(self) -> List[hooks.HookBase]:
         cfg = self.cfg
-        if cfg.VIS_PERIOD > 0 or cfg.TEST.PRECISE_BN.ENABLED:
-            logger.warning("VIS_PERIOD and TEST.PRECISE_BN are not ported; training without them")
+        if cfg.VIS_PERIOD > 0:
+            logger.warning("VIS_PERIOD is not ported; training without the visualization")
         ret = [
             hooks.IterationTimer(),
             hooks.LRScheduler(self.schedule),
@@ -262,13 +265,21 @@ class DefaultTrainer(TrainerBase):
                 self.model.train()
             return self._last_eval_results
 
+        if cfg.TEST.PRECISE_BN.ENABLED and batch_norms(self.model):
+            ret.append(hooks.PreciseBN(cfg.TEST.EVAL_PERIOD, cfg.TEST.PRECISE_BN.NUM_ITER))
         if cfg.TEST.EVAL_PERIOD > 0:
             ret.append(hooks.EvalHook(cfg.TEST.EVAL_PERIOD, test_and_save_results))
         ret.append(hooks.PeriodicWriter(self.build_writers(), period=20))
         return ret
 
     def build_writers(self):
-        return [CommonMetricPrinter(self.max_iter), JSONWriter(os.path.join(self.cfg.OUTPUT_DIR, "metrics.json"))]
+        return [CommonMetricPrinter(self.max_iter), JSONWriter(os.path.join(self.cfg.OUTPUT_DIR, "metrics.json")),
+                TensorboardXWriter(self.cfg.OUTPUT_DIR)]
+
+    def update_precise_bn(self, num_iter: int = 200) -> None:
+        """The batch norms' running statistics recomputed over ``num_iter``
+        train batches (``SimpleTrainer.update_precise_bn``)."""
+        self._trainer.update_precise_bn(num_iter)
 
     def resume_or_load(self, resume: bool = True) -> None:
         """MODEL.WEIGHTS into the model; with ``resume`` and a checkpoint in

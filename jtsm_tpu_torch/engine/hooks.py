@@ -1,9 +1,8 @@
 """Trainer hooks (reference: detectron2/engine/hooks.py:75
 ``IterationTimer``, :147 ``PeriodicWriter``, :181 ``PeriodicCheckpointer``,
-:200 ``LRScheduler``, :307 ``EvalHook``; JAX package ``engine/hooks.py:59,
-90,110,125,138``). ``PreciseBN`` (neither flagship has batch-norm
-statistics), the profiler and the visualization hooks are not ported
-(ROADMAP)."""
+:200 ``LRScheduler``, :307 ``EvalHook``, :367 ``PreciseBN``; JAX package
+``engine/hooks.py:59,90,110,125,138,197``). The profiler and the
+visualization hooks are not ported (ROADMAP)."""
 
 from __future__ import annotations
 
@@ -104,6 +103,22 @@ class LRScheduler(HookBase):
 
     def after_step(self):
         get_event_storage().put_scalar("lr", float(self._schedule_fn(self.trainer.iter)), smoothing_hint=False)
+
+
+class PreciseBN(HookBase):
+    """Every ``period`` iterations, the trainer's ``update_precise_bn`` over
+    ``num_iter`` batches (JAX package ``engine/hooks.py:197-214``); the
+    trainer registers it before the scoring hook, so scoring reads the new
+    statistics."""
+
+    def __init__(self, period: int, num_iter: int = 200):
+        self._period = period
+        self._num_iter = num_iter
+
+    def after_step(self):
+        next_iter = self.trainer.iter + 1
+        if self._period > 0 and next_iter % self._period == 0:
+            self.trainer.update_precise_bn(self._num_iter)
 
 
 class EvalHook(HookBase):

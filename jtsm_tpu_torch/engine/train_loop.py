@@ -13,7 +13,11 @@ get a zero gradient before the update, so weight decay and momentum move
 them as the JAX package's optax chain moves its frozen-stage weights;
 detectron2 would leave them out of the optimizer instead. A model that
 computes in float32 (``model.compute_dtype``) takes the whole step with
-TF32 off for matrix products and cuDNN.
+TF32 off for matrix products and cuDNN. The forward runs under
+``layers.batch_statistics``: trainable batch norms normalise with the
+batch's statistics and move their running statistics once (the JAX
+package's step with ``batch_stats`` mutable), frozen stages' included, as
+FREEZE_AT stops only their gradients there.
 
 With ``iter_size`` k > 1 (WSL.ITER_SIZE) a step is one mini-batch, and
 every k-th takes the update, as the JAX package's ``optax.MultiSteps``
@@ -31,7 +35,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from ..layers import exact_float32
+from ..layers import batch_statistics, exact_float32
 
 
 @dataclass
@@ -94,7 +98,8 @@ def make_train_step(model, optimizer, schedule: Callable[[int], float], iter_siz
     def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         with exact_float32(model.compute_dtype == torch.float32):
             optimizer.zero_grad(set_to_none=True)
-            losses = model(batch, generator=state.generator)
+            with batch_statistics():
+                losses = model(batch, generator=state.generator)
             total = sum(losses.values())
             total.backward()
             if iter_size > 1:

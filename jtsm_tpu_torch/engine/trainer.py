@@ -10,6 +10,8 @@ scalars put at iteration i are the losses of iteration i - 1, so the loop
 reads the device once an iteration, after the next step is queued, and
 the last iteration's losses are never put. The read raises
 ``FloatingPointError`` when the losses' sum is not finite.
+``update_precise_bn`` is the PreciseBN hook's recomputation of the batch
+norms' running statistics.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..layers import batch_norms, batch_statistics, exact_float32
 from ..utils.events import EventStorage
 from .hooks import HookBase
 from .train_loop import create_train_state, make_train_step
@@ -125,6 +128,34 @@ class SimpleTrainer(TrainerBase):
         if not math.isfinite(total):
             raise FloatingPointError(f"Loss became infinite or NaN at iteration={self.iter - 1}!\n"
                                      f"loss_dict = {values}")
+
+    def update_precise_bn(self, num_iter: int = 200) -> None:
+        """PreciseBN as the JAX package computes it (``engine/trainer.py:
+        180-218``): ``num_iter`` batches from the train loader, each through
+        the model in train mode with batch statistics (sampling from the
+        train state's generator, no gradient), each batch norm's running
+        statistics taken after one momentum step from the same starting
+        statistics every time, and their mean kept: 0.9 * old + 0.1 * (the
+        mean of the batch statistics), not detectron2's population
+        statistics (ROADMAP §3). Nothing happens without a trainable batch
+        norm."""
+        norms = batch_norms(self.model)
+        if not norms:
+            return
+        start = [(bn.running_mean.clone(), bn.running_var.clone()) for bn in norms]
+        sums = [(torch.zeros_like(m), torch.zeros_like(v)) for m, v in start]
+        with torch.no_grad(), exact_float32(self.model.compute_dtype == torch.float32), batch_statistics():
+            for _ in range(num_iter):
+                batch = {k: v for k, v in next(self._data_loader_iter).items() if k != "image_ids"}
+                self.model(batch, generator=self.state.generator)
+                for bn, (m, v), (sm, sv) in zip(norms, start, sums):
+                    sm.add_(bn.running_mean)
+                    sv.add_(bn.running_var)
+                    bn.running_mean.copy_(m)
+                    bn.running_var.copy_(v)
+            for bn, (sm, sv) in zip(norms, sums):
+                bn.running_mean.copy_(sm / max(num_iter, 1))
+                bn.running_var.copy_(sv / max(num_iter, 1))
 
     def close(self) -> None:
         """Stops the loader's background thread."""

@@ -1,4 +1,12 @@
-from .batch_norm import FrozenBatchNorm2d, GroupNorm32, get_norm
+from .batch_norm import (
+    FrozenBatchNorm2d,
+    GroupNorm32,
+    LayerNormCF,
+    NaiveSyncBatchNorm,
+    batch_norms,
+    batch_statistics,
+    get_norm,
+)
 from .shape_spec import ShapeSpec
 from .wrappers import (
     Conv2d,
@@ -16,6 +24,10 @@ __all__ = [
     "Conv2d",
     "ConvTranspose2d",
     "FrozenBatchNorm2d",
+    "LayerNormCF",
+    "NaiveSyncBatchNorm",
+    "batch_norms",
+    "batch_statistics",
     "Linear",
     "ShapeSpec",
     "compute_dtype",

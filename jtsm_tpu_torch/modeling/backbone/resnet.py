@@ -7,7 +7,9 @@ NCHW maps; module names follow detectron2 (``stem.conv1``, ``res2.0.conv1``,
 ``shortcut``), so ``state_dict()`` keys are detectron2's. FREEZE_AT detaches
 the stem (1) and the stages up to res{FREEZE_AT} from the graph, as the JAX
 package's ``stop_gradient`` does (``backbone/resnet.py:388-407``): their
-parameters get no gradient. FrozenBN has no statistics to update.
+parameters get no gradient. Their trainable batch norms (BN, SyncBN) still
+normalise with batch statistics and move their running statistics in a
+train step, as in the JAX package (FrozenBN has none to move).
 Every convolution computes in the ``TPU.COMPUTE_DTYPE`` that
 ``build_resnet_backbone`` reads (JAX ``backbone/resnet.py:442``) over
 float32 parameters. ``RES5_DILATION`` 2 (DC5) runs res5 at stride 1 with

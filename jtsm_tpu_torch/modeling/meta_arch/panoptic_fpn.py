@@ -25,7 +25,7 @@ import torch
 from ...layers import exact_float32
 from ...ops.paste_masks import paste_masks
 from ..postprocessing import detector_postprocess_batched
-from .rcnn import GeneralizedRCNN
+from .rcnn import GeneralizedRCNN, serving
 from .semantic_seg import build_sem_seg_head, upsampled_sem_seg
 
 CHUNK_BYTES = 32 * 2**20  # one (rows, W, C) float64 array of the resize at most
@@ -47,7 +47,7 @@ class PanopticFPN(GeneralizedRCNN):
         self.sem_seg_head = build_sem_seg_head(cfg, self.backbone.output_shape())
         self.instance_loss_weight = cfg.MODEL.PANOPTIC_FPN.INSTANCE_LOSS_WEIGHT
 
-    @torch.no_grad()
+    @serving
     def inference(self, batch: Dict) -> Dict[str, Any]:
         with exact_float32(self.compute_dtype == torch.float32):
             features, image_sizes = self._features(batch)

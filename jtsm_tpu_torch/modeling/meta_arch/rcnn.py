@@ -19,7 +19,11 @@ KEYPOINT_ON ``keypoints`` (B, D, K, 4) (x, y, logit, probability); given
 (:meth:`GeneralizedRCNN.inference`). In train mode (``model.train()``): the
 loss dict ``loss_rpn_cls``, ``loss_rpn_loc``, ``loss_cls``,
 ``loss_box_reg`` and, with MASK_ON, ``loss_mask``, with KEYPOINT_ON
-``loss_keypoint``.
+``loss_keypoint``. ``inference`` serves as in eval mode in either mode
+(``serving``). Trainable batch norms normalise with the batch's statistics
+only under ``layers.batch_statistics`` (the train step, PreciseBN); a
+train-mode forward outside it takes the running statistics, as the JAX
+package's ``apply(train=True)`` without a mutable ``batch_stats`` does.
 
 Sampling in training draws uniforms from the generator passed to
 ``forward``, in this order: the RPN's positive and negative anchor draws
@@ -36,16 +40,39 @@ with TF32 off for matrix products and cuDNN (``exact_float32``).
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 
-from ...layers import compute_dtype, exact_float32
+from ...layers import batch_statistics, compute_dtype, exact_float32
 from ..backbone import build_backbone
 from ..postprocessing import detector_postprocess_batched
 from ..proposal_generator.rpn import build_proposal_generator
 from ..roi_heads.roi_heads import build_roi_heads
+
+
+def serving(inference):
+    """Makes a meta-architecture's ``inference`` serve as in eval mode
+    whatever mode the model is in: without gradients, every module in
+    eval mode for the call (the RPN's test top-k, the heads' detections)
+    and the batch norms on their running statistics, as the JAX package's
+    ``apply(train=False)`` without ``mutable``; the modules' modes come
+    back afterwards."""
+
+    @functools.wraps(inference)
+    def wrapped(self, *args, **kwargs):
+        modes = [(m, m.training) for m in self.modules()]
+        self.eval()
+        try:
+            with torch.no_grad(), batch_statistics(False):
+                return inference(self, *args, **kwargs)
+        finally:
+            for m, training in modes:
+                m.training = training
+
+    return wrapped
 
 
 class BackboneModel(nn.Module):
@@ -109,7 +136,7 @@ class GeneralizedRCNN(BackboneModel):
                       else torch.as_tensor(valid, dtype=torch.bool, device=dev)),
         }
 
-    @torch.no_grad()
+    @serving
     def inference(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Detections for a batch dict (see the module docstring). Inputs
         are moved to the model's device. With ``detected_boxes`` (and
@@ -159,7 +186,7 @@ class ProposalNetwork(BackboneModel):
         super().__init__(cfg)
         self.proposal_generator = build_proposal_generator(cfg, self.backbone.output_shape())
 
-    @torch.no_grad()
+    @serving
     def inference(self, batch: Dict) -> Dict[str, torch.Tensor]:
         with exact_float32(self.compute_dtype == torch.float32):
             features, image_sizes = self._features(batch)

@@ -47,7 +47,7 @@ from ...structures.boxes import pairwise_iou
 from ..anchor_generator import build_anchor_generator
 from ..postprocessing import detector_postprocess_batched
 from ..proposal_generator.proposal_utils import topk_stable
-from .rcnn import BackboneModel
+from .rcnn import BackboneModel, serving
 
 NMS_CANDIDATES_TEST = 1024  # the JAX package's cap (retinanet.py:113; the reference: none)
 
@@ -198,7 +198,7 @@ class RetinaNet(BackboneModel):
             self.score_thresh, self.nms_thresh, self.detections_per_image,
         )
 
-    @torch.no_grad()
+    @serving
     def inference(self, batch: Dict) -> Dict[str, torch.Tensor]:
         with exact_float32(self.compute_dtype == torch.float32):
             features, image_sizes = self._features(batch)

@@ -28,7 +28,7 @@ from ...layers import (
     variance_scaling,
 )
 from ...ops.losses import softmax_cross_entropy
-from .rcnn import BackboneModel
+from .rcnn import BackboneModel, serving
 
 
 class SemSegFPNHead(nn.Module):
@@ -139,7 +139,7 @@ class SemanticSegmentor(BackboneModel):
         super().__init__(cfg)
         self.sem_seg_head = build_sem_seg_head(cfg, self.backbone.output_shape())
 
-    @torch.no_grad()
+    @serving
     def inference(self, batch: Dict) -> Dict[str, torch.Tensor]:
         with exact_float32(self.compute_dtype == torch.float32):
             features, _ = self._features(batch)

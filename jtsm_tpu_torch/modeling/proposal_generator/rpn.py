@@ -22,7 +22,7 @@ from torch import nn
 
 from ...layers import Conv2d, ShapeSpec, compute_dtype, normal
 from ...ops.box_regression import Box2BoxTransform
-from ...ops.losses import binary_cross_entropy_with_logits, smooth_l1_loss
+from ...ops.losses import binary_cross_entropy_with_logits, giou_loss, smooth_l1_loss
 from ...ops.matcher import Matcher
 from ...ops.sampling import subsample_labels
 from ...structures.boxes import pairwise_iou
@@ -84,8 +84,9 @@ class RPN(nn.Module):
         self.loss_weight = r.LOSS_WEIGHT
         self.box_reg_loss_weight = r.BBOX_REG_LOSS_WEIGHT
         self.smooth_l1_beta = r.SMOOTH_L1_BETA
-        if r.BBOX_REG_LOSS_TYPE != "smooth_l1":
-            raise NotImplementedError(f"RPN box loss {r.BBOX_REG_LOSS_TYPE!r} is not ported yet")
+        if r.BBOX_REG_LOSS_TYPE not in ("smooth_l1", "giou"):
+            raise ValueError(f"RPN box loss {r.BBOX_REG_LOSS_TYPE!r} is not one of smooth_l1, giou")
+        self.box_reg_loss_type = r.BBOX_REG_LOSS_TYPE
 
     def forward(
         self,
@@ -151,8 +152,9 @@ class RPN(nn.Module):
         (B, N) and deltas (B, N, 4) against the padded ground truth (JAX
         ``rpn.py:246``): match, ignore anchors past ``BOUNDARY_THRESH``,
         sample with the uniform draws ``u_pos`` and ``u_neg`` (B, N),
-        objectness BCE over the sampled anchors and L1 on the positives'
-        deltas, both over ``BATCH_SIZE_PER_IMAGE * B``."""
+        objectness BCE over the sampled anchors and, on the positives,
+        smooth L1 on the deltas or (BBOX_REG_LOSS_TYPE giou) the GIoU loss
+        of the decoded boxes, both over ``BATCH_SIZE_PER_IMAGE * B``."""
         b, n = logits.shape
         gt_boxes = gt_boxes.to(torch.float32)
         iou = pairwise_iou(gt_boxes, anchors)  # (B, G, N)
@@ -173,9 +175,13 @@ class RPN(nn.Module):
         sampled = (pos_mask | neg_mask).to(torch.float32)
         obj_loss = (binary_cross_entropy_with_logits(logits, pos_mask.to(torch.float32)) * sampled).sum()
         matched_gt = torch.gather(gt_boxes, 1, matched_idx[..., None].expand(b, n, 4))
-        target = self.box2box_transform.get_deltas(anchors, matched_gt)
-        reg = smooth_l1_loss(deltas, target, self.smooth_l1_beta)
-        reg_loss = (reg * pos_mask[..., None].to(torch.float32)).sum()
+        if self.box_reg_loss_type == "smooth_l1":
+            target = self.box2box_transform.get_deltas(anchors, matched_gt)
+            reg = smooth_l1_loss(deltas, target, self.smooth_l1_beta)
+            reg_loss = (reg * pos_mask[..., None].to(torch.float32)).sum()
+        else:  # giou on the decoded boxes (JAX rpn.py:287-293)
+            reg = giou_loss(self.box2box_transform.apply_deltas(deltas, anchors), matched_gt)
+            reg_loss = (reg * pos_mask.to(torch.float32)).sum()
         normalizer = self.batch_size_per_image * b
         return {
             "loss_rpn_cls": obj_loss / normalizer * self.loss_weight,

@@ -16,7 +16,7 @@ from torch import nn
 
 from ...layers import Linear, normal
 from ...ops.box_regression import Box2BoxTransform
-from ...ops.losses import smooth_l1_loss, softmax_cross_entropy
+from ...ops.losses import giou_loss, smooth_l1_loss, softmax_cross_entropy
 from ...ops.nms import batched_nms_mask
 from ...structures.boxes import clip_boxes, nonempty_boxes
 from ..proposal_generator.proposal_utils import topk_stable
@@ -49,10 +49,14 @@ def fast_rcnn_losses(
     box2box_transform: Box2BoxTransform,
     num_classes: int,
     smooth_l1_beta: float = 0.0,
+    box_reg_loss_type: str = "smooth_l1",
 ) -> Dict[str, torch.Tensor]:
-    """Softmax cross entropy over the valid slots and smooth-L1 on the
-    foreground slots' deltas of their class, both over the number of valid
-    slots (JAX ``fast_rcnn.py:58``)."""
+    """Softmax cross entropy over the valid slots and, on the foreground
+    slots' deltas of their class, smooth-L1 or (``box_reg_loss_type``
+    giou) the GIoU loss of the boxes they decode to, both over the number
+    of valid slots (JAX ``fast_rcnn.py:58-95``). As in the JAX package,
+    ROI_BOX_HEAD.BBOX_REG_LOSS_WEIGHT does not scale ``loss_box_reg``
+    (ROADMAP §3)."""
     valid_f = valid.to(torch.float32)
     normalizer = valid_f.sum().clamp(min=1.0)
     loss_cls = (softmax_cross_entropy(scores, gt_classes) * valid_f).sum() / normalizer
@@ -64,8 +68,10 @@ def fast_rcnn_losses(
         d = deltas.reshape(deltas.shape[0], -1, 4)
         cls = gt_classes.long().clamp(0, d.shape[1] - 1)
         sel = torch.gather(d, 1, cls[:, None, None].expand(-1, 1, 4))[:, 0]
-    target = box2box_transform.get_deltas(proposal_boxes, gt_boxes)
-    reg = smooth_l1_loss(sel, target, smooth_l1_beta).sum(dim=-1)
+    if box_reg_loss_type == "smooth_l1":
+        reg = smooth_l1_loss(sel, box2box_transform.get_deltas(proposal_boxes, gt_boxes), smooth_l1_beta).sum(dim=-1)
+    else:
+        reg = giou_loss(box2box_transform.apply_deltas(sel, proposal_boxes), gt_boxes)
     loss_box = (reg * fg.to(torch.float32)).sum() / normalizer
     return {"loss_cls": loss_cls, "loss_box_reg": loss_box}
 

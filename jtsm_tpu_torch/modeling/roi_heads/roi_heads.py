@@ -14,7 +14,11 @@ branch, and as many again for the keypoint branch, with uniform draws from
 the caller's generator; the ROIs of each branch are image-major, so each
 pooler runs once per step, and the heads return the losses ``loss_cls``,
 ``loss_box_reg``, ``loss_mask`` and ``loss_keypoint`` (the last where the
-targets hold ``gt_keypoints``, JAX ``roi_heads.py:270-272``)."""
+targets hold ``gt_keypoints``, JAX ``roi_heads.py:270-272``), and those of
+``_forward_extra_train``. Under ROI_BOX_HEAD.TRAIN_ON_PRED_BOXES the mask
+and keypoint branches pool, and take their targets on, the boxes that the
+box head's detached deltas of each slot's class decode to, not the
+sampled proposals."""
 
 from __future__ import annotations
 
@@ -60,10 +64,10 @@ class StandardROIHeads(nn.Module):
         self.positive_fraction = rh.POSITIVE_FRACTION
         self.proposal_append_gt = rh.PROPOSAL_APPEND_GT
         self.smooth_l1_beta = bh.SMOOTH_L1_BETA
-        if bh.BBOX_REG_LOSS_TYPE != "smooth_l1":
-            raise NotImplementedError(f"box loss {bh.BBOX_REG_LOSS_TYPE!r} is not ported yet")
-        if bh.TRAIN_ON_PRED_BOXES:
-            raise NotImplementedError("TRAIN_ON_PRED_BOXES is not ported yet")
+        if bh.BBOX_REG_LOSS_TYPE not in ("smooth_l1", "giou"):
+            raise ValueError(f"box loss {bh.BBOX_REG_LOSS_TYPE!r} is not one of smooth_l1, giou")
+        self.box_reg_loss_type = bh.BBOX_REG_LOSS_TYPE
+        self.train_on_pred_boxes = bh.TRAIN_ON_PRED_BOXES
         self.score_thresh = cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST
         self.nms_thresh = cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST
         self.detections_per_image = cfg.TEST.DETECTIONS_PER_IMAGE
@@ -182,13 +186,26 @@ class StandardROIHeads(nn.Module):
         losses = fast_rcnn_losses(
             scores, deltas, flat_boxes, sampled["gt_classes"].reshape(-1),
             sampled["gt_boxes"].reshape(-1, 4), sampled["valid"].reshape(-1),
-            self.box2box_transform, self.num_classes, self.smooth_l1_beta,
+            self.box2box_transform, self.num_classes, self.smooth_l1_beta, self.box_reg_loss_type,
         )
+        if self.train_on_pred_boxes:
+            # the later branches take the boxes the gt class's deltas decode
+            # to, as data (JAX roi_heads.py:256-264)
+            d = deltas.detach().reshape(b * s, -1, 4)
+            cls = sampled["gt_classes"].reshape(-1).long().clamp(0, d.shape[1] - 1)
+            sel = torch.gather(d, 1, cls[:, None, None].expand(-1, 1, 4))[:, 0]
+            sampled = dict(sampled, boxes=self.box2box_transform.apply_deltas(sel, flat_boxes).reshape(b, s, 4))
         if self.mask_on:
             losses["loss_mask"] = self._forward_mask_train(feats, sampled, targets, generator)
         if self.keypoint_on and "gt_keypoints" in targets:
             losses["loss_keypoint"] = self._forward_keypoint_train(feats, sampled, targets, generator)
+        losses.update(self._forward_extra_train(features, sampled, targets, generator))
         return losses
+
+    def _forward_extra_train(self, features, sampled, targets, generator) -> Dict[str, torch.Tensor]:
+        """The losses of a subclass's further branches on the sampled slots
+        (JAX ``roi_heads.py:339``); none here."""
+        return {}
 
     def _pick_foreground(self, sampled, generator):
         """Up to ``mask_fg_capacity`` foreground slots per image by priority

@@ -2,6 +2,7 @@
 detectron2/solver/build.py:110 ``build_optimizer``, :127
 ``get_default_optimizer_params``; JAX package ``solver/build.py`` :25
 ``build_lr_schedule``, :113 ``_param_label_fn``, :128 ``build_optimizer``).
+SOLVER.OPTIMIZER ``ADAM`` gives :class:`Adam` (see ``build_optimizer``).
 
 The JAX package's optax chain per parameter group is
 ``add_decayed_weights(wd)`` -> ``trace(momentum)`` -> ``scale_by_schedule(-lr
@@ -12,9 +13,9 @@ it before each update. Three groups follow ``_param_label_fn``: ``regular``,
 (WEIGHT_DECAY_NORM).
 
 ``SOLVER.CLIP_GRADIENTS`` (JAX package ``solver/build.py:148-185``) comes
-first in that chain, on the raw gradients: the optimizer is :class:`SGD`,
-whose ``clip_gradients()`` the train step calls between the backward pass
-and ``step()``. ``value`` clamps each element to [-c, c] (``optax.clip``);
+first in that chain, on the raw gradients: the optimizer is :class:`SGD`
+(or :class:`Adam`), whose ``clip_gradients()`` the train step calls
+between the backward pass and ``step()``. ``value`` clamps each element to [-c, c] (``optax.clip``);
 ``full_model`` rescales every gradient by c / (global L2 norm) when the
 norm is at least c (``optax.clip_by_global_norm``, no epsilon);
 ``norm`` rescales each parameter's gradient on its own by min(1, c /
@@ -28,7 +29,7 @@ from typing import Callable, List, Optional
 
 import torch
 
-from .lr_scheduler import WarmupCosineLR, WarmupMultiStepLR
+from .lr_scheduler import WarmupCosineLR, WarmupMultiStepLR, WarmupPolyLR
 
 
 def build_lr_schedule(cfg) -> Callable[[int], float]:
@@ -41,6 +42,9 @@ def build_lr_schedule(cfg) -> Callable[[int], float]:
         return WarmupMultiStepLR(s.BASE_LR, s.STEPS, s.GAMMA, **warmup)
     if s.LR_SCHEDULER_NAME == "WarmupCosineLR":
         return WarmupCosineLR(s.BASE_LR, s.MAX_ITER, **warmup)
+    if s.LR_SCHEDULER_NAME == "WarmupPolyLR":
+        return WarmupPolyLR(s.BASE_LR, s.MAX_ITER, power=getattr(s, "POLY_LR_POWER", 0.9),
+                            constant_ending=getattr(s, "POLY_LR_CONSTANT_ENDING", 0.0), **warmup)
     raise NotImplementedError(f"LR scheduler {s.LR_SCHEDULER_NAME!r} is not ported yet")
 
 
@@ -98,8 +102,9 @@ def build_gradient_clipper(cfg) -> Optional[Callable[[List[torch.Tensor]], None]
     raise ValueError(f"SOLVER.CLIP_GRADIENTS.CLIP_TYPE {c.CLIP_TYPE!r} is not one of value, full_model, norm")
 
 
-class SGD(torch.optim.SGD):
-    """``torch.optim.SGD`` with the configured gradient clip."""
+class _Clipped:
+    """An optimizer with the configured gradient clip, which the train step
+    applies before ``step()``."""
 
     def __init__(self, params, clip: Optional[Callable[[List[torch.Tensor]], None]] = None, **kwargs):
         super().__init__(params, **kwargs)
@@ -112,12 +117,27 @@ class SGD(torch.optim.SGD):
             self.clip([p.grad for group in self.param_groups for p in group["params"]])
 
 
-def build_optimizer(cfg, model: torch.nn.Module) -> SGD:
-    """SGD with momentum over every trainable parameter of ``model``, in
-    the three groups; each group's ``lr_factor`` scales the schedule."""
+class SGD(_Clipped, torch.optim.SGD):
+    """``torch.optim.SGD`` with the configured gradient clip."""
+
+
+class Adam(_Clipped, torch.optim.Adam):
+    """``torch.optim.Adam`` with the configured gradient clip."""
+
+
+def build_optimizer(cfg, model: torch.nn.Module) -> torch.optim.Optimizer:
+    """SOLVER.OPTIMIZER over every trainable parameter of ``model``, in the
+    three groups; each group's ``lr_factor`` scales the schedule. ``SGD``
+    is SGD with momentum; ``ADAM`` is the JAX package's per-group chain
+    ``add_decayed_weights(wd)`` -> ``scale_by_adam()`` -> the scheduled
+    rate (``solver/build.py:127-139``), which is ``torch.optim.Adam`` with
+    L2 weight decay added to the gradient, betas (0.9, 0.999) and eps 1e-8
+    outside the square root. SOLVER.MOMENTUM and NESTEROV do not reach
+    Adam, as in the JAX package."""
     s = cfg.SOLVER
-    if s.OPTIMIZER.upper() != "SGD":
-        raise NotImplementedError(f"optimizer {s.OPTIMIZER!r} is not ported yet")
+    optimizer = s.OPTIMIZER.upper()
+    if optimizer not in ("SGD", "ADAM"):
+        raise ValueError(f"SOLVER.OPTIMIZER {s.OPTIMIZER!r} is not one of SGD, ADAM")
     settings = {
         "regular": (s.WEIGHT_DECAY, 1.0),
         "bias": (s.WEIGHT_DECAY_BIAS, s.BIAS_LR_FACTOR),
@@ -132,6 +152,8 @@ def build_optimizer(cfg, model: torch.nn.Module) -> SGD:
          "label": label}
         for label, (wd, factor) in settings.items() if params[label]
     ]
+    if optimizer == "ADAM":
+        return Adam(groups, clip=build_gradient_clipper(cfg), lr=float(s.BASE_LR), betas=(0.9, 0.999), eps=1e-8)
     return SGD(
         groups, clip=build_gradient_clipper(cfg), lr=float(s.BASE_LR), momentum=s.MOMENTUM, dampening=0.0,
         nesterov=s.NESTEROV,

@@ -77,3 +77,30 @@ class WarmupCosineLR(_WarmupSchedule):
     def __call__(self, step: int) -> float:
         progress = min(max(step / max(self.max_iters, 1), 0.0), 1.0)
         return self.base_lr * self._warmup(step) * 0.5 * (1.0 + math.cos(math.pi * progress))
+
+
+class WarmupPolyLR(_WarmupSchedule):
+    """Warmup, then ``(1 - step / max_iters) ** power``, progress clipped to
+    [0, 1], never below ``constant_ending`` (DeepLab's schedule; JAX
+    package ``solver/build.py:58-66`` and ``lr_scheduler.py:93-115``). As
+    there, the floor applies in warm-up too."""
+
+    def __init__(
+        self,
+        base_lr: float = 1.0,
+        max_iters: int = 1,
+        warmup_factor: float = 0.001,
+        warmup_iters: int = 1000,
+        warmup_method: str = "linear",
+        power: float = 0.9,
+        constant_ending: float = 0.0,
+    ):
+        super().__init__(base_lr, warmup_factor, warmup_iters, warmup_method)
+        self.max_iters = int(max_iters)
+        self.power = float(power)
+        self.constant_ending = float(constant_ending)
+
+    def __call__(self, step: int) -> float:
+        progress = min(max(step / max(self.max_iters, 1), 0.0), 1.0)
+        poly = max((1.0 - progress) ** self.power, self.constant_ending)
+        return self.base_lr * self._warmup(step) * poly

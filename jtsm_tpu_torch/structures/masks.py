@@ -202,6 +202,32 @@ class PolygonMasks:
     def __len__(self) -> int:
         return len(self.polygons)
 
+    def get_bounding_boxes(self) -> np.ndarray:
+        """(N, 4) float32 XYXY: each instance's least and greatest polygon
+        coordinates, the greatest never below 0, as the JAX package computes
+        them (``structures/masks.py:237-250``)."""
+        boxes = np.zeros((len(self.polygons), 4), dtype=np.float32)
+        for idx, per_instance in enumerate(self.polygons):
+            minxy, maxxy = np.array([np.inf, np.inf]), np.zeros(2)
+            for polygon in per_instance:
+                coords = polygon.reshape(-1, 2)
+                minxy = np.minimum(minxy, coords.min(axis=0))
+                maxxy = np.maximum(maxxy, coords.max(axis=0))
+            boxes[idx, :2], boxes[idx, 2:] = minxy, maxxy
+        return boxes
+
+
+def bitmask_bounding_boxes(masks: np.ndarray) -> np.ndarray:
+    """(N, 4) float32 XYXY of (N, H, W) bool masks: the extent of each
+    mask's pixels, the far sides one past the last, zeros for an empty mask
+    (the JAX package's ``BitMasks.get_bounding_boxes``)."""
+    boxes = np.zeros((len(masks), 4), dtype=np.float32)
+    for i, m in enumerate(masks):
+        ys, xs = np.nonzero(m)
+        if len(ys):
+            boxes[i] = [xs.min(), ys.min(), xs.max() + 1, ys.max() + 1]
+    return boxes
+
 
 def _axis_weights(c0: torch.Tensor, bin_size: torch.Tensor, s: int, m: int) -> torch.Tensor:
     """(N, s, m) bilinear hat weights of one sample at the centre of each of

@@ -6,8 +6,10 @@
 flush them. ``JSONWriter`` writes the JAX package's ``metrics.json``
 lines: at each flush, one JSON object per iteration that holds a
 scalar's newest value (median-smoothed over 20 iterations where the
-scalar asks for it), keys sorted. The TensorBoard writer is not ported
-(ROADMAP)."""
+scalar asks for it), keys sorted. ``TensorboardXWriter`` (JAX package
+``utils/events.py:275-300``) writes the same scalars into TensorBoard's
+event files, through ``torch.utils.tensorboard`` where it is installed, and
+is a no-op with a warning where it is not."""
 
 from __future__ import annotations
 
@@ -185,3 +187,37 @@ class CommonMetricPrinter(EventWriter):
             + (f"time: {iter_time:.4f}  " if iter_time is not None else "")
             + (f"data_time: {data_time:.4f}  " if data_time is not None else "") + f"lr: {lr}"
         )
+
+
+class TensorboardXWriter(EventWriter):
+    """Adds each scalar's newest value (median-smoothed where the scalar
+    asks for it, as ``JSONWriter`` writes it) at its iteration to the event
+    files of ``log_dir``, once per iteration that is newer than the last
+    flush (reference events.py:130). ``torch.utils.tensorboard`` is
+    imported here; without it the writer warns and writes nothing."""
+
+    def __init__(self, log_dir: str, window_size: int = 20, **kwargs):
+        self._window_size = window_size
+        self._writer = None
+        self._last_write = -1
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            self._writer = SummaryWriter(log_dir, **kwargs)
+        except Exception as e:
+            logging.getLogger("jtsm_tpu_torch.utils.events").warning(
+                f"tensorboard is not available ({type(e).__name__}: {e}); TensorboardXWriter writes nothing")
+
+    def write(self) -> None:
+        if self._writer is None:
+            return
+        new_last_write = self._last_write
+        for k, (v, itr) in get_event_storage().latest_with_smoothing_hint(self._window_size).items():
+            if itr > self._last_write:
+                self._writer.add_scalar(k, v, itr)
+                new_last_write = max(new_last_write, itr)
+        self._last_write = new_last_write
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.close()

@@ -34,7 +34,7 @@ from typing import Dict, Optional
 import torch
 
 from ...layers import exact_float32
-from ...modeling.meta_arch.rcnn import BackboneModel, GeneralizedRCNN
+from ...modeling.meta_arch.rcnn import BackboneModel, GeneralizedRCNN, serving
 from ...modeling.meta_arch.semantic_seg import build_sem_seg_head, upsampled_sem_seg
 from ...modeling.postprocessing import detector_postprocess_batched
 from .roi_heads_jtsm import JTSMROIHeads
@@ -51,7 +51,7 @@ class GeneralizedMCNNWSL(BackboneModel):
 
     given_detections = GeneralizedRCNN.given_detections
 
-    @torch.no_grad()
+    @serving
     def inference(self, batch: Dict) -> Dict[str, torch.Tensor]:
         with exact_float32(self.compute_dtype == torch.float32):
             features, image_sizes = self._features(batch)
@@ -138,7 +138,7 @@ class GeneralizedRCNNWSL(BackboneModel):
         return (torch.as_tensor(batch["proposals"], dtype=torch.float32, device=dev),
                 torch.as_tensor(batch["proposal_scores"], dtype=torch.float32, device=dev))
 
-    @torch.no_grad()
+    @serving
     def inference(self, batch: Dict) -> Dict[str, torch.Tensor]:
         with exact_float32(self.compute_dtype == torch.float32):
             features, image_sizes = self._features(batch)
