@@ -199,19 +199,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
    next losses) with the losses within 1e-4 relative and each update
    within 2e-3 of its norm, and OICR scored with TEST.AUG (TTA-AVG) within
    1e-4; these launches count in no total; (b) each of the
-   four full-width configurations (random weights from a seed) serves 8
+   four full-width configurations (random weights from a seed) serves 4
    requests of one 375x500 image at 688x917 with 2000 seeded proposals in
    each of bf16 (as configured) and f32, in turns: K1 once a request, the
    detections finite, PCL without per-proposal class scores; then the
    stage split (backbone, pool, dan, heads, nms) with its host syncs, the
    weights' and the request's peak memory; (c) each full-width config's
    train step at IMS_PER_BATCH 4 in bf16 and f32, in turns (median of steps
-   2-5, the stage split, the step's peak memory; K1 once a step, K2 once
+   2-3, the stage split, the step's peak memory; K1 once a step, K2 once
    under VGG16's FREEZE_AT 2 and never under WSR-18's FREEZE_AT 5), and
    OICR on each backbone through the WSL trainer on 8 in-memory VOC scenes
-   with 2000 proposals (ITER_SIZE 4 for WSR-18, 1 for VGG16; s/iter,
-   ``data_time``, the parameters moving at each ITER_SIZE-th mini-batch
-   only);
+   with 2000 proposals (4 mini-batches at ITER_SIZE 4 for WSR-18, 4 at 1
+   for VGG16; s/iter, ``data_time``, the parameters moving at each
+   ITER_SIZE-th mini-batch only); this depth is cut from the earlier
+   8 requests, 5 steps and 8 mini-batches on WSR-18 to make room for phase
+   20;
 17. dense_train: RetinaNet and the RPN alone train. (a) each narrow gate
    config (the committed gate weights, float32) takes 3 steps on the card
    and on this machine's CPU from the same weights on one seeded batch of
@@ -262,7 +264,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
    8 in-memory COCO scenes, 6 iterations, with TEST.PRECISE_BN (every 3
    iterations over 2 batches), then with ADAM and WarmupPolyLR: K1 and K2
    twice an iteration (K1 twice more a PreciseBN batch), every running
-   statistic moved, s/iter, ``data_time`` and PreciseBN's time. Any phase
+   statistic moved, s/iter, ``data_time`` and PreciseBN's time;
+20. wsod_zoo: Cascade OICR, OICR with per-branch sampling, PCL with GAM,
+   ContextLocNet and CMIL (``config.WSOD_ZOO``, seven yamls). (d) K1 and K2
+   against their plain versions at the new launch sites, in float32 and
+   bfloat16, timed beside their bounds: the GAM-attended WSR-18 res5 map
+   (serve B=1 R=2000, train B=4 R=8000; then ``conv6``'s gradient through
+   K1 and K2 against the plain forward and backward, within 1e-4), the
+   cascade's mined rows (B=4, 640 an image) and CMIL's VGG16 plain5 (B=4,
+   R=8000); (a) the five heads' narrow configurations on the card against
+   this machine's CPU (detections matched by (source proposal, class); one
+   step's losses and update within max(1e-4 and 2e-3, 3 x the CPU's
+   float32-to-float64 gap)), and ``roi_loop_pool``, ``roi_label`` and
+   ``roi_merge`` on the card against the CPU; these launches count in no
+   total; (b) each full-width configuration (seeded weights) serves 8
+   requests of 16(b) in each of bf16 and f32, in turns: K1 once a request
+   (never for ContextLocNet), then the stage split (backbone, attend,
+   pool or loop_pool, dan, heads, nms) with its host syncs and each
+   stage's peak memory; (c) its train step at IMS_PER_BATCH 4 in both, in
+   turns (median of steps 2-6; K1 once a step, 4 times for Cascade OICR,
+   never for ContextLocNet; K2 under each K1 launch where the map trains:
+   VGG16's, GAM's), the stage split (..., merge and label for CMIL, losses,
+   backward, sgd) with each stage's peak memory (``loop_pool``'s is
+   ``roi_loop_pool``'s); (e) CMIL on WSR-18 through the WSL trainer on 8
+   in-memory VOC scenes with 2000 proposals (ITER_SIZE 4, 8 mini-batches:
+   K1 once a mini-batch, K2 never). Any phase
    that fails logs ``[<phase>] FAILED: <type>: <message>`` and its
    traceback, and the run ends there with a non-zero exit.
 
@@ -284,7 +310,9 @@ phase 17's launch none; ``pred_mask_*`` K1's and K2's rows at the
 pred-boxes mask pooler of 19(b) and their launches under its steps,
 ``wsddn_train_*`` their rows at WSDDN R-18's cropped res5 train shape and
 their launches under the trainer of 19(c), ``ts_launches`` all of phase
-19's main paths),
+19's main paths; ``zoo_gam_*``, ``zoo_cascade_*`` and ``zoo_cmil_vgg_*``
+their rows at phase 20(d)'s sites and each site's launches on phase 20's
+main paths, ``zoo_launches`` all of them),
 the card's name and power limit as
 nvidia-smi gives them, and {"ok": true, "device": {...}}. Needs one card, torch, numpy and pytest;
 imports nothing of JAX. Without a card, or outside a checkout of the
@@ -3103,15 +3131,21 @@ def phase_families(kernel, gen, baseline, card):
 
 
 WSOD_IMAGE_HW = (375, 500)  # a VOC-size image: 688x917 at MIN_SIZE_TEST 688
+# the WSOD heads whose detections carry each proposal's class scores (the
+# others' cannot go through TTA-AVG)
+CLASS_SCORE_HEADS = ("WSDDNROIHeads", "OICRROIHeads", "CascadeOICRROIHeads")
 WSOD_CASES = (  # name, builder, ROI heads
     ("wsddn_WSR_18", "wsod_WSR_18_DC5_cfg", "WSDDNROIHeads"),
     ("oicr_WSR_18", "wsod_WSR_18_DC5_cfg", "OICRROIHeads"),
     ("pcl_WSR_18", "wsod_WSR_18_DC5_cfg", "PCLROIHeads"),
     ("oicr_V_16", "wsod_V_16_DC5_cfg", "OICRROIHeads"),
 )
-WSOD_ROUNDS = 8  # requests in each dtype
-WSOD_STAGE_ROUNDS = 2
-WSOD_TRAIN_STEPS = 5
+# phase 16's depth, cut so that phase 20's full-width runs fit the script's
+# time (it was 8 requests, 2 stage rounds, 5 steps, trainers of 8 and 4
+# mini-batches)
+WSOD_ROUNDS = 4  # requests in each dtype
+WSOD_STAGE_ROUNDS = 1
+WSOD_TRAIN_STEPS = 3
 WSOD_NARROW_SCENES = 8
 WSOD_NARROW_STEPS = 3
 # 16(a)'s solver: no clip, a warmup over the steps, at rates under which
@@ -3130,7 +3164,8 @@ WSOD_NARROW_SOLVER = {
 # update is 0.25-1 of its norm away
 WSOD_UPDATE_TOL = 2e-3
 WSOD_TRAINER_SCENES = 8
-WSOD_TRAINER_ITERS = {"oicr_WSR_18": 8, "oicr_V_16": 4}  # 2 updates at ITER_SIZE 4; 4 at ITER_SIZE 1
+# at least 4 mini-batches: the trainer's timer skips the first 3
+WSOD_TRAINER_ITERS = {"oicr_WSR_18": 4, "oicr_V_16": 4}  # 1 update at ITER_SIZE 4; 4 at ITER_SIZE 1
 
 
 def wsod_cfg(name, narrow=False):
@@ -3142,14 +3177,47 @@ def wsod_cfg(name, narrow=False):
     return getattr(config, builder.replace("_DC5_cfg", "_narrow_cfg") if narrow else builder)(head)
 
 
+def pooler_launches(cfg):
+    """K1's launches a request, and (K1, K2) a train step: the box pooler
+    once (none for ContextLocNet, which pools by ``roi_loop_pool``), the
+    cascade once more for each branch after the first, K2 under each K1
+    launch where the pooled map trains (VGG16's, or the GAM-attended map,
+    whose ``conv6`` trains under WSR-18's FREEZE_AT 5)."""
+    head = cfg.MODEL.ROI_HEADS.NAME
+    k1 = 0 if head == "ContextLocNetROIHeads" else 1
+    steps = k1 + (cfg.WSL.REFINE_NUM - 1 if head == "CascadeOICRROIHeads" and cfg.WSL.CASCADE_ON else 0)
+    trains = cfg.MODEL.BACKBONE.FREEZE_AT < 5 or (cfg.WSL.HAS_GAM and head != "CMILROIHeads")
+    return k1, [steps, steps if trains else 0]
+
+
+def timed_peak(call):
+    """``call``'s milliseconds and the memory it held at its peak above
+    what was allocated before it, in GiB."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    return dict(ms=(time.perf_counter() - t0) * 1e3, peak=(torch.cuda.max_memory_allocated() - start) / 2**30)
+
+
 def wsod_model(cfg, states):
-    """``build_model(cfg)`` on the card with the seeded weights of its
-    backbone's entry in ``states`` (``wsod_states``), those of its keys."""
+    """``build_model(cfg)`` on the card with ``wsod_states``' seeded weights
+    where its keys hold them, the rest (GAM, the fourth and regressing
+    branches) drawn by ``random_state_dict``."""
+    from jtsm_tpu_torch.checkpoint import random_state_dict
     from jtsm_tpu_torch.modeling import build_model
 
     model = build_model(cfg, device=DEVICE)
-    state = states["V_16" if cfg.MODEL.BACKBONE.NAME == "build_vgg_backbone" else "WSR_18"]
-    model.load_state_dict({k: state[k] for k in model.state_dict()}, strict=True)
+    base = states["V_16" if cfg.MODEL.BACKBONE.NAME == "build_vgg_backbone" else "WSR_18"]
+    own = model.state_dict()
+    missing = [k for k, v in own.items() if k not in base or tuple(base[k].shape) != tuple(v.shape)]
+    state = {k: base[k] for k in own if k not in missing}
+    state.update(random_state_dict(model, seed=0, keys=missing))
+    model.load_state_dict(state, strict=True)
     return model
 
 
@@ -3211,17 +3279,20 @@ def wsod_train_batch(cfg, seeds):
 
 
 def wsod_stages(model, batch, measure, train=None):
-    """The request ``batch`` through a ``GeneralizedRCNNWSL`` stage by
-    stage (backbone, pool: K1, dan, heads, nms), or with ``train`` (the
-    optimizer, the schedule and the train state) its train step
-    (backbone, pool, dan, heads, losses, backward: K2 where the map
-    trains, sgd); ``measure`` makes each call and returns its reading."""
+    """The request ``batch`` through a WSOD model stage by stage (backbone,
+    attend under GAM, pool by K1 or ``loop_pool`` for ContextLocNet, dan,
+    heads, nms), or with ``train`` (the optimizer, the schedule and the
+    train state) its train step (..., heads, then ``merge`` and ``label``
+    for CMIL or ``losses``, backward, sgd); ``measure`` makes each call and
+    returns its reading."""
     import torch
 
     from jtsm_tpu_torch.engine.train_loop import sgd_update
     from jtsm_tpu_torch.layers import exact_float32
+    from jtsm_tpu_torch.wsl.modeling.wsod_zoo import CMILROIHeads, ContextLocNetROIHeads
 
     heads = model.roi_heads
+    gen = train[2].generator if train else None
     r = {}
 
     def backbone():
@@ -3230,16 +3301,30 @@ def wsod_stages(model, batch, measure, train=None):
         r["targets"] = {k: torch.as_tensor(batch[k], device=model.device) for k in ("gt_classes", "gt_valid")
                         if k in batch}
 
-    stages = {
-        "backbone": backbone,
-        "pool": lambda: r.update(pooled=heads.pool(r["feats"], r["props"])),
-        "dan": lambda: r.update(x=heads.dan(r["pooled"], train[2].generator if train else None)),
-        "heads": lambda: r.update(zip(("mil", "branches"), heads.predict(r["x"], r["scores"]))),
-    }
+    stages = {"backbone": backbone}
+    if heads.gam is not None:
+        stages["attend"] = lambda: r.update(zip(("feats", "gam"), heads.attend(r["feats"])))
+    pool = "loop_pool" if isinstance(heads, ContextLocNetROIHeads) else "pool"
+    stages[pool] = lambda: r.update(pooled=heads.pool(r["feats"], r["props"]))
+    stages["dan"] = lambda: r.update(x=heads.dan(r["pooled"], gen))
+    stages["heads"] = lambda: r.update(zip(("mil", "branches"), heads.predict(r["x"], r["scores"])))
     if train is None:
         stages["nms"] = lambda: heads.detect(r["props"], r["scores"], r["mil"], r["branches"], r["sizes"])
     else:
         optimizer, schedule, state = train
+
+        def gam(losses):
+            if heads.gam is not None:
+                losses.update(heads.gam_loss(r["gam"], r["targets"]))
+            return losses
+
+        if isinstance(heads, CMILROIHeads):
+            stages["merge"] = lambda: r.update(zip(("cluster", "prop"), heads.merge(r["props"], r["scores"], r["mil"])))
+            stages["label"] = lambda: r.update(losses=heads.label_losses(
+                r["props"], r["scores"], r["cluster"], r["prop"], r["branches"], r["targets"]))
+        else:
+            stages["losses"] = lambda: r.update(losses=gam(heads.losses(
+                r["props"], r["scores"], r["mil"], r["branches"], r["targets"], r["feats"], gen)))
 
         def backward():
             optimizer.zero_grad(set_to_none=True)
@@ -3249,8 +3334,6 @@ def wsod_stages(model, batch, measure, train=None):
             sgd_update(optimizer, schedule(state.step))
             state.step += 1
 
-        stages["losses"] = lambda: r.update(losses=heads.losses(r["props"], r["scores"], r["mil"], r["branches"],
-                                                                r["targets"]))
         stages.update(backward=backward, sgd=sgd)
     with exact_float32(model.compute_dtype == torch.float32), torch.set_grad_enabled(train is not None):
         return {k: measure(fn) for k, fn in stages.items()}
@@ -3397,18 +3480,21 @@ def wsod_narrow_checks(kernels):
         raise AssertionError("wsod narrow checks: K1 never launched on the card")
 
 
-def wsod_serve(kernel, states):
-    """Phase 16(b): each full-width configuration serves WSOD_ROUNDS
-    requests in each of bf16 (as configured) and f32, in turns, then the
-    stage split with its host syncs. Returns K1's launches and the mean
-    latencies."""
+def wsod_serve(kernel, states, names, cfg_of, phase, rounds, stage_rounds):
+    """Phases 16(b) and 20(b): each full-width configuration of ``names``
+    (``cfg_of(name)``) serves ``rounds`` requests (``wsod_request``) in
+    each of bf16 (as configured) and f32, in turns, K1 as ``pooler_launches``
+    says, then ``stage_rounds`` stage splits with the host syncs and each
+    stage's peak memory, logged under ``phase``. Returns K1's launches by
+    configuration and the mean latencies."""
     import torch
 
-    launches, latency = 0, {}
-    for case, _, _ in WSOD_CASES:
-        base = wsod_cfg(case)
-        base.TEST.AUG.ENABLED = False  # one view a request
+    launches, latency = {}, {}
+    for name in names:
+        base = cfg_of(name)
+        base.TEST.AUG.ENABLED = False  # one view a request (these heads return no class scores to average)
         dtypes = (base.TPU.COMPUTE_DTYPE, "float32")
+        k1, _ = pooler_launches(base)
         reqs = [wsod_request(base, seed) for seed in (1, 2)]
         models, mem = {}, {}
         for d in dtypes:
@@ -3425,60 +3511,65 @@ def wsod_serve(kernel, states):
             mem[d] = ((resident - before) / 2**30, (torch.cuda.max_memory_allocated() - resident) / 2**30)
         lat = {d: [] for d in dtypes}
         kernel.launches = 0
-        for i in range(WSOD_ROUNDS):
+        for i in range(rounds):
             for d in dtypes if i % 2 == 0 else dtypes[::-1]:
                 before = kernel.launches
                 t0 = time.perf_counter()
                 out = models[d].inference(reqs[i % 2])
                 torch.cuda.synchronize()
                 lat[d].append((time.perf_counter() - t0) * 1e3)
-                if kernel.launches - before != 1:
-                    raise AssertionError(f"wsod {case} {d} request {i}: K1 launched {kernel.launches - before} times")
+                if kernel.launches - before != k1:
+                    raise AssertionError(f"{phase} {name} {d} request {i}: K1 launched {kernel.launches - before} "
+                                         f"times, not {k1}")
                 if (tuple(out["boxes"].shape) != (1, 100, 4) or not torch.isfinite(out["scores"]).all()
                         or not bool(out["valid"].any())):
-                    raise AssertionError(f"wsod {case} {d} request {i}: boxes {tuple(out['boxes'].shape)}, "
+                    raise AssertionError(f"{phase} {name} {d} request {i}: boxes {tuple(out['boxes'].shape)}, "
                                          f"{int(out['valid'].sum())} valid")
-                if ("proposal_class_scores" in out) == case.startswith("pcl"):
-                    raise AssertionError(f"wsod {case}: proposal_class_scores present: {'proposal_class_scores' in out}")
-        launches += kernel.launches
-        stage_ms = {d: {} for d in dtypes}
-        for i in range(WSOD_STAGE_ROUNDS):
+                if ("proposal_class_scores" in out) != (base.MODEL.ROI_HEADS.NAME in CLASS_SCORE_HEADS):
+                    raise AssertionError(f"{phase} {name}: proposal_class_scores present: "
+                                         f"{'proposal_class_scores' in out}")
+        launches[name] = kernel.launches
+        stage = {d: {} for d in dtypes}
+        for i in range(stage_rounds):
             for d in dtypes if i % 2 == 0 else dtypes[::-1]:
-                for k, ms in wsod_stages(models[d], reqs[0], timed_ms).items():
-                    stage_ms[d].setdefault(k, []).append(ms)
-        req = reqs[0]
+                for k, v in wsod_stages(models[d], reqs[0], timed_peak).items():
+                    stage[d].setdefault(k, []).append(v)
         for d in dtypes:
-            syncs = wsod_stages(models[d], req, count_host_syncs)
-            latency[(case, d)] = sum(lat[d]) / len(lat[d])
-            log(f"[wsod] (b) {case} {DTYPE_NAMES[d]} {'x'.join(map(str, req['image_sizes'][0]))} in "
-                f"{'x'.join(map(str, req['image'].shape[1:3]))}, R={req['proposals'].shape[1]}: latency_ms="
-                f"{[round(x, 3) for x in lat[d]]} mean_ms={latency[(case, d)]:.3f} | stages_ms (median of "
-                f"{WSOD_STAGE_ROUNDS}) " + " ".join(f"{k}={median(v):.3f}" for k, v in stage_ms[d].items())
+            syncs = wsod_stages(models[d], reqs[0], count_host_syncs)
+            latency[(name, d)] = sum(lat[d]) / len(lat[d])
+            req = reqs[0]
+            log(f"[{phase}] (b) {name} {DTYPE_NAMES[d]}{' (TF32 off)' if d == 'float32' else ''} "
+                f"{'x'.join(map(str, req['image_sizes'][0]))} in {'x'.join(map(str, req['image'].shape[1:3]))}, "
+                f"R={req['proposals'].shape[1]}: latency_ms={[round(x, 3) for x in lat[d]]} mean_ms="
+                f"{latency[(name, d)]:.3f} | stages_ms (median of {stage_rounds}) "
+                + " ".join(f"{k}={median([x['ms'] for x in v]):.3f}" for k, v in stage[d].items())
+                + " | stage peak_gib " + " ".join(f"{k}={max(x['peak'] for x in v):.3f}" for k, v in stage[d].items())
                 + " | host syncs " + " ".join(f"{k}={n}" for k, n in syncs.items())
                 + f" | weights_gib={mem[d][0]:.3f} request_peak_gib={mem[d][1]:.3f}")
         del models
     return launches, latency
 
 
-def wsod_train(kernels, states):
-    """Phase 16(c), the steps: each full-width configuration takes
-    WSOD_TRAIN_STEPS steps on IMS_PER_BATCH seeded requests in each of
-    bf16 and f32, in turns; K1 once a step, K2 once a step where the map
-    trains (VGG16's FREEZE_AT 2) and never under FREEZE_AT 5 (WSR-18);
-    then the stage split with its host syncs. Returns each kernel's
-    launches and the median step times."""
+def wsod_train(kernels, states, names, cfg_of, phase, steps):
+    """Phases 16(c) and 20(c), the steps: each full-width configuration of
+    ``names`` (``cfg_of(name)``) takes ``steps`` steps on IMS_PER_BATCH
+    seeded requests (``wsod_train_batch``) in each of bf16 and f32, in
+    turns, with K1 and K2 as ``pooler_launches`` says; then the stage split
+    with its host syncs and each stage's peak memory (``loop_pool``'s is
+    ContextLocNet's ``roi_loop_pool``), logged under ``phase``. Returns
+    each kernel's launches by configuration and the median step times."""
     import torch
 
     from jtsm_tpu_torch.engine import create_train_state, make_train_step
     from jtsm_tpu_torch.solver import build_lr_schedule, build_optimizer
 
-    launches = {k.name: 0 for k in kernels}
+    launches = {}
     med = {}
-    for case, _, _ in WSOD_CASES:
-        base = wsod_cfg(case)
+    for name in names:
+        base = cfg_of(name)
         dtypes = (base.TPU.COMPUTE_DTYPE, "float32")
         batch = wsod_train_batch(base, list(range(3, 3 + base.SOLVER.IMS_PER_BATCH)))
-        k2_per_step = 1 if base.MODEL.BACKBONE.FREEZE_AT < 5 else 0
+        _, per_step = pooler_launches(base)
         runs, times, peak = {}, {d: [] for d in dtypes}, {}
         for d in dtypes:
             cfg = base.clone()
@@ -3490,7 +3581,7 @@ def wsod_train(kernels, states):
                        make_train_step(model, optimizer, schedule))
         for k in kernels:
             k.launches = 0
-        for i in range(WSOD_TRAIN_STEPS):
+        for i in range(steps):
             for d in dtypes if i % 2 == 0 else dtypes[::-1]:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -3503,24 +3594,25 @@ def wsod_train(kernels, states):
                 peak[d] = max(peak.get(d, 0.0), (torch.cuda.max_memory_allocated() - base_mem) / 2**30)
                 values = {k: v.item() for k, v in metrics.items()}
                 if not all(math.isfinite(v) for v in values.values()):
-                    raise AssertionError(f"wsod train {case} {d} step {i}: losses {values}")
-                per_step = [k.launches - n for k, n in zip(kernels, before)]
-                if per_step != [1, k2_per_step]:
-                    raise AssertionError(f"wsod train {case} {d} step {i}: launches {per_step}, not [1, {k2_per_step}]")
-        for k in kernels:
-            launches[k.name] += k.launches
+                    raise AssertionError(f"{phase} train {name} {d} step {i}: losses {values}")
+                got = [k.launches - n for k, n in zip(kernels, before)]
+                if got != per_step:
+                    raise AssertionError(f"{phase} train {name} {d} step {i}: launches {got}, not {per_step}")
+        launches[name] = {k.name: k.launches for k in kernels}
         for d in dtypes:
-            med[(case, d)] = median(times[d][1:])
+            med[(name, d)] = median(times[d][1:])
             model, optimizer, schedule, state, _ = runs[d]
-            stage_ms = wsod_stages(model, batch, timed_ms, (optimizer, schedule, state))
+            stage = wsod_stages(model, batch, timed_peak, (optimizer, schedule, state))
             syncs = wsod_stages(model, batch, count_host_syncs, (optimizer, schedule, state))
-            log(f"[wsod] (c) {case} train {DTYPE_NAMES[d]}{' (TF32 off)' if d == 'float32' else ''}, "
+            log(f"[{phase}] (c) {name} train {DTYPE_NAMES[d]}{' (TF32 off)' if d == 'float32' else ''}, "
                 f"{base.SOLVER.IMS_PER_BATCH} images {'x'.join(map(str, batch['image_sizes'][0]))} in "
                 f"{'x'.join(map(str, batch['image'].shape[1:3]))}, R={batch['proposals'].shape[1]} each: step_ms="
-                f"{[round(t, 3) for t in times[d]]} median_of_steps_2_to_{WSOD_TRAIN_STEPS}_ms={med[(case, d)]:.3f} "
-                f"step_peak_gib={peak[d]:.3f} | stages_ms " + " ".join(f"{k}={v:.3f}" for k, v in stage_ms.items())
+                f"{[round(t, 3) for t in times[d]]} median_of_steps_2_to_{steps}_ms={med[(name, d)]:.3f} "
+                f"step_peak_gib={peak[d]:.3f} | stages_ms " + " ".join(f"{k}={v['ms']:.3f}" for k, v in stage.items())
+                + " | stage peak_gib " + " ".join(f"{k}={v['peak']:.3f}" for k, v in stage.items())
                 + " | host syncs " + " ".join(f"{k}={n}" for k, n in syncs.items())
-                + f" | losses {', '.join(f'{k}={v.item():.5g}' for k, v in metrics.items())}")
+                + f" | launches a step {per_step} | losses "
+                + ", ".join(f"{k}={v.item():.5g}" for k, v in metrics.items()))
         del runs, model, optimizer, state
     return launches, med
 
@@ -3630,14 +3722,14 @@ def phase_wsod(kernels, gen, baseline):
         t0 = time.perf_counter()
         states = wsod_states()
         log(f"[wsod] seeded full-width weights of WSR-18 and VGG16 in {time.perf_counter() - t0:.1f}s")
-        serve_launches, latency = wsod_serve(kernels[0], states)
-        launches = {k.name: 0 for k in kernels}
-        launches[kernels[0].name] = serve_launches
-        train_launches, steps = wsod_train(kernels, states)
+        names = [case for case, _, _ in WSOD_CASES]
+        serve_launches, latency = wsod_serve(kernels[0], states, names, wsod_cfg, "wsod", WSOD_ROUNDS,
+                                             WSOD_STAGE_ROUNDS)
+        train_launches, steps = wsod_train(kernels, states, names, wsod_cfg, "wsod", WSOD_TRAIN_STEPS)
         trainer_launches, trainers = wsod_trainers(kernels, states)
-        for got in (train_launches, trainer_launches):
-            for k, n in got.items():
-                launches[k] += n
+        launches = {k.name: sum(t[k.name] for t in train_launches.values()) + trainer_launches[k.name]
+                    for k in kernels}
+        launches[kernels[0].name] += sum(serve_launches.values())
     finally:
         roi_align.roi_align_multilevel_plain_autograd = routed
     return rows, launches, latency, steps, trainers
@@ -4555,6 +4647,347 @@ def phase_train_surface(kernels, gen, baseline):
     return rows, launches, by_family["pred_boxes"], wsddn_launches, med, runs
 
 
+ZOO_CASES = ("oicr_CA_WSR_18", "oicr_SP_WSR_18", "pcl_gam_WSR_18", "contextlocnet_WSR_18", "contextlocnet_V_16",
+             "cmil_WSR_18", "cmil_V_16")  # entries of config.WSOD_ZOO
+ZOO_NARROW = ("pcl_gam_WSR_18", "oicr_SP_WSR_18", "oicr_CA_WSR_18", "contextlocnet_WSR_18", "cmil_WSR_18")
+ZOO_ROUNDS = 8  # requests in each dtype
+ZOO_STAGE_ROUNDS = 2
+ZOO_TRAIN_STEPS = 6  # each dtype, in turns; the medians take steps 2-6
+ZOO_TRAINER_SCENES = 8
+ZOO_TRAINER_ITERS = 8  # 2 updates of CMIL WSR-18's ITER_SIZE 4
+# 20(a): one step from the narrow models' seeded weights, no clip
+ZOO_NARROW_SOLVER = ["SOLVER.CLIP_GRADIENTS.ENABLED", "False", "SOLVER.BASE_LR", "1e-6", "SOLVER.WARMUP_ITERS", "0"]
+
+
+def zoo_cfg(name, narrow=False):
+    import jtsm_tpu_torch.config as config
+
+    return config.WSOD_ZOO[name][1](narrow=narrow)
+
+
+def zoo_narrow_batch():
+    """16(a)'s two-request batch, with proposals 10-13 of each image copies
+    of proposal 3 (CMIL's merges at lambda 1.0)."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    h, w, r = 128, 176, 64
+    xy = rng.rand(2, r, 2) * [w - 30, h - 30]
+    batch = {
+        "image": (rng.rand(2, h, w, 3) * 255).astype(np.float32),
+        "image_sizes": np.array([[h, w], [h - 16, w - 32]], np.int32),
+        "orig_sizes": np.array([[2 * h, 2 * w], [h - 16, w - 32]], np.int32),
+        "proposals": np.concatenate([xy, xy + rng.rand(2, r, 2) * 60 + 10], -1).astype(np.float32),
+        "proposal_scores": rng.rand(2, r).astype(np.float32),
+        "gt_classes": np.array([[3, 7, 0], [12, 0, 0]], np.int32),
+        "gt_valid": np.array([[1, 1, 0], [1, 0, 0]], bool),
+    }
+    batch["proposal_scores"][1, -5:] = -np.inf
+    batch["proposals"][:, 10:14] = batch["proposals"][:, 3:4]
+    return batch
+
+
+def zoo_ops_checks():
+    """``roi_loop_pool``, ``roi_label`` and ``roi_merge`` on the card
+    against this machine's CPU on the same seeded inputs: the pooled values
+    equal and the map's gradient within 1e-5 of its scale (the sums of a
+    pixel's bins in another order), every field of ``roi_label`` equal,
+    the merge's ids equal and its rows within 1e-6."""
+    import torch
+
+    from jtsm_tpu_torch.structures.boxes import pairwise_iou
+    from jtsm_tpu_torch.wsl.ops import roi_label, roi_loop_pool
+    from jtsm_tpu_torch.wsl.modeling.wsod_zoo import roi_merge, roi_merge_ids
+
+    g = torch.Generator().manual_seed(0)
+    feat = torch.relu(torch.randn((2, 40, 56, 64), generator=g))
+    size = torch.exp(torch.empty(600, 2).uniform_(math.log(8), math.log(500), generator=g))
+    xy = torch.rand(600, 2, generator=g) * torch.tensor([56 * 16.0, 40 * 16.0]) - size / 4
+    boxes = torch.cat([xy, xy + size], 1)
+    bidx = torch.randint(0, 2, (600,), generator=g, dtype=torch.int32)
+    cot = torch.randn((1800, 7, 7, 64), generator=g)
+    out = {}
+    for device in (DEVICE, "cpu"):
+        f = feat.to(device).requires_grad_()
+        pooled = roi_loop_pool(f, boxes.to(device), bidx.to(device), 1.0 / 16)
+        (pooled * cot.to(device)).sum().backward()
+        out[device] = (pooled.detach().cpu(), f.grad.cpu())
+    pool_err = (out[DEVICE][0] - out["cpu"][0]).abs().max().item()
+    grad_err = ((out[DEVICE][1] - out["cpu"][1]).abs().max() / out["cpu"][1].abs().max()).item()
+
+    r, c = 300, 20
+    pb = boxes[:r].reshape(1, r, 4).repeat(2, 1, 1)
+    pb[:, 100:104] = pb[:, 7:8]
+    scores = torch.rand((2, r, c), generator=g)
+    scores[1, -20:] = float("-inf")
+    labels = (torch.rand((2, c), generator=g) < 0.2).float()
+    labels[:, 3] = 1.0
+    cw = torch.rand((2, c), generator=g)
+    obj = torch.rand((2, r), generator=g)
+    obj[:, 100:104] = obj[:, 7:8]
+    logits = torch.randn((2, r, c), generator=g)
+    lab, merged = {}, {}
+    for device in (DEVICE, "cpu"):
+        b = pb.to(device)
+        lab[device] = {k: v.cpu() for k, v in roi_label(scores.to(device), pairwise_iou(b, b), labels.to(device),
+                                                         cw.to(device), 0.6, 0.4, 0.1, 1).items()}
+        m = roi_merge(roi_merge_ids(obj.to(device), b, 0.3), logits.to(device), logits.to(device))
+        merged[device] = {k: v.cpu() for k, v in m.items()}
+    label_equal = all(torch.equal(lab[DEVICE][k], lab["cpu"][k]) for k in lab["cpu"])
+    ids_equal = torch.equal(merged[DEVICE]["ids"], merged["cpu"]["ids"])
+    merge_err = (merged[DEVICE]["merged_cls"] - merged["cpu"]["merged_cls"]).abs().max().item()
+    log(f"[wsod_zoo] (a) ops on the card against the CPU: roi_loop_pool ((2, 40, 56, 64) ReLU map, 600 ROIs, "
+        f"3x600 bins rows) max_abs_err={pool_err:.3e} (tol 0), map gradient rel_err={grad_err:.3e} (tol 1e-5); "
+        f"roi_label (2x{r} proposals, {c} classes) fields equal: {label_equal}; roi_merge (lambda 0.3, "
+        f"{int(merged['cpu']['ids'].amax()) + 1} clusters of {r}) ids equal: {ids_equal}, rows max_abs_err="
+        f"{merge_err:.3e} (tol 1e-6)")
+    if not (pool_err == 0.0 and grad_err <= 1e-5 and label_equal and ids_equal and merge_err <= 1e-6):
+        raise AssertionError("wsod_zoo ops: the card disagrees with the CPU")
+
+
+def zoo_narrow_checks(kernels):
+    """Phase 20(a): the five heads' narrow configurations (seeded weights,
+    dropout 0, sampling that keeps every labelled proposal) on the card
+    against this machine's CPU: the two-request batch's detections matched
+    by (source proposal, class), and one train step (no clip) whose losses
+    and update lie within max(1e-4 and WSOD_UPDATE_TOL, SURFACE_NOISE x
+    the CPU's float32-to-float64 gap); then the three ops. These launches
+    compare the card with the CPU and count in no main path's total."""
+    import torch
+
+    from jtsm_tpu_torch.checkpoint import random_state_dict
+    from jtsm_tpu_torch.modeling import build_model
+
+    batch = zoo_narrow_batch()
+    before = [k.launches for k in kernels]
+    failed = []
+    torch.backends.cudnn.deterministic = True
+    for name in ZOO_NARROW:
+        cfg = zoo_cfg(name, narrow=True)
+        cfg.merge_from_list(ZOO_NARROW_SOLVER)
+        weights = random_state_dict(build_model(cfg, device="cpu"), seed=1)
+        runs = {}
+        for device, f64 in ((DEVICE, False), ("cpu", False), ("cpu", True)):
+            model = build_model(cfg, device=device)
+            model.load_state_dict(weights)
+            if f64:
+                float64_model(model)
+            model.roi_heads.dan.dropout = 0.0  # the two devices' generators draw other bits
+            det = None if f64 else {k: v.cpu() for k, v in model.inference(batch).items()}
+            runs[(device, f64)] = (det, *steps_and_updates(cfg, model, batch, 1))
+            del model
+        (d_card, l_card, u_card), (d_cpu, l_cpu, u_cpu), (_, l64, u64) = (
+            runs[(DEVICE, False)], runs[("cpu", False)], runs[("cpu", True)])
+        m = match_detections(d_card, d_cpu, score_tol=1e-4)
+
+        def rel(a, b):
+            return (max(abs(a[0][k] - b[0][k]) / max(abs(b[0][k]), 1e-12) for k in b[0]),
+                    float((a[1] - b[1]).norm() / b[1].norm()))
+
+        (loss_err, upd_err), (loss_gap, upd_gap) = rel((l_card[0], u_card[0]), (l_cpu[0], u_cpu[0])), rel(
+            (l_cpu[0], u_cpu[0]), (l64[0], u64[0]))
+        loss_tol, upd_tol = max(1e-4, SURFACE_NOISE * loss_gap), max(WSOD_UPDATE_TOL, SURFACE_NOISE * upd_gap)
+        log(f"[wsod_zoo] (a) {name} narrow ({cfg.MODEL.ROI_HEADS.NAME}, float32, DAN "
+            f"{list(cfg.MODEL.ROI_BOX_HEAD.DAN_DIM)}, 64 proposals): card vs CPU: detections {m['matched']} matched "
+            f"by (source proposal, class), {m['reordered']} in another slot, {m['at_cut']} at the cut, boxes "
+            f"max_abs_err={m['boxes']:.3e} px (tol 1e-3), scores {m['scores']:.3e} (tol 1e-4); one step: losses "
+            f"rel_err {loss_err:.3e} (tol {loss_tol:.3e}), update L2 norm {float(u_cpu[0].norm()):.4g} rel_err "
+            f"{upd_err:.3e} (tol {upd_tol:.3e}); CPU float32 against float64: losses {loss_gap:.3e}, update "
+            f"{upd_gap:.3e}; losses " + ", ".join(f"{k}={v:.6g}" for k, v in l_cpu[0].items()))
+        if not (m["boxes"] <= 1e-3 and m["scores"] <= 1e-4 and m["class_scores"] <= 1e-4 and loss_err <= loss_tol
+                and upd_err <= upd_tol and float(u_cpu[0].norm()) > 0
+                and all(math.isfinite(v) for v in l_card[0].values())):
+            failed.append(name)
+    torch.backends.cudnn.deterministic = False
+    if failed:
+        raise AssertionError(f"wsod_zoo narrow checks: the card disagrees with the CPU in {failed}")
+    zoo_ops_checks()
+    got = {k.name: k.launches - n for k, n in zip(kernels, before)}
+    log(f"[wsod_zoo] (a) launches on the card in these checks (no main path's): {got}")
+    if not got[kernels[0].name] or not got[kernels[1].name]:
+        raise AssertionError("wsod_zoo narrow checks: K1 or K2 never launched on the card")
+
+
+def zoo_trainer(kernels, states):
+    """Phase 20(e): CMIL on WSR-18 at full width through the WSL trainer
+    (16(c)'s: ZOO_TRAINER_SCENES in-memory VOC scenes with 2000 proposals,
+    the yaml's scales and the flip, TPU.IMAGE_BUCKETS that hold the 1200
+    scale): the parameters move at each ITER_SIZE-th mini-batch only, K1
+    once a mini-batch, K2 never. Returns the launches and the run's s/iter,
+    data_time and peak memory."""
+    import tempfile
+
+    import torch
+
+    from jtsm_tpu_torch.data import DatasetCatalog, MetadataCatalog
+    from jtsm_tpu_torch.data.datasets.synthetic_voc import register_synthetic_voc
+    from jtsm_tpu_torch.wsl.train_net import Trainer
+
+    name = "chip_smoke_voc_zoo"
+    props = register_synthetic_voc(name, num=ZOO_TRAINER_SCENES, seed=7, image_hw=WSOD_IMAGE_HW, num_proposals=2000)
+    cfg = zoo_cfg("cmil_WSR_18")
+    cfg.DATASETS.TRAIN = (name,)
+    cfg.DATASETS.PROPOSAL_FILES_TRAIN = (props,)
+    cfg.TPU.IMAGE_BUCKETS = TC_JTSM_BUCKETS
+    cfg.SOLVER.MAX_ITER = ZOO_TRAINER_ITERS
+    cfg.TEST.EVAL_PERIOD = 0
+    cfg.MODEL.WEIGHTS = ""
+    cfg.SEED = 0
+    model = wsod_model(cfg, states)
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model
+    k = cfg.WSL.ITER_SIZE
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
+            cfg.OUTPUT_DIR = tmp
+            trainer, rec, got, peak = run_trainer(
+                Trainer, cfg, kernels, state, watch=lambda m: [p for p in m.parameters() if p.requires_grad])
+            check_launches("wsod_zoo trainer", rec, {kernels[0].name: 1, kernels[1].name: 0})
+            moved = [sum(not torch.equal(a, b) for a, b in zip(rec.params[i], rec.params[i - 1]))
+                     for i in range(1, ZOO_TRAINER_ITERS + 1)]
+            if any((i % k == 0) != (n > 0) for i, n in enumerate(moved, 1)):
+                raise AssertionError(f"wsod_zoo trainer: watched parameters moved {moved} (ITER_SIZE {k})")
+            metrics = read_metrics(tmp)
+            if not all(math.isfinite(v) for m in metrics[1:] for key, v in m.items() if key.startswith("loss")):
+                raise AssertionError(f"wsod_zoo trainer: non-finite losses {metrics[-1]}")
+            run = dict(s_iter=median(iteration_times(trainer, "time", 1)),
+                       data_time=median(iteration_times(trainer, "data_time", 1)), peak=peak)
+            log(f"[wsod_zoo] (e) cmil_WSR_18 {cfg.TPU.COMPUTE_DTYPE} through the WSL trainer: ITER_SIZE {k}, "
+                f"IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH}, short sides {tuple(cfg.INPUT.MIN_SIZE_TRAIN)} and the "
+                f"flip, {ZOO_TRAINER_SCENES} VOC scenes {WSOD_IMAGE_HW} with 2000 proposals, {ZOO_TRAINER_ITERS} "
+                f"mini-batches: moved at {[i for i, n in enumerate(moved, 1) if n]}, s/iter median "
+                f"{run['s_iter']:.4f} data_time median {run['data_time']:.4f} launches {got} peak_mem_gib "
+                f"{peak:.3f} | losses at the last iteration "
+                + ", ".join(f"{key}={v:.5g}" for key, v in metrics[-1].items() if key.startswith("loss"))
+                + f" | cut: TPU.IMAGE_BUCKETS {TC_JTSM_BUCKETS}, random weights")
+            del trainer
+    finally:
+        DatasetCatalog.remove(name)
+        MetadataCatalog.remove(name)
+    return got, run
+
+
+def zoo_kernel_rows(gen, baseline):
+    """Phase 20(d): K1 and K2 against their plain versions at the new
+    launch sites: the GAM-attended WSR-18 res5 map (a seeded GAM layer over
+    a (1|4, 64, 64, 512) map, serve R=2000 and train R=8000; K2 at the
+    train shape, then the gradient of ``conv6`` through K1 and K2 against
+    the same through the plain forward and backward), the cascade's mined
+    rows (4 images, 20 classes x 32 boxes each, on the train map) and
+    CMIL's VGG16 box pooler (a (4, 128, 128, 512) plain5 map, R=8000), in
+    float32 and bfloat16. Returns the rows by site."""
+    import torch
+
+    from jtsm_tpu_torch.checkpoint import random_state_dict
+    from jtsm_tpu_torch.ops import roi_align
+    from jtsm_tpu_torch.wsl.modeling.mil_heads import GAMLayer
+
+    rows = {"gam": {}, "cascade": {}, "cmil_vgg": {}}
+    gam = GAMLayer(512, 20)
+    gam.load_state_dict(random_state_dict(gam, seed=3))
+    gam.to(DEVICE)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = dtype_tag(torch.empty(0, dtype=dtype))
+        for kind, b in (("serve", 1), ("train", 4)):
+            x = torch.relu(torch.randn((b, 512, 64, 64), generator=gen, device=DEVICE)).to(dtype)
+            gam.conv6.compute_dtype = gam.conv7.compute_dtype = dtype
+            with torch.no_grad():
+                attended = gam(x)[0].permute(0, 2, 3, 1).contiguous()
+            boxes = jtsm_mask_boxes(gen, 2000 * b, (688, 917))
+            bidx = torch.arange(b, device=DEVICE, dtype=torch.int32).repeat_interleave(2000)
+            levels = torch.zeros(2000 * b, dtype=torch.int32, device=DEVICE)
+            site = f"GAM-attended WSR-18 res5 {kind} {tag} ({b}, 64, 64, 512)"
+            rows["gam"][f"fwd {kind} {tag}"] = check_and_time_fwd(site, [attended], [1.0 / 16], boxes, bidx, levels,
+                                                                  7, baseline, "wsod_zoo")
+            if kind == "train":
+                rows["gam"][f"bwd {tag}"] = check_and_time_bwd(site, [attended], [1.0 / 16], boxes, bidx, levels, 7,
+                                                               gen, baseline, "wsod_zoo")
+            if kind == "train" and dtype == torch.float32:
+                cot = torch.randn((2000 * b, 7, 7, 512), generator=gen, device=DEVICE).to(dtype)
+                grads = {}
+                for route, fn in (("kernels", roi_align.roi_align_multilevel),
+                                  ("plain", roi_align.roi_align_multilevel_plain_autograd)):
+                    gam.zero_grad()
+                    att = gam(x)[0].permute(0, 2, 3, 1).contiguous()
+                    (fn([att], [1.0 / 16], boxes, bidx, levels, 7, 0, True).float() * cot.float()).sum().backward()
+                    grads[route] = gam.conv6.weight.grad.detach().clone()
+                err = ((grads["kernels"] - grads["plain"]).norm() / grads["plain"].norm()).item()
+                tol = 1e-4
+                log(f"[wsod_zoo] (d) {site}: conv6's weight gradient through K1 and K2 against the plain forward "
+                    f"and backward: rel_err {err:.3e} (tol {tol:g}), norm {grads['plain'].norm().item():.4g}")
+                if not err <= tol:
+                    raise AssertionError(f"wsod_zoo: conv6's gradient through the kernels is {err} from plain's")
+                rows["gam"][f"bwd {tag}"]["conv6_rel_err"] = err
+        feat = torch.randn((4, 64, 64, 512), generator=gen, device=DEVICE).to(dtype)
+        size = torch.exp(torch.empty(4 * 640, 2, device=DEVICE).uniform_(math.log(16), math.log(600), generator=gen))
+        xy = torch.rand(4 * 640, 2, generator=gen, device=DEVICE) * (torch.tensor([917.0, 688.0], device=DEVICE) - size)
+        boxes = torch.cat([xy, xy + size], 1)
+        bidx = torch.arange(4, device=DEVICE, dtype=torch.int32).repeat_interleave(640)
+        levels = torch.zeros(4 * 640, dtype=torch.int32, device=DEVICE)
+        site = f"cascade mined rows {tag} (4, 64, 64, 512), 640 an image"
+        rows["cascade"][f"fwd {tag}"] = check_and_time_fwd(site, [feat], [1.0 / 16], boxes, bidx, levels, 7, baseline,
+                                                           "wsod_zoo")
+        rows["cascade"][f"bwd {tag}"] = check_and_time_bwd(site, [feat], [1.0 / 16], boxes, bidx, levels, 7, gen,
+                                                           baseline, "wsod_zoo")
+        feat = torch.randn((4, 128, 128, 512), generator=gen, device=DEVICE).to(dtype)
+        boxes = jtsm_mask_boxes(gen, 8000, (688, 917))
+        bidx = torch.arange(4, device=DEVICE, dtype=torch.int32).repeat_interleave(2000)
+        levels = torch.zeros(8000, dtype=torch.int32, device=DEVICE)
+        site = f"CMIL VGG16 plain5 train {tag} (4, 128, 128, 512)"
+        rows["cmil_vgg"][f"fwd {tag}"] = check_and_time_fwd(site, [feat], [1.0 / 8], boxes, bidx, levels, 7, baseline,
+                                                            "wsod_zoo")
+        rows["cmil_vgg"][f"bwd {tag}"] = check_and_time_bwd(site, [feat], [1.0 / 8], boxes, bidx, levels, 7, gen,
+                                                            baseline, "wsod_zoo")
+    return rows
+
+
+def phase_wsod_zoo(kernels, gen, baseline):
+    """Phase 20: Cascade OICR, OICR-SP, PCL with GAM, ContextLocNet and CMIL.
+    (d) K1 and K2 at the new launch sites; (a) the narrow heads and the
+    three ops on the card against the CPU; (b) the seven full-width
+    configurations served; (c) their train steps; (e) CMIL through the WSL
+    trainer. The plain ROIAlign raises on the card. Returns the kernel rows
+    by site, each kernel's launches on (b), (c) and (e) (and by site), the
+    latencies, the step times and the trainer's run."""
+    from jtsm_tpu_torch.ops import roi_align
+
+    k1, k2 = (k.name for k in kernels)
+    rows = zoo_kernel_rows(gen, baseline)
+    routed = roi_align.roi_align_multilevel_plain_autograd
+
+    def plain_on_cpu_only(features, scales, boxes, *a, **k):
+        if boxes.device.type != "cpu":
+            raise AssertionError("the plain ROIAlign ran on the card in phase 20")
+        return routed(features, scales, boxes, *a, **k)
+
+    roi_align.roi_align_multilevel_plain_autograd = plain_on_cpu_only
+    try:
+        zoo_narrow_checks(kernels)
+        t0 = time.perf_counter()
+        states = wsod_states()
+        log(f"[wsod_zoo] seeded full-width weights of WSR-18 and VGG16 in {time.perf_counter() - t0:.1f}s")
+        serve_launches, latency = wsod_serve(kernels[0], states, ZOO_CASES, zoo_cfg, "wsod_zoo", ZOO_ROUNDS,
+                                             ZOO_STAGE_ROUNDS)
+        train_launches, steps = wsod_train(kernels, states, ZOO_CASES, zoo_cfg, "wsod_zoo", ZOO_TRAIN_STEPS)
+        trainer_launches, trainer = zoo_trainer(kernels, states)
+    finally:
+        roi_align.roi_align_multilevel_plain_autograd = routed
+    launches = {k.name: sum(t[k.name] for t in train_launches.values()) + trainer_launches[k.name] for k in kernels}
+    launches[k1] += sum(serve_launches.values())
+    # by site: the GAM-attended map (PCL with GAM, served and trained), the
+    # cascade's mined rows (REFINE_NUM - 1 of each Cascade OICR step's K1
+    # launches) and CMIL's VGG16 box pooler (served and trained)
+    ca = zoo_cfg("oicr_CA_WSR_18").WSL.REFINE_NUM
+    sites = {
+        "gam": {k1: serve_launches["pcl_gam_WSR_18"] + train_launches["pcl_gam_WSR_18"][k1],
+                k2: train_launches["pcl_gam_WSR_18"][k2]},
+        "cascade": {k1: train_launches["oicr_CA_WSR_18"][k1] * (ca - 1) // ca, k2: train_launches["oicr_CA_WSR_18"][k2]},
+        "cmil_vgg": {k1: serve_launches["cmil_V_16"] + train_launches["cmil_V_16"][k1],
+                     k2: train_launches["cmil_V_16"][k2]},
+    }
+    return rows, launches, sites, latency, steps, trainer
+
+
 def kernel_line(kernel, launches, rows, f32_errs):
     """One entry of the kernels JSON line. ``ms``, ``plain_ms`` and
     ``bound_ms`` keep their long-standing meaning: the float32 box and mask
@@ -4786,6 +5219,13 @@ def main(argv=None) -> int:
     ts_rows, ts_launches, pred_launches, wsddn_launches, ts_med, ts_runs = run_phase(
         "train_surface", phase_train_surface, KERNELS, gen, baseline)
 
+    # 20. the WSOD zoo: K1 and K2 at the GAM-attended map, the cascade's
+    # mined rows and CMIL's VGG16 box pooler; the narrow heads and the ops
+    # on the card against the CPU; the seven full-width configurations
+    # served and trained; CMIL through the WSL trainer
+    zoo_rows, zoo_launches_, zoo_sites, zoo_lat, zoo_steps, zoo_trainer_run = run_phase(
+        "wsod_zoo", phase_wsod_zoo, KERNELS, gen, baseline)
+
     # per served request K1 pools boxes (R=1000, P=7) and masks (R=100,
     # P=14); per train step K1 and K2 pool and unpool boxes (R=1024, P=7)
     # and masks (R=256, P=14); per JTSM request K1 pools masks on one level
@@ -4802,10 +5242,10 @@ def main(argv=None) -> int:
     k1_launches = (sum(launches.values()) + sum(t[0][KERNEL.name] for t in train.values()) + score_launches
                    + jtsm_launches + jt_launches[KERNEL.name] + js_launches + tta_launches + tc_launches[KERNEL.name]
                    + fam_launches + wsod_launches[KERNEL.name] + dense_launches[KERNEL.name]
-                   + ft_launches[KERNEL.name] + ts_launches[KERNEL.name])
+                   + ft_launches[KERNEL.name] + ts_launches[KERNEL.name] + zoo_launches_[KERNEL.name])
     k2_launches = (sum(t[0][BWD_KERNEL.name] for t in train.values()) + jt_launches[BWD_KERNEL.name]
                    + tc_launches[BWD_KERNEL.name] + wsod_launches[BWD_KERNEL.name] + dense_launches[BWD_KERNEL.name]
-                   + ft_launches[BWD_KERNEL.name] + ts_launches[BWD_KERNEL.name])
+                   + ft_launches[BWD_KERNEL.name] + ts_launches[BWD_KERNEL.name] + zoo_launches_[BWD_KERNEL.name])
     bwd = {k[4:]: v for k, v in tres.items() if k.startswith("bwd ")}
     kernels = [
         kernel_line(KERNEL, k1_launches, res, [r["err"] for n, r in res.items() if "f32" in n]),
@@ -4950,6 +5390,22 @@ def main(argv=None) -> int:
                 f"{site}_bf16_bound_ms": bf16["bound_ms"],
             })
         line["ts_launches"] = ts_launches[line["name"]]
+    # the rows of phase 20(d) by site: the GAM-attended WSR-18 res5 map
+    # (serve B=1, R=2000; train B=4, R=8000), the cascade's mined rows (B=4,
+    # 640 an image) and CMIL's VGG16 plain5 (B=4, R=8000), each (64, 64) or
+    # (128, 128) at P=7, C=512; each site's launches on phase 20's main
+    # paths, zoo_launches all of them
+    for line, kind in ((kernels[0], "fwd"), (kernels[1], "bwd")):
+        for site, site_rows in zoo_rows.items():
+            line[f"zoo_{site}_launches"] = zoo_sites[site][line["name"]]
+            for key, row in site_rows.items():
+                if not key.startswith(kind + " "):
+                    continue
+                tag = f"zoo_{site}_" + key[len(kind) + 1:].replace(" ", "_")
+                line.update({f"{tag}_max_abs_err": row["err"], f"{tag}_ms": row["times"]["new"]["ms"],
+                             f"{tag}_device_ms": row["times"]["new"]["device_ms"], f"{tag}_plain_ms": row["plain_ms"],
+                             f"{tag}_bound_ms": row["bound_ms"], f"{tag}_bound_by": row["bound_by"]})
+        line["zoo_launches"] = zoo_launches_[line["name"]]
     # the trainers' launches (phase 14): Mask R-CNN at NUM_WORKERS 0 and 4,
     # the resumed run, the JTSM flagship, the gate's kernel run
     for line in kernels:
@@ -4986,6 +5442,11 @@ def main(argv=None) -> int:
                                    f"{r['peak']:.3f};" for k, r in ts_runs.items())
         + f" PreciseBN s {ts_runs['precise_bn']['precise_bn_s']:.4f}; launches {ts_launches} (pred-boxes steps "
         f"{pred_launches}, WSDDN trainer {wsddn_launches}) | {card}")
+    log("[wsod_zoo] request mean ms " + " ".join(
+        f"{name} {DTYPE_NAMES[d]}={ms:.3f}" for (name, d), ms in zoo_lat.items())
+        + "; train step median ms " + " ".join(f"{name} {DTYPE_NAMES[d]}={ms:.3f}" for (name, d), ms in zoo_steps.items())
+        + f"; CMIL WSR-18 trainer s/iter {zoo_trainer_run['s_iter']:.4f} data_time {zoo_trainer_run['data_time']:.4f} "
+        f"peak_gib {zoo_trainer_run['peak']:.3f}; launches {zoo_launches_} by site {zoo_sites} | {card}")
     log(f"[done] {time.perf_counter() - t_run:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -151,17 +151,20 @@ def load_gate_ckpt(path: str) -> Dict[str, Any]:
     return out
 
 
-def random_state_dict(model: torch.nn.Module, seed: int) -> Dict[str, torch.Tensor]:
+def random_state_dict(model: torch.nn.Module, seed: int, keys=None) -> Dict[str, torch.Tensor]:
     """Seeded random weights for every entry of ``model.state_dict()``, for
     serving without trained weights: conv and linear weights normal with
     std 1/sqrt(fan_in), so activations keep their scale through the
     network; the box-regression outputs (``anchor_deltas``, ``bbox_pred``,
     the OICR branches' ``refine_reg``) with std 0.001 as detectron2 and the
     JAX package initialise them, so boxes stay near their anchors and
-    proposals; biases small and FrozenBN near identity."""
+    proposals; biases small and FrozenBN near identity. With ``keys``, only
+    those entries (drawn in the state dict's order)."""
     rng = np.random.default_rng(seed)
     state = {}
     for key, t in model.state_dict().items():
+        if keys is not None and key not in keys:
+            continue
         shape = tuple(t.shape)
         if key.endswith("running_var"):
             a = rng.uniform(0.5, 2.0, shape)

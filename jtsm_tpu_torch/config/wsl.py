@@ -174,14 +174,16 @@ def jtsm_gate_cfg() -> CN:
 
 # the WSOD baselines' ROI heads and the prefix of their yamls
 WSOD_HEADS = {"WSDDNROIHeads": "wsddn", "OICRROIHeads": "oicr", "PCLROIHeads": "pcl"}
+# the heads of the WSOD zoo's further yamls (``WSOD_ZOO``)
+_ZOO_HEADS = ("CascadeOICRROIHeads", "ContextLocNetROIHeads", "CMILROIHeads")
 
 
 def _wsod_cfg(head: str) -> CN:
     """What ``Base-WSL-WSR.yaml`` and ``Base-WSL-VGG16.yaml`` share, with
     ``head`` as the ROI heads; the WSDDN yamls sum the MIL loss over the
     classes (WSL.MEAN_LOSS False)."""
-    if head not in WSOD_HEADS:
-        raise ValueError(f"{head!r} is not one of the WSOD heads {sorted(WSOD_HEADS)}")
+    if head not in WSOD_HEADS and head not in _ZOO_HEADS:
+        raise ValueError(f"{head!r} is not one of the WSOD heads {sorted(WSOD_HEADS) + sorted(_ZOO_HEADS)}")
     cfg = wsl_cfg()
     m = cfg.MODEL
     m.META_ARCHITECTURE = "GeneralizedRCNNWSL"
@@ -307,6 +309,105 @@ def wsod_V_16_narrow_cfg(head: str) -> CN:
     """``wsod_V_16_DC5_cfg(head)`` cut by ``_wsod_narrow``; VGG16 keeps its
     widths and FREEZE_AT 2."""
     return _wsod_narrow(wsod_V_16_DC5_cfg(head))
+
+
+def _zoo_narrow(cfg: CN, narrow: bool) -> CN:
+    """``cfg``, or with ``narrow`` its narrow form: ``_wsod_narrow``, and
+    WSR-18's stem 16 wide with every stage training, as
+    ``wsod_WSR_18_narrow_cfg`` cuts it."""
+    if not narrow:
+        return cfg
+    cfg = _wsod_narrow(cfg)
+    if cfg.MODEL.BACKBONE.NAME != "build_vgg_backbone":
+        cfg.MODEL.RESNETS.STEM_OUT_CHANNELS = 16
+        cfg.MODEL.BACKBONE.FREEZE_AT = 0
+    return cfg
+
+
+def cascade_oicr_WSR_18_DC5_cfg(narrow: bool = False) -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/reg_all/oicr_CA_WSR_18_DC5_1x.yaml``
+    over ``oicr_WSR_18_DC5_1x.yaml``: Cascade OICR on WSR-18 DC5, 4
+    refinement branches, each regressing class-specific boxes, and the
+    cascade's mined rows (WSL.CASCADE_ON). ``narrow``: its narrow form
+    (``_wsod_narrow``, 2 branches)."""
+    cfg = wsod_WSR_18_DC5_cfg("CascadeOICRROIHeads")
+    cfg.WSL.REFINE_NUM = 4
+    cfg.WSL.REFINE_REG = [True, True, True, True]
+    cfg.WSL.CASCADE_ON = True
+    cfg.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG = False
+    cfg.TEST.EVAL_PERIOD = 10001
+    return _zoo_narrow(cfg, narrow)
+
+
+def oicr_sampling_WSR_18_DC5_cfg(narrow: bool = False) -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/reg_all/oicr_SP_WSR_18_DC5_1x.yaml``
+    over ``oicr_WSR_18_DC5_1x.yaml``: OICR on WSR-18 DC5, 4 regressing
+    branches, branch k labelling its proposals at IoU 0.3, 0.4, 0.5, 0.6
+    and sampling them (WSL.SAMPLING)."""
+    cfg = wsod_WSR_18_DC5_cfg("OICRROIHeads")
+    cfg.WSL.REFINE_NUM = 4
+    cfg.WSL.REFINE_REG = [True, True, True, True]
+    s = cfg.WSL.SAMPLING
+    s.SAMPLING_ON = True
+    s.IOU_THRESHOLDS = [[0.3], [0.4], [0.5], [0.6]]
+    s.IOU_LABELS = [[0, 1], [0, 1], [0, 1], [0, 1]]
+    return _zoo_narrow(cfg, narrow)
+
+
+def pcl_gam_WSR_18_DC5_cfg(narrow: bool = False) -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/reg_last/pcl_WSR_18_DC5_1x.yaml``
+    over ``Base-WSL-WSR.yaml``: PCL on WSR-18 DC5 with the guided attention
+    module (WSL.HAS_GAM; its WSL.REFINE_REG, which PCL's branches do not
+    read)."""
+    cfg = wsod_WSR_18_DC5_cfg("PCLROIHeads")
+    cfg.WSL.REFINE_REG = [False, False, True, True]
+    cfg.WSL.HAS_GAM = True
+    return _zoo_narrow(cfg, narrow)
+
+
+def contextlocnet_WSR_18_DC5_cfg(narrow: bool = False) -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/contextlocnet_WSR_18_DC5_1x.yaml``:
+    ContextLocNet on WSR-18 DC5, the MIL loss summed over the classes."""
+    cfg = wsod_WSR_18_DC5_cfg("ContextLocNetROIHeads")
+    cfg.WSL.MEAN_LOSS = False
+    return _zoo_narrow(cfg, narrow)
+
+
+def contextlocnet_V_16_DC5_cfg(narrow: bool = False) -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/contextlocnet_V_16_DC5_1x.yaml``:
+    ContextLocNet on VGG16 DC5."""
+    return _zoo_narrow(wsod_V_16_DC5_cfg("ContextLocNetROIHeads"), narrow)
+
+
+def cmil_WSR_18_DC5_cfg(narrow: bool = False) -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/cmil_WSR_18_DC5_1x.yaml``:
+    CMIL on WSR-18 DC5 (WSL.CMIL, epochs of 5000 iterations)."""
+    cfg = wsod_WSR_18_DC5_cfg("CMILROIHeads")
+    cfg.WSL.CMIL = True
+    cfg.WSL.SIZE_EPOCH = 5000
+    return _zoo_narrow(cfg, narrow)
+
+
+def cmil_V_16_DC5_cfg(narrow: bool = False) -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/cmil_V_16_DC5_1x.yaml``:
+    CMIL on VGG16 DC5."""
+    cfg = wsod_V_16_DC5_cfg("CMILROIHeads")
+    cfg.WSL.CMIL = True
+    cfg.WSL.SIZE_EPOCH = 5000
+    return _zoo_narrow(cfg, narrow)
+
+
+# the WSOD zoo's further configurations: name -> (its yaml under
+# projects/WSL/configs/PascalVOC-Detection/, its builder)
+WSOD_ZOO = {
+    "oicr_CA_WSR_18": ("reg_all/oicr_CA_WSR_18_DC5_1x.yaml", cascade_oicr_WSR_18_DC5_cfg),
+    "oicr_SP_WSR_18": ("reg_all/oicr_SP_WSR_18_DC5_1x.yaml", oicr_sampling_WSR_18_DC5_cfg),
+    "pcl_gam_WSR_18": ("reg_last/pcl_WSR_18_DC5_1x.yaml", pcl_gam_WSR_18_DC5_cfg),
+    "contextlocnet_WSR_18": ("contextlocnet_WSR_18_DC5_1x.yaml", contextlocnet_WSR_18_DC5_cfg),
+    "contextlocnet_V_16": ("contextlocnet_V_16_DC5_1x.yaml", contextlocnet_V_16_DC5_cfg),
+    "cmil_WSR_18": ("cmil_WSR_18_DC5_1x.yaml", cmil_WSR_18_DC5_cfg),
+    "cmil_V_16": ("cmil_V_16_DC5_1x.yaml", cmil_V_16_DC5_cfg),
+}
 
 
 def wsddn_R_18_DC5_cfg() -> CN:

@@ -234,10 +234,14 @@ class GeneralizedRCNNWithTTAAVG(TTAWrapperBase):
             t0 = time.perf_counter()
             raw = predict(request)
             if "proposal_class_scores" not in raw:
-                # PCLROIHeads returns none, as in the JAX package, whose
-                # TTA-AVG fails here with a KeyError (ROADMAP §3)
-                raise ValueError("TTA-AVG averages each proposal's class scores, and the model returns no "
-                                 "proposal_class_scores (PCLROIHeads returns none)")
+                # PCL's, ContextLocNet's and CMIL's heads return none, as in
+                # the JAX package, whose TTA-AVG fails here with a KeyError
+                # (ROADMAP §3)
+                heads = getattr(getattr(predict, "__self__", None), "roi_heads", None)
+                name = type(heads).__name__ if heads is not None else "the model's heads"
+                raise ValueError(f"TTA-AVG averages each proposal's class scores, and the model returns no "
+                                 f"proposal_class_scores ({name} returns none): score it with "
+                                 "TEST.AUG.ENABLED False")
             out = {"proposal_class_scores": _host(raw["proposal_class_scores"])}
             saw_masks = saw_masks or "masks" in raw or "masks_full" in raw
             add_time(self.timings, "tta_views", time.perf_counter() - t0)

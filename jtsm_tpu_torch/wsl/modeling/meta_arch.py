@@ -99,12 +99,14 @@ class GeneralizedMCNNWSL(BackboneModel):
 
 def build_wsl_roi_heads(cfg, input_shape):
     """The WSOD heads named by ROI_HEADS.NAME (JAX package registry
-    ``ROI_HEADS_REGISTRY``): ``WSDDNROIHeads``, ``OICRROIHeads`` or
-    ``PCLROIHeads``."""
-    from .roi_heads_wsl import OICRROIHeads, WSDDNROIHeads
-    from .wsod_zoo import PCLROIHeads
+    ``ROI_HEADS_REGISTRY``): ``WSDDNROIHeads``, ``OICRROIHeads``,
+    ``CascadeOICRROIHeads``, ``PCLROIHeads``, ``ContextLocNetROIHeads`` or
+    ``CMILROIHeads``."""
+    from .roi_heads_wsl import CascadeOICRROIHeads, OICRROIHeads, WSDDNROIHeads
+    from .wsod_zoo import CMILROIHeads, ContextLocNetROIHeads, PCLROIHeads
 
-    heads = {"WSDDNROIHeads": WSDDNROIHeads, "OICRROIHeads": OICRROIHeads, "PCLROIHeads": PCLROIHeads}
+    heads = {h.__name__: h for h in (WSDDNROIHeads, OICRROIHeads, CascadeOICRROIHeads, PCLROIHeads,
+                                     ContextLocNetROIHeads, CMILROIHeads)}
     name = cfg.MODEL.ROI_HEADS.NAME
     if name not in heads:
         raise NotImplementedError(f"ROI heads {name!r} under GeneralizedRCNNWSL are not ported yet "
@@ -120,7 +122,7 @@ class GeneralizedRCNNWSL(BackboneModel):
     ``proposal_scores`` (B, R) (-inf marks padding), the WSOD heads
     (``build_wsl_roi_heads``), and the detections mapped to ``orig_sizes``
     (``boxes``, ``scores``, ``classes``, ``valid``, ``prop_idx`` and, but
-    for PCL, ``proposal_class_scores``). In train mode, with the image
+    for PCL, ContextLocNet and CMIL, ``proposal_class_scores``). In train mode, with the image
     labels ``gt_classes`` and ``gt_valid`` (B, G), the heads' loss dict;
     ``generator`` draws the DAN's dropout. The learned proposal generator
     (UWSOD's ``RPNWSL``) is not ported."""

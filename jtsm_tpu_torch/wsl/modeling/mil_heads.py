@@ -1,9 +1,10 @@
 """MIL scoring layers, pseudo-ground-truth (PGT) mining and the OICR losses
 (reference: projects/WSL/wsl/modeling/roi_heads/fast_rcnn_wsddn.py,
 fast_rcnn_tsm.py:346,573-586, fast_rcnn_oicr.py:166,247-362,
-roi_heads_jtsm.py:1038,1168; JAX package ``wsl/modeling/mil_heads.py`` :34
-``MILOutputLayers``, :98 ``wsddn_scores``, :108 ``mil_image_loss``, :122
-``OICROutputLayers``, :153-328 the mining and loss functions).
+fast_rcnn.py:1986-2027, roi_heads_jtsm.py:1038,1168; JAX package
+``wsl/modeling/mil_heads.py`` :34 ``MILOutputLayers``, :57 ``GAMLayer``,
+:91 ``gam_image_loss``, :98 ``wsddn_scores``, :108 ``mil_image_loss``,
+:122 ``OICROutputLayers``, :153-328 the mining and loss functions).
 
 The layers compute in ``compute_dtype`` and return float32 logits, as the
 JAX layers cast their outputs. The JAX functions take one image and are
@@ -20,10 +21,11 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ...layers import Linear, normal
+from ...layers import Conv2d, Linear, normal
 from ...modeling.proposal_generator.proposal_utils import topk_stable
 from ...ops.losses import smooth_l1_loss, softmax_cross_entropy
 from ...ops.nms import nms_mask
+from ...ops.sampling import subsample_labels
 from ...structures.boxes import pairwise_iou
 
 
@@ -37,6 +39,34 @@ class MILOutputLayers(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.cls(x).float(), self.det(x).float()
+
+
+class GAMLayer(nn.Module):
+    """The guided attention module (``WSL.HAS_GAM``): a 1x1 convolution
+    ``conv6`` (C to C) whose float32 sigmoid ``a`` rescales the map as
+    ``(1 + a) * x``, and a 1x1 convolution ``conv7`` (C to the classes) over
+    ``a`` whose float32 mean over the map gives image-level class logits.
+    Both convolutions take flax's variance scaling (fan_out, truncated
+    normal, scale 2), the port's ``Conv2d`` default."""
+
+    def __init__(self, channels: int, num_classes: int, compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv6 = Conv2d(channels, channels, 1, compute_dtype=compute_dtype)
+        self.conv7 = Conv2d(channels, num_classes, 1, compute_dtype=compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x (B, C, H, W) -> (the attended map, (B, num_classes) logits)."""
+        a = torch.sigmoid(self.conv6(x).float())
+        attended = (1.0 + a).to(x.dtype) * x
+        return attended, self.conv7(a).float().mean(dim=(2, 3))
+
+
+def gam_image_loss(logits: torch.Tensor, image_labels: torch.Tensor) -> torch.Tensor:
+    """The binary cross entropy of the (B, C) GAM logits against the image
+    labels, with logits, as the mean over every entry (JAX :91)."""
+    labels = image_labels.float()
+    bce = torch.maximum(logits, torch.zeros_like(logits)) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+    return bce.mean()
 
 
 def wsddn_scores(cls_logit: torch.Tensor, det_logit: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -266,6 +296,8 @@ def oicr_refine_losses(
     img_probs: torch.Tensor,  # (B, C) the top-k miner's weights
     box2box_transform,
     refine_mist: bool = False,
+    sampling: Optional[Sequence[Tuple[Sequence[float], Sequence[int], int, float]]] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
     """The OICR refinement cascade (JAX ``roi_heads_wsl.py:424-509``, and
     the JTSM heads' over their thing classes): branch k learns from the PGT
@@ -274,6 +306,12 @@ def oicr_refine_losses(
     by the image probabilities, or by MIST with the first branch weighted 3.
     Each branch's cross entropy is normalised over the batch's weighted
     proposals, its box regression over the batch's valid proposals.
+
+    With ``sampling`` (``WSL.SAMPLING``: each branch's IoU thresholds, IoU
+    labels, batch size and positive fraction), branch k labels the
+    proposals by its own Matcher intervals, then keeps ``batch size`` of
+    its weighted proposals at ``positive fraction`` (``subsample_labels``,
+    the uniform draws from ``generator``) and weighs the rest 0.
     Returns (losses, the last branch's (B, R, C) scores, their boxes)."""
     b, r = valid.shape
     c = image_labels.shape[-1]
@@ -285,13 +323,24 @@ def oicr_refine_losses(
             pgt = get_pgt_mist(src_boxes.detach(), source.detach(), valid, image_labels)
         else:
             pgt = get_pgt_top_k(src_boxes.detach(), source.detach(), valid, image_labels, 1, img_probs)
-        sup = label_proposals_by_pgt(proposals, valid, pgt, c)
-        cls_sum, cls_cnt = oicr_branch_loss_terms(logits, sup["labels"], sup["weights"])
+        if sampling is None:
+            sup = label_proposals_by_pgt(proposals, valid, pgt, c)
+            weights = sup["weights"]
+        else:
+            thresholds, iou_labels, batch_size, pos_fraction = sampling[k]
+            sup = label_proposals_by_pgt(proposals, valid, pgt, c, iou_thresholds=thresholds, iou_labels=iou_labels)
+            weights = sup["weights"]
+            eligible = torch.where(weights > 0, sup["labels"], torch.full_like(sup["labels"], -1))
+            u_pos = torch.rand(eligible.shape, generator=generator, device=eligible.device)
+            u_neg = torch.rand(eligible.shape, generator=generator, device=eligible.device)
+            pos, neg = subsample_labels(eligible, batch_size, pos_fraction, c, u_pos, u_neg)
+            weights = weights * (pos | neg).to(weights.dtype)
+        cls_sum, cls_cnt = oicr_branch_loss_terms(logits, sup["labels"], weights)
         term_weight = 3.0 if (refine_mist and k == 0) else 1.0
         losses[f"loss_refine_cls{k}"] = cls_sum.sum() / cls_cnt.sum().clamp(min=1.0) * term_weight
         if deltas is not None:
             reg_sum = oicr_reg_loss_sum(
-                deltas, sup["labels"], sup["weights"], sup["fg"], proposals, sup["matched_pgt_boxes"],
+                deltas, sup["labels"], weights, sup["fg"], proposals, sup["matched_pgt_boxes"],
                 box2box_transform,
             )
             losses[f"loss_refine_reg{k}"] = reg_sum.sum() / n_prop * term_weight

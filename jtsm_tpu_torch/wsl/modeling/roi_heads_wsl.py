@@ -4,20 +4,25 @@ box_head.py:106, roi_heads_wsddn.py, roi_heads_oicr.py and
 fast_rcnn_oicr.py:712-786; JAX package ``wsl/modeling/roi_heads_wsl.py``
 :50 ``image_level_gt``, :56 ``image_level_gt_stuff``, :68
 ``DiscriminativeAdaptionNeck``, :108 ``wsl_inference_single``, :164
-``WSDDNROIHeads``, :275 ``OICRROIHeads``).
+``WSDDNROIHeads``, :201 ``_apply_gam``, :275 ``OICRROIHeads`` with
+``WSL.SAMPLING`` :291-332 and :423-475 and the cascade :499-536, :574
+``CascadeOICRROIHeads``).
 
 ``WSDDNROIHeads`` and ``OICRROIHeads`` (and PCL's, ``wsod_zoo.py``) pool
 the precomputed proposals on their one input map by ROIAlignV2 at
 POOLER_SAMPLING_RATIO, whatever POOLER_TYPE says, as the JAX heads do: K1
-on the card, and K2 under it where the map trains. Then the DAN, the MIL
-layers (``cls`` and ``det``) and their WSDDN scores; OICR adds its
-refinement branches. Called as ``heads(features, proposals,
-proposal_scores, image_sizes)`` they return the detections of
-``wsl_inference`` and each proposal's class scores
-(``proposal_class_scores``, which TTA-AVG averages); with ``targets``
-(``gt_classes``, ``gt_valid``) and ``train=True``, the loss dict. Each
-stage is a method of its own (``pool``, ``dan``, ``predict``, ``detect``,
-``losses``), so that it can be timed."""
+on the card, and K2 under it where the map trains. Under WSL.HAS_GAM the
+guided attention module rescales that map first (``attend``), so K1 reads
+the attended map, and K2 runs wherever ``conv6`` trains. Then the DAN, the
+MIL layers (``cls`` and ``det``) and their WSDDN scores; OICR adds its
+refinement branches, and the cascade pools its mined boxes through K1 as
+well. Called as ``heads(features, proposals, proposal_scores,
+image_sizes)`` they return the detections of ``wsl_inference`` and each
+proposal's class scores (``proposal_class_scores``, which TTA-AVG
+averages); with ``targets`` (``gt_classes``, ``gt_valid``) and
+``train=True``, the loss dict. Each stage is a method of its own
+(``attend``, ``pool``, ``dan``, ``predict``, ``detect``, ``losses``), so
+that it can be timed."""
 
 from __future__ import annotations
 
@@ -34,10 +39,14 @@ from ...ops.box_regression import Box2BoxTransform
 from ...ops.nms import batched_nms_mask
 from ...structures.boxes import clip_boxes, nonempty_boxes
 from .mil_heads import (
+    GAMLayer,
     MILOutputLayers,
     OICROutputLayers,
     branch_average,
+    gam_image_loss,
+    get_pgt_mist,
     mil_image_loss,
+    oicr_branch_loss,
     oicr_refine_losses,
     wsddn_scores,
 )
@@ -166,12 +175,15 @@ def _not_ported(what: str) -> NotImplementedError:
 class WSDDNROIHeads(nn.Module):
     """The MIL-only head (reference roi_heads_wsddn.py; JAX :164): the
     image-level binary cross entropy of the summed WSDDN scores, as the
-    mean over classes or, under WSL.MEAN_LOSS False, their sum."""
+    mean over classes or, under WSL.MEAN_LOSS False, their sum. Under
+    WSL.HAS_GAM, the guided attention module ``gam`` on the input map and
+    its ``loss_gam`` (heads whose ``uses_gam`` is False ignore the key, as
+    the JAX package's ContextLocNet and CMIL heads do)."""
+
+    uses_gam = True
 
     def __init__(self, cfg, input_shape: Dict[str, ShapeSpec]):
         super().__init__()
-        if cfg.WSL.HAS_GAM:
-            raise _not_ported("WSL.HAS_GAM (GAMLayer)")
         self.in_features = tuple(cfg.MODEL.ROI_HEADS.IN_FEATURES)
         if len(self.in_features) != 1:
             raise _not_ported(f"WSOD heads over several maps {self.in_features}")
@@ -187,10 +199,25 @@ class WSDDNROIHeads(nn.Module):
         channels = input_shape[self.in_features[0]].channels
         self.dan = DiscriminativeAdaptionNeck(channels * p * p, cfg.MODEL.ROI_BOX_HEAD.DAN_DIM, 0.5, dt)
         self.mil = MILOutputLayers(self.dan.output_size, self.num_classes, dt)
+        self.gam = GAMLayer(channels, self.num_classes, dt) if cfg.WSL.HAS_GAM and self.uses_gam else None
         self.mean_loss = cfg.WSL.MEAN_LOSS
         self.score_thresh_test = cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST
         self.nms_thresh_test = cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST
         self.detections_per_image = cfg.TEST.DETECTIONS_PER_IMAGE
+
+    def attend(self, features: Dict[str, torch.Tensor]):
+        """The maps the heads pool and the (B, C) GAM logits: under
+        WSL.HAS_GAM the input map rescaled by its attention, else the maps
+        as they are and None."""
+        if self.gam is None:
+            return features, None
+        f = self.in_features[0]
+        attended, logits = self.gam(features[f])
+        return {**features, f: attended}, logits
+
+    def gam_loss(self, gam_logits: torch.Tensor, targets: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        img_labels = image_level_gt(targets["gt_classes"], targets["gt_valid"], self.num_classes)
+        return {"loss_gam": gam_image_loss(gam_logits, img_labels)}
 
     def pool(self, features: Dict[str, torch.Tensor], proposals: torch.Tensor) -> torch.Tensor:
         """NCHW maps and (B, R, 4) proposals -> (B*R, P, P, C), one K1
@@ -214,7 +241,11 @@ class WSDDNROIHeads(nn.Module):
         det["proposal_class_scores"] = mil
         return det
 
-    def losses(self, proposals, proposal_scores, mil, branches, targets) -> Dict[str, torch.Tensor]:
+    def losses(self, proposals, proposal_scores, mil, branches, targets, features=None,
+               generator=None) -> Dict[str, torch.Tensor]:
+        """The loss dict of the predictions; ``features`` (the maps the
+        heads pooled) and ``generator`` serve the heads that pool or draw
+        again in their losses (the cascade, the sampling)."""
         img_labels = image_level_gt(targets["gt_classes"], targets["gt_valid"], self.num_classes)
         return {"loss_mil": mil_image_loss(mil, img_labels, self.mean_loss).mean()}
 
@@ -226,14 +257,20 @@ class WSDDNROIHeads(nn.Module):
         image_sizes: torch.Tensor,  # (B, 2)
         targets: Optional[Dict[str, torch.Tensor]] = None,  # gt_classes, gt_valid
         train: bool = False,
-        generator: Optional[torch.Generator] = None,  # the DAN's dropout draws
+        generator: Optional[torch.Generator] = None,  # the DAN's dropout draws, the sampling's
+        **loss_args,
     ) -> Dict[str, torch.Tensor]:
-        """Detections, or with ``train`` the loss dict."""
+        """Detections, or with ``train`` the loss dict (``loss_args`` go
+        to ``losses``)."""
+        features, gam_logits = self.attend(features)
         x = self.dan(self.pool(features, proposals), generator)
         mil, branches = self.predict(x, proposal_scores)
-        if train:
-            return self.losses(proposals, proposal_scores, mil, branches, targets)
-        return self.detect(proposals, proposal_scores, mil, branches, image_sizes)
+        if not train:
+            return self.detect(proposals, proposal_scores, mil, branches, image_sizes)
+        losses = self.losses(proposals, proposal_scores, mil, branches, targets, features, generator, **loss_args)
+        if gam_logits is not None:
+            losses.update(self.gam_loss(gam_logits, targets))
+        return losses
 
 
 class OICRROIHeads(WSDDNROIHeads):
@@ -241,14 +278,19 @@ class OICRROIHeads(WSDDNROIHeads):
     roi_heads_oicr.py, fast_rcnn_oicr.py; JAX :275): each a (C+1)-way
     classifier ``refine{k}.refine_score`` and, under WSL.REFINE_REG[k],
     class-specific deltas ``refine{k}.refine_reg``, trained by
-    ``oicr_refine_losses`` (WSL.REFINE_MIST: MIST mining); inference
-    averages the branches (``branch_average``)."""
+    ``oicr_refine_losses`` (WSL.REFINE_MIST: MIST mining; WSL.SAMPLING:
+    each branch's Matcher and proposal sampling); inference averages the
+    branches (``branch_average``)."""
 
     def __init__(self, cfg, input_shape: Dict[str, ShapeSpec]):
         super().__init__(cfg, input_shape)
-        if cfg.WSL.SAMPLING.SAMPLING_ON:
-            raise _not_ported("WSL.SAMPLING.SAMPLING_ON (per-branch proposal sampling)")
         w = cfg.WSL
+        s = w.SAMPLING
+        self.sampling = (
+            [(tuple(s.IOU_THRESHOLDS[k]), tuple(s.IOU_LABELS[k]), int(s.BATCH_SIZE_PER_IMAGE[k]),
+              float(s.POSITIVE_FRACTION[k])) for k in range(w.REFINE_NUM)]
+            if s.SAMPLING_ON else None
+        )
         self.refine_mist = w.REFINE_MIST
         self.box2box_transform = Box2BoxTransform(weights=cfg.MODEL.ROI_BOX_HEAD.BBOX_REG_WEIGHTS)
         refine_reg = tuple(w.REFINE_REG[: w.REFINE_NUM])
@@ -275,7 +317,8 @@ class OICRROIHeads(WSDDNROIHeads):
         avg, boxes = branch_average(proposals, branches, self.num_classes, self.box2box_transform)
         return super().detect(boxes, proposal_scores, avg, branches, image_sizes)
 
-    def losses(self, proposals, proposal_scores, mil, branches, targets) -> Dict[str, torch.Tensor]:
+    def losses(self, proposals, proposal_scores, mil, branches, targets, features=None,
+               generator=None) -> Dict[str, torch.Tensor]:
         losses = super().losses(proposals, proposal_scores, mil, branches, targets)
         img_labels = image_level_gt(targets["gt_classes"], targets["gt_valid"], self.num_classes)
         # the image probabilities weight the top-k miner's PGT
@@ -283,7 +326,44 @@ class OICRROIHeads(WSDDNROIHeads):
         img_probs = mil.sum(dim=1).clamp(1e-6, 1.0 - 1e-6)
         refine, _, _ = oicr_refine_losses(
             proposals, torch.isfinite(proposal_scores), mil, branches, img_labels, img_probs,
-            self.box2box_transform, self.refine_mist,
+            self.box2box_transform, self.refine_mist, self.sampling, generator,
         )
         losses.update(refine)
+        return losses
+
+
+class CascadeOICRROIHeads(OICRROIHeads):
+    """Cascade OICR (reference roi_heads_all.py:2822 under WSL.CASCADE_ON;
+    JAX :574, the loss :499-536): OICR, and for each branch k > 0 the boxes
+    MIST-mined from branch k-1's detached softmax over the proposals (a
+    fixed C x min(32, R) rows an image, ``get_pgt_mist``), pooled by K1
+    from the maps the heads pooled, through the shared DAN (its dropout
+    drawn after the proposals', branch by branch) and branch k's
+    classifier, supervised as their mined class with the mining confidence
+    as weight: ``loss_refine_cls{k}_cascade``, the mean over the images.
+    Inference is OICR's."""
+
+    def __init__(self, cfg, input_shape: Dict[str, ShapeSpec]):
+        super().__init__(cfg, input_shape)
+        self.cascade_on = cfg.WSL.CASCADE_ON
+
+    def losses(self, proposals, proposal_scores, mil, branches, targets, features=None,
+               generator=None) -> Dict[str, torch.Tensor]:
+        losses = super().losses(proposals, proposal_scores, mil, branches, targets, features, generator)
+        if not self.cascade_on:
+            return losses
+        b = proposals.shape[0]
+        c = self.num_classes
+        valid = torch.isfinite(proposal_scores)
+        img_labels = image_level_gt(targets["gt_classes"], targets["gt_valid"], c)
+        for k in range(1, len(branches)):
+            source = torch.softmax(branches[k - 1][0].detach(), dim=-1)[..., :c]
+            mined = get_pgt_mist(proposals, source, valid, img_labels)
+            boxes = mined["boxes"].reshape(b, -1, 4)
+            ok = mined["valid"].reshape(b, -1)
+            logits, _ = self.refine[k](self.dan(self.pool(features, boxes), generator))
+            labels = torch.where(ok, mined["classes"].reshape(b, -1), torch.full_like(ok, c, dtype=torch.long))
+            weights = torch.where(ok, mined["weight"].reshape(b, -1), torch.zeros_like(mined["weight"].reshape(b, -1)))
+            losses[f"loss_refine_cls{k}_cascade"] = oicr_branch_loss(
+                logits.reshape(b, boxes.shape[1], -1), labels, weights).mean()
         return losses

@@ -1,10 +1,13 @@
-"""The WSL pooling ops of the JTSM path, in plain PyTorch.
+"""The WSL pooling and labelling ops, in plain PyTorch.
 
 Semantics: the JAX package's ``wsl/ops.py`` (``superpixel_membership_grid``
-:34, ``sample_membership_grid`` :59, ``moi_pool`` :101, ``moi_pool_exact``
-:559, ``roi_pool`` :649), which express the reference's MOIPool and RoIPool
-kernels (``projects/WSL/wsl/layers/csrc/MOIPool``) in ``jnp``. Like them,
-every function takes ONE image; callers loop over the batch.
+:34, ``sample_membership_grid`` :59, ``moi_pool`` :101, ``roi_loop_pool``
+:219, ``roi_label`` :332, ``pcl_losses`` :407, ``moi_pool_exact`` :559,
+``roi_pool`` :649), which express the reference's MOIPool, RoIPool,
+ROILoopPool and ROILabel kernels (``projects/WSL/wsl/layers/csrc``) in
+``jnp``. The MOIPool and RoIPool functions take ONE image (callers loop
+over the batch); ``roi_loop_pool`` takes batch indices, and ``roi_label``
+and ``pcl_losses`` a leading batch dim.
 
 Where the JAX package forms one-hot matrix products (exact 0/1 values on
 the TPU's matrix unit), the port gathers the same 0/1 values. A superpixel
@@ -177,21 +180,27 @@ def _c_round(x: torch.Tensor) -> torch.Tensor:
     return torch.floor(x + 0.5).long()
 
 
+def _bins(x1, y1, x2, y2, p: int, h: int, w: int):
+    """RoIPool's overlapping floor/ceil bins of the integer windows (R,)
+    clamped to the (h, w) map: (hstart, hend, wstart, wend), each (R, P)."""
+    roi_w = (x2 - x1 + 1).clamp(min=1).float()
+    roi_h = (y2 - y1 + 1).clamp(min=1).float()
+    bh = roi_h * _inv(p, roi_h)
+    bw = roi_w * _inv(p, roi_w)
+    phs = torch.arange(p, dtype=torch.float32, device=x1.device)
+    hstart = (torch.floor(phs * bh[:, None]).long() + y1[:, None]).clamp(0, h)
+    hend = (torch.ceil((phs + 1) * bh[:, None]).long() + y1[:, None]).clamp(0, h)
+    wstart = (torch.floor(phs * bw[:, None]).long() + x1[:, None]).clamp(0, w)
+    wend = (torch.ceil((phs + 1) * bw[:, None]).long() + x1[:, None]).clamp(0, w)
+    return hstart, hend, wstart, wend
+
+
 def _fixed_bins(boxes, scale, p: int, h: int, w: int):
     """The integer ROI window and RoIPool's overlapping floor/ceil bins:
     (x1, y1, x2, y2) and (hstart, hend, wstart, wend), each (R,) or (R, P)."""
     sc = _t(scale, boxes)
     x1, y1, x2, y2 = (_c_round(boxes[:, i].float() * sc) for i in range(4))
-    roi_w = (x2 - x1 + 1).clamp(min=1).float()
-    roi_h = (y2 - y1 + 1).clamp(min=1).float()
-    bh = roi_h * _inv(p, boxes)
-    bw = roi_w * _inv(p, boxes)
-    phs = torch.arange(p, dtype=torch.float32, device=boxes.device)
-    hstart = (torch.floor(phs * bh[:, None]).long() + y1[:, None]).clamp(0, h)
-    hend = (torch.ceil((phs + 1) * bh[:, None]).long() + y1[:, None]).clamp(0, h)
-    wstart = (torch.floor(phs * bw[:, None]).long() + x1[:, None]).clamp(0, w)
-    wend = (torch.ceil((phs + 1) * bw[:, None]).long() + x1[:, None]).clamp(0, w)
-    return (x1, y1, x2, y2), (hstart, hend, wstart, wend)
+    return (x1, y1, x2, y2), _bins(x1, y1, x2, y2, p, h, w)
 
 
 def _chunks(r: int, per_roi: int):
@@ -287,6 +296,267 @@ def roi_pool(
                 out[a:b, ph, pw] = torch.where(keep_w[a:b, :, pw, None], colmax, neg_inf).amax(dim=1)
     valid = (hend > hstart)[:, :, None] & (wend > wstart)[:, None, :]
     return torch.where(valid[..., None], out, torch.zeros_like(out)), valid
+
+
+# elements of one chunk of roi_loop_pool's gathered bin windows
+# (ROIs, P, P, Hb, Wb, C): 512 MiB in float32
+_LOOP_CHUNK_ELEMENTS = 1 << 27
+
+
+def _loop_pool_regions(boxes, scale: float, p: int, h: int, w: int, context_ratio: float):
+    """The three regions of each ROI (JAX ``ops.py:284-318``): the (3, R, P)
+    ``hstart``, ``hend``, ``wstart`` and ``wend`` of the roi windows twice,
+    then of the context window, and the (3, R, 4) rectangles (x1, y1, x2,
+    y2) whose strict inside each region leaves out: none, the inner box,
+    the ROI."""
+    b = boxes.float()
+    x1, y1, x2, y2 = (_c_round(b[:, i] * _t(scale, b)) for i in range(4))
+    bw = (b[:, 2] - b[:, 0]).double()
+    bh = (b[:, 3] - b[:, 1]).double()
+    # XLA contracts ``bw - bw / cr`` and ``bw * cr - bw`` into fused
+    # multiply-adds (the division a product by the reciprocal): in float64
+    # both products and differences are exact, so one rounding to float32
+    # gives the fused result
+    inv_cr = float(np.float32(1) / np.float32(context_ratio))
+    cr = float(np.float32(context_ratio))
+    in_w, in_h = ((v - v * inv_cr).float() * 0.5 for v in (bw, bh))
+    out_w, out_h = ((v * cr - v).float() * 0.5 for v in (bw, bh))
+    img_w, img_h = float(np.float32(w / scale)), float(np.float32(h / scale))
+    sc = _t(scale, b)
+
+    def rnd(v, hi):
+        return _c_round(v.clamp(0.0, hi) * sc)
+
+    inner = (rnd(b[:, 0] + in_w, img_w), rnd(b[:, 1] + in_h, img_h), rnd(b[:, 2] - in_w, img_w),
+             rnd(b[:, 3] - in_h, img_h))
+    outer = (rnd(b[:, 0] - out_w, img_w), rnd(b[:, 1] - out_h, img_h), rnd(b[:, 2] + out_w, img_w),
+             rnd(b[:, 3] + out_h, img_h))
+    roi_bins = _bins(x1, y1, x2, y2, p, h, w)
+    ctx_bins = _bins(*outer, p, h, w)
+    bins = [torch.stack([roi_bins[i], roi_bins[i], ctx_bins[i]]) for i in range(4)]
+    none = torch.zeros_like(x1)
+    excl = torch.stack([torch.stack([none] * 4, -1), torch.stack(inner, -1), torch.stack((x1, y1, x2, y2), -1)])
+    return bins, excl
+
+
+def _bucket_sizes(largest: int) -> np.ndarray:
+    """1, 2, 3, 4, 6, 8, 12, 16, ...: the window extents a chunk rounds up
+    to (at most 1.5x the extent), up to ``largest``."""
+    sizes, k = [1, 2, 3], 2
+    while sizes[-1] < largest:
+        sizes += [2 ** k, 3 * 2 ** (k - 1)]
+        k += 1
+    return np.asarray(sizes, np.int64)
+
+
+def _loop_pool_plan(extent, per_roi: int, budget: int):
+    """Chunks of ROIs whose bins' largest windows (``extent`` (3, R, 2)
+    numpy: each region's rows and columns) round up to the same (Hb, Wb) of
+    ``_bucket_sizes``, each chunk holding at most ``budget`` gathered
+    elements (at least one ROI): a list of (region, first, last, Hb, Wb)
+    slices of the returned order, the (region, roi) of the chunks' rows."""
+    sizes = _bucket_sizes(int(extent.max(initial=1)))
+    chunks, order = [], []
+    for g in range(extent.shape[0]):
+        r = extent.shape[1]
+        hb = sizes[np.searchsorted(sizes, extent[g, :, 0])]
+        wb = sizes[np.searchsorted(sizes, extent[g, :, 1])]
+        idx = np.lexsort((np.arange(r), wb, hb))
+        bounds = np.flatnonzero(np.diff(hb[idx] * (sizes[-1] + 1) + wb[idx])) + 1
+        for seg in np.split(idx, bounds):
+            if not seg.size:
+                continue
+            h, w = int(hb[seg[0]]), int(wb[seg[0]])
+            n = max(1, budget // (h * w * per_roi))
+            for i in range(0, seg.size, n):
+                part = seg[i:i + n]
+                chunks.append((g, len(order), len(order) + part.size, h, w))
+                order.extend(g * r + part)
+    return chunks, np.asarray(order, np.int64)
+
+
+def _masked(pixels: torch.Tensor, index: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The (n, P, P, Hb, Wb, C) window values, -inf outside the windows."""
+    return torch.where(mask[..., None], pixels[index], float("-inf"))
+
+
+def _loop_pool_max(v: torch.Tensor) -> torch.Tensor:
+    """(n, P, P, Hb, Wb, C) masked window values -> (n, P, P, C): the
+    maximum over each column's rows, then over the columns, floored at 0,
+    in the JAX package's two stages."""
+    out = v.amax(dim=3).amax(dim=3)
+    return torch.maximum(out, torch.zeros_like(out))
+
+
+def _loop_pool_max_backward(v: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``_loop_pool_max`` in ``v`` for the cotangent
+    ``grad`` (n, P, P, C), as autograd forms it from ``torch.maximum`` and
+    ``amax`` (JAX's rule too): half of it to the floor where the maximum is
+    exactly 0, and within each stage a tie's share split evenly (divided by
+    the count, then masked)."""
+    col = v.amax(dim=3)
+    pre = col.amax(dim=3)
+    g = torch.where(pre > 0, grad, torch.where(pre == 0, grad / 2, torch.zeros_like(grad)))
+    tie_c = col == pre[:, :, :, None]
+    g_col = torch.where(tie_c, (g / tie_c.sum(dim=3))[:, :, :, None], 0.0)
+    tie_r = v == col[:, :, :, None]
+    return torch.where(tie_r, (g_col / tie_r.sum(dim=3))[:, :, :, None], 0.0)
+
+
+class _LoopPool:
+    """The windows of one roi_loop_pool call and their chunks."""
+
+    def __init__(self, features, boxes, batch_indices, scale, p, context_ratio, budget):
+        bimg, h, w, c = features.shape
+        r = boxes.shape[0]
+        self.p = p
+        (self.hs, self.he, self.ws, self.we), self.excl = _loop_pool_regions(boxes, scale, p, h, w, context_ratio)
+        self.bidx = batch_indices.long()
+        extent = torch.stack([(self.he - self.hs).amax(-1), (self.we - self.ws).amax(-1)], -1).clamp(min=1)
+        self.chunks, order = _loop_pool_plan(extent.cpu().numpy(), p * p * c, budget)  # one copy to the host
+        inverse = np.empty_like(order)
+        inverse[order] = np.arange(order.size)
+        both = torch.from_numpy(np.concatenate([order % max(r, 1), inverse])).to(boxes.device, non_blocking=True)
+        self.rois, self.inverse = both[:order.size], both[order.size:]
+        self.shape = (h, w)
+
+    def index(self, chunk):
+        """The (n, P, P, Hb, Wb) windows' pixels, as rows of the map viewed
+        as (B*H*W, C), and their membership."""
+        g, a, b, hb, wb = chunk
+        rois = self.rois[a:b]
+        h, w = self.shape
+        dev = rois.device
+        rows = self.hs[g, rois][:, :, None] + torch.arange(hb, device=dev)  # (n, P, Hb)
+        cols = self.ws[g, rois][:, :, None] + torch.arange(wb, device=dev)  # (n, P, Wb)
+        ex1, ey1, ex2, ey2 = self.excl[g, rois].unbind(-1)
+        row_ok = rows < self.he[g, rois][:, :, None]
+        col_ok = cols < self.we[g, rois][:, :, None]
+        in_r = (rows > ey1[:, None, None]) & (rows < ey2[:, None, None])
+        in_c = (cols > ex1[:, None, None]) & (cols < ex2[:, None, None])
+        rr, cc = (slice(None), slice(None), None, slice(None), None), (slice(None), None, slice(None), None, slice(None))
+        mask = row_ok[rr] & col_ok[cc] & ~(in_r[rr] & in_c[cc])
+        index = (self.bidx[rois][:, None, None, None, None] * h + rows.clamp(max=h - 1)[rr]) * w + cols.clamp(
+            max=w - 1)[cc]
+        return index, mask
+
+
+class _RoiLoopPoolFn(torch.autograd.Function):
+    """Forward chunk by chunk; the backward gathers each chunk again and
+    adds its windows' gradients into the map, so that no chunk's windows
+    outlive it."""
+
+    @staticmethod
+    def forward(ctx, features, plan: _LoopPool):
+        ctx.plan = plan
+        ctx.save_for_backward(features)
+        c = features.shape[-1]
+        pixels = features.reshape(-1, c)
+        outs = [_loop_pool_max(_masked(pixels, *plan.index(chunk))) for chunk in plan.chunks]
+        out = torch.cat(outs) if outs else features.new_zeros((0, plan.p, plan.p, c))
+        return out[plan.inverse]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (features,) = ctx.saved_tensors
+        plan = ctx.plan
+        grad = grad[torch.argsort(plan.inverse)]  # the chunks' row order
+        c = features.shape[-1]
+        pixels = features.detach().reshape(-1, c)
+        out = torch.zeros_like(pixels)
+        for chunk in plan.chunks:
+            index, mask = plan.index(chunk)
+            g = _loop_pool_max_backward(_masked(pixels, index, mask), grad[chunk[1]:chunk[2]])
+            out.index_add_(0, index.reshape(-1), g.reshape(-1, c))
+        return out.reshape(features.shape), None
+
+
+def roi_loop_pool(
+    features: torch.Tensor,  # (B, H, W, C)
+    boxes: torch.Tensor,  # (R, 4) XYXY in image coordinates
+    batch_indices: torch.Tensor,  # (R,)
+    spatial_scale: float,
+    output_size: int = 7,
+    context_ratio: float = 1.8,
+) -> torch.Tensor:
+    """ContextLocNet's ROILoopPool (JAX package ``wsl/ops.py:219``, the
+    reference's ``csrc/ROILoopPool``): RoIPool-style integer max pooling of
+    three regions of each ROI, in block order [roi, frame, context] ->
+    (3R, P, P, C). The roi region is the ROI's fixed grid of floor/ceil
+    bins; the frame the same bins without the pixels strictly inside the
+    inner box (the ROI shrunk by ``context_ratio`` about its centre); the
+    context the bins of the outer box (grown by ``context_ratio``, clamped
+    to the image) without the pixels strictly inside the ROI. Each bin is
+    the maximum over its window's rows for each column, then over the
+    columns, floored at 0 (an empty window pools 0).
+
+    The JAX package masks the whole map for each ROI and bin row; here each
+    bin gathers only its window, (P, P, Hb, Wb, C) a ROI with Hb x Wb its
+    chunk's window extent (the largest of its bins', rounded up by
+    ``_bucket_sizes``), and each chunk holds at most
+    ``_LOOP_CHUNK_ELEMENTS`` elements, in the forward and again in the
+    backward. The chunks are
+    planned on the host from the windows' extents: one copy to the host
+    and one back a call."""
+    plan = _LoopPool(features, boxes, batch_indices, spatial_scale, output_size, context_ratio, _LOOP_CHUNK_ELEMENTS)
+    return _RoiLoopPoolFn.apply(features, plan)
+
+
+def roi_label(
+    scores: torch.Tensor,  # (B, R, C) proposal class scores, -inf on rows not to mine
+    ious: torch.Tensor,  # (B, R, R) proposal IoU
+    image_labels: torch.Tensor,  # (B, C) multi-hot
+    class_weights: torch.Tensor,  # (B, C)
+    fg_threshold: float = 0.5,
+    bg_threshold_hi: float = 0.5,
+    bg_threshold_lo: float = -1.0,
+    top_k: int = 1,
+):
+    """CMIL's ROILabel (JAX package ``wsl/ops.py:332``, the reference's
+    ``csrc/ROILabel``): for each present class in turn, its ``top_k``
+    highest-scoring proposals not mined before (for any class; the first
+    maximum), then each proposal labelled by the mined proposal it overlaps
+    most: that class at IoU >= ``fg_threshold``, the background (C) in
+    [``bg_threshold_lo``, ``bg_threshold_hi``), else ignored (weight 0,
+    the class kept); the weight is the mined class's ``class_weights``
+    entry, with its gradient. The reference's random fg/bg caps are
+    ignored, as in the JAX package. Returns (B, R) ``label``, ``weight``,
+    ``matched_idx`` and ``max_iou``, and (B, C * top_k) ``mined_idx`` (-1
+    where none) and ``mined_ok``."""
+    b, r, c = scores.shape
+    present = image_labels > 0
+    taken = torch.zeros((b, r), dtype=torch.bool, device=scores.device)
+    neg_inf = torch.full_like(scores[..., 0], float("-inf"))
+    mined_idx, mined_ok = [], []
+    for ci in range(c):
+        for _ in range(top_k):
+            col = torch.where(taken, neg_inf, scores[..., ci])
+            idx = col.argmax(dim=1, keepdim=True)  # the first maximum, as jnp.argmax
+            ok = present[:, ci:ci + 1] & torch.isfinite(col.gather(1, idx))
+            mined_idx.append(torch.where(ok, idx, torch.full_like(idx, -1)))
+            mined_ok.append(ok)
+            taken = taken.scatter(1, idx, taken.gather(1, idx) | ok)
+    mined_idx = torch.cat(mined_idx, 1)  # (B, G)
+    mined_ok = torch.cat(mined_ok, 1)
+    g = mined_idx.shape[1]
+    mined_cls = torch.arange(c, device=scores.device).repeat_interleave(top_k)
+    iou = torch.gather(ious, 2, mined_idx.clamp(min=0)[:, None, :].expand(b, r, g))
+    iou = torch.where(mined_ok[:, None, :], iou, torch.full_like(iou, float("-inf")))
+    best = iou.amax(dim=-1)
+    arg = iou.argmax(dim=-1)
+    assign = mined_cls[arg]
+    fg = best >= fg_threshold
+    bg = ~fg & (best >= bg_threshold_lo) & (best < bg_threshold_hi)
+    label = torch.where(fg | ~bg, assign, torch.full_like(assign, c))
+    weight = torch.where(fg | bg, torch.gather(class_weights, 1, assign), torch.zeros_like(best))
+    return {
+        "label": label,
+        "weight": weight,
+        "matched_idx": torch.gather(mined_idx, 1, arg),
+        "max_iou": best,
+        "mined_idx": mined_idx,
+        "mined_ok": mined_ok,
+    }
 
 
 def pcl_losses(

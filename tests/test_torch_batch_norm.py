@@ -45,6 +45,17 @@ from jtsm_tpu_torch.layers import (
     get_norm,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads while this file runs, as the other port test
+    files have: at one a core, PyTorch's pools spin under the parallel
+    tier-1 run and slow every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 TOL = 1e-6
 TOL_BF16 = 3e-2
 

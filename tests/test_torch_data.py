@@ -18,6 +18,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image, ImageDraw
 
 from jtsm_tpu.config import get_cfg as jax_get_cfg
@@ -36,6 +37,17 @@ from jtsm_tpu_torch.data.datasets.synthetic import make_synthetic_coco, register
 from jtsm_tpu_torch.data.detection_utils import read_image
 from jtsm_tpu_torch.data.transforms import ResizeShortestEdge, ResizeTransform
 from jtsm_tpu_torch.structures import polygons_to_bitmask
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads while this file runs, as the other port test
+    files have: at one a core, PyTorch's pools spin under the parallel
+    tier-1 run and slow every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GATE_YAML = os.path.join(ROOT, "configs/quick_schedules/mask_rcnn_R_18_FPN_synthetic_inference_acc_test.yaml")

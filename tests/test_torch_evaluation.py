@@ -22,6 +22,17 @@ from jtsm_tpu_torch.evaluation import COCOEval, batched_outputs_to_coco_json
 from jtsm_tpu_torch.ops.paste_masks import paste_masks
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads while this file runs, as the other port test
+    files have: at one a core, PyTorch's pools spin under the parallel
+    tier-1 run and slow every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _edge_masks():
     rng = np.random.default_rng(0)
     one = np.zeros((7, 5), bool)

@@ -19,6 +19,18 @@ import sys
 
 import numpy as np
 import pytest
+import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads while this file runs, as the other port test
+    files have: at one a core, PyTorch's pools spin under the parallel
+    tier-1 run and slow every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PINS = {

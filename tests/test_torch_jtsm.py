@@ -67,6 +67,17 @@ from jtsm_tpu_torch.wsl.modeling.mil_heads import MILOutputLayers, OICROutputLay
 from jtsm_tpu_torch.wsl.modeling.roi_heads_wsl import DiscriminativeAdaptionNeck, wsl_inference
 from jtsm_tpu_torch.wsl.modeling.seg_heads import TwoClassHead
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads while this file runs, as the other port test
+    files have: at one a core, PyTorch's pools spin under the parallel
+    tier-1 run and slow every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GATE_CKPT = os.path.join(ROOT, "tests", "fixtures", "gate_ckpts", "jtsm.ckpt.gz")
 FLAGSHIP_YAML = "projects/WSL/configs/PascalVOC-PanopticSegmentation/jtsm_WSR_18_DC5_1x.yaml"

@@ -47,6 +47,17 @@ from jtsm_tpu_torch.modeling.meta_arch.panoptic_fpn import (
     panoptic_fusion_postprocess,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads while this file runs, as the other port test
+    files have: at one a core, PyTorch's pools spin under the parallel
+    tier-1 run and slow every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GATE_YAML = os.path.join(ROOT, "projects/WSL/configs/quick_schedules/jtsm_synthetic_inference_acc_test.yaml")
 PINS = {("bbox", "AP"): 25.1932, ("segm", "AP"): 25.5954, ("sem_seg", "mIoU"): 7.9448,
@@ -62,7 +73,7 @@ def runs(tmp_path_factory):
     root = tmp / "datasets"
     subprocess.run([sys.executable, os.path.join(ROOT, "dev", "make_synthetic_coco.py"), "--root", str(root),
                     "--num", "8"], check=True, capture_output=True, cwd=ROOT)
-    env = dict(os.environ, JTSM_DATASETS=str(root), PYTHONPATH=ROOT, JAX_PLATFORMS="cpu")
+    env = dict(os.environ, JTSM_DATASETS=str(root), PYTHONPATH=ROOT, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2")
     commands = {
         "port": [sys.executable, "-m", "jtsm_tpu_torch.wsl.train_net", "--eval-only", "--device", "cpu",
                  "--config-file", GATE_YAML, "OUTPUT_DIR", str(tmp / "port")],

@@ -79,7 +79,7 @@ from jtsm_tpu_torch.wsl.modeling import mil_heads
 from jtsm_tpu_torch.wsl.modeling import roi_heads_jtsm as rhj
 from jtsm_tpu_torch.wsl.modeling.roi_heads_wsl import image_level_gt, image_level_gt_stuff
 from tests import test_torch_jtsm
-from tests.test_torch_jtsm import _gate_batch, _jax_cfg, _seeded_variables
+from tests.test_torch_jtsm import _gate_batch, _jax_cfg, _seeded_variables, _two_torch_threads  # noqa: F401
 
 LOSSES = sorted(
     ["loss_mil", "loss_mask", "loss_mask_r0", "loss_sem_seg"]

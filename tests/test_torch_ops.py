@@ -28,6 +28,17 @@ from jtsm_tpu_torch.ops.box_regression import Box2BoxTransform
 from jtsm_tpu_torch.structures import boxes
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads while this file runs, as the other port test
+    files have: at one a core, PyTorch's pools spin under the parallel
+    tier-1 run and slow every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(a, b, rel=2e-5):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     assert a.shape == b.shape, (a.shape, b.shape)

@@ -12,6 +12,7 @@ mask probabilities to 1e-4.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from jtsm_tpu.config import get_cfg as jax_get_cfg
@@ -25,6 +26,17 @@ from jtsm_tpu_torch.modeling.roi_heads.fast_rcnn import fast_rcnn_inference
 from jtsm_tpu_torch.modeling.roi_heads.mask_head import mask_rcnn_inference
 from jtsm_tpu_torch.ops.box_regression import Box2BoxTransform
 from tests.modeling.test_meta_archs import _fpn_tiny
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads while this file runs, as the other port test
+    files have: at one a core, PyTorch's pools spin under the parallel
+    tier-1 run and slow every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _close(a, b, rel=1e-4):

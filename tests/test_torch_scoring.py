@@ -20,6 +20,18 @@ import sys
 
 import numpy as np
 import pytest
+import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads while this file runs, as the other port test
+    files have: at one a core, PyTorch's pools spin under the parallel
+    tier-1 run and slow every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GATE_YAML = os.path.join(ROOT, "configs/quick_schedules/mask_rcnn_R_18_FPN_synthetic_inference_acc_test.yaml")
@@ -33,7 +45,7 @@ def runs(tmp_path_factory):
     root = tmp / "datasets"
     subprocess.run([sys.executable, os.path.join(ROOT, "dev", "make_synthetic_coco.py"), "--root", str(root),
                     "--num", "8", "--num-varied", "1"], check=True, capture_output=True, cwd=ROOT)
-    env = dict(os.environ, JTSM_DATASETS=str(root), PYTHONPATH=ROOT, JAX_PLATFORMS="cpu")
+    env = dict(os.environ, JTSM_DATASETS=str(root), PYTHONPATH=ROOT, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2")
     commands = {
         "port": [sys.executable, "-m", "jtsm_tpu_torch.tools.train_net", "--eval-only", "--device", "cpu",
                  "--config-file", GATE_YAML, "OUTPUT_DIR", str(tmp / "port")],

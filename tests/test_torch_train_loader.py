@@ -16,6 +16,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from jtsm_tpu.config import get_cfg as jax_get_cfg
 from jtsm_tpu.data import DatasetCatalog as JaxDatasetCatalog
@@ -42,6 +43,17 @@ from jtsm_tpu_torch.data.datasets.coco import register_coco_instances
 from jtsm_tpu_torch.data.samplers import RepeatFactorTrainingSampler
 from jtsm_tpu_torch.structures import rasterize_polygons_within_box
 from jtsm_tpu_torch.wsl.data import build_wsl_train_loader
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads while this file runs, as the other port test
+    files have: at one a core, PyTorch's pools spin under the parallel
+    tier-1 run and slow every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MRCNN_YAML = os.path.join(ROOT, "configs/quick_schedules/mask_rcnn_R_18_FPN_synthetic_training_acc_test.yaml")

@@ -50,6 +50,17 @@ from tests.modeling.test_meta_archs import _fpn_tiny
 from tests.test_torch_ops import _pyramid, _random_boxes, _roi_cases
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads while this file runs, as the other port test
+    files have: at one a core, PyTorch's pools spin under the parallel
+    tier-1 run and slow every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(a, b, rel):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     assert a.shape == b.shape, (a.shape, b.shape)

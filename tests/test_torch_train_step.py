@@ -37,6 +37,17 @@ from jtsm_tpu_torch.modeling import build_model
 from jtsm_tpu_torch.solver import build_lr_schedule, build_optimizer
 from tests.modeling.test_meta_archs import _batch, _fpn_tiny
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads while this file runs, as the other port test
+    files have: at one a core, PyTorch's pools spin under the parallel
+    tier-1 run and slow every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 LOSSES = ["loss_box_reg", "loss_cls", "loss_mask", "loss_rpn_cls", "loss_rpn_loc"]
 STEPS = 3
 

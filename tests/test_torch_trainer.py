@@ -297,7 +297,7 @@ def test_training_gate_beside_the_jax_run(trees, tmp_path):
     38.6496 / 44.8110 and segm 40.5996 / 40.0385 / 44.2555 at SEEDs 42 / 1 /
     2 (mean bbox 38.6597 and 40.8441). Held: every run scores, and the
     port's mean bbox AP is at most 10 below the JAX package's."""
-    env = dict(os.environ, JTSM_DATASETS=trees, PYTHONPATH=ROOT, JAX_PLATFORMS="cpu")
+    env = dict(os.environ, JTSM_DATASETS=trees, PYTHONPATH=ROOT, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2")
     from tests.test_torch_scoring import _copypaste
 
     def run(cmd):

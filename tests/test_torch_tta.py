@@ -48,6 +48,17 @@ from jtsm_tpu_torch.ops.nms import batched_nms, nms
 from tests.modeling.test_meta_archs import _fpn_tiny
 from tests.test_torch_jtsm_scoring import _assert_same_results
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads while this file runs, as the other port test
+    files have: at one a core, PyTorch's pools spin under the parallel
+    tier-1 run and slow every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JTSM_YAML = os.path.join(ROOT, "projects/WSL/configs/quick_schedules/jtsm_synthetic_inference_acc_test.yaml")
 MRCNN_YAML = os.path.join(ROOT, "configs/quick_schedules/mask_rcnn_R_18_FPN_synthetic_inference_acc_test.yaml")

@@ -307,8 +307,8 @@ def test_wsr_solver_doubles_the_bias_rate_without_decay():
 
 
 def test_unported_pieces_raise():
-    for opts in (["WSL.HAS_GAM", "True"], ["WSL.SAMPLING.SAMPLING_ON", "True"],
-                 ["MODEL.ROI_HEADS.NAME", "CascadeOICRROIHeads"], ["MODEL.PROPOSAL_GENERATOR.NAME", "RPNWSL"]):
+    for opts in (["MODEL.ROI_HEADS.NAME", "CSCROIHeads"], ["MODEL.ROI_HEADS.NAME", "MRRPOICRROIHeads"],
+                 ["MODEL.ROI_HEADS.NAME", "UWSODROIHeads"], ["MODEL.PROPOSAL_GENERATOR.NAME", "RPNWSL"]):
         cfg = wsod_WSR_18_narrow_cfg("OICRROIHeads")
         cfg.merge_from_list(opts)
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):

@@ -71,7 +71,7 @@ UPDATE_TOL = 1e-3
 # PCL's gradients are an order of magnitude smaller than WSDDN's and OICR's
 # (L2 norms 35-260 against 700-2600 on this tree), so at 1e-5 its updates
 # come near the float32 rounding of the parameters
-BASE_LR = {"WSDDNROIHeads": "1e-5", "OICRROIHeads": "1e-5", "PCLROIHeads": "1e-4"}
+BASE_LR = {"WSDDNROIHeads": "1e-5", "OICRROIHeads": "1e-5", "PCLROIHeads": "1e-4", "CMILROIHeads": "1e-5"}
 
 
 @pytest.fixture(autouse=True)
@@ -81,8 +81,8 @@ def _jax_dan_without_dropout(monkeypatch):
     monkeypatch.setattr(jax_zoo, "DiscriminativeAdaptionNeck", no_dropout)
 
 
-def _cfg(head, tree, weights, out):
-    cfg = wsod_WSR_18_narrow_cfg(head)
+def _cfg(head, tree, weights, out, narrow=None):
+    cfg = narrow() if narrow else wsod_WSR_18_narrow_cfg(head)
     cfg.merge_from_list([
         "DATASETS.TRAIN", f"('{NAME}',)", "DATASETS.PROPOSAL_FILES_TRAIN", f"('{tree['pkl']}',)",
         "DATASETS.TEST", f"('{NAME}',)", "DATASETS.PROPOSAL_FILES_TEST", f"('{tree['pkl']}',)",
@@ -102,13 +102,15 @@ def _cfg(head, tree, weights, out):
     return cfg
 
 
-def train_and_score(head, tree, jax_cli, tmp_path, monkeypatch):
-    """Both trainers on ``head``'s narrow configuration, then both commands
-    on the port's ``model_final.pth`` (see the module docstring)."""
+def train_and_score(head, tree, jax_cli, tmp_path, monkeypatch, narrow=None):
+    """Both trainers on ``head``'s narrow configuration (``narrow()``, by
+    default ``wsod_WSR_18_narrow_cfg(head)``), then both commands on the
+    port's ``model_final.pth`` (see the module docstring)."""
     weights = str(tmp_path / "init.pth")
     torch.manual_seed(0)
-    torch.save({"model": random_state_dict(build_model(wsod_WSR_18_narrow_cfg(head), device="cpu"), seed=1)}, weights)
-    jc = _jax_cfg(_cfg(head, tree, weights, str(tmp_path / "jax")))
+    first = narrow() if narrow else wsod_WSR_18_narrow_cfg(head)
+    torch.save({"model": random_state_dict(build_model(first, device="cpu"), seed=1)}, weights)
+    jc = _jax_cfg(_cfg(head, tree, weights, str(tmp_path / "jax"), narrow))
     jax_seed_all_rng(jc.SEED)
     with jax.default_matmul_precision("highest"):
         jt = _one_stream(jax_cli.Trainer)(jc)
@@ -118,7 +120,7 @@ def train_and_score(head, tree, jax_cli, tmp_path, monkeypatch):
             jt, lambda: variables_to_state_dict(jax.tree_util.tree_map(np.asarray, {"params": jt.state.params})),
             jax_hooks.CallbackHook)
         jt.train()
-    pt = port_cli.Trainer(_cfg(head, tree, weights, str(tmp_path / "port")), device="cpu")
+    pt = port_cli.Trainer(_cfg(head, tree, weights, str(tmp_path / "port"), narrow), device="cpu")
     pt.resume_or_load(resume=False)
     pt.model.roi_heads.dan.dropout = 0.0
     _write_every_iteration(pt, hooks)
