@@ -277,8 +277,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    step's losses and update within max(1e-4 and 2e-3, 3 x the CPU's
    float32-to-float64 gap)), and ``roi_loop_pool``, ``roi_label`` and
    ``roi_merge`` on the card against the CPU; these launches count in no
-   total; (b) each full-width configuration (seeded weights) serves 8
-   requests of 16(b) in each of bf16 and f32, in turns: K1 once a request
+   total; (b) each full-width configuration (seeded weights) serves 4
+   requests of 16(b) in each of bf16 and f32 (8 before PR 19), in turns: K1 once a request
    (never for ContextLocNet), then the stage split (backbone, attend,
    pool or loop_pool, dan, heads, nms) with its host syncs and each
    stage's peak memory; (c) its train step at IMS_PER_BATCH 4 in both, in
@@ -288,7 +288,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    backward, sgd) with each stage's peak memory (``loop_pool``'s is
    ``roi_loop_pool``'s); (e) CMIL on WSR-18 through the WSL trainer on 8
    in-memory VOC scenes with 2000 proposals (ITER_SIZE 4, 8 mini-batches:
-   K1 once a mini-batch, K2 never). Any phase
+   K1 once a mini-batch, K2 never);
+21. csc_uwsod: CSC on WSR-18 and VGG16, CSC-OICR on VGG16 (and its
+   reg_last form), WSJDS on VGG16 with its ASPP head (the builder
+   ``wsjds_V_16_DC5_cfg``), UWSOD on the multi-rate VGG16 with ``RPNWSL``.
+   (d) K1 and K2 against their plain versions at the new launch sites, in
+   float32 and bfloat16, timed beside their bounds: the CPG pass's VGG16
+   box pooler (B=4, R=8000) and UWSOD's branch-averaged plain5 (serve B=1
+   R=2048, train B=4 R=8192); (a) the narrow CSC WSR-18 (every stage
+   training), CSC-OICR, WSJDS with the CRF and UWSOD on the card against
+   this machine's CPU (detections and WSJDS's masks matched by (source
+   proposal, class), the CPG maps within max(2e-2, 3 x the CPU's
+   float32-to-float64 gap), one step's losses and update as 20(a)), then
+   ``csc_full`` and ``crf_mean_field`` at a train batch's shapes; these
+   launches count in no total; (b) each full-width configuration serves 4
+   requests of 16(b) in each of bf16 and f32 (UWSOD on its RPN's 2048
+   proposals), in turns, K1 once a request, then the stage split
+   (backbone, rpn, pool, dan, heads, nms, seg) with its host syncs and
+   peak memory; (c) its train step at IMS_PER_BATCH 4 in both (median of
+   steps 2-6), the CSC heads' CPG pass before each step (K1 once and K2
+   once a backward where the map trains), its own ``cpg`` stage beside
+   the step's; (e) csc_V_16 through the WSL trainer with WSL.CSC_MAX_ITER
+   crossed (the maps, then the plain MIL loss) and uwsod_V_16 (no proposal
+   files, MODEL.LOAD_PROPOSALS False), 8 in-memory VOC scenes. Any phase
    that fails logs ``[<phase>] FAILED: <type>: <message>`` and its
    traceback, and the run ends there with a non-zero exit.
 
@@ -312,7 +334,10 @@ pred-boxes mask pooler of 19(b) and their launches under its steps,
 their launches under the trainer of 19(c), ``ts_launches`` all of phase
 19's main paths; ``zoo_gam_*``, ``zoo_cascade_*`` and ``zoo_cmil_vgg_*``
 their rows at phase 20(d)'s sites and each site's launches on phase 20's
-main paths, ``zoo_launches`` all of them),
+main paths, ``zoo_launches`` all of them; ``csc_cpg_*`` and ``uwsod_*``
+their rows at phase 21(d)'s sites, ``csc_launches`` their launches on
+phase 21's main paths, ``cpg_launches`` those in its CPG passes,
+``uwsod_launches`` K1's under UWSOD),
 the card's name and power limit as
 nvidia-smi gives them, and {"ok": true, "device": {...}}. Needs one card, torch, numpy and pytest;
 imports nothing of JAX. Without a card, or outside a checkout of the
@@ -3133,7 +3158,8 @@ def phase_families(kernel, gen, baseline, card):
 WSOD_IMAGE_HW = (375, 500)  # a VOC-size image: 688x917 at MIN_SIZE_TEST 688
 # the WSOD heads whose detections carry each proposal's class scores (the
 # others' cannot go through TTA-AVG)
-CLASS_SCORE_HEADS = ("WSDDNROIHeads", "OICRROIHeads", "CascadeOICRROIHeads")
+CLASS_SCORE_HEADS = ("WSDDNROIHeads", "OICRROIHeads", "CascadeOICRROIHeads", "CSCROIHeads", "CSCOICRROIHeads",
+                     "WSJDSROIHeads")
 WSOD_CASES = (  # name, builder, ROI heads
     ("wsddn_WSR_18", "wsod_WSR_18_DC5_cfg", "WSDDNROIHeads"),
     ("oicr_WSR_18", "wsod_WSR_18_DC5_cfg", "OICRROIHeads"),
@@ -3206,13 +3232,14 @@ def timed_peak(call):
 
 def wsod_model(cfg, states):
     """``build_model(cfg)`` on the card with ``wsod_states``' seeded weights
-    where its keys hold them, the rest (GAM, the fourth and regressing
-    branches) drawn by ``random_state_dict``."""
+    where its keys hold them (the multi-rate VGG16's shared plain5 kernels
+    take VGG16's), the rest (GAM, the fourth and regressing branches, the
+    RPN, the ASPP head) drawn by ``random_state_dict``."""
     from jtsm_tpu_torch.checkpoint import random_state_dict
     from jtsm_tpu_torch.modeling import build_model
 
     model = build_model(cfg, device=DEVICE)
-    base = states["V_16" if cfg.MODEL.BACKBONE.NAME == "build_vgg_backbone" else "WSR_18"]
+    base = states["V_16" if "vgg" in cfg.MODEL.BACKBONE.NAME else "WSR_18"]
     own = model.state_dict()
     missing = [k for k, v in own.items() if k not in base or tuple(base[k].shape) != tuple(v.shape)]
     state = {k: base[k] for k in own if k not in missing}
@@ -3280,10 +3307,11 @@ def wsod_train_batch(cfg, seeds):
 
 def wsod_stages(model, batch, measure, train=None):
     """The request ``batch`` through a WSOD model stage by stage (backbone,
-    attend under GAM, pool by K1 or ``loop_pool`` for ContextLocNet, dan,
-    heads, nms), or with ``train`` (the optimizer, the schedule and the
-    train state) its train step (..., heads, then ``merge`` and ``label``
-    for CMIL or ``losses``, backward, sgd); ``measure`` makes each call and
+    rpn under RPNWSL, attend under GAM, pool by K1 or ``loop_pool`` for
+    ContextLocNet, dan, heads, nms, seg for WSJDS's masks), or with
+    ``train`` (the optimizer, the schedule and the train state) its train
+    step (..., heads, then ``merge`` and ``label`` for CMIL or ``losses``,
+    UWSOD's with the RPN's, backward, sgd); ``measure`` makes each call and
     returns its reading."""
     import torch
 
@@ -3293,23 +3321,31 @@ def wsod_stages(model, batch, measure, train=None):
 
     heads = model.roi_heads
     gen = train[2].generator if train else None
+    rpn = getattr(model, "proposal_generator", None)
     r = {}
 
     def backbone():
         r["feats"], r["sizes"] = model._features(batch)
-        r["props"], r["scores"] = model.request_fields(batch)
-        r["targets"] = {k: torch.as_tensor(batch[k], device=model.device) for k in ("gt_classes", "gt_valid")
+        if rpn is None:
+            r["props"], r["scores"] = model.request_fields(batch)
+        r["targets"] = {k: torch.as_tensor(batch[k], device=model.device) for k in ("gt_classes", "gt_valid", "cpg")
                         if k in batch}
 
     stages = {"backbone": backbone}
+    if rpn is not None:
+        stages["rpn"] = lambda: r.update(zip(("props", "scores", "deferred"),
+                                             model.proposals(batch, r["feats"], r["sizes"], gen)))
     if heads.gam is not None:
         stages["attend"] = lambda: r.update(zip(("feats", "gam"), heads.attend(r["feats"])))
     pool = "loop_pool" if isinstance(heads, ContextLocNetROIHeads) else "pool"
-    stages[pool] = lambda: r.update(pooled=heads.pool(r["feats"], r["props"]))
+    stages[pool] = lambda: r.update(pooled=heads.pool_proposals(r["feats"], r["props"], r["scores"]))
     stages["dan"] = lambda: r.update(x=heads.dan(r["pooled"], gen))
     stages["heads"] = lambda: r.update(zip(("mil", "branches"), heads.predict(r["x"], r["scores"])))
     if train is None:
-        stages["nms"] = lambda: heads.detect(r["props"], r["scores"], r["mil"], r["branches"], r["sizes"])
+        stages["nms"] = lambda: r.update(det=heads.detect(r["props"], r["scores"], r["mil"], r["branches"],
+                                                          r["sizes"]))
+        if getattr(heads, "sem_seg_head", None) is not None:
+            stages["seg"] = lambda: heads.segment(r["feats"], r["det"])
     else:
         optimizer, schedule, state = train
 
@@ -3318,10 +3354,18 @@ def wsod_stages(model, batch, measure, train=None):
                 losses.update(heads.gam_loss(r["gam"], r["targets"]))
             return losses
 
+        def rpn_losses():
+            losses, (boxes, valid) = heads.losses_and_pgt(r["props"], r["scores"], r["mil"], r["branches"],
+                                                          r["targets"])
+            losses.update(rpn.get_losses(r["deferred"], boxes.detach(), valid, gen))
+            r["losses"] = losses
+
         if isinstance(heads, CMILROIHeads):
             stages["merge"] = lambda: r.update(zip(("cluster", "prop"), heads.merge(r["props"], r["scores"], r["mil"])))
             stages["label"] = lambda: r.update(losses=heads.label_losses(
                 r["props"], r["scores"], r["cluster"], r["prop"], r["branches"], r["targets"]))
+        elif rpn is not None:
+            stages["losses"] = rpn_losses
         else:
             stages["losses"] = lambda: r.update(losses=gam(heads.losses(
                 r["props"], r["scores"], r["mil"], r["branches"], r["targets"], r["feats"], gen)))
@@ -3551,26 +3595,41 @@ def wsod_serve(kernel, states, names, cfg_of, phase, rounds, stage_rounds):
 
 
 def wsod_train(kernels, states, names, cfg_of, phase, steps):
-    """Phases 16(c) and 20(c), the steps: each full-width configuration of
-    ``names`` (``cfg_of(name)``) takes ``steps`` steps on IMS_PER_BATCH
-    seeded requests (``wsod_train_batch``) in each of bf16 and f32, in
-    turns, with K1 and K2 as ``pooler_launches`` says; then the stage split
-    with its host syncs and each stage's peak memory (``loop_pool``'s is
-    ContextLocNet's ``roi_loop_pool``), logged under ``phase``. Returns
-    each kernel's launches by configuration and the median step times."""
+    """Phases 16(c), 20(c) and 21(c), the steps: each full-width
+    configuration of ``names`` (``cfg_of(name)``) takes ``steps`` steps on
+    IMS_PER_BATCH seeded requests (``wsod_train_batch``; without proposals
+    under RPNWSL) in each of bf16 and f32, in turns, with K1 and K2 as
+    ``pooler_launches`` says. For the CSC heads each step is the CPG pass
+    (``class_peak_gradients``, K1 and K2 as ``cpg_launches`` says, timed as
+    its own ``cpg`` stage) and then the train step on the batch with its
+    maps, at CSC_LR_FACTOR of the yaml's rate. Then the stage split with
+    its host syncs and each stage's peak memory (``loop_pool``'s is
+    ContextLocNet's ``roi_loop_pool``), logged under ``phase``. Returns each
+    kernel's launches by configuration, the median step times (the CPG pass
+    included), and the CPG passes' launches and median times."""
     import torch
 
     from jtsm_tpu_torch.engine import create_train_state, make_train_step
     from jtsm_tpu_torch.solver import build_lr_schedule, build_optimizer
+    from jtsm_tpu_torch.wsl.modeling.wsjds import class_peak_gradients, cpg_slots
 
-    launches = {}
-    med = {}
+    launches, med = {}, {}
+    cpg = {"launches": {k.name: 0 for k in kernels}, "ms": {}}
     for name in names:
         base = cfg_of(name)
         dtypes = (base.TPU.COMPUTE_DTYPE, "float32")
         batch = wsod_train_batch(base, list(range(3, 3 + base.SOLVER.IMS_PER_BATCH)))
+        if base.MODEL.PROPOSAL_GENERATOR.NAME == "RPNWSL":
+            batch = {k: v for k, v in batch.items() if k not in ("proposals", "proposal_scores")}
+        cpg_on = is_cpg_head(base)
+        slots = int(cpg_slots(batch["gt_classes"], batch["gt_valid"])[1].any(axis=0).sum()) if cpg_on else 0
+        c1, c2 = cpg_launches(base, slots) if cpg_on else (0, 0)
+        passes = slots if c1 else 0  # a detached pooled map: no backward
         _, per_step = pooler_launches(base)
-        runs, times, peak = {}, {d: [] for d in dtypes}, {}
+        per_step = [per_step[0] + c1, per_step[1] + c2]
+        if cpg_on:
+            base.SOLVER.BASE_LR *= CSC_LR_FACTOR
+        runs, times, cpg_ms, peak = {}, {d: [] for d in dtypes}, {d: [] for d in dtypes}, {}
         for d in dtypes:
             cfg = base.clone()
             cfg.TPU.COMPUTE_DTYPE = d
@@ -3579,6 +3638,20 @@ def wsod_train(kernels, states, names, cfg_of, phase, steps):
             schedule = build_lr_schedule(cfg)
             runs[d] = (model, optimizer, schedule, create_train_state(model, optimizer, seed=0),
                        make_train_step(model, optimizer, schedule))
+
+        def with_maps(model, ms=None):
+            """The batch with its CPG maps (for the CSC heads)."""
+            if not cpg_on:
+                return batch
+            t0 = time.perf_counter()
+            maps, n = class_peak_gradients(model, batch, base.MODEL.ROI_HEADS.NUM_CLASSES)
+            if ms is not None:
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            if n != passes:
+                raise AssertionError(f"{phase} train {name}: {n} CPG passes, not {passes}")
+            return dict(batch, cpg=maps)
+
         for k in kernels:
             k.launches = 0
         for i in range(steps):
@@ -3588,7 +3661,7 @@ def wsod_train(kernels, states, names, cfg_of, phase, steps):
                 base_mem = torch.cuda.memory_allocated()
                 before = [k.launches for k in kernels]
                 t0 = time.perf_counter()
-                metrics = runs[d][4](runs[d][3], batch)
+                metrics = runs[d][4](runs[d][3], with_maps(runs[d][0], cpg_ms[d]))
                 torch.cuda.synchronize()
                 times[d].append((time.perf_counter() - t0) * 1e3)
                 peak[d] = max(peak.get(d, 0.0), (torch.cuda.max_memory_allocated() - base_mem) / 2**30)
@@ -3598,23 +3671,38 @@ def wsod_train(kernels, states, names, cfg_of, phase, steps):
                 got = [k.launches - n for k, n in zip(kernels, before)]
                 if got != per_step:
                     raise AssertionError(f"{phase} train {name} {d} step {i}: launches {got}, not {per_step}")
+                for k, c in zip(kernels, (c1, c2)):
+                    cpg["launches"][k.name] += c
         launches[name] = {k.name: k.launches for k in kernels}
         for d in dtypes:
             med[(name, d)] = median(times[d][1:])
             model, optimizer, schedule, state, _ = runs[d]
-            stage = wsod_stages(model, batch, timed_peak, (optimizer, schedule, state))
-            syncs = wsod_stages(model, batch, count_host_syncs, (optimizer, schedule, state))
+            stage, syncs = {}, {}
+            if cpg_on:
+                cpg["ms"][(name, d)] = median(cpg_ms[d][1:])
+                maps = {}
+                stage["cpg"] = timed_peak(lambda: maps.update(b=with_maps(model)))
+                syncs["cpg"] = count_host_syncs(lambda: with_maps(model))
+                step_batch = maps["b"]
+            else:
+                step_batch = batch
+            stage.update(wsod_stages(model, step_batch, timed_peak, (optimizer, schedule, state)))
+            syncs.update(wsod_stages(model, step_batch, count_host_syncs, (optimizer, schedule, state)))
             log(f"[{phase}] (c) {name} train {DTYPE_NAMES[d]}{' (TF32 off)' if d == 'float32' else ''}, "
                 f"{base.SOLVER.IMS_PER_BATCH} images {'x'.join(map(str, batch['image_sizes'][0]))} in "
-                f"{'x'.join(map(str, batch['image'].shape[1:3]))}, R={batch['proposals'].shape[1]} each: step_ms="
-                f"{[round(t, 3) for t in times[d]]} median_of_steps_2_to_{steps}_ms={med[(name, d)]:.3f} "
-                f"step_peak_gib={peak[d]:.3f} | stages_ms " + " ".join(f"{k}={v['ms']:.3f}" for k, v in stage.items())
+                f"{'x'.join(map(str, batch['image'].shape[1:3]))}"
+                + (f", R={batch['proposals'].shape[1]} each" if "proposals" in batch else
+                   f", RPN top-k {base.MODEL.RPN.POST_NMS_TOPK_TRAIN}")
+                + (f", the CPG pass ({passes} backwards) in each step" if cpg_on else "")
+                + f": step_ms={[round(t, 3) for t in times[d]]} median_of_steps_2_to_{steps}_ms={med[(name, d)]:.3f} "
+                + (f"cpg_ms={[round(t, 3) for t in cpg_ms[d]]} median {cpg['ms'][(name, d)]:.3f} " if cpg_on else "")
+                + f"step_peak_gib={peak[d]:.3f} | stages_ms " + " ".join(f"{k}={v['ms']:.3f}" for k, v in stage.items())
                 + " | stage peak_gib " + " ".join(f"{k}={v['peak']:.3f}" for k, v in stage.items())
                 + " | host syncs " + " ".join(f"{k}={n}" for k, n in syncs.items())
-                + f" | launches a step {per_step} | losses "
+                + f" | launches a step {per_step}" + (f" (CPG pass {[c1, c2]})" if cpg_on else "") + " | losses "
                 + ", ".join(f"{k}={v.item():.5g}" for k, v in metrics.items()))
         del runs, model, optimizer, state
-    return launches, med
+    return launches, med, cpg
 
 
 def wsod_trainers(kernels, states):
@@ -3725,7 +3813,7 @@ def phase_wsod(kernels, gen, baseline):
         names = [case for case, _, _ in WSOD_CASES]
         serve_launches, latency = wsod_serve(kernels[0], states, names, wsod_cfg, "wsod", WSOD_ROUNDS,
                                              WSOD_STAGE_ROUNDS)
-        train_launches, steps = wsod_train(kernels, states, names, wsod_cfg, "wsod", WSOD_TRAIN_STEPS)
+        train_launches, steps, _ = wsod_train(kernels, states, names, wsod_cfg, "wsod", WSOD_TRAIN_STEPS)
         trainer_launches, trainers = wsod_trainers(kernels, states)
         launches = {k.name: sum(t[k.name] for t in train_launches.values()) + trainer_launches[k.name]
                     for k in kernels}
@@ -4650,8 +4738,10 @@ def phase_train_surface(kernels, gen, baseline):
 ZOO_CASES = ("oicr_CA_WSR_18", "oicr_SP_WSR_18", "pcl_gam_WSR_18", "contextlocnet_WSR_18", "contextlocnet_V_16",
              "cmil_WSR_18", "cmil_V_16")  # entries of config.WSOD_ZOO
 ZOO_NARROW = ("pcl_gam_WSR_18", "oicr_SP_WSR_18", "oicr_CA_WSR_18", "contextlocnet_WSR_18", "cmil_WSR_18")
-ZOO_ROUNDS = 8  # requests in each dtype
-ZOO_STAGE_ROUNDS = 2
+# phase 20's serving depth, cut so that phase 21 fits the script's time
+# (it was 8 requests and 2 stage rounds)
+ZOO_ROUNDS = 4  # requests in each dtype
+ZOO_STAGE_ROUNDS = 1
 ZOO_TRAIN_STEPS = 6  # each dtype, in turns; the medians take steps 2-6
 ZOO_TRAINER_SCENES = 8
 ZOO_TRAINER_ITERS = 8  # 2 updates of CMIL WSR-18's ITER_SIZE 4
@@ -4968,7 +5058,7 @@ def phase_wsod_zoo(kernels, gen, baseline):
         log(f"[wsod_zoo] seeded full-width weights of WSR-18 and VGG16 in {time.perf_counter() - t0:.1f}s")
         serve_launches, latency = wsod_serve(kernels[0], states, ZOO_CASES, zoo_cfg, "wsod_zoo", ZOO_ROUNDS,
                                              ZOO_STAGE_ROUNDS)
-        train_launches, steps = wsod_train(kernels, states, ZOO_CASES, zoo_cfg, "wsod_zoo", ZOO_TRAIN_STEPS)
+        train_launches, steps, _ = wsod_train(kernels, states, ZOO_CASES, zoo_cfg, "wsod_zoo", ZOO_TRAIN_STEPS)
         trainer_launches, trainer = zoo_trainer(kernels, states)
     finally:
         roi_align.roi_align_multilevel_plain_autograd = routed
@@ -4986,6 +5076,451 @@ def phase_wsod_zoo(kernels, gen, baseline):
                      k2: train_launches["cmil_V_16"][k2]},
     }
     return rows, launches, sites, latency, steps, trainer
+
+
+# phase 21: CSC, CSC-OICR and WSJDS with the class-peak-gradient pass, UWSOD
+# with RPNWSL on the multi-rate VGG16 (config.WSOD_ZOO's five entries and
+# the WSJDS builder)
+CSC_CASES = ("csc_WSR_18", "csc_V_16", "csc_oicr_V_16", "csc_oicr_reg_last_V_16", "uwsod_V_16", "wsjds_V_16")
+CSC_NARROW = ("csc_WSR_18", "csc_oicr_V_16", "wsjds_crf_V_16", "uwsod_V_16")
+CSC_ROUNDS = 4  # requests in each dtype
+CSC_STAGE_ROUNDS = 1
+CSC_TRAIN_STEPS = 6  # each dtype, in turns; the medians take steps 2-6
+CSC_TRAINER_SCENES = 8
+CSC_TRAINER_ITERS = {"csc_V_16": 6, "uwsod_V_16": 4}
+CSC_TRAINER_MAX_ITER = 2  # csc_V_16's WSL.CSC_MAX_ITER in 21(e): the maps for iterations 0-2, then none
+# 21(a): the narrow models' MIL layer opens the CPG gate for class 3 (image
+# 0's) and not for class 12 (image 1's), as tests/test_torch_csc.py sets
+# its seeded weights: the MIL and refinement kernels times 0.02 (at 0.1
+# WSR-18's seeded features still outweigh the bias), the class bias raised
+# at these classes
+CSC_NARROW_BIAS = {3: 6.0, 12: 4.0}
+CSC_MAP_TOL = 2e-2  # a CPG map's float32 noise through VGG16 at random weights: 7.6e-3 on this CPU
+# 21(c) and (e): the CSC heads train at 1/100 of their yamls' BASE_LR. At
+# the yamls' rates the first update saturates a present class's image
+# score to 1 in float32, where the CSC loss's clip (1 - 1e-20, which is 1)
+# lets log1p(-1) meet its zero weight: NaN, in both packages (ROADMAP §3,
+# tests/test_torch_csc_ops.py)
+CSC_LR_FACTOR = 0.01
+# UWSOD's narrow RPN samples every labelled anchor (no draw decides a loss)
+# and its regression loss is smooth below 1/9: the PGT box's own anchor
+# regresses to its prediction, where L1's gradient sign is rounding noise
+CSC_UWSOD_NARROW = ["MODEL.RPN.BATCH_SIZE_PER_IMAGE", "8192", "MODEL.RPN.POSITIVE_FRACTION", "1.0",
+                    "MODEL.RPN.SMOOTH_L1_BETA", str(1.0 / 9)]
+
+
+def csc_cfg(name, narrow=False):
+    """The configuration of a CSC_CASES or CSC_NARROW entry: its
+    ``WSOD_ZOO`` builder, or ``wsjds_V_16_DC5_cfg`` (``_crf``: with the CRF
+    constraint)."""
+    import jtsm_tpu_torch.config as config
+
+    if name.startswith("wsjds"):
+        return config.wsjds_V_16_DC5_cfg(narrow=narrow, crf="crf" in name)
+    return config.WSOD_ZOO[name][1](narrow=narrow)
+
+
+def is_cpg_head(cfg):
+    from jtsm_tpu_torch.wsl.modeling.wsjds import CPG_ROI_HEADS
+
+    return cfg.MODEL.ROI_HEADS.NAME in CPG_ROI_HEADS
+
+
+def csc_narrow_weights(model):
+    """``random_state_dict`` of ``model`` (seed 1), its MIL and refinement
+    kernels times 0.02 and its class bias raised at CSC_NARROW_BIAS."""
+    from jtsm_tpu_torch.checkpoint import random_state_dict
+
+    state = random_state_dict(model, seed=1)
+    for k, v in state.items():
+        if k.startswith(("roi_heads.mil.", "roi_heads.refine")) and k.endswith(".weight"):
+            state[k] = v * 0.02
+    for c, add in CSC_NARROW_BIAS.items():
+        state["roi_heads.mil.cls.bias"][c] += add
+    return state
+
+
+def csc_ops_checks():
+    """``csc_full`` and ``crf_mean_field`` on the card against this
+    machine's CPU at a train batch's shapes (4 images of 20 peaked maps at
+    704x928, 2000 proposals on half and whole pixels, predictions in (0,
+    1); the CRF over (4, 88, 116, 20)
+    probabilities, WSJDS's seg grid at stride 8), each within max(PR 15's
+    tolerance, 3 x the CPU's float32-to-float64 gap)."""
+    import torch
+
+    from jtsm_tpu_torch.layers import exact_float32
+    from jtsm_tpu_torch.wsl.modeling.wsod_zoo import csc_full
+    from jtsm_tpu_torch.wsl.ops import crf_mean_field
+
+    g = torch.Generator().manual_seed(21)
+    b, c, h, w, r = 4, 20, 704, 928, 2000
+    # four Gaussian peaks a map (sigma 20 to 80 px): the proposals that
+    # frame one score above their context, the rest below
+    yy = torch.arange(h, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, dtype=torch.float32)[None, :]
+    cpg = torch.zeros((b, c, h, w))
+    for _ in range(4):
+        cy, cx = torch.rand((b, c, 1, 1), generator=g) * h, torch.rand((b, c, 1, 1), generator=g) * w
+        sd = 20 + torch.rand((b, c, 1, 1), generator=g) * 60
+        cpg += torch.rand((b, c, 1, 1), generator=g) * torch.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sd * sd))
+    cpg = cpg / cpg.amax(dim=(2, 3), keepdim=True)
+    xy = torch.floor(torch.rand((b, r, 2), generator=g) * torch.tensor([w - 40.0, h - 40.0]) * 2) / 2
+    boxes = torch.cat([xy, xy + 16 + torch.floor(torch.rand((b, r, 2), generator=g) * 400) / 2], -1)
+    valid = torch.rand((b, r), generator=g) > 0.05
+    labels = (torch.rand((b, c), generator=g) < 0.2).float()
+    labels[:, 3] = 1.0
+    preds = torch.rand((b, c), generator=g)
+    unary = torch.softmax(torch.randn((b, 88, 116, c), generator=g) * 2, dim=-1)
+    image = torch.rand((b, 88, 116, 3), generator=g) * 255
+    out = {}
+    for device, dtype in ((DEVICE, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+        args = [t.to(device) for t in (cpg, boxes, valid, labels)] + [preds.to(device, dtype)]
+        with exact_float32():
+            out[(device, dtype)] = (csc_full(*args).cpu().double(),
+                                    crf_mean_field(unary.to(device, dtype), image.to(device, dtype)).cpu().double())
+    card, cpu, f64 = out[(DEVICE, torch.float32)], out[("cpu", torch.float32)], out[("cpu", torch.float64)]
+    errs = [float((a - b_).abs().max()) for a, b_ in zip(card, cpu)]
+    gaps = [float((a - b_).abs().max()) for a, b_ in zip(cpu, f64)]
+    tols = [max(1e-6, 3 * gaps[0]), max(1e-5, 3 * gaps[1])]
+    negative = int((cpu[0] < 0).sum())
+    log(f"[csc_uwsod] (a) ops on the card against the CPU: csc_full ({b}x{c} maps {h}x{w}, {r} proposals, "
+        f"{negative} negative weights) max_abs_err={errs[0]:.3e} (tol {tols[0]:.3e}); crf_mean_field "
+        f"{tuple(unary.shape)} max_abs_err={errs[1]:.3e} (tol {tols[1]:.3e}); CPU float32 against float64: "
+        f"{gaps[0]:.3e}, {gaps[1]:.3e}")
+    if not (errs[0] <= tols[0] and errs[1] <= tols[1] and negative > 0):
+        raise AssertionError(f"csc_uwsod ops: the card disagrees with the CPU: {errs} (tol {tols})")
+
+
+def csc_narrow_checks(kernels):
+    """Phase 21(a): the narrow CSC on WSR-18 (FREEZE_AT 0), CSC-OICR on
+    VGG16, WSJDS with the CRF and UWSOD (seeded weights, CSC_NARROW_BIAS,
+    dropout 0) on the card against this machine's CPU: the two-request
+    batch's detections matched by (source proposal, class) (WSJDS's
+    ``masks_full`` within 1e-4), the CPG maps within max(CSC_MAP_TOL, 3 x
+    the CPU's float32-to-float64 gap), and one train step given the CPU's
+    float32 maps (no clip) whose losses and update lie within max(1e-4 and
+    WSOD_UPDATE_TOL, SURFACE_NOISE x that gap); then ``csc_full`` and
+    ``crf_mean_field``. These launches count in no main path's total."""
+    import torch
+
+    from jtsm_tpu_torch.modeling import build_model
+    from jtsm_tpu_torch.wsl.modeling.wsjds import class_peak_gradients
+
+    batch = zoo_narrow_batch()
+    before = [k.launches for k in kernels]
+    failed = []
+    torch.backends.cudnn.deterministic = True
+    for name in CSC_NARROW:
+        cfg = csc_cfg(name, narrow=True)
+        cfg.merge_from_list(ZOO_NARROW_SOLVER + (CSC_UWSOD_NARROW if name.startswith("uwsod") else []))
+        weights = csc_narrow_weights(build_model(cfg, device="cpu"))
+        runs, maps = {}, {}
+        for device, f64 in (("cpu", False), (DEVICE, False), ("cpu", True)):
+            model = build_model(cfg, device=device)
+            model.load_state_dict(weights)
+            if f64:
+                float64_model(model)
+            model.roi_heads.dan.dropout = 0.0
+            det = None if f64 else {k: v.cpu() for k, v in model.inference(batch).items()}
+            step_batch = batch
+            if is_cpg_head(cfg):
+                got, passes = class_peak_gradients(model, batch, 20)
+                maps[(device, f64)] = got.double().cpu()
+                step_batch = dict(batch, cpg=maps[("cpu", False)].float().to(device))
+            runs[(device, f64)] = (det, *steps_and_updates(cfg, model, step_batch, 1))
+            del model
+        (d_card, l_card, u_card), (d_cpu, l_cpu, u_cpu), (_, l64, u64) = (
+            runs[(DEVICE, False)], runs[("cpu", False)], runs[("cpu", True)])
+        if "masks_full" in d_cpu:  # WSJDS: compared pair by pair as masks
+            d_card, d_cpu = dict(d_card, masks=d_card["masks_full"]), dict(d_cpu, masks=d_cpu["masks_full"])
+        m = match_detections(d_card, d_cpu, score_tol=1e-4)
+
+        def rel(a, b):
+            return (max(abs(a[0][k] - b[0][k]) / max(abs(b[0][k]), 1e-12) for k in b[0]),
+                    float((a[1] - b[1]).norm() / b[1].norm()))
+
+        (loss_err, upd_err), (loss_gap, upd_gap) = rel((l_card[0], u_card[0]), (l_cpu[0], u_cpu[0])), rel(
+            (l_cpu[0], u_cpu[0]), (l64[0], u64[0]))
+        loss_tol, upd_tol = max(1e-4, SURFACE_NOISE * loss_gap), max(WSOD_UPDATE_TOL, SURFACE_NOISE * upd_gap)
+        ok = (m["boxes"] <= 1e-3 and m["scores"] <= 1e-4 and m["class_scores"] <= 1e-4 and m["masks"] <= 1e-4
+              and loss_err <= loss_tol and upd_err <= upd_tol and float(u_cpu[0].norm()) > 0
+              and all(math.isfinite(v) for v in l_card[0].values()))
+        extra = f", masks_full max_abs_err {m['masks']:.3e} (tol 1e-4)" if "masks" in d_cpu else ""
+        if maps:
+            map_err = float((maps[(DEVICE, False)] - maps[("cpu", False)]).abs().max())
+            map_gap = float((maps[("cpu", False)] - maps[("cpu", True)]).abs().max())
+            map_tol = max(CSC_MAP_TOL, SURFACE_NOISE * map_gap)
+            lit = int((maps[("cpu", False)].amax(dim=(2, 3)) > 0).sum())
+            ok = ok and map_err <= map_tol and lit > 0
+            extra += (f"; CPG maps ({passes} passes, {lit} maps past the gate) max_abs_err {map_err:.3e} "
+                      f"(tol {map_tol:.3e}, float32 against float64 {map_gap:.3e})")
+        log(f"[csc_uwsod] (a) {name} narrow ({cfg.MODEL.ROI_HEADS.NAME}, float32): card vs CPU: detections "
+            f"{m['matched']} matched, {m['reordered']} in another slot, {m['at_cut']} at the cut, boxes "
+            f"max_abs_err={m['boxes']:.3e} px (tol 1e-3), scores {m['scores']:.3e} (tol 1e-4){extra}; one step: "
+            f"losses rel_err {loss_err:.3e} (tol {loss_tol:.3e}), update L2 norm {float(u_cpu[0].norm()):.4g} "
+            f"rel_err {upd_err:.3e} (tol {upd_tol:.3e}); CPU float32 against float64: losses {loss_gap:.3e}, update "
+            f"{upd_gap:.3e}; losses " + ", ".join(f"{k}={v:.6g}" for k, v in l_cpu[0].items()))
+        if not ok:
+            failed.append(name)
+    torch.backends.cudnn.deterministic = False
+    if failed:
+        raise AssertionError(f"csc_uwsod narrow checks: the card disagrees with the CPU in {failed}")
+    csc_ops_checks()
+    got = {k.name: k.launches - n for k, n in zip(kernels, before)}
+    log(f"[csc_uwsod] (a) launches on the card in these checks (no main path's): {got}")
+    if not got[kernels[0].name] or not got[kernels[1].name]:
+        raise AssertionError("csc_uwsod narrow checks: K1 or K2 never launched on the card")
+
+
+def csc_states(states):
+    """``wsod_states`` with the MIL and refinement kernels times 0.02: at
+    the seed's scale the class softmax saturates, an absent class's image
+    score rounds to 1, and the CSC loss, whose clip at 1 - 1e-20 is 1 in
+    float32 (as in the JAX package), is infinite."""
+    return {net: {k: v * 0.02 if k.startswith(("roi_heads.mil.", "roi_heads.refine")) and k.endswith(".weight")
+                  else v for k, v in state.items()} for net, state in states.items()}
+
+
+def cpg_launches(cfg, passes):
+    """(K1, K2) of one CPG pass with ``passes`` backwards: none where the
+    pooled map is detached (FREEZE_AT 5), else K1 once (the forward) and K2
+    once a backward."""
+    if cfg.MODEL.BACKBONE.FREEZE_AT >= 5:
+        return 0, 0
+    return 1, passes
+
+
+def csc_trainers(kernels, states):
+    """Phase 21(e): csc_V_16 through the WSL trainer with WSL.CSC_MAX_ITER
+    CSC_TRAINER_MAX_ITER at CSC_LR_FACTOR of its rate (the trainer's CPG pass before each of the first
+    iterations, then none: K1 twice and K2 once plus once a pass, then once
+    each; ``loss_cls_pos`` and ``loss_cls_neg`` then ``loss_mil``), and
+    uwsod_V_16 (MODEL.LOAD_PROPOSALS False: its yaml names no proposal
+    files, ROADMAP §3; K1 once an iteration, K2 never), each on
+    CSC_TRAINER_SCENES in-memory VOC scenes, the yamls' scales and the flip,
+    IMS_PER_BATCH 4, TPU.IMAGE_BUCKETS that hold the 1200 scale. Returns
+    each kernel's launches (and the CPG passes') and each run's s/iter,
+    data_time (the CPG pass inside it) and peak memory."""
+    import tempfile
+
+    import torch
+
+    from jtsm_tpu_torch.data import DatasetCatalog, MetadataCatalog
+    from jtsm_tpu_torch.data.datasets.synthetic_voc import register_synthetic_voc
+    from jtsm_tpu_torch.wsl.modeling.wsjds import cpg_slots
+    from jtsm_tpu_torch.wsl.train_net import Trainer
+
+    name = "chip_smoke_voc_csc"
+    props = register_synthetic_voc(name, num=CSC_TRAINER_SCENES, seed=11, image_hw=WSOD_IMAGE_HW,
+                                   num_proposals=2000)
+    passes = []
+
+    class CountingTrainer(Trainer):
+        """The WSL trainer, keeping each iteration's occupied class slots
+        (the CPG pass's backwards) beside its transform."""
+
+        def __init__(self, cfg):
+            super().__init__(cfg)
+            transform = self._trainer.batch_transform
+            if transform is not None:
+                def counting(state, batch, iteration):
+                    out = transform(state, batch, iteration)
+                    on = "cpg" in out
+                    passes.append(int(cpg_slots(batch["gt_classes"], batch["gt_valid"])[1].any(axis=0).sum())
+                                  if on else 0)
+                    return out
+
+                self._trainer.batch_transform = counting
+
+    launches, cpg_total, out = {k.name: 0 for k in kernels}, {k.name: 0 for k in kernels}, {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_csc_") as tmp:
+            for case, iters in CSC_TRAINER_ITERS.items():
+                cfg = csc_cfg(case)
+                cfg.DATASETS.TRAIN = (name,)
+                if case.startswith("uwsod"):
+                    cfg.MODEL.LOAD_PROPOSALS = False
+                else:
+                    cfg.DATASETS.PROPOSAL_FILES_TRAIN = (props,)
+                    cfg.WSL.CSC_MAX_ITER = CSC_TRAINER_MAX_ITER
+                    cfg.SOLVER.BASE_LR *= CSC_LR_FACTOR
+                cfg.TPU.IMAGE_BUCKETS = TC_JTSM_BUCKETS
+                cfg.SOLVER.MAX_ITER = iters
+                cfg.TEST.EVAL_PERIOD = 0
+                cfg.MODEL.WEIGHTS = ""
+                cfg.OUTPUT_DIR = os.path.join(tmp, case)
+                cfg.SEED = 0
+                model = wsod_model(cfg, states)
+                state = {k: v.cpu() for k, v in model.state_dict().items()}
+                del model
+                passes.clear()
+                trainer, rec, got, peak = run_trainer(
+                    CountingTrainer, cfg, kernels, state, watch=lambda m: [p for p in m.parameters() if p.requires_grad])
+                cpg_on = is_cpg_head(cfg)
+                for i, n in enumerate(rec.launches):
+                    p = passes[i] if cpg_on else 0
+                    on = cpg_on and i <= CSC_TRAINER_MAX_ITER
+                    want = [1 + int(on), (1 + p) if cfg.MODEL.BACKBONE.FREEZE_AT < 5 else 0]
+                    if n != want or (on != (p > 0) and cpg_on):
+                        raise AssertionError(f"csc_uwsod trainer {case} iteration {i}: launches {n}, not {want} "
+                                             f"({p} CPG passes)")
+                    if on:
+                        cpg_total[kernels[0].name] += 1
+                        cpg_total[kernels[1].name] += p
+                moved = [sum(not torch.equal(a, b) for a, b in zip(rec.params[i], rec.params[i - 1]))
+                         for i in range(1, iters + 1)]
+                if not all(moved):
+                    raise AssertionError(f"csc_uwsod trainer {case}: watched parameters moved {moved}")
+                metrics = read_metrics(cfg.OUTPUT_DIR)
+                if not all(math.isfinite(v) for m in metrics[1:] for key, v in m.items() if key.startswith("loss")):
+                    raise AssertionError(f"csc_uwsod trainer {case}: non-finite losses {metrics[-1]}")
+                keys = [sorted(k for k in m if k.startswith("loss")) for m in metrics[1:]]
+                if cpg_on:
+                    want_keys = [["loss_cls_neg", "loss_cls_pos"] if i <= CSC_TRAINER_MAX_ITER else ["loss_mil"]
+                                 for i in range(iters - 1)]
+                    if keys != want_keys:
+                        raise AssertionError(f"csc_uwsod trainer {case}: losses by iteration {keys}")
+                for key, n in got.items():
+                    launches[key] += n
+                out[case] = dict(s_iter=median(iteration_times(trainer, "time", 1)), launches=got,
+                                 data_time=median(iteration_times(trainer, "data_time", 1)), peak=peak,
+                                 data_times=[round(v, 4) for v in iteration_times(trainer, "data_time", 0)])
+                log(f"[csc_uwsod] (e) {case} {cfg.TPU.COMPUTE_DTYPE} through the WSL trainer: ITER_SIZE "
+                    f"{cfg.WSL.ITER_SIZE}, IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH}, short sides "
+                    f"{tuple(cfg.INPUT.MIN_SIZE_TRAIN)} and the flip, {CSC_TRAINER_SCENES} VOC scenes {WSOD_IMAGE_HW}"
+                    + (f" with 2000 proposals, WSL.CSC_MAX_ITER {CSC_TRAINER_MAX_ITER} (CPG passes by iteration "
+                       f"{passes})" if cpg_on else ", no proposal files (MODEL.LOAD_PROPOSALS False)")
+                    + f", {iters} iterations: s/iter median {out[case]['s_iter']:.4f} data_time by iteration "
+                    f"{out[case]['data_times']} (the CPG pass inside it) launches {got} peak_mem_gib {peak:.3f} | "
+                    + (f"losses by iteration {keys} | " if cpg_on else "") + "last " + ", ".join(
+                        f"{key}={v:.5g}" for key, v in metrics[-1].items() if key.startswith("loss"))
+                    + f" | cut: TPU.IMAGE_BUCKETS {TC_JTSM_BUCKETS}, random weights")
+                del trainer
+    finally:
+        DatasetCatalog.remove(name)
+        MetadataCatalog.remove(name)
+    return launches, cpg_total, out
+
+
+def wsjds_seg_split(states):
+    """WSJDS's ``seg`` stage op by op, serving one ``wsod_request`` in each
+    of bf16 and f32: the ASPP head's convolutions (each with its norm and
+    ReLU) on the request's plain5 map, the image pool, the projection, the
+    predictor, and the whole stage (``segment``: the head, the sigmoid
+    masks resized to the image and windowed by the detections), each the
+    median of 5 calls to a synchronize. Returns the milliseconds by dtype
+    and op."""
+    import torch
+
+    from jtsm_tpu_torch.layers import exact_float32, interpolate_bilinear
+
+    base = csc_cfg("wsjds_V_16")
+    req = wsod_request(base, 1)
+    out = {}
+    for d in (base.TPU.COMPUTE_DTYPE, "float32"):
+        cfg = base.clone()
+        cfg.TPU.COMPUTE_DTYPE = d
+        model = wsod_model(cfg, states)
+        heads, aspp = model.roi_heads, model.roi_heads.sem_seg_head.aspp
+        with torch.no_grad(), exact_float32(d == "float32"):
+            feats, sizes = model._features(req)
+            x = feats[heads.in_features[-1]]
+            det = model.inference(req)
+            res = [conv(x) for conv in aspp.branches]
+            pooled = x.mean(dim=(2, 3), keepdim=True)
+            res.append(interpolate_bilinear(aspp.image_pool_conv(pooled), tuple(x.shape[-2:])))
+            cat = torch.cat(res, dim=1)
+            logits = heads.sem_seg_head.predictor(aspp.project(cat))
+            ops = {name: (lambda c=conv: c(x)) for name, conv in zip(
+                ("conv1x1", "conv3x3_d6", "conv3x3_d12", "conv3x3_d18"), aspp.branches)}
+            ops["image_pool"] = lambda: interpolate_bilinear(aspp.image_pool_conv(x.mean(dim=(2, 3), keepdim=True)),
+                                                             tuple(x.shape[-2:]))
+            ops["project"] = lambda: aspp.project(cat)
+            ops["predictor"] = lambda: heads.sem_seg_head.predictor(aspp.project(cat))
+            ops["seg"] = lambda: heads.segment(feats, {k: det[k] for k in ("boxes", "classes", "valid")})
+            out[d] = {name: median([timed_ms(fn) for _ in range(5)]) for name, fn in ops.items()}
+        log(f"[csc_uwsod] (b) wsjds_V_16 {DTYPE_NAMES[d]} seg stage op by op, plain5 {tuple(x.shape)}, logits "
+            f"{tuple(logits.shape)}: " + " ".join(f"{k}={v:.3f}" for k, v in out[d].items()) + " ms")
+        del model
+    return out
+
+
+def csc_kernel_rows(gen, baseline):
+    """Phase 21(d): K1 and K2 against their plain versions at the new
+    launch sites, in float32 and bfloat16: the CPG pass's VGG16 box pooler
+    (a (4, 128, 128, 512) plain5 map of a 1024x1024 bucket, R=8000: K1 in
+    its forward, K2 in each of its backwards) and UWSOD's branch-averaged
+    plain5 (the mean of three seeded branch maps, serve B=1 with
+    RPNWSL's 2048 proposals, train B=4 with 4x2048). Returns the rows by
+    site."""
+    import torch
+
+    rows = {"cpg": {}, "uwsod": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = dtype_tag(torch.empty(0, dtype=dtype))
+        feat = torch.randn((4, 128, 128, 512), generator=gen, device=DEVICE).to(dtype)
+        boxes = jtsm_mask_boxes(gen, 8000, (688, 917))
+        bidx = torch.arange(4, device=DEVICE, dtype=torch.int32).repeat_interleave(2000)
+        levels = torch.zeros(8000, dtype=torch.int32, device=DEVICE)
+        site = f"CPG pass VGG16 plain5 {tag} (4, 128, 128, 512)"
+        rows["cpg"][f"fwd {tag}"] = check_and_time_fwd(site, [feat], [1.0 / 8], boxes, bidx, levels, 7, baseline,
+                                                       "csc_uwsod")
+        rows["cpg"][f"bwd {tag}"] = check_and_time_bwd(site, [feat], [1.0 / 8], boxes, bidx, levels, 7, gen,
+                                                       baseline, "csc_uwsod")
+        for kind, b in (("serve", 1), ("train", 4)):
+            branches = torch.randn((3, b, 128, 128, 512), generator=gen, device=DEVICE).to(dtype)
+            avg = branches.mean(dim=0)
+            r = 2048 * b
+            boxes = jtsm_mask_boxes(gen, r, (688, 917))
+            bidx = torch.arange(b, device=DEVICE, dtype=torch.int32).repeat_interleave(2048)
+            levels = torch.zeros(r, dtype=torch.int32, device=DEVICE)
+            site = f"UWSOD branch-averaged plain5 {kind} {tag} ({b}, 128, 128, 512)"
+            rows["uwsod"][f"fwd {kind} {tag}"] = check_and_time_fwd(site, [avg], [1.0 / 8], boxes, bidx, levels, 7,
+                                                                    baseline, "csc_uwsod")
+    return rows
+
+
+def phase_csc_uwsod(kernels, gen, baseline):
+    """Phase 21: CSC, CSC-OICR, WSJDS and UWSOD. (d) K1 and K2 at the new
+    launch sites; (a) the narrow models, ``csc_full`` and
+    ``crf_mean_field`` on the card against the CPU; (b) the six full-width
+    configurations served; (c) their train steps with the CPG pass; (e)
+    csc_V_16 and uwsod_V_16 through the WSL trainer. The plain ROIAlign
+    raises on the card. Returns the kernel rows by site, each kernel's
+    launches on (b), (c) and (e) (all, UWSOD's, the CPG passes'), the
+    latencies, the step times and the trainers' runs."""
+    from jtsm_tpu_torch.ops import roi_align
+
+    rows = csc_kernel_rows(gen, baseline)
+    routed = roi_align.roi_align_multilevel_plain_autograd
+
+    def plain_on_cpu_only(features, scales, boxes, *a, **k):
+        if boxes.device.type != "cpu":
+            raise AssertionError("the plain ROIAlign ran on the card in phase 21")
+        return routed(features, scales, boxes, *a, **k)
+
+    roi_align.roi_align_multilevel_plain_autograd = plain_on_cpu_only
+    try:
+        csc_narrow_checks(kernels)
+        t0 = time.perf_counter()
+        states = csc_states(wsod_states())
+        log(f"[csc_uwsod] seeded full-width weights of WSR-18 and VGG16 in {time.perf_counter() - t0:.1f}s")
+        serve_launches, latency = wsod_serve(kernels[0], states, CSC_CASES, csc_cfg, "csc_uwsod", CSC_ROUNDS,
+                                             CSC_STAGE_ROUNDS)
+        wsjds_seg_split(states)
+        train_launches, steps, train_cpg = wsod_train(kernels, states, CSC_CASES, csc_cfg, "csc_uwsod",
+                                                      CSC_TRAIN_STEPS)
+        trainer_launches, trainer_cpg, trainers = csc_trainers(kernels, states)
+    finally:
+        roi_align.roi_align_multilevel_plain_autograd = routed
+    k1 = kernels[0].name
+    launches = {k.name: sum(t[k.name] for t in train_launches.values()) + trainer_launches[k.name] for k in kernels}
+    launches[k1] += sum(serve_launches.values())
+    uwsod = serve_launches["uwsod_V_16"] + train_launches["uwsod_V_16"][k1] + trainers["uwsod_V_16"]["launches"][k1]
+    cpg = {k.name: train_cpg["launches"][k.name] + trainer_cpg[k.name] for k in kernels}
+    return rows, launches, uwsod, cpg, latency, {key: (ms, train_cpg["ms"].get(key, 0.0)) for key, ms in steps.items()}, \
+        trainers
 
 
 def kernel_line(kernel, launches, rows, f32_errs):
@@ -5226,6 +5761,15 @@ def main(argv=None) -> int:
     zoo_rows, zoo_launches_, zoo_sites, zoo_lat, zoo_steps, zoo_trainer_run = run_phase(
         "wsod_zoo", phase_wsod_zoo, KERNELS, gen, baseline)
 
+    # 21. CSC, CSC-OICR and WSJDS with the class-peak-gradient pass, UWSOD
+    # with RPNWSL: K1 and K2 at the CPG pass's box pooler and UWSOD's
+    # branch-averaged map; the narrow models, csc_full and the CRF on the
+    # card against the CPU; the six full-width configurations served and
+    # trained (the CPG pass its own stage); csc_V_16 and uwsod_V_16 through
+    # the WSL trainer
+    csc_rows, csc_launches, uwsod_launches, cpg_launches_, csc_lat, csc_steps, csc_trainer_runs = run_phase(
+        "csc_uwsod", phase_csc_uwsod, KERNELS, gen, baseline)
+
     # per served request K1 pools boxes (R=1000, P=7) and masks (R=100,
     # P=14); per train step K1 and K2 pool and unpool boxes (R=1024, P=7)
     # and masks (R=256, P=14); per JTSM request K1 pools masks on one level
@@ -5242,10 +5786,12 @@ def main(argv=None) -> int:
     k1_launches = (sum(launches.values()) + sum(t[0][KERNEL.name] for t in train.values()) + score_launches
                    + jtsm_launches + jt_launches[KERNEL.name] + js_launches + tta_launches + tc_launches[KERNEL.name]
                    + fam_launches + wsod_launches[KERNEL.name] + dense_launches[KERNEL.name]
-                   + ft_launches[KERNEL.name] + ts_launches[KERNEL.name] + zoo_launches_[KERNEL.name])
+                   + ft_launches[KERNEL.name] + ts_launches[KERNEL.name] + zoo_launches_[KERNEL.name]
+                   + csc_launches[KERNEL.name])
     k2_launches = (sum(t[0][BWD_KERNEL.name] for t in train.values()) + jt_launches[BWD_KERNEL.name]
                    + tc_launches[BWD_KERNEL.name] + wsod_launches[BWD_KERNEL.name] + dense_launches[BWD_KERNEL.name]
-                   + ft_launches[BWD_KERNEL.name] + ts_launches[BWD_KERNEL.name] + zoo_launches_[BWD_KERNEL.name])
+                   + ft_launches[BWD_KERNEL.name] + ts_launches[BWD_KERNEL.name] + zoo_launches_[BWD_KERNEL.name]
+                   + csc_launches[BWD_KERNEL.name])
     bwd = {k[4:]: v for k, v in tres.items() if k.startswith("bwd ")}
     kernels = [
         kernel_line(KERNEL, k1_launches, res, [r["err"] for n, r in res.items() if "f32" in n]),
@@ -5406,6 +5952,23 @@ def main(argv=None) -> int:
                              f"{tag}_device_ms": row["times"]["new"]["device_ms"], f"{tag}_plain_ms": row["plain_ms"],
                              f"{tag}_bound_ms": row["bound_ms"], f"{tag}_bound_by": row["bound_by"]})
         line["zoo_launches"] = zoo_launches_[line["name"]]
+    # the rows of phase 21(d): the CPG pass's VGG16 box pooler (B=4, R=8000,
+    # (128, 128) at P=7, C=512; K1 in its forward, K2 in each backward) and
+    # UWSOD's branch-averaged plain5 (serve B=1, R=2048; train B=4, R=8192);
+    # csc_launches all of phase 21's main paths, cpg_launches those of its
+    # CPG passes (in (c) and (e)), uwsod_launches K1's under UWSOD
+    for line, kind in ((kernels[0], "fwd"), (kernels[1], "bwd")):
+        for site, prefix in (("cpg", "csc_cpg"), ("uwsod", "uwsod")):
+            for key, row in csc_rows[site].items():
+                if not key.startswith(kind + " "):
+                    continue
+                tag = f"{prefix}_" + key[len(kind) + 1:].replace(" ", "_")
+                line.update({f"{tag}_max_abs_err": row["err"], f"{tag}_ms": row["times"]["new"]["ms"],
+                             f"{tag}_device_ms": row["times"]["new"]["device_ms"], f"{tag}_plain_ms": row["plain_ms"],
+                             f"{tag}_bound_ms": row["bound_ms"], f"{tag}_bound_by": row["bound_by"]})
+        line["csc_launches"] = csc_launches[line["name"]]
+        line["cpg_launches"] = cpg_launches_[line["name"]]
+    kernels[0]["uwsod_launches"] = uwsod_launches
     # the trainers' launches (phase 14): Mask R-CNN at NUM_WORKERS 0 and 4,
     # the resumed run, the JTSM flagship, the gate's kernel run
     for line in kernels:
@@ -5447,6 +6010,13 @@ def main(argv=None) -> int:
         + "; train step median ms " + " ".join(f"{name} {DTYPE_NAMES[d]}={ms:.3f}" for (name, d), ms in zoo_steps.items())
         + f"; CMIL WSR-18 trainer s/iter {zoo_trainer_run['s_iter']:.4f} data_time {zoo_trainer_run['data_time']:.4f} "
         f"peak_gib {zoo_trainer_run['peak']:.3f}; launches {zoo_launches_} by site {zoo_sites} | {card}")
+    log("[csc_uwsod] request mean ms " + " ".join(
+        f"{name} {DTYPE_NAMES[d]}={ms:.3f}" for (name, d), ms in csc_lat.items())
+        + "; train step median ms (CPG pass included; the pass) " + " ".join(
+            f"{name} {DTYPE_NAMES[d]}={ms[0]:.3f} ({ms[1]:.3f})" for (name, d), ms in csc_steps.items())
+        + "; WSL trainer " + " ".join(f"{case}: s/iter {r['s_iter']:.4f} data_time {r['data_time']:.4f} peak_gib "
+                                      f"{r['peak']:.3f};" for case, r in csc_trainer_runs.items())
+        + f" launches {csc_launches} (UWSOD K1 {uwsod_launches}, CPG passes {cpg_launches_}) | {card}")
     log(f"[done] {time.perf_counter() - t_run:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -15,8 +15,9 @@ inverts the JAX package's ``checkpoint/c2_model_loading.py:231-285``
 * ``fc1`` rows, which the JAX package flattens (P, P, C), -> detectron2's
   (C, P, P);
 * flax paths -> detectron2 names (``res2_block0`` -> ``res2.0``, the RPN's
-  ``head`` -> ``rpn_head``, RetinaNet's tower convolutions
-  ``cls_subnet{i}`` and ``bbox_subnet{i}`` -> ``cls_subnet.{2i}`` (its
+  ``head`` -> ``rpn_head``, also under ``RPNWSL``'s ``rpn``, RetinaNet's
+  tower convolutions ``cls_subnet{i}`` and ``bbox_subnet{i}`` ->
+  ``cls_subnet.{2i}`` (its
   ``nn.Sequential`` of convolutions and ReLUs, JAX
   ``c2_model_loading.py:114-118``), ``conv/kernel`` and ``dense/kernel`` ->
   ``weight``, a group norm's ``norm/GroupNorm_0/scale``, a layer norm's
@@ -24,8 +25,10 @@ inverts the JAX package's ``checkpoint/c2_model_loading.py:231-285``
   ``norm.weight``, a batch norm's ``batch_stats`` ``mean`` and ``var`` ->
   ``norm.running_mean`` and ``norm.running_var``);
   the WSL modules keep their flax names: VGG16's ``backbone.conv1_1`` to
-  ``backbone.conv5_3``, the WSOD and JTSM heads' ``roi_heads.dan.dan1``,
-  ``roi_heads.mil.cls``, ``roi_heads.refine0.refine_score`` and
+  ``backbone.conv5_3`` (an ``MRRPConv``'s one shared kernel among them),
+  the ASPP head of WSJDS (``roi_heads.sem_seg_head.aspp.conv1x1``, ...,
+  ``roi_heads.sem_seg_head.predictor``), the WSOD and JTSM heads'
+  ``roi_heads.dan.dan1``, ``roi_heads.mil.cls``, ``roi_heads.refine0.refine_score`` and
   ``roi_heads.refine0.refine_reg``, ``roi_heads.mask_refinery_0.mask_fcn1``,
   ``sem_seg_head.res5_head_conv0``.
 
@@ -79,7 +82,7 @@ def _d2_module_path(path: Tuple[str, ...]) -> list:
             out.extend(m.groups())
         elif tower and out == ["head"]:
             out.extend([tower.group(1), str(2 * int(tower.group(2)))])
-        elif p == "head" and out == ["proposal_generator"]:
+        elif p == "head" and out in (["proposal_generator"], ["proposal_generator", "rpn"]):
             out.append("rpn_head")
         else:
             out.append(p)

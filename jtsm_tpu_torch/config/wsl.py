@@ -174,8 +174,9 @@ def jtsm_gate_cfg() -> CN:
 
 # the WSOD baselines' ROI heads and the prefix of their yamls
 WSOD_HEADS = {"WSDDNROIHeads": "wsddn", "OICRROIHeads": "oicr", "PCLROIHeads": "pcl"}
-# the heads of the WSOD zoo's further yamls (``WSOD_ZOO``)
-_ZOO_HEADS = ("CascadeOICRROIHeads", "ContextLocNetROIHeads", "CMILROIHeads")
+# the heads of the WSOD zoo's further yamls (``WSOD_ZOO``) and of WSJDS
+_ZOO_HEADS = ("CascadeOICRROIHeads", "ContextLocNetROIHeads", "CMILROIHeads", "CSCROIHeads", "CSCOICRROIHeads",
+              "UWSODROIHeads", "WSJDSROIHeads")
 
 
 def _wsod_cfg(head: str) -> CN:
@@ -318,7 +319,7 @@ def _zoo_narrow(cfg: CN, narrow: bool) -> CN:
     if not narrow:
         return cfg
     cfg = _wsod_narrow(cfg)
-    if cfg.MODEL.BACKBONE.NAME != "build_vgg_backbone":
+    if "vgg" not in cfg.MODEL.BACKBONE.NAME:
         cfg.MODEL.RESNETS.STEM_OUT_CHANNELS = 16
         cfg.MODEL.BACKBONE.FREEZE_AT = 0
     return cfg
@@ -397,6 +398,127 @@ def cmil_V_16_DC5_cfg(narrow: bool = False) -> CN:
     return _zoo_narrow(cfg, narrow)
 
 
+def csc_WSR_18_DC5_cfg(narrow: bool = False) -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/csc_WSR_18_DC5_1x.yaml``:
+    CSC on WSR-18 DC5, the CPG maps until iteration 12500, the MIL losses
+    summed over the classes. Under the yaml's FREEZE_AT 5 the maps are all
+    zero (ROADMAP §3); its narrow form trains every stage."""
+    cfg = wsod_WSR_18_DC5_cfg("CSCROIHeads")
+    cfg.WSL.CSC_MAX_ITER = 12500
+    cfg.WSL.MEAN_LOSS = False
+    return _zoo_narrow(cfg, narrow)
+
+
+def csc_V_16_DC5_cfg(narrow: bool = False) -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/csc_V_16_DC5_1x.yaml``:
+    CSC on VGG16 DC5 (FREEZE_AT 2), the CPG maps until iteration 12500, the
+    MIL losses summed over the classes."""
+    cfg = wsod_V_16_DC5_cfg("CSCROIHeads")
+    cfg.WSL.CSC_MAX_ITER = 12500
+    cfg.WSL.MEAN_LOSS = False
+    return _zoo_narrow(cfg, narrow)
+
+
+def csc_oicr_V_16_DC5_cfg(narrow: bool = False) -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/csc_oicr_V_16_DC5_1x.yaml``:
+    CSC-OICR on VGG16 DC5, 3 refinement branches without regression."""
+    return _zoo_narrow(wsod_V_16_DC5_cfg("CSCOICRROIHeads"), narrow)
+
+
+def csc_oicr_reg_last_V_16_DC5_cfg(narrow: bool = False) -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/reg_last/csc_oicr_V_16_DC5_1x.yaml``:
+    CSC-OICR on VGG16 DC5 with WSL.REFINE_REG [False, False, True, True]
+    (its third branch regresses; the narrow form's two do not)."""
+    cfg = wsod_V_16_DC5_cfg("CSCOICRROIHeads")
+    cfg.WSL.REFINE_REG = [False, False, True, True]
+    return _zoo_narrow(cfg, narrow)
+
+
+def uwsod_V_16_DC5_cfg(narrow: bool = False) -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/uwsod_V_16_DC5_1x.yaml``:
+    UWSOD on the multi-rate VGG16 (``build_mrrp_vgg_backbone``: plain5's
+    three branches at dilations 2, 4 and 8, FREEZE_AT 5) with ``RPNWSL``
+    (anchors of 32 and 64, 128 and 256, 512 and 768 on the three branches,
+    4096 before NMS and 2048 after it, 512 anchors sampled an image) and 4
+    regressing branches; no precomputed proposal files (the loaders then
+    fail as the JAX package's do: train with MODEL.LOAD_PROPOSALS False,
+    ROADMAP §3). ``narrow``: its narrow form, the RPN's 512 before NMS and
+    64 after it."""
+    cfg = wsod_V_16_DC5_cfg("UWSODROIHeads")
+    m = cfg.MODEL
+    m.BACKBONE.NAME = "build_mrrp_vgg_backbone"
+    m.BACKBONE.FREEZE_AT = 5
+    m.MRRP.MRRP_ON = True
+    m.MRRP.NUM_BRANCH = 3
+    m.MRRP.BRANCH_DILATIONS = [1, 2, 4]
+    m.MRRP.TEST_BRANCH_IDX = -1
+    m.MRRP.MRRP_STAGE = "plain5"
+    m.PROPOSAL_GENERATOR.NAME = "RPNWSL"
+    m.PROPOSAL_GENERATOR.MIN_SIZE = 40
+    r = m.RPN
+    r.IN_FEATURES = ["plain5"]
+    r.PRE_NMS_TOPK_TRAIN = r.PRE_NMS_TOPK_TEST = 4096
+    r.POST_NMS_TOPK_TRAIN = r.POST_NMS_TOPK_TEST = 2048
+    r.NMS_THRESH = 0.7
+    r.BATCH_SIZE_PER_IMAGE = 512
+    r.POSITIVE_FRACTION = 0.5
+    r.BBOX_REG_LOSS_TYPE = "smooth_l1"
+    m.ANCHOR_GENERATOR.SIZES = [[32, 64], [128, 256], [512, 768]]
+    m.ANCHOR_GENERATOR.ASPECT_RATIOS = [[1.0, 2.0, 0.5]]
+    b = m.ROI_BOX_HEAD
+    b.POOLER_TYPE = "ROILoopPool"  # the WSOD heads pool by ROIAlignV2 whatever it says
+    b.NUM_CONV = 0
+    b.NUM_FC = 2
+    b.DAN_DIM = [4096, 4096]
+    b.BBOX_REG_LOSS_TYPE = "smooth_l1"
+    s = cfg.SOLVER
+    s.STEPS = (140000, 200000)
+    s.MAX_ITER = 200000
+    s.REFERENCE_WORLD_SIZE = 4
+    s.WARMUP_ITERS = 0
+    s.IMS_PER_BATCH = 4
+    s.BASE_LR = 0.001
+    s.WEIGHT_DECAY = 0.0005
+    s.BIAS_LR_FACTOR = 2.0
+    s.WEIGHT_DECAY_BIAS = 0.0
+    w = cfg.WSL
+    w.ITER_SIZE = 1
+    w.MEAN_LOSS = True
+    w.REFINE_NUM = 4
+    w.REFINE_REG = [True, True, True, True]
+    w.REFINE_MIST = True
+    p = w.SAMPLING
+    p.SAMPLING_ON = True
+    p.IOU_THRESHOLDS = [[0.35], [0.4], [0.45], [0.5]]
+    p.IOU_LABELS = [[0, 1], [0, 1], [0, 1], [0, 1]]
+    p.BATCH_SIZE_PER_IMAGE = [4096, 4096, 4096, 4096]
+    p.POSITIVE_FRACTION = [1.0, 1.0, 1.0, 1.0]
+    cfg.DATASETS.PROPOSAL_FILES_TRAIN = ()
+    cfg.DATASETS.PROPOSAL_FILES_TEST = ()
+    if narrow:
+        cfg = _zoo_narrow(cfg, True)
+        cfg.MODEL.RPN.PRE_NMS_TOPK_TRAIN = cfg.MODEL.RPN.PRE_NMS_TOPK_TEST = 512
+        cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = cfg.MODEL.RPN.POST_NMS_TOPK_TEST = 64
+    return cfg
+
+
+def wsjds_V_16_DC5_cfg(narrow: bool = False, crf: bool = False) -> CN:
+    """WSJDS on VGG16 DC5 (``wsod_V_16_DC5_cfg("WSJDSROIHeads")``) with its
+    ASPP segmentation branch over ``plain5`` (SEM_SEG_HEAD.NAME ASPPHead, 20
+    classes). No yaml of the repository names this configuration; it
+    stands for the reference's WSJDS VOC setting in the VGG16 DC5 base.
+    ``crf``: SEM_SEG_HEAD.CONSTRAINT "CRF" (which the WSJDS heads, given no
+    image, do not reach: ROADMAP §3). ``narrow``: its narrow form."""
+    cfg = wsod_V_16_DC5_cfg("WSJDSROIHeads")
+    h = cfg.MODEL.SEM_SEG_HEAD
+    h.NAME = "ASPPHead"
+    h.IN_FEATURES = ["plain5"]
+    h.NUM_CLASSES = 20
+    if crf:
+        h.CONSTRAINT = "CRF"
+    return _zoo_narrow(cfg, narrow)
+
+
 # the WSOD zoo's further configurations: name -> (its yaml under
 # projects/WSL/configs/PascalVOC-Detection/, its builder)
 WSOD_ZOO = {
@@ -407,6 +529,11 @@ WSOD_ZOO = {
     "contextlocnet_V_16": ("contextlocnet_V_16_DC5_1x.yaml", contextlocnet_V_16_DC5_cfg),
     "cmil_WSR_18": ("cmil_WSR_18_DC5_1x.yaml", cmil_WSR_18_DC5_cfg),
     "cmil_V_16": ("cmil_V_16_DC5_1x.yaml", cmil_V_16_DC5_cfg),
+    "csc_WSR_18": ("csc_WSR_18_DC5_1x.yaml", csc_WSR_18_DC5_cfg),
+    "csc_V_16": ("csc_V_16_DC5_1x.yaml", csc_V_16_DC5_cfg),
+    "csc_oicr_V_16": ("csc_oicr_V_16_DC5_1x.yaml", csc_oicr_V_16_DC5_cfg),
+    "csc_oicr_reg_last_V_16": ("reg_last/csc_oicr_V_16_DC5_1x.yaml", csc_oicr_reg_last_V_16_DC5_cfg),
+    "uwsod_V_16": ("uwsod_V_16_DC5_1x.yaml", uwsod_V_16_DC5_cfg),
 }
 
 

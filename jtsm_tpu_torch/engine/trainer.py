@@ -3,8 +3,10 @@
 87``).
 
 ``TrainerBase`` runs iterations between hooks inside an ``EventStorage``.
-``SimpleTrainer`` takes one batch from the loader an iteration (the wait
-is ``data_time``) and one train step (``train_loop.make_train_step``).
+``SimpleTrainer`` takes one batch from the loader an iteration, passes it
+through its ``batch_transform`` where one is set (JAX package
+``engine/trainer.py:123-135``; the wait and the transform are
+``data_time``), and takes one train step (``train_loop.make_train_step``).
 Its metrics are read one iteration late, as in the JAX package: the
 scalars put at iteration i are the losses of iteration i - 1, so the loop
 reads the device once an iteration, after the next step is queued, and
@@ -107,11 +109,16 @@ class SimpleTrainer(TrainerBase):
         self.state = create_train_state(model, optimizer, seed)
         self._train_step = make_train_step(model, optimizer, schedule, iter_size)
         self._pending_metrics: Optional[Dict[str, torch.Tensor]] = None
+        # batch_transform(state, batch, iteration) -> batch, applied before
+        # the step and counted in data_time (the WSL trainer's CPG maps)
+        self.batch_transform = None
 
     def run_step(self):
         start = time.perf_counter()
         batch = next(self._data_loader_iter)
         batch = {k: v for k, v in batch.items() if k != "image_ids"}
+        if self.batch_transform is not None:
+            batch = self.batch_transform(self.state, batch, self.iter)
         data_time = time.perf_counter() - start
         metrics = self._train_step(self.state, batch)
         self._write_metrics(metrics, data_time)

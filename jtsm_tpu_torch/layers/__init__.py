@@ -1,3 +1,4 @@
+from .aspp import ASPP
 from .batch_norm import (
     FrozenBatchNorm2d,
     GroupNorm32,
@@ -21,6 +22,7 @@ from .wrappers import (
 )
 
 __all__ = [
+    "ASPP",
     "Conv2d",
     "ConvTranspose2d",
     "FrozenBatchNorm2d",

@@ -123,7 +123,8 @@ class GroupNorm32(nn.GroupNorm):
         super().__init__(math.gcd(num_groups, num_features), num_features, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = nn.functional.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        dt = torch.promote_types(x.dtype, self.weight.dtype)  # float32, or float64 in a float64 model
+        y = nn.functional.group_norm(x.to(dt), self.num_groups, self.weight, self.bias, self.eps)
         return y.to(x.dtype)
 
 

@@ -142,7 +142,7 @@ def build_retinanet_resnet_fpn_backbone(cfg) -> FPN:
 
 def build_backbone(cfg) -> nn.Module:
     from ...wsl.modeling.resnet_wsl import build_wsl_resnet_backbone, build_wsl_resnet_v2_backbone
-    from ...wsl.modeling.vgg import build_vgg_backbone
+    from ...wsl.modeling.vgg import build_mrrp_vgg_backbone, build_vgg_backbone
 
     name = cfg.MODEL.BACKBONE.NAME
     builders = {
@@ -152,7 +152,9 @@ def build_backbone(cfg) -> nn.Module:
         "build_wsl_resnet_backbone": build_wsl_resnet_backbone,
         "build_wsl_resnet_v2_backbone": build_wsl_resnet_v2_backbone,
         "build_vgg_backbone": build_vgg_backbone,
+        "build_mrrp_vgg_backbone": build_mrrp_vgg_backbone,
     }
     if name not in builders:
-        raise NotImplementedError(f"backbone {name!r} is not ported yet")
+        item = " (ROADMAP queue 1 item 6)" if "mrrp" in name or "trident" in name else ""
+        raise NotImplementedError(f"backbone {name!r} is not ported yet{item}")
     return builders[name](cfg)

@@ -95,25 +95,36 @@ class RPN(nn.Module):
         gt_boxes: Optional[torch.Tensor] = None,
         gt_valid: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        defer_losses: bool = False,
     ):
         """(B, 2) true image sizes and the feature maps -> (B, K, 4)
         proposals and (B, K) objectness logits, -inf on padding, and in
         training the loss dict (``gt_boxes`` (B, G, 4) and ``gt_valid``
-        (B, G) then required); in eval the dict is empty."""
+        (B, G) then required); in eval the dict is empty. With
+        ``defer_losses`` (UWSOD, JAX ``rpn.py:193-206``) training needs no
+        ground truth: the dict holds ``_deferred``, what ``get_losses``
+        takes once the ground truth is known."""
         anchors, logits, deltas = self.head_outputs(features)
         losses = {}
-        if self.training:
+        if self.training and defer_losses:
+            losses = {"_deferred": (torch.cat(anchors), torch.cat(logits, dim=1), torch.cat(deltas, dim=1),
+                                    image_sizes)}
+        elif self.training:
             if gt_boxes is None or gt_valid is None:
                 raise ValueError("training the RPN needs gt_boxes and gt_valid")
-            b, n = logits[0].shape[0], sum(a.shape[0] for a in anchors)
-            dev = logits[0].device
-            u_pos, u_neg = (torch.rand((b, n), generator=generator, device=dev) for _ in range(2))
-            losses = self.losses(
-                torch.cat(anchors), torch.cat(logits, dim=1), torch.cat(deltas, dim=1),
-                gt_boxes, gt_valid, image_sizes, u_pos, u_neg,
-            )
+            losses = self.get_losses((torch.cat(anchors), torch.cat(logits, dim=1), torch.cat(deltas, dim=1),
+                                      image_sizes), gt_boxes, gt_valid, generator)
         proposals, scores = self.predict_proposals(anchors, logits, deltas, image_sizes)
         return proposals, scores, losses
+
+    def get_losses(self, deferred, gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """The losses of a ``_deferred`` forward against ``gt_boxes`` (B, G,
+        4) and ``gt_valid`` (B, G), the sampling's uniform draws (B, anchors)
+        twice from ``generator`` (JAX ``rpn.py:220`` ``get_losses``)."""
+        anchors, logits, deltas, image_sizes = deferred
+        u_pos, u_neg = (torch.rand(logits.shape, generator=generator, device=logits.device) for _ in range(2))
+        return self.losses(anchors, logits, deltas, gt_boxes, gt_valid, image_sizes, u_pos, u_neg)
 
     def head_outputs(self, features: Dict[str, torch.Tensor]):
         """Per level the anchors (Hi*Wi*A, 4), and the head's objectness

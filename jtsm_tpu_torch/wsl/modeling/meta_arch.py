@@ -100,13 +100,16 @@ class GeneralizedMCNNWSL(BackboneModel):
 def build_wsl_roi_heads(cfg, input_shape):
     """The WSOD heads named by ROI_HEADS.NAME (JAX package registry
     ``ROI_HEADS_REGISTRY``): ``WSDDNROIHeads``, ``OICRROIHeads``,
-    ``CascadeOICRROIHeads``, ``PCLROIHeads``, ``ContextLocNetROIHeads`` or
-    ``CMILROIHeads``."""
+    ``CascadeOICRROIHeads``, ``PCLROIHeads``, ``ContextLocNetROIHeads``,
+    ``CMILROIHeads``, ``CSCROIHeads``, ``CSCOICRROIHeads``,
+    ``WSJDSROIHeads`` or ``UWSODROIHeads``."""
     from .roi_heads_wsl import CascadeOICRROIHeads, OICRROIHeads, WSDDNROIHeads
-    from .wsod_zoo import CMILROIHeads, ContextLocNetROIHeads, PCLROIHeads
+    from .wsjds import CSCOICRROIHeads, CSCROIHeads, WSJDSROIHeads
+    from .wsod_zoo import CMILROIHeads, ContextLocNetROIHeads, PCLROIHeads, UWSODROIHeads
 
     heads = {h.__name__: h for h in (WSDDNROIHeads, OICRROIHeads, CascadeOICRROIHeads, PCLROIHeads,
-                                     ContextLocNetROIHeads, CMILROIHeads)}
+                                     ContextLocNetROIHeads, CMILROIHeads, CSCROIHeads, CSCOICRROIHeads,
+                                     WSJDSROIHeads, UWSODROIHeads)}
     name = cfg.MODEL.ROI_HEADS.NAME
     if name not in heads:
         raise NotImplementedError(f"ROI heads {name!r} under GeneralizedRCNNWSL are not ported yet "
@@ -118,33 +121,52 @@ class GeneralizedRCNNWSL(BackboneModel):
     """The WSOD meta-architecture (reference
     projects/WSL/wsl/modeling/meta_arch/rcnn.py:24; JAX package
     ``wsl/modeling/meta_arch.py:34-111``): the image normalised in float32,
-    the backbone, the request's precomputed ``proposals`` (B, R, 4) and
-    ``proposal_scores`` (B, R) (-inf marks padding), the WSOD heads
-    (``build_wsl_roi_heads``), and the detections mapped to ``orig_sizes``
-    (``boxes``, ``scores``, ``classes``, ``valid``, ``prop_idx`` and, but
-    for PCL, ContextLocNet and CMIL, ``proposal_class_scores``). In train mode, with the image
-    labels ``gt_classes`` and ``gt_valid`` (B, G), the heads' loss dict;
-    ``generator`` draws the DAN's dropout. The learned proposal generator
-    (UWSOD's ``RPNWSL``) is not ported."""
+    the backbone, the proposals, the WSOD heads (``build_wsl_roi_heads``),
+    and the detections mapped to ``orig_sizes`` (``boxes``, ``scores``,
+    ``classes``, ``valid``, ``prop_idx``, and ``proposal_class_scores`` for
+    the heads that return them; WSJDS adds ``masks_full`` and
+    ``no_paste``). The proposals are the request's precomputed
+    ``proposals`` (B, R, 4) and ``proposal_scores`` (B, R) (-inf marks
+    padding), or under PROPOSAL_GENERATOR.NAME RPNWSL (UWSOD) the RPN's,
+    which carry no gradient. In train mode, with the image labels
+    ``gt_classes`` and ``gt_valid`` (B, G) (and the CPG maps ``cpg`` for
+    the CSC heads), the heads' loss dict; under RPNWSL the RPN's losses
+    follow, against the boxes and validity the heads mined
+    (``UWSODROIHeads.losses_and_pgt``). ``generator`` draws the DAN's
+    dropout, then the RPN's sampling."""
 
     def __init__(self, cfg):
-        if cfg.MODEL.PROPOSAL_GENERATOR.NAME != "PrecomputedProposals":
-            raise NotImplementedError(
-                f"GeneralizedRCNNWSL with the proposal generator {cfg.MODEL.PROPOSAL_GENERATOR.NAME!r} (UWSOD's "
-                "RPNWSL) is not ported yet (ROADMAP queue 1 item 6)")
+        name = cfg.MODEL.PROPOSAL_GENERATOR.NAME
+        if name not in ("PrecomputedProposals", "RPNWSL"):
+            raise NotImplementedError(f"GeneralizedRCNNWSL with the proposal generator {name!r} is not ported yet")
         super().__init__(cfg)
-        self.roi_heads = build_wsl_roi_heads(cfg, self.backbone.output_shape())
+        shapes = self.backbone.output_shape()
+        self.proposal_generator = None
+        if name == "RPNWSL":
+            from .rpn_wsl import RPNWSL
+
+            self.proposal_generator = RPNWSL(cfg, shapes)
+        self.roi_heads = build_wsl_roi_heads(cfg, shapes)
 
     def request_fields(self, batch: Dict):
         dev = self.device
         return (torch.as_tensor(batch["proposals"], dtype=torch.float32, device=dev),
                 torch.as_tensor(batch["proposal_scores"], dtype=torch.float32, device=dev))
 
+    def proposals(self, batch: Dict, features, image_sizes, generator=None):
+        """(B, R, 4) proposals, (B, R) their scores and the RPN's
+        ``_deferred`` losses (None without the RPN or in eval mode)."""
+        if self.proposal_generator is None:
+            return (*self.request_fields(batch), None)
+        proposals, scores, rpn = self.proposal_generator(image_sizes, features, generator=generator,
+                                                         defer_losses=True)
+        return proposals.detach(), scores.detach(), rpn.get("_deferred")
+
     @serving
     def inference(self, batch: Dict) -> Dict[str, torch.Tensor]:
         with exact_float32(self.compute_dtype == torch.float32):
             features, image_sizes = self._features(batch)
-            proposals, scores = self.request_fields(batch)
+            proposals, scores, _ = self.proposals(batch, features, image_sizes)
             det = self.roi_heads(features, proposals, scores, image_sizes)
             return detector_postprocess_batched(det, image_sizes, self.orig_sizes(batch, image_sizes))
 
@@ -153,7 +175,15 @@ class GeneralizedRCNNWSL(BackboneModel):
         if not self.training:
             return self.inference(batch)
         features, image_sizes = self._features(batch)
-        proposals, scores = self.request_fields(batch)
-        targets = {k: torch.as_tensor(batch[k], device=self.device) for k in ("gt_classes", "gt_valid")}
-        return self.roi_heads(features, proposals, scores, image_sizes, targets=targets, train=True,
-                              generator=generator)
+        proposals, scores, deferred = self.proposals(batch, features, image_sizes, generator)
+        targets = {k: torch.as_tensor(batch[k], device=self.device) for k in ("gt_classes", "gt_valid", "cpg")
+                   if k in batch}
+        heads = self.roi_heads
+        if deferred is None or not hasattr(heads, "losses_and_pgt"):
+            return heads(features, proposals, scores, image_sizes, targets=targets, train=True, generator=generator)
+        x = heads.dan(heads.pool_proposals(features, proposals, scores), generator)
+        mil, branches = heads.predict(x, scores)
+        losses, (pgt_boxes, pgt_valid) = heads.losses_and_pgt(proposals, scores, mil, branches, targets)
+        if pgt_boxes is not None:
+            losses.update(self.proposal_generator.get_losses(deferred, pgt_boxes.detach(), pgt_valid, generator))
+        return losses

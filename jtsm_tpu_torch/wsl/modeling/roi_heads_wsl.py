@@ -21,8 +21,8 @@ image_sizes)`` they return the detections of ``wsl_inference`` and each
 proposal's class scores (``proposal_class_scores``, which TTA-AVG
 averages); with ``targets`` (``gt_classes``, ``gt_valid``) and
 ``train=True``, the loss dict. Each stage is a method of its own
-(``attend``, ``pool``, ``dan``, ``predict``, ``detect``, ``losses``), so
-that it can be timed."""
+(``attend``, ``pool`` or ``pool_proposals``, ``dan``, ``predict``,
+``detect``, ``losses``), so that it can be timed."""
 
 from __future__ import annotations
 
@@ -226,6 +226,12 @@ class WSDDNROIHeads(nn.Module):
         batch_idx = torch.arange(b, dtype=torch.int32, device=proposals.device).repeat_interleave(r)
         return self.pooler([features[f] for f in self.in_features], proposals.reshape(b * r, 4), batch_idx)
 
+    def pool_proposals(self, features: Dict[str, torch.Tensor], proposals: torch.Tensor,
+                       proposal_scores: torch.Tensor) -> torch.Tensor:
+        """What the DAN takes: ``pool`` of the proposals (WSJDS scales it
+        by their objectness)."""
+        return self.pool(features, proposals)
+
     def predict(self, x: torch.Tensor, proposal_scores: torch.Tensor):
         """(B*R, D) neck features -> the (B, R, C) WSDDN scores and the
         refinement branches' [(logits, deltas or None)] (none here)."""
@@ -233,6 +239,19 @@ class WSDDNROIHeads(nn.Module):
         cls_logit, det_logit = self.mil(x)
         mil = wsddn_scores(cls_logit.reshape(b, r, -1), det_logit.reshape(b, r, -1), torch.isfinite(proposal_scores))
         return mil, []
+
+    def class_scores(self, mil, branches) -> torch.Tensor:
+        """Each proposal's (B, R, C) class scores, as the detections carry
+        them in ``proposal_class_scores``."""
+        return mil
+
+    def proposal_class_scores(self, features: Dict[str, torch.Tensor], proposals: torch.Tensor,
+                              proposal_scores: torch.Tensor) -> torch.Tensor:
+        """The (B, R, C) ``class_scores`` of the proposals, without the
+        detections' decoding and NMS (the class-peak-gradient pass)."""
+        features, _ = self.attend(features)
+        x = self.dan(self.pool_proposals(features, proposals, proposal_scores))
+        return self.class_scores(*self.predict(x, proposal_scores))
 
     def detect(self, proposals, proposal_scores, mil, branches, image_sizes) -> Dict[str, torch.Tensor]:
         """The detections of the WSDDN scores over the proposals."""
@@ -263,7 +282,7 @@ class WSDDNROIHeads(nn.Module):
         """Detections, or with ``train`` the loss dict (``loss_args`` go
         to ``losses``)."""
         features, gam_logits = self.attend(features)
-        x = self.dan(self.pool(features, proposals), generator)
+        x = self.dan(self.pool_proposals(features, proposals, proposal_scores), generator)
         mil, branches = self.predict(x, proposal_scores)
         if not train:
             return self.detect(proposals, proposal_scores, mil, branches, image_sizes)
@@ -313,14 +332,22 @@ class OICRROIHeads(WSDDNROIHeads):
             branches.append((logits.reshape(b, r, -1), None if deltas is None else deltas.reshape(b, r, -1)))
         return mil, branches
 
+    def class_scores(self, mil, branches) -> torch.Tensor:
+        avg = sum((torch.softmax(lg, dim=-1)[..., : self.num_classes] for lg, _ in branches), mil.new_zeros(mil.shape))
+        return avg / max(len(branches), 1)
+
     def detect(self, proposals, proposal_scores, mil, branches, image_sizes) -> Dict[str, torch.Tensor]:
         avg, boxes = branch_average(proposals, branches, self.num_classes, self.box2box_transform)
         return super().detect(boxes, proposal_scores, avg, branches, image_sizes)
 
+    def _mil_losses(self, mil, img_labels, proposals, valid, targets) -> Dict[str, torch.Tensor]:
+        """The MIL image loss (CSC-OICR weighs it by CSC instead)."""
+        return {"loss_mil": mil_image_loss(mil, img_labels, self.mean_loss).mean()}
+
     def losses(self, proposals, proposal_scores, mil, branches, targets, features=None,
                generator=None) -> Dict[str, torch.Tensor]:
-        losses = super().losses(proposals, proposal_scores, mil, branches, targets)
         img_labels = image_level_gt(targets["gt_classes"], targets["gt_valid"], self.num_classes)
+        losses = self._mil_losses(mil, img_labels, proposals, torch.isfinite(proposal_scores), targets)
         # the image probabilities weight the top-k miner's PGT
         # (reference roi_heads_oicr.py:752); they keep their gradient
         img_probs = mil.sum(dim=1).clamp(1e-6, 1.0 - 1e-6)

@@ -4,7 +4,8 @@ roi_heads_pcl.py, third_party/pcl.py, roi_heads_cmil.py and
 csrc/ROIMerge; JAX package ``wsl/modeling/wsod_zoo.py`` :58
 ``ContextLocNetROIHeads``, :127 ``build_proposal_clusters``, :188
 ``PCLROIHeads``, :284 ``roi_merge_lambda``, :294 ``roi_merge``, :371
-``CMILROIHeads``). CSC and UWSOD wait (ROADMAP queue 1 item 6).
+``CMILROIHeads``, :560-691 ``csc_full``, :694 ``compute_cpg``, :721
+``UWSODROIHeads``). The CSC heads themselves are in ``wsjds.py``.
 
 ContextLocNet: WSDDN whose detection logits contrast each proposal's frame
 with its context: ``wsl.ops.roi_loop_pool`` pools the roi, frame and
@@ -27,7 +28,12 @@ IoU among the top 200), WSDDN scores over the cluster rows and their MIL
 loss, and WSL.REFINE_NUM branches supervised by ``wsl.ops.roi_label`` from
 the previous branch's detached scores (the clusters' for the first).
 Inference averages the branches' softmax. ContextLocNet and CMIL return no
-``proposal_class_scores`` either."""
+``proposal_class_scores`` either.
+
+CSC: ``csc_full``, the contrastive spatial confidence of every proposal
+and class from the class peak gradient maps, and ``compute_cpg``, a map
+from the gradient of the image scores. UWSOD: ``UWSODROIHeads`` over the
+proposals of ``rpn_wsl.RPNWSL``."""
 
 from __future__ import annotations
 
@@ -43,7 +49,15 @@ from ...ops.losses import smooth_l1_loss
 from ...ops.nms import nms_mask
 from ...structures.boxes import pairwise_iou
 from ..ops import pcl_losses, roi_label, roi_loop_pool
-from .mil_heads import OICROutputLayers, branch_average, mil_image_loss, oicr_branch_loss, wsddn_scores
+from .mil_heads import (
+    OICROutputLayers,
+    branch_average,
+    get_pgt_top_k,
+    label_proposals_by_pgt,
+    mil_image_loss,
+    oicr_branch_loss,
+    wsddn_scores,
+)
 from .roi_heads_wsl import WSDDNROIHeads, image_level_gt, wsl_inference
 
 
@@ -377,3 +391,219 @@ class CMILROIHeads(WSDDNROIHeads):
             scores = self.merge(proposals, proposal_scores, mil)[1]
         return wsl_inference(boxes, scores, torch.isfinite(proposal_scores), image_sizes, self.score_thresh_test,
                              self.nms_thresh_test, self.detections_per_image)
+
+
+# ---------------------------------------------------------------------------
+# CSC: contrastive spatial confidence from class peak gradient maps
+# ---------------------------------------------------------------------------
+
+
+def _round_half_away(x: torch.Tensor) -> torch.Tensor:
+    """C ``round()``: half away from zero (``torch.round`` rounds half to
+    even)."""
+    return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
+
+
+def csc_full(
+    cpgs: torch.Tensor,  # (B, C, H, W) class peak gradient maps, each normalised to max 1
+    boxes: torch.Tensor,  # (B, R, 4) XYXY in image coordinates
+    valid: torch.Tensor,  # (B, R)
+    labels: torch.Tensor,  # (B, C) image-level multi-hot
+    preds: torch.Tensor,  # (B, C) image-level predicted scores
+    fg_threshold: float = 0.1,
+    area_sqrt: bool = True,
+    context_scale: float = 1.8,
+) -> torch.Tensor:
+    """The (B, R, C) CSC weights (JAX :566 ``csc`` and :674 ``csc_full``,
+    the reference's ``csrc/csc/csc_cuda.cu:352``), for every ROI and class
+    at once: each map binarised at ``fg_threshold`` and summed into an
+    integral image (exact in float32 up to 2^24 pixels); each ROI rounded
+    half away from zero and clipped to the map, its inner box (``1 /
+    context_scale`` of it, the division a product by the float32
+    reciprocal, as XLA computes it) and outer box (``context_scale`` of it,
+    clipped); the frame's mass (ROI minus inner box) against the context's
+    (outer box minus ROI), each over the square root of its area
+    (``area_sqrt``) or its area; each class column normalised over the
+    valid rows to [-1, 1] (positives by the maximum, negatives by -minimum,
+    both taken from 0; a column without a positive and a negative value is
+    1 where neither scales it), blended as ``pred * W + (1 - pred)``; 1 for
+    absent classes and padded rows. The maps and the boxes are data; the
+    predictions keep their gradient through the blend, as in the JAX
+    package (the reference's CUDA op has none)."""
+    b, c, h, w = cpgs.shape
+    r = boxes.shape[1]
+    integral = (cpgs >= fg_threshold).float().cumsum(dim=2).cumsum(dim=3).reshape(b, c, h * w)
+    bx = boxes.detach().float()
+
+    def box_sum(hs, ws, he, we):
+        # inclusive [hs..he, ws..we] of each (image, class, ROI); a start
+        # at 0 reads nothing before it
+        hs, ws, he, we = (t.long() for t in (hs, ws, he, we))
+
+        def at(y, x):
+            idx = (y.clamp(min=0) * w + x.clamp(min=0))[:, None, :].expand(b, c, r)
+            return torch.gather(integral, 2, idx)
+
+        zero = torch.zeros((), device=cpgs.device)
+        a2 = torch.where((ws >= 1)[:, None, :], at(he, ws - 1), zero)
+        a3 = torch.where((hs >= 1)[:, None, :], at(hs - 1, we), zero)
+        a4 = torch.where(((ws >= 1) & (hs >= 1))[:, None, :], at(hs - 1, ws - 1), zero)
+        return at(he, we) - a2 - a3 + a4
+
+    ws = _round_half_away(bx[..., 0]).clamp(0.0, w - 1.0)
+    hs = _round_half_away(bx[..., 1]).clamp(0.0, h - 1.0)
+    we = _round_half_away(bx[..., 2]).clamp(0.0, w - 1.0)
+    he = _round_half_away(bx[..., 3]).clamp(0.0, h - 1.0)
+    width, height = we - ws, he - hs
+    inv = torch.full((), float(np.float32(1) / np.float32(context_scale)), device=bx.device)
+    w_inner, h_inner = width * inv, height * inv
+    w_outer, h_outer = width * context_scale, height * context_scale
+    wc, hc = (we + ws) * 0.5, (he + hs) * 0.5
+    ws_i, hs_i = _round_half_away(wc - w_inner * 0.5), _round_half_away(hc - h_inner * 0.5)
+    we_i, he_i = _round_half_away(wc + w_inner * 0.5), _round_half_away(hc + h_inner * 0.5)
+    ws_o = _round_half_away((wc - w_outer * 0.5).clamp(min=0.0))
+    hs_o = _round_half_away((hc - h_outer * 0.5).clamp(min=0.0))
+    we_o = _round_half_away((wc + w_outer * 0.5).clamp(max=w - 1.0))
+    he_o = _round_half_away((hc + h_outer * 0.5).clamp(max=h - 1.0))
+    area_roi = (he - hs + 1.0) * (we - ws + 1.0)
+    area_inner = (he_i - hs_i + 1.0) * (we_i - ws_i + 1.0)
+    area_outer = (he_o - hs_o + 1.0) * (we_o - ws_o + 1.0)
+    area_frame = (area_roi - area_inner).clamp(min=1.0)[:, None, :]
+    area_context = (area_outer - area_roi).clamp(min=1.0)[:, None, :]
+    sum_roi = box_sum(hs, ws, he, we)
+    sum_frame = sum_roi - box_sum(hs_i, ws_i, he_i, we_i)
+    sum_context = box_sum(hs_o, ws_o, he_o, we_o) - sum_roi
+    if area_sqrt:
+        scores = sum_frame / torch.sqrt(area_frame) - sum_context / torch.sqrt(area_context)
+    else:
+        scores = sum_frame / area_frame - sum_context / area_context
+    scores = scores.transpose(1, 2)  # (B, R, C)
+
+    zero = torch.zeros((), device=scores.device)
+    in_rows = valid[..., None]
+    max_value = torch.where(in_rows, scores, zero).amax(dim=1, keepdim=True).clamp(min=0.0)
+    min_value = torch.where(in_rows, scores, zero).amin(dim=1, keepdim=True).clamp(max=0.0)
+    one = torch.ones((), device=scores.device)
+    safe_max = torch.where(max_value > 0, max_value, one)
+    safe_min = torch.where(min_value < 0, -min_value, one)
+    normed = torch.where(
+        (max_value > 0) & (min_value < 0),
+        torch.where(scores > 0, scores / safe_max, scores / safe_min),
+        torch.where(max_value > 0, scores / safe_max, one),
+    )
+    p = preds[:, None, :]
+    blended = p * normed + (1.0 - p)
+    out = torch.where((labels >= 0.5)[:, None, :], blended, one)
+    return torch.where(in_rows, out, one)
+
+
+
+def compute_cpg(scores: torch.Tensor, images: torch.Tensor, class_idx: torch.Tensor,
+                weights: Optional[torch.Tensor] = None, retain_graph: bool = False) -> torch.Tensor:
+    """Class peak gradient maps (JAX :694, the reference's
+    roi_heads_csc.py:443 ``_forward_cpg``): the gradient of each image's
+    (B, C) score ``scores`` of class ``class_idx`` (B,) (times ``weights``
+    (B,)) with respect to the (B, H, W, 3) ``images`` it was computed from,
+    its absolute value's maximum over the channels, over its maximum (at
+    least 1e-20): (B, H, W). Zero where the scores do not depend on the
+    images."""
+    picked = torch.gather(scores, 1, class_idx.long()[:, None])[:, 0]
+    if weights is not None:
+        picked = picked * weights
+    g, = torch.autograd.grad(picked.sum(), images, retain_graph=retain_graph, allow_unused=True)
+    if g is None:
+        return torch.zeros(images.shape[:3], dtype=images.dtype, device=images.device)
+    cpg = g.abs().amax(dim=-1)
+    return cpg / cpg.amax(dim=(1, 2), keepdim=True).clamp(min=1e-20)
+
+# ---------------------------------------------------------------------------
+# UWSOD: unified WSOD with a learned RPN
+# ---------------------------------------------------------------------------
+
+
+class UWSODROIHeads(WSDDNROIHeads):
+    """UWSOD's heads (reference roi_heads_uwsod.py; JAX :721): WSDDN's MIL
+    over the proposals of ``RPNWSL`` and WSL.REFINE_NUM branches
+    ``refine{k}``, each a (C+1)-way classifier with class-agnostic deltas.
+    Under MODEL.MRRP the backbone folds its branches into the batch: the
+    heads pool (by K1) the branches' mean map. Branch k learns from the
+    top-1 proposal of each present class under branch k-1's detached
+    softmax (the MIL scores for the first, the mined score its weight): its
+    cross entropy over each image's weighted proposals and, on the
+    foreground, the smooth L1 of its deltas against those to the matched
+    mined box (toward the proposal itself under WSL.CLS_AGNOSTIC_BBOX_KNOWN),
+    both means over the images. The train step also returns the last
+    branch's mined boxes and validity, (B, C, 4) and (B, C), from which the
+    meta-architecture trains the RPN (``losses_and_pgt``). Inference averages the
+    branches' softmax and decodes the last branch's deltas; no GAM, no
+    ``proposal_class_scores``; WSL.REFINE_MIST and WSL.SAMPLING are not
+    read, as in the JAX heads."""
+
+    uses_gam = False
+
+    def __init__(self, cfg, input_shape: Dict[str, ShapeSpec]):
+        super().__init__(cfg, input_shape)
+        self.cls_agnostic_bbox_known = cfg.WSL.CLS_AGNOSTIC_BBOX_KNOWN
+        self.box2box_transform = Box2BoxTransform(weights=cfg.MODEL.ROI_BOX_HEAD.BBOX_REG_WEIGHTS)
+        self.mrrp_num_branch = cfg.MODEL.MRRP.NUM_BRANCH if cfg.MODEL.MRRP.MRRP_ON else 1
+        self.refine: List[OICROutputLayers] = []
+        for k in range(cfg.WSL.REFINE_NUM):
+            branch = OICROutputLayers(self.dan.output_size, self.num_classes, with_reg=True,
+                                      compute_dtype=self.mil.cls.compute_dtype)
+            self.add_module(f"refine{k}", branch)
+            self.refine.append(branch)
+
+    def pool(self, features: Dict[str, torch.Tensor], proposals: torch.Tensor) -> torch.Tensor:
+        """The branches' mean of each map (in its dtype) pooled by K1."""
+        b = proposals.shape[0]
+        if self.mrrp_num_branch > 1:
+            features = {f: features[f].reshape(-1, b, *features[f].shape[1:]).mean(dim=0)
+                        if features[f].shape[0] > b else features[f] for f in self.in_features}
+        return super().pool(features, proposals)
+
+    def predict(self, x: torch.Tensor, proposal_scores: torch.Tensor):
+        mil, _ = super().predict(x, proposal_scores)
+        b, r = proposal_scores.shape
+        branches = []
+        for head in self.refine:
+            logits, deltas = head(x)
+            branches.append((logits.reshape(b, r, -1), deltas.reshape(b, r, -1)))
+        return mil, branches
+
+    def detect(self, proposals, proposal_scores, mil, branches, image_sizes) -> Dict[str, torch.Tensor]:
+        b, r = proposal_scores.shape
+        avg = sum(torch.softmax(lg, dim=-1)[..., : self.num_classes] for lg, _ in branches) / max(len(branches), 1)
+        boxes = self.box2box_transform.apply_deltas(branches[-1][1].reshape(-1, 4),
+                                                    proposals.reshape(-1, 4)).reshape(b, r, 4)
+        return wsl_inference(boxes, avg, torch.isfinite(proposal_scores), image_sizes, self.score_thresh_test,
+                             self.nms_thresh_test, self.detections_per_image)
+
+    def losses(self, proposals, proposal_scores, mil, branches, targets, features=None,
+               generator=None) -> Dict[str, torch.Tensor]:
+        return self.losses_and_pgt(proposals, proposal_scores, mil, branches, targets)[0]
+
+    def losses_and_pgt(self, proposals, proposal_scores, mil, branches, targets):
+        """The loss dict, and the last branch's mined (B, C, 4) boxes and
+        (B, C) validity, which train the RPN."""
+        c = self.num_classes
+        valid = torch.isfinite(proposal_scores)
+        img_labels = image_level_gt(targets["gt_classes"], targets["gt_valid"], c)
+        losses = {"loss_mil": mil_image_loss(mil, img_labels, self.mean_loss).mean()}
+        source = mil
+        pgt = None
+        for k, (logits, deltas) in enumerate(branches):
+            pgt = get_pgt_top_k(proposals, source.detach(), valid, img_labels, top_k=1)
+            sup = label_proposals_by_pgt(proposals, valid, pgt, c)
+            losses[f"loss_refine_cls{k}"] = oicr_branch_loss(logits, sup["labels"], sup["weights"]).mean()
+            if self.cls_agnostic_bbox_known:
+                target = torch.zeros_like(deltas)
+            else:
+                target = self.box2box_transform.get_deltas(proposals, sup["matched_pgt_boxes"])
+            reg = smooth_l1_loss(deltas, target, 0.0).sum(dim=-1)
+            fg_w = sup["weights"] * sup["fg"].to(sup["weights"].dtype)
+            losses[f"loss_refine_reg{k}"] = (
+                (reg * fg_w).sum(dim=-1) / (fg_w > 0).sum(dim=-1).float().clamp(min=1.0)).mean()
+            source = torch.softmax(logits, dim=-1)[..., :c]
+        if pgt is None:
+            return losses, (None, None)
+        return losses, (pgt["boxes"][:, :, 0], pgt["valid"][:, :, 0])

@@ -2,12 +2,13 @@
 
 Semantics: the JAX package's ``wsl/ops.py`` (``superpixel_membership_grid``
 :34, ``sample_membership_grid`` :59, ``moi_pool`` :101, ``roi_loop_pool``
-:219, ``roi_label`` :332, ``pcl_losses`` :407, ``moi_pool_exact`` :559,
-``roi_pool`` :649), which express the reference's MOIPool, RoIPool,
+:219, ``roi_label`` :332, ``pcl_losses`` :407, ``crf_mean_field`` :452,
+``csc_constraint`` :545, ``moi_pool_exact`` :559, ``roi_pool`` :649), which
+express the reference's MOIPool, RoIPool,
 ROILoopPool and ROILabel kernels (``projects/WSL/wsl/layers/csrc``) in
 ``jnp``. The MOIPool and RoIPool functions take ONE image (callers loop
-over the batch); ``roi_loop_pool`` takes batch indices, and ``roi_label``
-and ``pcl_losses`` a leading batch dim.
+over the batch); ``roi_loop_pool`` takes batch indices, and ``roi_label``,
+``pcl_losses`` and ``crf_mean_field`` a leading batch dim.
 
 Where the JAX package forms one-hot matrix products (exact 0/1 values on
 the TPU's matrix unit), the port gathers the same 0/1 values. A superpixel
@@ -594,3 +595,86 @@ def pcl_losses(
         cluster_present, -img_cls_loss_weights * torch.log(pc_probs.clamp(min=eps)), torch.zeros_like(pc_probs)
     ).sum(dim=-1)
     return (loss_bg + loss_fg) * _inv(max(r, 1), pcl_probs)
+
+
+def crf_mean_field(
+    unary: torch.Tensor,  # (B, H, W, K) class probabilities
+    image: torch.Tensor,  # (B, H, W, 3) float
+    num_iter: int = 5,
+    pos_w: float = 3.0,
+    pos_xy_std: float = 3.0,
+    bi_w: float = 4.0,
+    bi_xy_std: float = 49.0,
+    bi_rgb_std: float = 5.0,
+    num_bins: int = 16,
+) -> torch.Tensor:
+    """Dense-CRF mean field with Potts compatibility (JAX :452, standing in
+    for the reference's ``csrc/crf``), float32, (B, H, W, K). The
+    smoothness kernel is an exact separable Gaussian blur, two band
+    matrices (zero padding: rows near the border sum to less than 1). The
+    appearance kernel is a luminance bilateral grid: each image's
+    probabilities are splatted into ``num_bins`` bins of its own luminance
+    range (rounded half to even, as ``jnp.round``), each bin's slice takes
+    the wide spatial blur, the bins mix by the range kernel and each pixel
+    reads its own bin. Both messages are normalised and leave out the
+    pixel's own term. Computes in float32 (float64 given float64)."""
+    b, h, w, k = unary.shape
+    dev = unary.device
+    dt = torch.promote_types(unary.dtype, torch.float32)  # float32, or float64 given float64
+
+    def blur_of(sigma):
+        radius = max(int(2 * sigma), 1)
+        coords = torch.arange(-radius, radius + 1, dtype=dt, device=dev)
+        kern = torch.exp(-0.5 * (coords * _inv(sigma, coords)) ** 2)
+        kern = kern / kern.sum()
+
+        def band(n):
+            offs = torch.arange(n, device=dev)[None, :] - torch.arange(n, device=dev)[:, None] + radius
+            inside = (offs >= 0) & (offs < kern.shape[0])
+            return torch.where(inside, kern[offs.clamp(0, kern.shape[0] - 1)], torch.zeros((), dtype=dt, device=dev))
+
+        by, bx = band(h), band(w)
+
+        def blur(x):  # (B, H, W, C)
+            x = torch.einsum("ij,bjwc->biwc", by, x)
+            return torch.einsum("ij,bhjc->bhic", bx, x)
+
+        return blur, kern[radius] ** 2  # the 2-D self weight
+
+    blur_pos, c_pos = blur_of(pos_xy_std)
+    blur_bi, c_bi = blur_of(bi_xy_std)
+    den_pos = blur_pos(torch.ones((1, h, w, 1), dtype=dt, device=dev)) - c_pos
+
+    lum = image.to(dt).mean(dim=-1)  # (B, H, W)
+    lo, hi = lum.amin(dim=(1, 2), keepdim=True), lum.amax(dim=(1, 2), keepdim=True)
+    span = (hi - lo).clamp(min=1e-6)
+    z = torch.round((lum - lo) * ((num_bins - 1) / span)).clamp(0, num_bins - 1).long()
+    onehot = (z[..., None] == torch.arange(num_bins, device=dev)).to(dt)  # (B, H, W, N)
+    steps = (torch.arange(num_bins, device=dev)[:, None] - torch.arange(num_bins, device=dev)[None, :]).to(dt)
+    d = steps[None] * (span * _inv(num_bins - 1, span))  # (B, N, N), in intensity units
+    g_range = torch.exp(-0.5 * (d * _inv(bi_rgb_std, d)) ** 2)
+
+    def bilateral(x):  # (B, H, W, C): splat, blur each bin, mix the bins, slice
+        grid = onehot[..., None] * x[..., None, :]  # (B, H, W, N, C)
+        grid = blur_bi(grid.reshape(b, h, w, -1)).reshape(b, h, w, num_bins, -1)
+        grid = torch.einsum("bnm,bhwmx->bhwnx", g_range, grid)
+        return torch.einsum("bhwn,bhwnx->bhwx", onehot, grid)
+
+    den_bi = bilateral(torch.ones((b, h, w, 1), dtype=dt, device=dev)) - c_bi
+    q = unary.to(dt)
+    log_unary = torch.log(q.clamp(min=1e-8))
+    eps = 1e-6
+    for _ in range(num_iter):
+        msg_pos = (blur_pos(q) - c_pos * q) / den_pos.clamp(min=eps)
+        msg_bi = (bilateral(q) - c_bi * q) / den_bi.clamp(min=eps)
+        q = torch.softmax(log_unary + pos_w * msg_pos + bi_w * msg_bi, dim=-1)
+    return q
+
+
+def csc_constraint(x: torch.Tensor, w: torch.Tensor, polar: bool = True) -> torch.Tensor:
+    """The CSC spatial constraint (JAX :545, the reference's
+    ``_CSCConstraint``): ``x`` times the positive part of the CSC weight
+    ``w`` (``polar``) or the negated negative part; the weight carries no
+    gradient."""
+    w_ = w.clamp(min=0.0) if polar else -w.clamp(max=0.0)
+    return x * w_.detach()

@@ -180,8 +180,17 @@ def score(cfg, model):
 
 class Trainer(DefaultTrainer):
     """The WSL trainer (JAX package ``projects/WSL/tools/train_net.py:24``):
-    the WSL train loader, WSL.ITER_SIZE mini-batches to an update, and
-    scoring as the WSL command scores."""
+    the WSL train loader, WSL.ITER_SIZE mini-batches to an update, the CPG
+    maps of the CSC heads (``wsjds.make_cpg_batch_transform``, until
+    WSL.CSC_MAX_ITER), and scoring as the WSL command scores."""
+
+    def __init__(self, cfg, device="cuda"):
+        super().__init__(cfg, device=device)
+        from .modeling.wsjds import CPG_ROI_HEADS, make_cpg_batch_transform
+
+        if cfg.MODEL.ROI_HEADS.NAME in CPG_ROI_HEADS:
+            self._trainer.batch_transform = make_cpg_batch_transform(
+                self.model, cfg.WSL.CSC_MAX_ITER, cfg.MODEL.ROI_HEADS.NUM_CLASSES)
 
     @classmethod
     def build_iter_size(cls, cfg) -> int:

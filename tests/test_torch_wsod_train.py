@@ -71,7 +71,8 @@ UPDATE_TOL = 1e-3
 # PCL's gradients are an order of magnitude smaller than WSDDN's and OICR's
 # (L2 norms 35-260 against 700-2600 on this tree), so at 1e-5 its updates
 # come near the float32 rounding of the parameters
-BASE_LR = {"WSDDNROIHeads": "1e-5", "OICRROIHeads": "1e-5", "PCLROIHeads": "1e-4", "CMILROIHeads": "1e-5"}
+BASE_LR = {"WSDDNROIHeads": "1e-5", "OICRROIHeads": "1e-5", "PCLROIHeads": "1e-4", "CMILROIHeads": "1e-5",
+           "CSCROIHeads": "1e-4"}
 
 
 @pytest.fixture(autouse=True)
@@ -102,10 +103,12 @@ def _cfg(head, tree, weights, out, narrow=None):
     return cfg
 
 
-def train_and_score(head, tree, jax_cli, tmp_path, monkeypatch, narrow=None):
+def train_and_score(head, tree, jax_cli, tmp_path, monkeypatch, narrow=None, expected=None):
     """Both trainers on ``head``'s narrow configuration (``narrow()``, by
     default ``wsod_WSR_18_narrow_cfg(head)``), then both commands on the
-    port's ``model_final.pth`` (see the module docstring)."""
+    port's ``model_final.pth`` (see the module docstring). ``expected(i)``:
+    the loss names of metrics.json's line i (by default the MIL loss and,
+    but for WSDDN, two branches' on every line)."""
     weights = str(tmp_path / "init.pth")
     torch.manual_seed(0)
     first = narrow() if narrow else wsod_WSR_18_narrow_cfg(head)
@@ -142,11 +145,16 @@ def train_and_score(head, tree, jax_cli, tmp_path, monkeypatch, narrow=None):
 
     want, got = _metrics(str(tmp_path / "jax" / "metrics.json")), _metrics(str(tmp_path / "port" / "metrics.json"))
     assert [m["iteration"] for m in want] == [m["iteration"] for m in got] == list(range(ITERS))
-    expected = {"loss_mil"} | ({"loss_refine_cls0", "loss_refine_cls1"} if head != "WSDDNROIHeads" else set())
+    if expected is None:
+        loss_names = {"loss_mil"} | ({"loss_refine_cls0", "loss_refine_cls1"} if head != "WSDDNROIHeads" else set())
+
+        def expected(i):
+            return loss_names
+
     worst = 0.0
-    for w, g in zip(want[1:], got[1:]):
+    for i, (w, g) in enumerate(zip(want[1:], got[1:]), 1):
         losses = {k for k in w if k.startswith("loss")}
-        assert losses == {k for k in g if k.startswith("loss")} == expected
+        assert losses == {k for k in g if k.startswith("loss")} == expected(i), i
         for k in sorted(losses) + ["total_loss"]:
             assert np.isfinite(w[k])
             worst = max(worst, _rel(w[k], g[k]))

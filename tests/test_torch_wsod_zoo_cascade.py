@@ -1,8 +1,9 @@
 """Cascade OICR (``reg_all/oicr_CA_WSR_18_DC5_1x.yaml``) and ContextLocNet
 (``contextlocnet_WSR_18_DC5_1x.yaml``) on the narrow WSR-18 DC5 against the
-JAX package, as ``tests/test_torch_wsod_zoo.py`` sets out; and the seven
-yamls of the WSOD zoo: each equal to its Python builder, built at full
-width on the CPU, and raising without a card."""
+JAX package, as ``tests/test_torch_wsod_zoo.py`` sets out; and the yamls of
+the WSOD zoo (``config.WSOD_ZOO``: seven, and the five of CSC, CSC-OICR and
+UWSOD): each equal to its Python builder, built at full width on the CPU,
+and raising without a card."""
 
 import os
 
@@ -17,7 +18,11 @@ from tests.test_torch_wsod_zoo import check_head_case
 
 HEADS = {"oicr_CA_WSR_18": "CascadeOICRROIHeads", "oicr_SP_WSR_18": "OICRROIHeads", "pcl_gam_WSR_18": "PCLROIHeads",
          "contextlocnet_WSR_18": "ContextLocNetROIHeads", "contextlocnet_V_16": "ContextLocNetROIHeads",
-         "cmil_WSR_18": "CMILROIHeads", "cmil_V_16": "CMILROIHeads"}
+         "cmil_WSR_18": "CMILROIHeads", "cmil_V_16": "CMILROIHeads", "csc_WSR_18": "CSCROIHeads",
+         "csc_V_16": "CSCROIHeads", "csc_oicr_V_16": "CSCOICRROIHeads", "csc_oicr_reg_last_V_16": "CSCOICRROIHeads",
+         "uwsod_V_16": "UWSODROIHeads"}
+# the yamls whose heads have no refinement branches
+NO_BRANCHES = ("contextlocnet_WSR_18", "contextlocnet_V_16", "csc_WSR_18", "csc_V_16")
 
 
 @pytest.mark.parametrize("case", ["oicr_ca", "contextlocnet"])
@@ -47,7 +52,7 @@ def test_zoo_yamls_equal_their_builders_and_build(name):
 
 
 def test_zoo_yamls_build_at_full_width_on_the_cpu_and_raise_without_a_card():
-    """Each of the seven yamls builds its full-width model with
+    """Each of the zoo's yamls builds its full-width model with
     ``device="cpu"``, with the head it names, GAM only under WSL.HAS_GAM,
     and the branches it asks for; without ``device`` and without a card
     the build raises."""
@@ -60,7 +65,7 @@ def test_zoo_yamls_build_at_full_width_on_the_cpu_and_raise_without_a_card():
         assert (getattr(heads, "gam", None) is not None) == (name == "pcl_gam_WSR_18")
         branches = len(getattr(heads, "refine", []))
         assert branches == {"oicr_CA_WSR_18": 4, "oicr_SP_WSR_18": 4}.get(
-            name, 0 if name.startswith("contextlocnet") else cfg.WSL.REFINE_NUM), name
+            name, 0 if name in NO_BRANCHES else cfg.WSL.REFINE_NUM), name
         del model
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="no CUDA device"):
