@@ -310,8 +310,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
    once a backward where the map trains), its own ``cpg`` stage beside
    the step's; (e) csc_V_16 through the WSL trainer with WSL.CSC_MAX_ITER
    crossed (the maps, then the plain MIL loss) and uwsod_V_16 (no proposal
-   files, MODEL.LOAD_PROPOSALS False), 8 in-memory VOC scenes. Any phase
-   that fails logs ``[<phase>] FAILED: <type>: <message>`` and its
+   files, MODEL.LOAD_PROPOSALS False), 8 in-memory VOC scenes;
+22. c4_trident_fpn: the C4 family (Mask R-CNN R50-C4 and Faster R-CNN on
+   the WS-ResNet-50's res4, ``Res5ROIHeads`` and ``WSRes5ROIHeads``),
+   Trident OICR on the multi-rate WSR-18 and Faster R-CNN on the WSR-50 FPN
+   (``config.C4_TRIDENT_FPN_ZOO``). (d) K1 and K2 against their plain
+   versions at the new launch sites, in float32 and bfloat16, timed beside
+   their bounds: the C4 res4 pooler of an 800x1344 pair, (2, 50, 84, 1024)
+   at P=14 (serve 2 x 1000, the mask branch's 2 x 100, train 2 x 512 with
+   K2) and Trident's branch-averaged res5 (serve B=1 R=2000, train B=4
+   R=8000; K1 only, FREEZE_AT 5); (a) the four narrow models on the card
+   against this machine's CPU (the supervised ones on the CPU's proposals
+   and with every anchor and proposal a slot; detections, and one step's
+   losses and update as 20(a)); these launches count in no total; (b) C4
+   Mask R-CNN and the WSR-50 FPN at 800x1344 and Trident OICR at 688x917
+   serve 4 requests in each of bf16 and f32, in turns (K1 twice a C4 Mask
+   R-CNN request, once else), then the stage split (the C4 heads' pool,
+   res5, box and mask) with its host syncs and peak memory; (c) their
+   train steps in both (median of steps 2-6; K1 and K2 once a step, K2
+   never under Trident's FREEZE_AT 5); (e) C4 Mask R-CNN through
+   ``DefaultTrainer`` on 8 in-memory COCO scenes (K1 and K2 once an
+   iteration). Any phase that fails logs ``[<phase>] FAILED: <type>: <message>`` and its
    traceback, and the run ends there with a non-zero exit.
 
 The last three lines are {"kernels": [...]} (``kernel_line`` says which
@@ -337,7 +356,12 @@ their rows at phase 20(d)'s sites and each site's launches on phase 20's
 main paths, ``zoo_launches`` all of them; ``csc_cpg_*`` and ``uwsod_*``
 their rows at phase 21(d)'s sites, ``csc_launches`` their launches on
 phase 21's main paths, ``cpg_launches`` those in its CPG passes,
-``uwsod_launches`` K1's under UWSOD),
+``uwsod_launches`` K1's under UWSOD; ``c4_*`` and ``trd_*`` their rows
+at phase 22(d)'s C4 res4 and Trident sites, ``wsr_fpn_*`` the WSR-50 FPN's
+pooler rows (phase 3's and 6's box rows: the same pyramid),
+``c4_launches``, ``trd_launches`` and ``wsr_fpn_launches`` each model's
+launches on phase 22's main paths, ``c4_trident_fpn_launches`` all of
+them),
 the card's name and power limit as
 nvidia-smi gives them, and {"ok": true, "device": {...}}. Needs one card, torch, numpy and pytest;
 imports nothing of JAX. Without a card, or outside a checkout of the
@@ -3159,7 +3183,7 @@ WSOD_IMAGE_HW = (375, 500)  # a VOC-size image: 688x917 at MIN_SIZE_TEST 688
 # the WSOD heads whose detections carry each proposal's class scores (the
 # others' cannot go through TTA-AVG)
 CLASS_SCORE_HEADS = ("WSDDNROIHeads", "OICRROIHeads", "CascadeOICRROIHeads", "CSCROIHeads", "CSCOICRROIHeads",
-                     "WSJDSROIHeads")
+                     "WSJDSROIHeads", "TridentOICRROIHeads", "MRRPOICRROIHeads", "MRRPWSDDNROIHeads")
 WSOD_CASES = (  # name, builder, ROI heads
     ("wsddn_WSR_18", "wsod_WSR_18_DC5_cfg", "WSDDNROIHeads"),
     ("oicr_WSR_18", "wsod_WSR_18_DC5_cfg", "OICRROIHeads"),
@@ -3307,8 +3331,9 @@ def wsod_train_batch(cfg, seeds):
 
 def wsod_stages(model, batch, measure, train=None):
     """The request ``batch`` through a WSOD model stage by stage (backbone,
-    rpn under RPNWSL, attend under GAM, pool by K1 or ``loop_pool`` for
-    ContextLocNet, dan, heads, nms, seg for WSJDS's masks), or with
+    rpn under RPNWSL, attend under GAM, pool by K1 (after the multi-rate
+    heads' branch mean) or ``loop_pool`` for ContextLocNet, dan, heads,
+    nms, seg for WSJDS's masks), or with
     ``train`` (the optimizer, the schedule and the train state) its train
     step (..., heads, then ``merge`` and ``label`` for CMIL or ``losses``,
     UWSOD's with the RPN's, backward, sgd); ``measure`` makes each call and
@@ -3335,10 +3360,17 @@ def wsod_stages(model, batch, measure, train=None):
     if rpn is not None:
         stages["rpn"] = lambda: r.update(zip(("props", "scores", "deferred"),
                                              model.proposals(batch, r["feats"], r["sizes"], gen)))
+    def prepared():  # the multi-rate heads' branch mean (UWSOD, Trident); the maps themselves elsewhere
+        return heads.prepare_features(r["feats"], r["props"].shape[0])
+
     if heads.gam is not None:
-        stages["attend"] = lambda: r.update(zip(("feats", "gam"), heads.attend(r["feats"])))
-    pool = "loop_pool" if isinstance(heads, ContextLocNetROIHeads) else "pool"
-    stages[pool] = lambda: r.update(pooled=heads.pool_proposals(r["feats"], r["props"], r["scores"]))
+        stages["attend"] = lambda: r.update(zip(("feats", "gam"), heads.attend(prepared())))
+
+    def pool():
+        r["feats"] = prepared()
+        r["pooled"] = heads.pool_proposals(r["feats"], r["props"], r["scores"])
+
+    stages["loop_pool" if isinstance(heads, ContextLocNetROIHeads) else "pool"] = pool
     stages["dan"] = lambda: r.update(x=heads.dan(r["pooled"], gen))
     stages["heads"] = lambda: r.update(zip(("mil", "branches"), heads.predict(r["x"], r["scores"])))
     if train is None:
@@ -3868,7 +3900,8 @@ def train_family_cfg(family, narrow=False):
     """The full-width config of ``family`` (the Python builders; the
     semantic one of ``configs/Misc/semantic_R_50_FPN_1x.yaml``) or its
     narrow gate config (SemanticSegmentor: Panoptic FPN's gate without its
-    instance branches) in the sampling regime in which the card and the CPU
+    instance branches; phase 22's models: their builders' narrow forms) in
+    the sampling regime in which the card and the CPU
     sample the same slots: an RPN slot for every anchor and an ROI slot for
     every proposal and ground-truth row, at positive fraction 1.0, so that
     the mask and keypoint picks take every foreground slot and no draw
@@ -3876,7 +3909,12 @@ def train_family_cfg(family, narrow=False):
     from jtsm_tpu_torch import config
     from jtsm_tpu_torch.config import semantic_R_50_FPN_cfg
 
-    if family in SURFACE_BUILDERS:
+    if family in C4_BUILDERS:
+        builder = getattr(config, C4_BUILDERS[family])
+        if not narrow:
+            return builder()
+        cfg = builder(narrow=True)
+    elif family in SURFACE_BUILDERS:
         full = getattr(config, SURFACE_BUILDERS[family])()
         if not narrow:
             return full
@@ -3923,7 +3961,8 @@ def surface_changes(cfg, full):
 
 def family_train_state(cfg, seed):
     """Seeded weights to train from, as a user fine-tunes from an ImageNet
-    backbone: the ResNet's from ``random_state_dict``, with each FrozenBN's
+    backbone: the ResNet's (the FPN's bottom-up, or a C4 model's backbone)
+    from ``random_state_dict``, with each FrozenBN's
     statistics set to those of its input on a batch of two seeded 256x384
     images (one pass, in order), so that it normalises as a trained one does (without
     that, a seeded ResNet-50's res3-res5 maps have a spread near 100, and
@@ -3939,9 +3978,11 @@ def family_train_state(cfg, seed):
     torch.manual_seed(seed)
     model = build_model(cfg, device="cpu")
     state = model.state_dict()
-    state.update({k: v for k, v in random_state_dict(model, seed).items() if k.startswith("backbone.bottom_up.")})
+    # the ResNet: the FPN's bottom-up, or the C4 backbone itself
+    bottom_up = getattr(model.backbone, "bottom_up", model.backbone)
+    prefix = "backbone.bottom_up." if bottom_up is not model.backbone else "backbone."
+    state.update({k: v for k, v in random_state_dict(model, seed).items() if k.startswith(prefix)})
     model.load_state_dict(state)
-    bottom_up = model.backbone.bottom_up
 
     def calibrate(bn, inputs):
         x = inputs[0].float()
@@ -4035,7 +4076,7 @@ def family_train_stages(family, model, optimizer, schedule, state, batch, measur
                 model.sem_seg_head(r["feats"]), r["t"]["gt_sem_seg"]))
         if family != "semantic":
             stages["rpn"] = rpn
-        if family in ("keypoint_rcnn", "panoptic_fpn") + SURFACE_FAMILIES:
+        if family in ("keypoint_rcnn", "panoptic_fpn") + SURFACE_FAMILIES + tuple(C4_BUILDERS):
             stages["roi_heads"] = roi_heads
     stages.update(backward=backward, sgd=sgd)
     with exact_float32(model.compute_dtype == torch.float32), batch_statistics():
@@ -4092,7 +4133,7 @@ def families_narrow_checks(families, kernels):
     return got
 
 
-def families_full_train(families, kernels, phase):
+def families_full_train(families, kernels, phase, part="b"):
     """17(b) and 18(b): each family at full width and depth
     (``family_train_state``) takes FAM_TRAIN_STEPS steps on a seeded batch of
     TRAIN_BATCH images of FLAGSHIP_HW in each of bf16 (as configured) and
@@ -4153,7 +4194,7 @@ def families_full_train(families, kernels, phase):
             model, optimizer, schedule, state, _ = runs[d]
             stage_ms = family_train_stages(family, model, optimizer, schedule, state, batch, timed_ms)
             syncs = family_train_stages(family, model, optimizer, schedule, state, batch, count_host_syncs)
-            log(f"[{phase}] (b) {TRAIN_TITLES[family]} train {DTYPE_NAMES[d]}"
+            log(f"[{phase}] ({part}) {TRAIN_TITLES[family]} train {DTYPE_NAMES[d]}"
                 f"{' (TF32 off)' if d == 'float32' else ''}, {TRAIN_BATCH} images {FLAGSHIP_HW[0]}x{FLAGSHIP_HW[1]}, "
                 f"seeded weights (seed 17): step_ms={[round(t, 3) for t in times[d]]} "
                 f"median_of_steps_2_to_{FAM_TRAIN_STEPS}_ms={med[(family, d)]:.3f} step_peak_gib={peak[d]:.3f} "
@@ -5523,6 +5564,402 @@ def phase_csc_uwsod(kernels, gen, baseline):
         trainers
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the C4 family, Trident OICR and Faster R-CNN on the WSR-50 FPN
+# ---------------------------------------------------------------------------
+
+# the supervised models of phase 22: their Python builders and titles, K1's
+# launches a request (C4 Mask R-CNN pools the proposals, then its
+# detections again for the mask head) and (K1, K2) a train step (the C4 mask
+# head reads the box branch's res5 features: one pooling a step)
+C4_BUILDERS = {"c4_mask": "mask_rcnn_R_50_C4_cfg", "wsr_c4": "faster_rcnn_WSR_50_C4_cfg",
+               "wsr_fpn": "faster_rcnn_WSR_50_FPN_cfg"}
+C4_K1 = {"c4_mask": 2, "wsr_c4": 1, "wsr_fpn": 1}
+C4_SERVED = ("c4_mask", "wsr_fpn")  # at full width, beside Trident OICR (TRD)
+TRD = "oicr_TRD_WSR_18"
+C4_ROUNDS = 4  # requests in each dtype
+C4_STAGE_ROUNDS = 1
+C4_TRAINER_SCENES = 8
+C4_TRAINER_ITERS = 6  # the iteration timer starts after 3
+TRAIN_K.update(c4_mask=(1, 1), wsr_c4=(1, 1), wsr_fpn=(1, 1))
+TRAIN_LOSSES.update(c4_mask=MASK_RCNN_LOSSES, wsr_c4=["loss_box_reg", "loss_cls", "loss_rpn_cls", "loss_rpn_loc"],
+                    wsr_fpn=["loss_box_reg", "loss_cls", "loss_rpn_cls", "loss_rpn_loc"])
+TRAIN_TITLES.update(c4_mask="Mask R-CNN R50-C4", wsr_c4="Faster R-CNN WSR-50-C4", wsr_fpn="Faster R-CNN WSR-50-FPN")
+FAM_NARROW_LR.update(c4_mask=2e-4, wsr_c4=2e-4, wsr_fpn=2e-4)
+
+
+def trd_cfg(name=TRD, narrow=False):
+    """Trident OICR on WSR-18 (``oicr_TRD_WSR_18_DC5_cfg``), or its narrow
+    form."""
+    import jtsm_tpu_torch.config as config
+
+    return config.oicr_TRD_WSR_18_DC5_cfg(narrow=narrow)
+
+
+def c4_kernel_rows(gen, baseline):
+    """Phase 22(d): K1 and K2 against their plain versions at the new
+    launch sites, in float32 and bfloat16: the C4 res4 pooler of an
+    800x1344 pair, (2, 50, 84, 1024) at P=14 (serving's 2 x 1000
+    proposals, the mask branch's 2 x 100 detections pooled again, and a
+    train step's 2 x 512 sampled ROIs with K2), and Trident's
+    branch-averaged WSR-18 res5 (the mean of three seeded branch maps,
+    serve B=1 R=2000, train B=4 R=8000; K1 only: FREEZE_AT 5 detaches every
+    branch). Returns the rows by site."""
+    import torch
+
+    rows = {"c4": {}, "trd": {}}
+    h, w = FLAGSHIP_HW
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = dtype_tag(torch.empty(0, dtype=dtype))
+        res4 = torch.randn((TRAIN_BATCH, h // 16, w // 16, 1024), generator=gen, device=DEVICE).to(dtype)
+        for kind, r in (("serve", 1000), ("mask", 100), ("train", 512)):
+            boxes = spread_boxes(gen, TRAIN_BATCH * r)
+            bidx = torch.arange(TRAIN_BATCH, device=DEVICE, dtype=torch.int32).repeat_interleave(r)
+            levels = torch.zeros(TRAIN_BATCH * r, dtype=torch.int32, device=DEVICE)
+            site = f"C4 res4 {kind} {tag} {tuple(res4.shape)} R={TRAIN_BATCH}x{r}"
+            rows["c4"][f"fwd {kind} {tag}"] = check_and_time_fwd(site, [res4], [1.0 / 16], boxes, bidx, levels, 14,
+                                                                  baseline, "c4_trident_fpn")
+            if kind == "train":
+                rows["c4"][f"bwd {kind} {tag}"] = check_and_time_bwd(site, [res4], [1.0 / 16], boxes, bidx, levels,
+                                                                      14, gen, baseline, "c4_trident_fpn")
+        del res4
+        for kind, b in (("serve", 1), ("train", 4)):
+            branches = torch.randn((3, b, 64, 64, 512), generator=gen, device=DEVICE).to(dtype)
+            avg = branches.mean(dim=0)
+            r = 2000 * b
+            boxes = jtsm_mask_boxes(gen, r, (688, 917))
+            bidx = torch.arange(b, device=DEVICE, dtype=torch.int32).repeat_interleave(2000)
+            levels = torch.zeros(r, dtype=torch.int32, device=DEVICE)
+            site = f"Trident branch-averaged res5 {kind} {tag} ({b}, 64, 64, 512)"
+            rows["trd"][f"fwd {kind} {tag}"] = check_and_time_fwd(site, [avg], [1.0 / 16], boxes, bidx, levels, 7,
+                                                                   baseline, "c4_trident_fpn")
+    return rows
+
+
+def c4_narrow_weights(model):
+    """``random_state_dict`` of ``model`` (seed 1) with the box
+    classifier's kernel times 0.05: at random weights res5's mean
+    saturates the softmax, whose ties at 1.0 rank either way on two
+    devices."""
+    from jtsm_tpu_torch.checkpoint import random_state_dict
+
+    return {k: v * 0.05 if k.endswith("cls_score.weight") else v
+            for k, v in random_state_dict(model, seed=1).items()}
+
+
+def shared_proposals(model, recorded):
+    """Makes ``model``'s RPN hand its ROI heads the proposals recorded in
+    ``recorded`` for its mode (serving, training) where a first model put
+    them, its own losses kept: with seeded weights two objectness logits
+    may tie within rounding at the RPN's top-k cut, and two devices then
+    keep another proposal; the heads are held on the same ones."""
+    rpn = model.proposal_generator
+    forward = rpn.forward
+
+    def shared(*args, **kwargs):
+        proposals, scores, losses = forward(*args, **kwargs)
+        key = rpn.training
+        if key not in recorded:
+            recorded[key] = (proposals.detach().cpu(), scores.detach().cpu())
+        p, s = recorded[key]
+        return p.to(proposals), s.to(scores), losses
+
+    rpn.forward = shared
+
+
+def c4_narrow_checks(kernels):
+    """Phase 22(a): the narrow C4 Mask R-CNN, WSR-50 C4 and WSR-50 FPN
+    (``train_family_cfg``'s sampling: every anchor and proposal a slot, so
+    that no draw decides a loss; at most 128 foreground slots an image, so
+    the C4 mask head reads them all; the ROI heads on the CPU's proposals,
+    ``shared_proposals``) and the narrow Trident OICR (every
+    stage training, dropout 0) on the card against this machine's CPU: a
+    request's detections (matched by class, box and score; Trident's by
+    (source proposal, class)) and one train step (no clip) whose losses and
+    update lie within max(1e-4 and WSOD_UPDATE_TOL, SURFACE_NOISE x the
+    CPU's float32-to-float64 gap): phase 20(a)'s rule. These launches count in no
+    main path's total."""
+    import numpy as np
+    import torch
+
+    from jtsm_tpu_torch.modeling import build_model
+
+    before = [k.launches for k in kernels]
+    failed = []
+    torch.backends.cudnn.deterministic = True
+    for name in tuple(C4_BUILDERS) + (TRD,):
+        if name == TRD:
+            cfg = trd_cfg(narrow=True)
+            cfg.merge_from_list(ZOO_NARROW_SOLVER)
+            batch = zoo_narrow_batch()
+        else:
+            cfg = train_family_cfg(name, narrow=True)
+            cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0  # random weights score below 0.05
+            batch = family_train_batch(cfg, 11, 2, FAM_NARROW_HW, cfg.TPU.MAX_GT_INSTANCES, 3)
+            batch["orig_sizes"] = np.array([[256, 352], [128, 176]], np.int32)
+        weights = c4_narrow_weights(build_model(cfg, device="cpu"))
+        runs, recorded = {}, {}
+        for device, f64 in (("cpu", False), (DEVICE, False), ("cpu", True)):
+            model = build_model(cfg, device=device)
+            model.load_state_dict(weights)
+            if f64:
+                float64_model(model)
+            if name != TRD:
+                shared_proposals(model, recorded)
+            if name == TRD:
+                model.roi_heads.dan.dropout = 0.0  # the two devices' generators draw other bits
+            det = None if f64 else {k: v.cpu() for k, v in model.inference(batch).items()}
+            runs[(device, f64)] = (det, *steps_and_updates(cfg, model, batch, 1))
+            del model
+        (d_card, l_card, u_card), (d_cpu, l_cpu, u_cpu), (_, l64, u64) = (
+            runs[(DEVICE, False)], runs[("cpu", False)], runs[("cpu", True)])
+        if name == TRD:
+            m = match_detections(d_card, d_cpu, score_tol=1e-4)
+            det_ok = m["boxes"] <= 1e-3 and m["scores"] <= 1e-4 and m["class_scores"] <= 1e-4
+            det_text = (f"{m['matched']} matched by (source proposal, class), {m['reordered']} in another slot, "
+                        f"{m['at_cut']} at the cut, boxes max_abs_err={m['boxes']:.3e} px (tol 1e-3), scores "
+                        f"{m['scores']:.3e} (tol 1e-4)")
+        else:
+            d_cpu["upscale"] = torch.as_tensor(batch["orig_sizes"][:, 0] / batch["image_sizes"][:, 0])
+            m = match_family_outputs(d_card, d_cpu, cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST)
+            det_ok = m["boxes"] <= 1e-3 and m["scores"] <= 1e-4 and m["masks"] <= 1e-4 and m["matched"] > 0
+            det_text = (f"{m['matched']} matched by class, box and score, {m['at_cut']} at the cut, {m['suppressed']} "
+                        f"suppressed on one side at the NMS threshold; boxes max_abs_err={m['boxes']:.3e} input px "
+                        f"(tol 1e-3), scores {m['scores']:.3e} (tol 1e-4)"
+                        + (f", mask probabilities {m['masks']:.3e} (tol 1e-4)" if "masks" in d_cpu else ""))
+
+        def rel(a, b):
+            return (max(abs(a[0][k] - b[0][k]) / max(abs(b[0][k]), 1e-12) for k in b[0]),
+                    float((a[1] - b[1]).norm() / b[1].norm()))
+
+        (loss_err, upd_err), (loss_gap, upd_gap) = rel((l_card[0], u_card[0]), (l_cpu[0], u_cpu[0])), rel(
+            (l_cpu[0], u_cpu[0]), (l64[0], u64[0]))
+        loss_tol, upd_tol = max(1e-4, SURFACE_NOISE * loss_gap), max(WSOD_UPDATE_TOL, SURFACE_NOISE * upd_gap)
+        log(f"[c4_trident_fpn] (a) {name} narrow ({cfg.MODEL.ROI_HEADS.NAME}, float32): card vs CPU: detections "
+            f"{det_text}; one step: losses rel_err {loss_err:.3e} (tol {loss_tol:.3e}), update L2 norm "
+            f"{float(u_cpu[0].norm()):.4g} rel_err {upd_err:.3e} (tol {upd_tol:.3e}); CPU float32 against float64: "
+            f"losses {loss_gap:.3e}, update {upd_gap:.3e}; losses "
+            + ", ".join(f"{k}={v:.6g}" for k, v in l_cpu[0].items()))
+        if not (det_ok and loss_err <= loss_tol and upd_err <= upd_tol and float(u_cpu[0].norm()) > 0
+                and all(math.isfinite(v) for v in l_card[0].values())):
+            failed.append(name)
+    torch.backends.cudnn.deterministic = False
+    if failed:
+        raise AssertionError(f"c4_trident_fpn narrow checks: the card disagrees with the CPU in {failed}")
+    got = {k.name: k.launches - n for k, n in zip(kernels, before)}
+    log(f"[c4_trident_fpn] (a) launches on the card in these checks (no main path's): {got}")
+    if not got[kernels[0].name] or not got[kernels[1].name]:
+        raise AssertionError("c4_trident_fpn narrow checks: K1 or K2 never launched on the card")
+
+
+def c4_stages(family, model, req, measure):
+    """One request through a supervised model of phase 22 by stage,
+    ``measure`` making each call and returning its reading: the backbone
+    (with the request's copy to the card), the RPN head, its decode (top-k,
+    NMS); the C4 heads' ``pool`` (K1 on res4), ``res5`` (the three
+    bottleneck blocks over every proposal), ``box`` (the predictor and the
+    per-class NMS) and the mask branch (the detections pooled again, res5
+    again, the mask head); the FPN heads' box branch ``roi_box``."""
+    import torch
+
+    from jtsm_tpu_torch.layers import exact_float32
+
+    heads, rpn = model.roi_heads, model.proposal_generator
+    r = {}
+    readings = {}
+    with torch.no_grad(), exact_float32(model.compute_dtype == torch.float32):
+        readings["backbone"] = measure(lambda: r.update(zip(("feats", "sizes"), model._features(req))))
+        readings["rpn_head"] = measure(lambda: r.update(zip(("anchors", "logits", "deltas"),
+                                                            rpn.head_outputs(r["feats"]))))
+        readings["rpn_decode"] = measure(lambda: r.update(zip(("proposals", "scores"), rpn.predict_proposals(
+            r["anchors"], r["logits"], r["deltas"], r["sizes"]))))
+        if not hasattr(heads, "res5"):
+            readings["roi_box"] = measure(lambda: r.update(det=heads.detect(
+                r["feats"], r["proposals"], r["scores"], r["sizes"])))
+            return readings
+        readings["pool"] = measure(lambda: r.update(pooled=heads.pool(r["feats"], r["proposals"])))
+        readings["res5"] = measure(lambda: r.update(res5=heads.res5(r["pooled"])))
+        readings["box"] = measure(lambda: r.update(det=heads.detections(r["res5"], r["proposals"], r["scores"],
+                                                                        r["sizes"])))
+        if heads.mask_on:
+            readings["mask"] = measure(lambda: heads.forward_with_given_boxes(r["feats"], r["det"]))
+    return readings
+
+
+def c4_serve(kernel):
+    """Phase 22(b), the supervised models: C4 Mask R-CNN and the WSR-50 FPN
+    at full width (seeded weights, ``random_state_dict``) serve C4_ROUNDS
+    800x1344 requests of phase 15 in each of bf16 and f32, in turns, K1
+    C4_K1 times a request; then the stage split with its host syncs and
+    each stage's peak memory. Returns K1's launches by model and the mean
+    latencies."""
+    import numpy as np
+    import torch
+
+    from jtsm_tpu_torch import config
+    from jtsm_tpu_torch.checkpoint import random_state_dict
+    from jtsm_tpu_torch.engine import Predictor
+    from jtsm_tpu_torch.modeling import build_model
+
+    rng = np.random.default_rng(22)
+    h, w = FLAGSHIP_HW
+    warm = request(rng, (h, w), (h, w), (h, w))
+    reqs = [request(rng, (h, w), (h, w), (h, w)), request(rng, (h, w), (h - 50, w - 11), (h - 50, w - 11))]
+    launches, latency = {}, {}
+    for family in C4_SERVED:
+        base = getattr(config, C4_BUILDERS[family])()
+        dtypes = (base.TPU.COMPUTE_DTYPE, "float32")
+        state = random_state_dict(build_model(base, device="cpu"), seed=22)
+        predictors, mem = {}, {}
+        for d in dtypes:
+            c = base.clone()
+            c.TPU.COMPUTE_DTYPE = d
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            predictors[d] = Predictor(c, state)
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            predictors[d](warm)
+            torch.cuda.synchronize()
+            mem[d] = ((resident - before) / 2**30, (torch.cuda.max_memory_allocated() - resident) / 2**30)
+        lat = {d: [] for d in dtypes}
+        kernel.launches = 0
+        for i in range(C4_ROUNDS):
+            for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+                before = kernel.launches
+                t0 = time.perf_counter()
+                out = predictors[d](reqs[i % 2])
+                torch.cuda.synchronize()
+                lat[d].append((time.perf_counter() - t0) * 1e3)
+                if kernel.launches - before != C4_K1[family]:
+                    raise AssertionError(f"c4_trident_fpn {family} {d} request {i}: K1 launched "
+                                         f"{kernel.launches - before} times, not {C4_K1[family]}")
+                n = base.TEST.DETECTIONS_PER_IMAGE
+                want = {"boxes": (1, n, 4), "scores": (1, n), "classes": (1, n), "valid": (1, n)}
+                if base.MODEL.MASK_ON:  # the C4 mask head's 14x14 (2 x res5's 7x7)
+                    want["masks"] = (1, n, 14, 14)
+                if {k: tuple(v.shape) for k, v in out.items()} != want or not all(
+                        torch.isfinite(v.float()).all() for v in out.values()):
+                    raise AssertionError(f"c4_trident_fpn {family} {d} request {i}: outputs "
+                                         f"{ {k: tuple(v.shape) for k, v in out.items()} }, expected {want}")
+        launches[family] = kernel.launches
+        stage = {d: {} for d in dtypes}
+        for i in range(C4_STAGE_ROUNDS):
+            for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+                for k, v in c4_stages(family, predictors[d].model, reqs[0], timed_peak).items():
+                    stage[d].setdefault(k, []).append(v)
+        for d in dtypes:
+            syncs = c4_stages(family, predictors[d].model, reqs[0], count_host_syncs)
+            latency[(family, d)] = sum(lat[d]) / len(lat[d])
+            log(f"[c4_trident_fpn] (b) {TRAIN_TITLES[family]} {h}x{w} {DTYPE_NAMES[d]}"
+                f"{' (TF32 off)' if d == 'float32' else ''}, seeded weights (seed 22), {C4_ROUNDS} requests in turns: "
+                f"latency_ms={[round(x, 3) for x in lat[d]]} mean_ms={latency[(family, d)]:.3f} "
+                f"roi_align_fwd_launches {C4_K1[family]} a request | stages_ms (median of {C4_STAGE_ROUNDS}) "
+                + " ".join(f"{k}={median([x['ms'] for x in v]):.3f}" for k, v in stage[d].items())
+                + " | stage peak_gib " + " ".join(f"{k}={max(x['peak'] for x in v):.3f}" for k, v in stage[d].items())
+                + " | host syncs " + " ".join(f"{k}={n}" for k, n in syncs.items())
+                + f" | weights_gib={mem[d][0]:.3f} request_peak_gib={mem[d][1]:.3f}")
+        del predictors
+    return launches, latency
+
+
+def c4_trainer(kernels, state):
+    """Phase 22(e): C4 Mask R-CNN (bf16, as configured) through
+    ``DefaultTrainer`` on C4_TRAINER_SCENES in-memory COCO scenes of
+    SCORE_HW, the yaml's train scales and the flip, IMS_PER_BATCH
+    TRAIN_BATCH, from phase 22(c)'s seeded weights: K1 and K2 once an
+    iteration, every loss finite. Returns the launches and the run."""
+    import tempfile
+
+    from jtsm_tpu_torch import config
+    from jtsm_tpu_torch.data.datasets.synthetic import register_synthetic_coco
+    from jtsm_tpu_torch.engine import DefaultTrainer
+
+    name = "chip_smoke_c4_train"
+    register_synthetic_coco(name, num=C4_TRAINER_SCENES, seed=4, image_hw=SCORE_HW)
+    cfg = config.mask_rcnn_R_50_C4_cfg()
+    cfg.DATASETS.TRAIN = (name,)
+    cfg.SOLVER.IMS_PER_BATCH = TRAIN_BATCH
+    cfg.SOLVER.MAX_ITER = C4_TRAINER_ITERS
+    cfg.SOLVER.CHECKPOINT_PERIOD = 10 * C4_TRAINER_ITERS
+    cfg.TEST.EVAL_PERIOD = 0
+    cfg.MODEL.WEIGHTS = ""
+    cfg.SEED = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_c4_") as tmp:
+        cfg.OUTPUT_DIR = tmp
+        trainer, rec, got, peak = run_trainer(DefaultTrainer, cfg, kernels, state)
+        check_launches("C4 trainer", rec, dict(zip([k.name for k in kernels], TRAIN_K["c4_mask"])))
+        metrics = read_metrics(tmp)
+        if [m["iteration"] for m in metrics] != list(range(C4_TRAINER_ITERS)) or not all(
+                math.isfinite(m[k]) for m in metrics[1:] for k in m if k.startswith("loss")):
+            raise AssertionError(f"C4 trainer: metrics.json {metrics[-1]}")
+        loader = trainer.data_loader
+        run = dict(s_iter=median(iteration_times(trainer, "time", 1)),
+                   data_time=median(iteration_times(trainer, "data_time", 1)), peak=peak,
+                   loader=loader.busy_seconds / loader.batches, launches=got)
+        log(f"[c4_trident_fpn] (e) Mask R-CNN R50-C4 {cfg.TPU.COMPUTE_DTYPE} through DefaultTrainer: "
+            f"{C4_TRAINER_SCENES} in-memory COCO scenes {SCORE_HW[0]}x{SCORE_HW[1]}, short sides "
+            f"{tuple(cfg.INPUT.MIN_SIZE_TRAIN)} (max {cfg.INPUT.MAX_SIZE_TRAIN}) and the flip, IMS_PER_BATCH "
+            f"{TRAIN_BATCH}, {C4_TRAINER_ITERS} iterations: s/iter median {run['s_iter']:.4f} data_time median "
+            f"{run['data_time']:.4f} loader s/batch {run['loader']:.4f} launches {got} peak_mem_gib {peak:.3f} "
+            f"| losses at the last iteration "
+            + ", ".join(f"{k}={v:.5g}" for k, v in metrics[-1].items() if k.startswith("loss")))
+        del trainer
+    return got, run
+
+
+def phase_c4_trident_fpn(kernels, gen, baseline):
+    """Phase 22: the C4 family (Mask R-CNN R50-C4, Faster R-CNN on the
+    WS-ResNet-50's res4), Trident OICR on the multi-rate WSR-18 and Faster
+    R-CNN on the WSR-50 FPN. (d) K1 and K2 at the C4 res4 pooler and K1 at
+    Trident's averaged res5; (a) the four narrow models on the card against
+    the CPU; (b) C4 Mask R-CNN and the WSR-50 FPN at 800x1344 and Trident
+    OICR at 688x917 served by stage; (c) their train steps (median of
+    steps 2-6); (e) C4 Mask R-CNN through ``DefaultTrainer``. The plain
+    ROIAlign raises on the card. Returns the kernel rows by site, each
+    kernel's launches on (b), (c) and (e), and those of C4 Mask R-CNN,
+    Trident and the WSR-50 FPN apart, the latencies, the step times and
+    the trainer's run."""
+    from jtsm_tpu_torch.checkpoint import random_state_dict
+    from jtsm_tpu_torch.modeling import build_model
+    from jtsm_tpu_torch.ops import roi_align
+
+    rows = c4_kernel_rows(gen, baseline)
+    routed = roi_align.roi_align_multilevel_plain_autograd
+
+    def plain_on_cpu_only(features, scales, boxes, *a, **k):
+        if boxes.device.type != "cpu":
+            raise AssertionError("the plain ROIAlign ran on the card in phase 22")
+        return routed(features, scales, boxes, *a, **k)
+
+    roi_align.roi_align_multilevel_plain_autograd = plain_on_cpu_only
+    try:
+        c4_narrow_checks(kernels)
+        serve_launches, latency = c4_serve(kernels[0])
+        train_launches, steps, states = families_full_train(C4_SERVED, kernels, "c4_trident_fpn", "c")
+        t0 = time.perf_counter()
+        wsr = {"WSR_18": random_state_dict(build_model(wsod_cfg("oicr_WSR_18"), device="cpu"), seed=0)}
+        log(f"[c4_trident_fpn] seeded full-width weights of WSR-18 OICR in {time.perf_counter() - t0:.1f}s")
+        trd_serve, trd_latency = wsod_serve(kernels[0], wsr, (TRD,), trd_cfg, "c4_trident_fpn", C4_ROUNDS,
+                                            C4_STAGE_ROUNDS)
+        trd_train, trd_steps, _ = wsod_train(kernels, wsr, (TRD,), trd_cfg, "c4_trident_fpn", FAM_TRAIN_STEPS)
+        trainer_launches, trainer = c4_trainer(kernels, states["c4_mask"])
+    finally:
+        roi_align.roi_align_multilevel_plain_autograd = routed
+    names = [k.name for k in kernels]
+    by_model = {
+        "c4": {n: train_launches["c4_mask"][n] + trainer_launches[n] for n in names},
+        "trd": dict(trd_train[TRD]),
+        "wsr_fpn": dict(train_launches["wsr_fpn"]),
+    }
+    by_model["c4"][names[0]] += serve_launches["c4_mask"]
+    by_model["trd"][names[0]] += trd_serve[TRD]
+    by_model["wsr_fpn"][names[0]] += serve_launches["wsr_fpn"]
+    launches = {n: sum(m[n] for m in by_model.values()) for n in names}
+    return rows, launches, by_model, {**latency, **trd_latency}, {**steps, **trd_steps}, trainer
+
+
 def kernel_line(kernel, launches, rows, f32_errs):
     """One entry of the kernels JSON line. ``ms``, ``plain_ms`` and
     ``bound_ms`` keep their long-standing meaning: the float32 box and mask
@@ -5770,6 +6207,13 @@ def main(argv=None) -> int:
     csc_rows, csc_launches, uwsod_launches, cpg_launches_, csc_lat, csc_steps, csc_trainer_runs = run_phase(
         "csc_uwsod", phase_csc_uwsod, KERNELS, gen, baseline)
 
+    # 22. the C4 family, Trident OICR and the WSR-50 FPN: K1 and K2 at the C4
+    # res4 pooler, K1 at Trident's branch-averaged res5; the narrow models on
+    # the card against the CPU; C4 Mask R-CNN, Trident OICR and the WSR-50 FPN
+    # served and trained at full width; C4 Mask R-CNN through DefaultTrainer
+    c4_rows, c4_all, c4_sites, c4_lat, c4_steps, c4_trainer_run = run_phase(
+        "c4_trident_fpn", phase_c4_trident_fpn, KERNELS, gen, baseline)
+
     # per served request K1 pools boxes (R=1000, P=7) and masks (R=100,
     # P=14); per train step K1 and K2 pool and unpool boxes (R=1024, P=7)
     # and masks (R=256, P=14); per JTSM request K1 pools masks on one level
@@ -5787,11 +6231,11 @@ def main(argv=None) -> int:
                    + jtsm_launches + jt_launches[KERNEL.name] + js_launches + tta_launches + tc_launches[KERNEL.name]
                    + fam_launches + wsod_launches[KERNEL.name] + dense_launches[KERNEL.name]
                    + ft_launches[KERNEL.name] + ts_launches[KERNEL.name] + zoo_launches_[KERNEL.name]
-                   + csc_launches[KERNEL.name])
+                   + csc_launches[KERNEL.name] + c4_all[KERNEL.name])
     k2_launches = (sum(t[0][BWD_KERNEL.name] for t in train.values()) + jt_launches[BWD_KERNEL.name]
                    + tc_launches[BWD_KERNEL.name] + wsod_launches[BWD_KERNEL.name] + dense_launches[BWD_KERNEL.name]
                    + ft_launches[BWD_KERNEL.name] + ts_launches[BWD_KERNEL.name] + zoo_launches_[BWD_KERNEL.name]
-                   + csc_launches[BWD_KERNEL.name])
+                   + csc_launches[BWD_KERNEL.name] + c4_all[BWD_KERNEL.name])
     bwd = {k[4:]: v for k, v in tres.items() if k.startswith("bwd ")}
     kernels = [
         kernel_line(KERNEL, k1_launches, res, [r["err"] for n, r in res.items() if "f32" in n]),
@@ -5969,6 +6413,39 @@ def main(argv=None) -> int:
         line["csc_launches"] = csc_launches[line["name"]]
         line["cpg_launches"] = cpg_launches_[line["name"]]
     kernels[0]["uwsod_launches"] = uwsod_launches
+    # the rows of phase 22(d): the C4 res4 pooler of an 800x1344 pair, (2,
+    # 50, 84, 1024) at P=14 (serve 2x1000, the mask branch's 2x100, train
+    # 2x512 with K2) and Trident's branch-averaged WSR-18 res5 (serve B=1
+    # R=2000, train B=4 R=8000; K1 only). The WSR-50 FPN pools a pyramid of
+    # the flagship's shapes (800x1344, C=256): its rows are phase 3's serve
+    # box pooler and phase 6's train box pooler in this run. c4_launches,
+    # trd_launches and wsr_fpn_launches: each model's launches on phase 22's
+    # main paths (serve, train and, for C4, the trainer); c4_trident_fpn_launches
+    # all of them
+    for line, kind in ((kernels[0], "fwd"), (kernels[1], "bwd")):
+        for site, prefix in (("c4", "c4"), ("trd", "trd")):
+            for key, row in c4_rows[site].items():
+                if not key.startswith(kind + " "):
+                    continue
+                tag = f"{prefix}_" + key[len(kind) + 1:].replace(" ", "_")
+                line.update({f"{tag}_max_abs_err": row["err"], f"{tag}_ms": row["times"]["new"]["ms"],
+                             f"{tag}_device_ms": row["times"]["new"]["device_ms"], f"{tag}_plain_ms": row["plain_ms"],
+                             f"{tag}_bound_ms": row["bound_ms"], f"{tag}_bound_by": row["bound_by"]})
+        fpn = {"serve": res, "train": {k[len(kind) + 1:]: v for k, v in tres.items() if k.startswith(kind + " ")}}
+        for step, src in fpn.items():
+            if kind == "bwd" and step == "serve":
+                continue
+            for tag in ("f32", "bf16"):
+                row = src[f"box pooler {tag}"]
+                line.update({f"wsr_fpn_{step}_{tag}_max_abs_err": row["err"],
+                             f"wsr_fpn_{step}_{tag}_ms": row["times"]["new"]["ms"],
+                             f"wsr_fpn_{step}_{tag}_device_ms": row["times"]["new"]["device_ms"],
+                             f"wsr_fpn_{step}_{tag}_plain_ms": row["plain_ms"],
+                             f"wsr_fpn_{step}_{tag}_bound_ms": row["bound_ms"],
+                             f"wsr_fpn_{step}_{tag}_bound_by": row["bound_by"]})
+        for site in ("c4", "trd", "wsr_fpn"):
+            line[f"{site}_launches"] = c4_sites[site][line["name"]]
+        line["c4_trident_fpn_launches"] = c4_all[line["name"]]
     # the trainers' launches (phase 14): Mask R-CNN at NUM_WORKERS 0 and 4,
     # the resumed run, the JTSM flagship, the gate's kernel run
     for line in kernels:
@@ -6017,6 +6494,11 @@ def main(argv=None) -> int:
         + "; WSL trainer " + " ".join(f"{case}: s/iter {r['s_iter']:.4f} data_time {r['data_time']:.4f} peak_gib "
                                       f"{r['peak']:.3f};" for case, r in csc_trainer_runs.items())
         + f" launches {csc_launches} (UWSOD K1 {uwsod_launches}, CPG passes {cpg_launches_}) | {card}")
+    log("[c4_trident_fpn] request mean ms " + " ".join(
+        f"{name} {DTYPE_NAMES[d]}={ms:.3f}" for (name, d), ms in c4_lat.items())
+        + "; train step median ms " + " ".join(f"{name} {DTYPE_NAMES[d]}={ms:.3f}" for (name, d), ms in c4_steps.items())
+        + f"; C4 trainer s/iter {c4_trainer_run['s_iter']:.4f} data_time {c4_trainer_run['data_time']:.4f} peak_gib "
+        f"{c4_trainer_run['peak']:.3f}; launches {c4_all} by model {c4_sites} | {card}")
     log(f"[done] {time.perf_counter() - t_run:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

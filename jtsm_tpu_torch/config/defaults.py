@@ -628,3 +628,82 @@ def keypoint_rcnn_gate_cfg() -> CN:
     cfg.DATASETS.TRAIN = ("keypoints_coco_2017_val_100",)
     cfg.DATASETS.TEST = ("keypoints_coco_2017_val_100",)
     return cfg
+
+
+def _rcnn_c4_cfg() -> CN:
+    """``configs/Base-RCNN-C4.yaml``: the ResNet's res4 (OUT_FEATURES's
+    default) under one RPN level (6000 before NMS and 1000 after it when
+    serving) and ``Res5ROIHeads``."""
+    cfg = get_cfg()
+    m = cfg.MODEL
+    m.META_ARCHITECTURE = "GeneralizedRCNN"
+    m.RPN.PRE_NMS_TOPK_TEST = 6000
+    m.RPN.POST_NMS_TOPK_TEST = 1000
+    m.ROI_HEADS.NAME = "Res5ROIHeads"
+    cfg.DATASETS.TRAIN = ("coco_2017_train",)
+    cfg.DATASETS.TEST = ("coco_2017_val",)
+    cfg.SOLVER.IMS_PER_BATCH = 16
+    cfg.SOLVER.BASE_LR = 0.02
+    cfg.SOLVER.STEPS = (60000, 80000)
+    cfg.SOLVER.MAX_ITER = 90000
+    cfg.INPUT.MIN_SIZE_TRAIN = (640, 672, 704, 736, 768, 800)
+    cfg.VERSION = 2
+    return cfg
+
+
+def c4_narrow(cfg: CN) -> CN:
+    """The narrow form of a C4 (or FPN) detector for tests and the card's
+    checks against the CPU: the gates' narrow bottleneck ResNet (res4 128
+    channels, the head's res5 256, an FPN 32), no weights and every stage
+    training, scenes at short side 128 in two buckets, float32, 256 and 64
+    proposals when serving (512 and 128 in training), 64 ROI slots an
+    image, a 64-wide box head under the FPN, the gates' solver and no
+    expected results."""
+    cfg = _narrow_gate(cfg, "", [])
+    cfg.MODEL.WEIGHTS = ""
+    _rpn_gate_topk(cfg)
+    cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 64
+    cfg.MODEL.ROI_BOX_HEAD.NUM_FC = 1
+    cfg.MODEL.ROI_BOX_HEAD.FC_DIM = 64
+    cfg.MODEL.ROI_MASK_HEAD.CONV_DIM = 32
+    cfg.TEST.AUG.ENABLED = False
+    cfg.TEST.EVAL_PERIOD = 0
+    return cfg
+
+
+def faster_rcnn_R_50_C4_cfg(narrow: bool = False) -> CN:
+    """``configs/COCO-Detection/faster_rcnn_R_50_C4_1x.yaml`` over
+    ``Base-RCNN-C4.yaml``, set in Python: R-50's res4, ``Res5ROIHeads``,
+    no masks. ``narrow``: its narrow form (``c4_narrow``)."""
+    cfg = _rcnn_c4_cfg()
+    cfg.MODEL.WEIGHTS = "detectron2://ImageNetPretrained/MSRA/R-50.pkl"
+    cfg.MODEL.MASK_ON = False
+    cfg.MODEL.RESNETS.DEPTH = 50
+    return c4_narrow(cfg) if narrow else cfg
+
+
+def mask_rcnn_R_50_C4_cfg(narrow: bool = False) -> CN:
+    """``configs/COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.yaml`` over
+    ``Base-RCNN-C4.yaml``, set in Python: ``faster_rcnn_R_50_C4_cfg`` with
+    the C4 mask head (no convolution, the deconvolution on res5's 7x7).
+    ``narrow``: its narrow form (``c4_narrow``)."""
+    cfg = faster_rcnn_R_50_C4_cfg()
+    cfg.MODEL.MASK_ON = True
+    return c4_narrow(cfg) if narrow else cfg
+
+
+def faster_rcnn_R_50_C4_voc_cfg(narrow: bool = False) -> CN:
+    """``configs/PascalVOC-Detection/faster_rcnn_R_50_C4.yaml``, set in
+    Python: ``faster_rcnn_R_50_C4_cfg`` on VOC 2007 and 2012 (20 classes,
+    scored on ``voc_2007_test``). ``narrow``: its narrow form."""
+    cfg = faster_rcnn_R_50_C4_cfg()
+    cfg.MODEL.ROI_HEADS.NUM_CLASSES = 20
+    cfg.INPUT.MIN_SIZE_TRAIN = (480, 512, 544, 576, 608, 640, 672, 704, 736, 768, 800)
+    cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING = "choice"
+    cfg.INPUT.MIN_SIZE_TEST = 800
+    cfg.DATASETS.TRAIN = ("voc_2007_trainval", "voc_2012_trainval")
+    cfg.DATASETS.TEST = ("voc_2007_test",)
+    cfg.SOLVER.STEPS = (12000, 16000)
+    cfg.SOLVER.MAX_ITER = 18000
+    cfg.SOLVER.WARMUP_ITERS = 100
+    return c4_narrow(cfg) if narrow else cfg

@@ -4,7 +4,14 @@ builds them. A test holds each equal to its merged yaml files."""
 from __future__ import annotations
 
 from .cfgnode import CfgNode as CN
-from .defaults import get_cfg
+from .defaults import (
+    c4_narrow,
+    faster_rcnn_R_50_C4_cfg,
+    faster_rcnn_R_50_C4_voc_cfg,
+    get_cfg,
+    mask_rcnn_R_50_C4_cfg,
+    mask_rcnn_R_50_FPN_cfg,
+)
 
 
 def wsl_cfg() -> CN:
@@ -176,7 +183,7 @@ def jtsm_gate_cfg() -> CN:
 WSOD_HEADS = {"WSDDNROIHeads": "wsddn", "OICRROIHeads": "oicr", "PCLROIHeads": "pcl"}
 # the heads of the WSOD zoo's further yamls (``WSOD_ZOO``) and of WSJDS
 _ZOO_HEADS = ("CascadeOICRROIHeads", "ContextLocNetROIHeads", "CMILROIHeads", "CSCROIHeads", "CSCOICRROIHeads",
-              "UWSODROIHeads", "WSJDSROIHeads")
+              "UWSODROIHeads", "WSJDSROIHeads", "TridentOICRROIHeads", "MRRPWSDDNROIHeads")
 
 
 def _wsod_cfg(head: str) -> CN:
@@ -534,6 +541,140 @@ WSOD_ZOO = {
     "csc_oicr_V_16": ("csc_oicr_V_16_DC5_1x.yaml", csc_oicr_V_16_DC5_cfg),
     "csc_oicr_reg_last_V_16": ("reg_last/csc_oicr_V_16_DC5_1x.yaml", csc_oicr_reg_last_V_16_DC5_cfg),
     "uwsod_V_16": ("uwsod_V_16_DC5_1x.yaml", uwsod_V_16_DC5_cfg),
+}
+
+
+def _wsr_50(cfg: CN) -> CN:
+    """``cfg`` on WSR-50 (``oicr_WSR_50_DC5_1x.yaml`` over ``Base-WSL-WSR.yaml``)."""
+    cfg.MODEL.WEIGHTS = "models/DRN-WSOD/resnet50_ws_model_120_d2.pkl"
+    cfg.MODEL.RESNETS.DEPTH = 50
+    cfg.MODEL.RESNETS.RES2_OUT_CHANNELS = 256
+    return cfg
+
+
+def _wsr_50_narrow(cfg: CN, narrow: bool) -> CN:
+    """``_zoo_narrow``, and WSR-50 cut to the gates' narrow bottleneck
+    widths (res5 256 channels)."""
+    cfg = _zoo_narrow(cfg, narrow)
+    if narrow:
+        cfg.MODEL.RESNETS.RES2_OUT_CHANNELS = 32
+        cfg.MODEL.RESNETS.WIDTH_PER_GROUP = 8
+    return cfg
+
+
+def _mrrp_wsr(cfg: CN) -> CN:
+    """``cfg`` on the multi-rate WS-ResNet of the trident yamls: res5's
+    three branches at dilations 1, 2 and 3, FREEZE_AT 5."""
+    m = cfg.MODEL
+    m.BACKBONE.NAME = "build_mrrp_wsl_resnet_backbone"
+    m.BACKBONE.FREEZE_AT = 5
+    m.MRRP.MRRP_ON = True
+    m.MRRP.NUM_BRANCH = 3
+    m.MRRP.BRANCH_DILATIONS = [1, 2, 3]
+    m.MRRP.TEST_BRANCH_IDX = -1
+    m.MRRP.MRRP_STAGE = "res5"
+    return cfg
+
+
+def _trident(cfg: CN) -> CN:
+    """``cfg`` on the multi-rate WS-ResNet (``_mrrp_wsr``) with the trident
+    yamls' 4 refinement branches, each regressing class-specific boxes."""
+    cfg = _mrrp_wsr(cfg)
+    cfg.WSL.REFINE_NUM = 4
+    cfg.WSL.REFINE_REG = [True, True, True, True]
+    return cfg
+
+
+def oicr_TRD_WSR_18_DC5_cfg(narrow: bool = False) -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/reg_all/oicr_TRD_WSR_18_DC5_1x.yaml``
+    over ``oicr_WSR_18_DC5_1x.yaml``: Trident OICR, ``TridentOICRROIHeads``
+    on the multi-rate WSR-18 (``_trident``). ``narrow``: its narrow form
+    (``_zoo_narrow``: 2 branches, every stage training)."""
+    return _zoo_narrow(_trident(wsod_WSR_18_DC5_cfg("TridentOICRROIHeads")), narrow)
+
+
+def oicr_TRD_WSR_50_DC5_cfg(narrow: bool = False) -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/reg_all/oicr_TRD_WSR_50_DC5_1x.yaml``
+    over ``oicr_WSR_50_DC5_1x.yaml``: Trident OICR on the multi-rate
+    WSR-50. ``narrow``: its narrow form (``_wsr_50_narrow``)."""
+    return _wsr_50_narrow(_trident(_wsr_50(wsod_WSR_18_DC5_cfg("TridentOICRROIHeads"))), narrow)
+
+
+def mrrp_wsddn_WSR_18_DC5_cfg(narrow: bool = False) -> CN:
+    """WSDDN (``MRRPWSDDNROIHeads``, the MIL loss summed over the classes as
+    the WSDDN yamls sum it) on the multi-rate WSR-18 of the trident yamls.
+    No yaml of the repository names this configuration. ``narrow``: its
+    narrow form (``_zoo_narrow``)."""
+    cfg = _mrrp_wsr(wsod_WSR_18_DC5_cfg("MRRPWSDDNROIHeads"))
+    cfg.WSL.MEAN_LOSS = False
+    return _zoo_narrow(cfg, narrow)
+
+
+def oicr_WSR_50_DC5_cfg(narrow: bool = False) -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/oicr_WSR_50_DC5_1x.yaml``:
+    OICR on WSR-50 DC5. ``narrow``: its narrow form (``_wsr_50_narrow``)."""
+    return _wsr_50_narrow(_wsr_50(wsod_WSR_18_DC5_cfg("OICRROIHeads")), narrow)
+
+
+def _supervised_wsr_50(cfg: CN, backbone: str, narrow: bool) -> CN:
+    """The fully supervised WSR-50 detectors of
+    ``projects/WSL/configs/PascalVOC-Detection/``: ``cfg`` (a core base in
+    the WSL tree) on the WS-ResNet-50 (``backbone``) with its pixel means,
+    VOC 2007's 20 classes and schedule. ``narrow``: ``c4_narrow``."""
+    m = cfg.MODEL
+    m.WEIGHTS = "models/DRN-WSOD/resnet50_ws_model_120_d2.pkl"
+    m.PIXEL_MEAN = [102.9801, 115.9465, 122.7717]
+    m.MASK_ON = False
+    m.BACKBONE.NAME = backbone
+    m.RESNETS.DEPTH = 50
+    m.ROI_HEADS.NUM_CLASSES = 20
+    cfg.INPUT.MIN_SIZE_TRAIN = (480, 512, 544, 576, 608, 640, 672, 704, 736, 768, 800)
+    cfg.INPUT.MIN_SIZE_TEST = 800
+    cfg.DATASETS.TRAIN = ("voc_2007_train", "voc_2007_val")
+    cfg.DATASETS.TEST = ("voc_2007_test",)
+    s = cfg.SOLVER
+    s.STEPS = (12000, 16000)
+    s.MAX_ITER = 18000
+    s.WARMUP_ITERS = 200
+    s.REFERENCE_WORLD_SIZE = 8
+    return c4_narrow(cfg) if narrow else cfg
+
+
+def faster_rcnn_WSR_50_FPN_cfg(narrow: bool = False) -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/faster_rcnn_WSR_50_FPN.yaml``
+    over ``configs/Base-RCNN-FPN.yaml``: Faster R-CNN on the FPN over the
+    WS-ResNet-50 (``build_wsl_resnet_fpn_backbone``). ``narrow``: its
+    narrow form (``c4_narrow``)."""
+    cfg = wsl_cfg()
+    cfg.merge_from_other_cfg(mask_rcnn_R_50_FPN_cfg())
+    return _supervised_wsr_50(cfg, "build_wsl_resnet_fpn_backbone", narrow)
+
+
+def faster_rcnn_WSR_50_C4_cfg(narrow: bool = False) -> CN:
+    """``projects/WSL/configs/PascalVOC-Detection/faster_rcnn_WSR_50_C4_1x.yaml``
+    over ``configs/Base-RCNN-C4.yaml``: Faster R-CNN C4 on the WS-ResNet-50's
+    res4 with ``WSRes5ROIHeads``. ``narrow``: its narrow form."""
+    cfg = wsl_cfg()
+    cfg.merge_from_other_cfg(faster_rcnn_R_50_C4_cfg())
+    cfg.MODEL.RESNETS.OUT_FEATURES = ["res4"]
+    cfg.MODEL.ROI_HEADS.NAME = "WSRes5ROIHeads"
+    return _supervised_wsr_50(cfg, "build_wsl_resnet_backbone", narrow)
+
+
+# the configurations of the C4 family, Trident OICR and the WSR-50 FPN:
+# name -> (its yaml from the repository's root, its builder)
+C4_TRIDENT_FPN_ZOO = {
+    "mask_rcnn_R_50_C4": ("configs/COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.yaml", mask_rcnn_R_50_C4_cfg),
+    "faster_rcnn_R_50_C4": ("configs/COCO-Detection/faster_rcnn_R_50_C4_1x.yaml", faster_rcnn_R_50_C4_cfg),
+    "faster_rcnn_R_50_C4_voc": ("configs/PascalVOC-Detection/faster_rcnn_R_50_C4.yaml", faster_rcnn_R_50_C4_voc_cfg),
+    "faster_rcnn_WSR_50_C4": ("projects/WSL/configs/PascalVOC-Detection/faster_rcnn_WSR_50_C4_1x.yaml",
+                              faster_rcnn_WSR_50_C4_cfg),
+    "faster_rcnn_WSR_50_FPN": ("projects/WSL/configs/PascalVOC-Detection/faster_rcnn_WSR_50_FPN.yaml",
+                               faster_rcnn_WSR_50_FPN_cfg),
+    "oicr_TRD_WSR_18": ("projects/WSL/configs/PascalVOC-Detection/reg_all/oicr_TRD_WSR_18_DC5_1x.yaml",
+                        oicr_TRD_WSR_18_DC5_cfg),
+    "oicr_TRD_WSR_50": ("projects/WSL/configs/PascalVOC-Detection/reg_all/oicr_TRD_WSR_50_DC5_1x.yaml",
+                        oicr_TRD_WSR_50_DC5_cfg),
 }
 
 

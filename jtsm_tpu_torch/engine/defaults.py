@@ -38,6 +38,7 @@ from ..evaluation import (
     COCOPanopticEvaluator,
     COCOProposalEvaluator,
     DatasetEvaluators,
+    PascalVOCDetectionEvaluator,
     SemSegEvaluator,
     inference_on_dataset,
     print_csv_format,
@@ -68,7 +69,8 @@ def build_evaluator(cfg, dataset_name: str, timings: Optional[Dict[str, float]] 
     (keypoints with TEST.KEYPOINT_OKS_SIGMAS) for the others, which a
     ``coco_panoptic_seg`` set also gets; ``SemSegEvaluator`` on ``sem_seg``
     and ``coco_panoptic_seg``; ``COCOPanopticEvaluator`` on
-    ``coco_panoptic_seg``. Results are written under OUTPUT_DIR/inference.
+    ``coco_panoptic_seg``; ``PascalVOCDetectionEvaluator`` (AP and CorLoc)
+    on ``pascal_voc``. Results are written under OUTPUT_DIR/inference.
     One evaluator is returned alone, several as ``DatasetEvaluators``."""
     output_dir = os.path.join(cfg.OUTPUT_DIR, "inference")
     evaluator_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "coco")
@@ -82,6 +84,8 @@ def build_evaluator(cfg, dataset_name: str, timings: Optional[Dict[str, float]] 
         evaluators.append(SemSegEvaluator(dataset_name, output_dir=output_dir, timings=timings))
     if evaluator_type == "coco_panoptic_seg":
         evaluators.append(COCOPanopticEvaluator(dataset_name, output_dir=output_dir, timings=timings))
+    if evaluator_type == "pascal_voc":
+        evaluators.append(PascalVOCDetectionEvaluator(dataset_name, timings=timings))
     if not evaluators:
         raise NotImplementedError(f"no evaluator ported yet for {dataset_name} ({evaluator_type})")
     return evaluators[0] if len(evaluators) == 1 else DatasetEvaluators(evaluators)

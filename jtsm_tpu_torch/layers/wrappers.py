@@ -151,9 +151,16 @@ class Conv2d(nn.Conv2d):
         receptive = self.weight[0, 0].numel()
         _init(self, self.weight.shape[1] * receptive, self.weight.shape[0] * receptive)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dilation: int = 0) -> torch.Tensor:
+        """``dilation`` (a 3x3 convolution's), when given, replaces the
+        layer's dilation and padding for this call, on the same weights (the
+        JAX blocks' call-time dilation, ``backbone/resnet.py:66-70``)."""
         dt = self.compute_dtype
-        x = self._conv_forward(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+        if dilation:
+            x = F.conv2d(x.to(dt), self.weight.to(dt), _cast(self.bias, dt), self.stride, dilation, dilation,
+                         self.groups)
+        else:
+            x = self._conv_forward(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
         if self.norm is not None:
             x = self.norm(x)
         if self.activation is not None:

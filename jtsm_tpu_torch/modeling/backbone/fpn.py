@@ -113,9 +113,11 @@ class FPN(nn.Module):
         }
 
 
-def build_resnet_fpn_backbone(cfg) -> FPN:
+def build_resnet_fpn_backbone(cfg, bottom_up: Optional[ResNet] = None) -> FPN:
+    """The FPN of MODEL.FPN with the ``LastLevelMaxPool`` p6 over
+    ``bottom_up`` (default: the ResNet of MODEL.RESNETS)."""
     return FPN(
-        bottom_up=build_resnet_backbone(cfg),
+        bottom_up=build_resnet_backbone(cfg) if bottom_up is None else bottom_up,
         in_features=cfg.MODEL.FPN.IN_FEATURES,
         out_channels=cfg.MODEL.FPN.OUT_CHANNELS,
         norm=cfg.MODEL.FPN.NORM,
@@ -141,7 +143,12 @@ def build_retinanet_resnet_fpn_backbone(cfg) -> FPN:
 
 
 def build_backbone(cfg) -> nn.Module:
-    from ...wsl.modeling.resnet_wsl import build_wsl_resnet_backbone, build_wsl_resnet_v2_backbone
+    from ...wsl.modeling.resnet_wsl import (
+        build_mrrp_wsl_resnet_backbone,
+        build_wsl_resnet_backbone,
+        build_wsl_resnet_fpn_backbone,
+        build_wsl_resnet_v2_backbone,
+    )
     from ...wsl.modeling.vgg import build_mrrp_vgg_backbone, build_vgg_backbone
 
     name = cfg.MODEL.BACKBONE.NAME
@@ -151,10 +158,13 @@ def build_backbone(cfg) -> nn.Module:
         "build_retinanet_resnet_fpn_backbone": build_retinanet_resnet_fpn_backbone,
         "build_wsl_resnet_backbone": build_wsl_resnet_backbone,
         "build_wsl_resnet_v2_backbone": build_wsl_resnet_v2_backbone,
+        "build_wsl_resnet_fpn_backbone": build_wsl_resnet_fpn_backbone,
+        "build_mrrp_wsl_resnet_backbone": build_mrrp_wsl_resnet_backbone,
+        # the reference's oicr_TRD_WSR_50_DC5_1x.yaml names it so (JAX resnet_wsl.py:197-210)
+        "build_wsl_mrrp_resnet_backbone": build_mrrp_wsl_resnet_backbone,
         "build_vgg_backbone": build_vgg_backbone,
         "build_mrrp_vgg_backbone": build_mrrp_vgg_backbone,
     }
     if name not in builders:
-        item = " (ROADMAP queue 1 item 6)" if "mrrp" in name or "trident" in name else ""
-        raise NotImplementedError(f"backbone {name!r} is not ported yet{item}")
+        raise NotImplementedError(f"backbone {name!r} is not ported yet")
     return builders[name](cfg)

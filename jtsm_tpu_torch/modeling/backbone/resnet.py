@@ -15,8 +15,10 @@ Every convolution computes in the ``TPU.COMPUTE_DTYPE`` that
 float32 parameters. ``RES5_DILATION`` 2 (DC5) runs res5 at stride 1 with
 its bottleneck 3x3 convolutions dilated, so res5 keeps stride 16; basic
 blocks (R18/R34) take the stride but not the dilation, as the JAX package's
-``BasicBlock`` is built (``backbone/resnet.py:337-355``). Deformable blocks
-wait for a later slice.
+``BasicBlock`` is built (``backbone/resnet.py:337-355``). Both blocks take
+a call-time ``dilation`` that replaces their own on the same weights (the
+multi-rate trunk of ``wsl/modeling/resnet_wsl.py`` runs res5 at three).
+Deformable blocks wait for a later slice.
 """
 
 from __future__ import annotations
@@ -78,8 +80,10 @@ class BasicBlock(nn.Module):
             norm=get_norm(norm, out_channels), compute_dtype=compute_dtype,
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.conv2(self.conv1(x))
+    def forward(self, x: torch.Tensor, dilation: int = 0) -> torch.Tensor:
+        """``dilation``, when given, dilates (and pads) both 3x3 convs for
+        this call (JAX ``backbone/resnet.py:66-70``)."""
+        out = self.conv2(self.conv1(x, dilation), dilation)
         shortcut = x if self.shortcut is None else self.shortcut(x)
         return F.relu(out + shortcut)
 
@@ -118,8 +122,11 @@ class BottleneckBlock(nn.Module):
             norm=get_norm(norm, out_channels), compute_dtype=compute_dtype,
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.conv3(self.conv2(self.conv1(x)))
+    def forward(self, x: torch.Tensor, dilation: int = 0) -> torch.Tensor:
+        """``dilation``, when given, replaces the 3x3 conv's own dilation
+        (and padding) for this call; the stride stays (JAX
+        ``backbone/resnet.py:123-124``)."""
+        out = self.conv3(self.conv2(self.conv1(x), dilation))
         shortcut = x if self.shortcut is None else self.shortcut(x)
         return F.relu(out + shortcut)
 
@@ -204,13 +211,14 @@ class ResNet(nn.Module):
         }
 
 
-def build_resnet_backbone(cfg, stem: nn.Module | None = None) -> ResNet:
+def build_resnet_backbone(cfg, stem: nn.Module | None = None, cls: type = ResNet, **overrides) -> ResNet:
     """The ResNet of MODEL.RESNETS; ``stem`` replaces the basic stem (the
-    WSL backbones' 2x2 pool)."""
+    WSL backbones' 2x2 pool), ``cls`` the class (the multi-rate trunk), and
+    ``overrides`` replace or add constructor arguments."""
     r = cfg.MODEL.RESNETS
     if any(r.DEFORM_ON_PER_STAGE):
         raise NotImplementedError("deformable ResNets are not ported yet")
-    return ResNet(
+    args = dict(
         depth=r.DEPTH,
         stem_out_channels=r.STEM_OUT_CHANNELS,
         res2_out_channels=r.RES2_OUT_CHANNELS,
@@ -224,3 +232,4 @@ def build_resnet_backbone(cfg, stem: nn.Module | None = None) -> ResNet:
         res5_dilation=r.RES5_DILATION,
         stem=stem,
     )
+    return cls(**{**args, **overrides})

@@ -121,7 +121,9 @@ def build_mask_head(cfg, input_shape: ShapeSpec) -> MaskRCNNConvUpsampleHead:
     h = cfg.MODEL.ROI_MASK_HEAD
     if h.NAME == "MaskRCNNConvUpsampleHead":
         cls = MaskRCNNConvUpsampleHead
-    elif h.NAME == "MaskRCNNConvUpsampleWSLHead":
+    elif h.NAME in ("MaskRCNNConvUpsampleWSLHead", "MaskRCNNUpsampleWSLHead", "MaskRCNNWSLHead"):
+        # the JAX package builds all three names as the conv-upsample WSL
+        # head at ROI_MASK_HEAD.NUM_CONV (mask_head_wsl.py:41-50,81-92)
         from ...wsl.modeling.mask_head_wsl import MaskRCNNConvUpsampleWSLHead as cls
     else:
         raise NotImplementedError(f"mask head {h.NAME!r} is not ported yet")

@@ -166,19 +166,26 @@ class StandardROIHeads(nn.Module):
             detections["keypoints"] = keypoint_rcnn_inference(heatmaps, boxes).reshape(b, d, -1, 4)
         return detections
 
-    def _forward_train(self, features, proposals, proposal_scores, targets, generator):
-        feats = [features[f] for f in self.in_features]
+    def sample(self, proposals, proposal_scores, targets, generator) -> Dict[str, torch.Tensor]:
+        """``BATCH_SIZE_PER_IMAGE`` slots an image (``sample_proposals``),
+        with the positive, negative and slot-order draws from
+        ``generator``."""
         b, k = proposals.shape[:2]
-        dev = proposals.device
         n = k + targets["gt_boxes"].shape[1] if self.proposal_append_gt else k
-        u_pos, u_neg, u_tie = (torch.rand((b, n), generator=generator, device=dev) for _ in range(3))
-        sampled = sample_proposals(
+        u_pos, u_neg, u_tie = (torch.rand((b, n), generator=generator, device=proposals.device) for _ in range(3))
+        return sample_proposals(
             proposals, proposal_scores, targets["gt_boxes"], targets["gt_classes"],
             targets["gt_valid"], u_pos, u_neg, u_tie,
             num_classes=self.num_classes, batch_size_per_image=self.batch_size_per_image,
             positive_fraction=self.positive_fraction, matcher=self.proposal_matcher,
             append_gt=self.proposal_append_gt,
         )
+
+    def _forward_train(self, features, proposals, proposal_scores, targets, generator):
+        feats = [features[f] for f in self.in_features]
+        b = proposals.shape[0]
+        dev = proposals.device
+        sampled = self.sample(proposals, proposal_scores, targets, generator)
         s = self.batch_size_per_image
         flat_boxes = sampled["boxes"].reshape(b * s, 4)
         batch_idx = torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(s)
@@ -255,8 +262,18 @@ class StandardROIHeads(nn.Module):
         return loss * self.keypoint_loss_weight
 
 
-def build_roi_heads(cfg, input_shape: Dict[str, ShapeSpec]) -> StandardROIHeads:
+def build_roi_heads(cfg, input_shape: Dict[str, ShapeSpec]) -> nn.Module:
+    """The ROI heads named by ROI_HEADS.NAME: ``StandardROIHeads``, the C4
+    ``Res5ROIHeads``, or its WSL name ``WSRes5ROIHeads``."""
     name = cfg.MODEL.ROI_HEADS.NAME
-    if name != "StandardROIHeads":
-        raise NotImplementedError(f"ROI heads {name!r} are not ported yet")
-    return StandardROIHeads(cfg, input_shape)
+    if name == "StandardROIHeads":
+        return StandardROIHeads(cfg, input_shape)
+    if name == "Res5ROIHeads":
+        from .res5_roi_heads import Res5ROIHeads
+
+        return Res5ROIHeads(cfg, input_shape)
+    if name == "WSRes5ROIHeads":
+        from ...wsl.modeling.roi_heads_wsl import WSRes5ROIHeads
+
+        return WSRes5ROIHeads(cfg, input_shape)
+    raise NotImplementedError(f"ROI heads {name!r} are not ported yet")

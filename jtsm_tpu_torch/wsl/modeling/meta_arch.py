@@ -102,14 +102,23 @@ def build_wsl_roi_heads(cfg, input_shape):
     ``ROI_HEADS_REGISTRY``): ``WSDDNROIHeads``, ``OICRROIHeads``,
     ``CascadeOICRROIHeads``, ``PCLROIHeads``, ``ContextLocNetROIHeads``,
     ``CMILROIHeads``, ``CSCROIHeads``, ``CSCOICRROIHeads``,
-    ``WSJDSROIHeads`` or ``UWSODROIHeads``."""
-    from .roi_heads_wsl import CascadeOICRROIHeads, OICRROIHeads, WSDDNROIHeads
+    ``WSJDSROIHeads``, ``UWSODROIHeads``, or over a multi-rate backbone
+    ``MRRPOICRROIHeads`` (``TridentOICRROIHeads``) or ``MRRPWSDDNROIHeads``."""
+    from .roi_heads_wsl import (
+        CascadeOICRROIHeads,
+        MRRPOICRROIHeads,
+        MRRPWSDDNROIHeads,
+        OICRROIHeads,
+        TridentOICRROIHeads,
+        WSDDNROIHeads,
+    )
     from .wsjds import CSCOICRROIHeads, CSCROIHeads, WSJDSROIHeads
     from .wsod_zoo import CMILROIHeads, ContextLocNetROIHeads, PCLROIHeads, UWSODROIHeads
 
     heads = {h.__name__: h for h in (WSDDNROIHeads, OICRROIHeads, CascadeOICRROIHeads, PCLROIHeads,
                                      ContextLocNetROIHeads, CMILROIHeads, CSCROIHeads, CSCOICRROIHeads,
-                                     WSJDSROIHeads, UWSODROIHeads)}
+                                     WSJDSROIHeads, UWSODROIHeads, MRRPOICRROIHeads, TridentOICRROIHeads,
+                                     MRRPWSDDNROIHeads)}
     name = cfg.MODEL.ROI_HEADS.NAME
     if name not in heads:
         raise NotImplementedError(f"ROI heads {name!r} under GeneralizedRCNNWSL are not ported yet "
@@ -181,6 +190,7 @@ class GeneralizedRCNNWSL(BackboneModel):
         heads = self.roi_heads
         if deferred is None or not hasattr(heads, "losses_and_pgt"):
             return heads(features, proposals, scores, image_sizes, targets=targets, train=True, generator=generator)
+        features = heads.prepare_features(features, proposals.shape[0])
         x = heads.dan(heads.pool_proposals(features, proposals, scores), generator)
         mil, branches = heads.predict(x, scores)
         losses, (pgt_boxes, pgt_valid) = heads.losses_and_pgt(proposals, scores, mil, branches, targets)

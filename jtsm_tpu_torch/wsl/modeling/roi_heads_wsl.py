@@ -205,6 +205,12 @@ class WSDDNROIHeads(nn.Module):
         self.nms_thresh_test = cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST
         self.detections_per_image = cfg.TEST.DETECTIONS_PER_IMAGE
 
+    def prepare_features(self, features: Dict[str, torch.Tensor], b: int) -> Dict[str, torch.Tensor]:
+        """The maps the heads attend to and pool for ``b`` images: as they
+        are here; the multi-rate heads average the branches that their
+        backbone folds into the batch (JAX ``_prepare_features``, :213)."""
+        return features
+
     def attend(self, features: Dict[str, torch.Tensor]):
         """The maps the heads pool and the (B, C) GAM logits: under
         WSL.HAS_GAM the input map rescaled by its attention, else the maps
@@ -249,7 +255,7 @@ class WSDDNROIHeads(nn.Module):
                               proposal_scores: torch.Tensor) -> torch.Tensor:
         """The (B, R, C) ``class_scores`` of the proposals, without the
         detections' decoding and NMS (the class-peak-gradient pass)."""
-        features, _ = self.attend(features)
+        features, _ = self.attend(self.prepare_features(features, proposals.shape[0]))
         x = self.dan(self.pool_proposals(features, proposals, proposal_scores))
         return self.class_scores(*self.predict(x, proposal_scores))
 
@@ -281,7 +287,7 @@ class WSDDNROIHeads(nn.Module):
     ) -> Dict[str, torch.Tensor]:
         """Detections, or with ``train`` the loss dict (``loss_args`` go
         to ``losses``)."""
-        features, gam_logits = self.attend(features)
+        features, gam_logits = self.attend(self.prepare_features(features, proposals.shape[0]))
         x = self.dan(self.pool_proposals(features, proposals, proposal_scores), generator)
         mil, branches = self.predict(x, proposal_scores)
         if not train:
@@ -394,3 +400,55 @@ class CascadeOICRROIHeads(OICRROIHeads):
             losses[f"loss_refine_cls{k}_cascade"] = oicr_branch_loss(
                 logits.reshape(b, boxes.shape[1], -1), labels, weights).mean()
         return losses
+
+
+def branch_mean(features: Dict[str, torch.Tensor], names: Sequence[str], b: int) -> Dict[str, torch.Tensor]:
+    """``features`` with each map of ``names`` whose batch holds more than
+    ``b`` images (a multi-rate backbone's branches, folded branch-major)
+    replaced by its mean over the branches, in its dtype."""
+    out = dict(features)
+    for f in names:
+        x = features[f]
+        if x.shape[0] > b:
+            out[f] = x.reshape(-1, b, *x.shape[1:]).mean(dim=0)
+    return out
+
+
+class MultiRateHeads:
+    """What the WSOD heads over a multi-rate backbone add (JAX
+    ``_prepare_features``, :609-622): under MODEL.MRRP.MRRP_ON the
+    branches that the backbone folds into the batch are averaged before
+    the heads attend and pool (K1 reads the mean map), one pooled row a
+    proposal. Mixed in before a WSOD heads class."""
+
+    def __init__(self, cfg, input_shape: Dict[str, ShapeSpec]):
+        super().__init__(cfg, input_shape)
+        self.mrrp_num_branch = cfg.MODEL.MRRP.NUM_BRANCH if cfg.MODEL.MRRP.MRRP_ON else 1
+
+    def prepare_features(self, features: Dict[str, torch.Tensor], b: int) -> Dict[str, torch.Tensor]:
+        return features if self.mrrp_num_branch <= 1 else branch_mean(features, self.in_features, b)
+
+
+class MRRPOICRROIHeads(MultiRateHeads, OICRROIHeads):
+    """OICR over a multi-rate backbone (reference roi_heads_all.py:4620;
+    JAX :591)."""
+
+
+class TridentOICRROIHeads(MRRPOICRROIHeads):
+    """The name the trident yamls (``reg_all/oicr_TRD_*.yaml``) give
+    ``MRRPOICRROIHeads`` (JAX :625)."""
+
+
+class MRRPWSDDNROIHeads(MultiRateHeads, WSDDNROIHeads):
+    """WSDDN over a multi-rate backbone (reference roi_heads_all.py:809;
+    JAX :631). No yaml names it."""
+
+
+from ...modeling.roi_heads.res5_roi_heads import Res5ROIHeads  # noqa: E402
+
+
+class WSRes5ROIHeads(Res5ROIHeads):
+    """The reference's name (wsl/modeling/roi_heads/roi_heads.py:410; JAX
+    :654) for the fully supervised C4 second stage over the WS-ResNet,
+    which ``faster_rcnn_WSR_50_C4_1x.yaml`` names: ``Res5ROIHeads``
+    itself."""

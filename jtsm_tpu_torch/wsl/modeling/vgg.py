@@ -107,9 +107,7 @@ class MRRPConv(Conv2d):
         self.dilations = tuple(dilations)
 
     def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
-        dt = self.compute_dtype
-        weight, bias = self.weight.to(dt), self.bias.to(dt)
-        return [F.relu(F.conv2d(x.to(dt), weight, bias, padding=d, dilation=d)) for x, d in zip(xs, self.dilations)]
+        return [Conv2d.forward(self, x, d) for x, d in zip(xs, self.dilations)]
 
 
 class MRRPVGG(VGG):

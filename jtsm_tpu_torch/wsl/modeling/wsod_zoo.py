@@ -58,7 +58,7 @@ from .mil_heads import (
     oicr_branch_loss,
     wsddn_scores,
 )
-from .roi_heads_wsl import WSDDNROIHeads, image_level_gt, wsl_inference
+from .roi_heads_wsl import MultiRateHeads, WSDDNROIHeads, image_level_gt, wsl_inference
 
 
 class ContextLocNetROIHeads(WSDDNROIHeads):
@@ -521,7 +521,7 @@ def compute_cpg(scores: torch.Tensor, images: torch.Tensor, class_idx: torch.Ten
 # ---------------------------------------------------------------------------
 
 
-class UWSODROIHeads(WSDDNROIHeads):
+class UWSODROIHeads(MultiRateHeads, WSDDNROIHeads):
     """UWSOD's heads (reference roi_heads_uwsod.py; JAX :721): WSDDN's MIL
     over the proposals of ``RPNWSL`` and WSL.REFINE_NUM branches
     ``refine{k}``, each a (C+1)-way classifier with class-agnostic deltas.
@@ -545,21 +545,12 @@ class UWSODROIHeads(WSDDNROIHeads):
         super().__init__(cfg, input_shape)
         self.cls_agnostic_bbox_known = cfg.WSL.CLS_AGNOSTIC_BBOX_KNOWN
         self.box2box_transform = Box2BoxTransform(weights=cfg.MODEL.ROI_BOX_HEAD.BBOX_REG_WEIGHTS)
-        self.mrrp_num_branch = cfg.MODEL.MRRP.NUM_BRANCH if cfg.MODEL.MRRP.MRRP_ON else 1
         self.refine: List[OICROutputLayers] = []
         for k in range(cfg.WSL.REFINE_NUM):
             branch = OICROutputLayers(self.dan.output_size, self.num_classes, with_reg=True,
                                       compute_dtype=self.mil.cls.compute_dtype)
             self.add_module(f"refine{k}", branch)
             self.refine.append(branch)
-
-    def pool(self, features: Dict[str, torch.Tensor], proposals: torch.Tensor) -> torch.Tensor:
-        """The branches' mean of each map (in its dtype) pooled by K1."""
-        b = proposals.shape[0]
-        if self.mrrp_num_branch > 1:
-            features = {f: features[f].reshape(-1, b, *features[f].shape[1:]).mean(dim=0)
-                        if features[f].shape[0] > b else features[f] for f in self.in_features}
-        return super().pool(features, proposals)
 
     def predict(self, x: torch.Tensor, proposal_scores: torch.Tensor):
         mil, _ = super().predict(x, proposal_scores)

@@ -49,6 +49,8 @@ from jtsm_tpu.wsl.modeling import wsod_zoo as jax_zoo
 from jtsm_tpu_torch.checkpoint import variables_to_state_dict
 from jtsm_tpu_torch.config import (
     WSOD_HEADS,
+    faster_rcnn_R_50_C4_cfg,
+    uwsod_V_16_DC5_cfg,
     wsl_cfg,
     wsod_V_16_DC5_cfg,
     wsod_V_16_narrow_cfg,
@@ -307,12 +309,17 @@ def test_wsr_solver_doubles_the_bias_rate_without_decay():
 
 
 def test_unported_pieces_raise():
-    for opts in (["MODEL.ROI_HEADS.NAME", "TridentOICRROIHeads"], ["MODEL.ROI_HEADS.NAME", "MRRPOICRROIHeads"],
-                 ["MODEL.BACKBONE.NAME", "build_mrrp_wsl_resnet_backbone"],
-                 ["MODEL.ROI_HEADS.NAME", "MRRPWSDDNROIHeads"]):
-        cfg = wsod_WSR_18_narrow_cfg("OICRROIHeads")
+    """The pieces that stay unported say so at build: the cascade's heads
+    and precomputed proposals under ``GeneralizedRCNN``, and an MRRP stage
+    plain1 of the multi-rate VGG16."""
+    for builder, opts, what in (
+            (faster_rcnn_R_50_C4_cfg, ["MODEL.ROI_HEADS.NAME", "CascadeROIHeads"], "CascadeROIHeads"),
+            (faster_rcnn_R_50_C4_cfg, ["MODEL.PROPOSAL_GENERATOR.NAME", "PrecomputedProposals"],
+             "PrecomputedProposals"),
+            (uwsod_V_16_DC5_cfg, ["MODEL.MRRP.MRRP_STAGE", "plain1"], "plain1")):
+        cfg = builder(narrow=True)
         cfg.merge_from_list(opts)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+        with pytest.raises(NotImplementedError, match=f"{what}.* not ported yet"):
             build_model(cfg, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
