@@ -330,7 +330,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    train steps in both (median of steps 2-6; K1 and K2 once a step, K2
    never under Trident's FREEZE_AT 5); (e) C4 Mask R-CNN through
    ``DefaultTrainer`` on 8 in-memory COCO scenes (K1 and K2 once an
-   iteration). Any phase that fails logs ``[<phase>] FAILED: <type>: <message>`` and its
+   iteration);
+23. cascade_dconv: Cascade Mask R-CNN R50-FPN, Mask R-CNN R50-FPN with
+   deformable convolutions in res3-res5 and Fast R-CNN R50-FPN on
+   precomputed proposals. (a) their narrow forms on the card against this
+   machine's CPU (phase 22(a)'s rule): detections, the dconv backbone's FPN
+   maps, one step's per-stage losses and update; (b) each at 800x1344 with
+   seeded weights serves 4 requests in each of bf16 and f32, in turns (Fast
+   R-CNN with 1000 seeded proposals), K1 4, 2 and 1 times a request, the
+   stage split (the cascade's ``stage0``-``stage2``, ``nms`` and ``mask``)
+   with host syncs and peak memory, and the deformable convolutions' time
+   inside the dconv requests; (d) K1 against its plain version at the
+   cascade's stage-1 and stage-2 pools (its decoded boxes) and on Fast
+   R-CNN's proposals, K1 and K2 at the cascade's train pool (2x512 rows);
+   (c) train steps of the three (median of steps 2-6; K1 and K2 4, 2 and 1
+   times a step), the dconv step's deformable share; (e) the cascade
+   through ``DefaultTrainer`` (K1 and K2 4 times an iteration); (f) the
+   X-152 32x8d GN dconv cascade and the Panoptic FPN R-101 dconv cascade
+   GN, one bf16 request each. Any phase that fails logs ``[<phase>] FAILED: <type>: <message>`` and its
    traceback, and the run ends there with a non-zero exit.
 
 The last three lines are {"kernels": [...]} (``kernel_line`` says which
@@ -361,7 +378,11 @@ at phase 22(d)'s C4 res4 and Trident sites, ``wsr_fpn_*`` the WSR-50 FPN's
 pooler rows (phase 3's and 6's box rows: the same pyramid),
 ``c4_launches``, ``trd_launches`` and ``wsr_fpn_launches`` each model's
 launches on phase 22's main paths, ``c4_trident_fpn_launches`` all of
-them),
+them; ``cascade_stage{1,2}_*``, ``cascade_step_*`` and ``fast_rcnn_*``
+their rows at phase 23(d)'s sites, ``cascade_launches``,
+``dconv_launches``, ``fast_rcnn_launches`` and ``combined_launches`` each
+model's launches on phase 23's main paths, ``cascade_dconv_launches`` all
+of them),
 the card's name and power limit as
 nvidia-smi gives them, and {"ok": true, "device": {...}}. Needs one card, torch, numpy and pytest;
 imports nothing of JAX. Without a card, or outside a checkout of the
@@ -3900,7 +3921,8 @@ def train_family_cfg(family, narrow=False):
     """The full-width config of ``family`` (the Python builders; the
     semantic one of ``configs/Misc/semantic_R_50_FPN_1x.yaml``) or its
     narrow gate config (SemanticSegmentor: Panoptic FPN's gate without its
-    instance branches; phase 22's models: their builders' narrow forms) in
+    instance branches; phase 22's and 23's models: their builders' narrow
+    forms) in
     the sampling regime in which the card and the CPU
     sample the same slots: an RPN slot for every anchor and an ROI slot for
     every proposal and ground-truth row, at positive fraction 1.0, so that
@@ -3909,8 +3931,8 @@ def train_family_cfg(family, narrow=False):
     from jtsm_tpu_torch import config
     from jtsm_tpu_torch.config import semantic_R_50_FPN_cfg
 
-    if family in C4_BUILDERS:
-        builder = getattr(config, C4_BUILDERS[family])
+    if family in C4_BUILDERS or family in CASCADE_BUILDERS:
+        builder = getattr(config, C4_BUILDERS.get(family) or CASCADE_BUILDERS[family])
         if not narrow:
             return builder()
         cfg = builder(narrow=True)
@@ -3936,7 +3958,8 @@ def train_family_cfg(family, narrow=False):
     m.RPN.BATCH_SIZE_PER_IMAGE = 8192  # the 128x176 bucket has 5634 anchors
     m.RPN.POSITIVE_FRACTION = 1.0
     cfg.TPU.MAX_GT_INSTANCES = 4
-    m.ROI_HEADS.BATCH_SIZE_PER_IMAGE = m.RPN.POST_NMS_TOPK_TRAIN + 4
+    proposals = cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN if m.LOAD_PROPOSALS else m.RPN.POST_NMS_TOPK_TRAIN
+    m.ROI_HEADS.BATCH_SIZE_PER_IMAGE = proposals + 4
     m.ROI_HEADS.POSITIVE_FRACTION = 1.0
     cfg.SOLVER.BASE_LR = FAM_NARROW_LR[family]
     cfg.SOLVER.WARMUP_ITERS = 0
@@ -3967,8 +3990,10 @@ def family_train_state(cfg, seed):
     images (one pass, in order), so that it normalises as a trained one does (without
     that, a seeded ResNet-50's res3-res5 maps have a spread near 100, and
     RetinaNet's focal loss starts near 700 and reaches NaN in bf16 by the
-    third step); the FPN and the heads from the JAX package's initialisers
-    (RetinaNet's towers at std 0.01 and its focal prior)."""
+    third step; a deformable block's offset kernel takes CASCADE_GAINS'
+    0.05, so that its offsets are a few pixels); the FPN and the heads from
+    the JAX package's initialisers (RetinaNet's towers at std 0.01 and its
+    focal prior)."""
     import torch
 
     from jtsm_tpu_torch.checkpoint import random_state_dict
@@ -3981,7 +4006,7 @@ def family_train_state(cfg, seed):
     # the ResNet: the FPN's bottom-up, or the C4 backbone itself
     bottom_up = getattr(model.backbone, "bottom_up", model.backbone)
     prefix = "backbone.bottom_up." if bottom_up is not model.backbone else "backbone."
-    state.update({k: v for k, v in random_state_dict(model, seed).items() if k.startswith(prefix)})
+    state.update({k: v for k, v in gained(random_state_dict(model, seed)).items() if k.startswith(prefix)})
     model.load_state_dict(state)
 
     def calibrate(bn, inputs):
@@ -4002,8 +4027,10 @@ def family_train_state(cfg, seed):
 def family_train_batch(cfg, seed, b, hw, g, valid):
     """``synthetic_train_batch`` with what each family trains on: classes
     within MODEL.ROI_HEADS.NUM_CLASSES, 17 keypoints on a grid in each box
-    (a fifth of them invisible) under KEYPOINT_ON, and a stuff map of four
-    horizontal bands (255 past each image) for the sem-seg head."""
+    (a fifth of them invisible) under KEYPOINT_ON, a stuff map of four
+    horizontal bands (255 past each image) for the sem-seg head, and under
+    MODEL.LOAD_PROPOSALS PRECOMPUTED_PROPOSAL_TOPK_TRAIN seeded proposals
+    (``seeded_proposals``)."""
     import numpy as np
 
     batch = synthetic_train_batch(seed, b, hw, g, valid)
@@ -4026,6 +4053,10 @@ def family_train_batch(cfg, seed, b, hw, g, valid):
         batch["gt_sem_seg"] = sem
     if cfg.MODEL.META_ARCHITECTURE != "PanopticFPN" and not cfg.MODEL.MASK_ON:
         batch.pop("gt_mask_crops")
+    if cfg.MODEL.LOAD_PROPOSALS:
+        batch["proposals"], batch["proposal_scores"] = seeded_proposals(
+            rng, batch["image_sizes"], cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN, batch["gt_boxes"],
+            batch["gt_valid"])
     return batch
 
 
@@ -4048,6 +4079,9 @@ def family_train_stages(family, model, optimizer, schedule, state, batch, measur
         r["t"] = model.targets(batch)
 
     def rpn():
+        if model.proposal_generator is None:  # Fast R-CNN: the batch's proposals
+            r["props"], r["scores"] = model.batch_proposals(batch)
+            return
         proposals, scores, losses = model.proposal_generator(r["sizes"], r["feats"], r["t"]["gt_boxes"],
                                                              r["t"]["gt_valid"], state.generator)
         r.update(props=proposals, scores=scores)
@@ -4076,7 +4110,8 @@ def family_train_stages(family, model, optimizer, schedule, state, batch, measur
                 model.sem_seg_head(r["feats"]), r["t"]["gt_sem_seg"]))
         if family != "semantic":
             stages["rpn"] = rpn
-        if family in ("keypoint_rcnn", "panoptic_fpn") + SURFACE_FAMILIES + tuple(C4_BUILDERS):
+        if family in ("keypoint_rcnn", "panoptic_fpn") + SURFACE_FAMILIES + tuple(C4_BUILDERS) + tuple(
+                CASCADE_BUILDERS):
             stages["roi_heads"] = roi_heads
     stages.update(backward=backward, sgd=sgd)
     with exact_float32(model.compute_dtype == torch.float32), batch_statistics():
@@ -4133,15 +4168,16 @@ def families_narrow_checks(families, kernels):
     return got
 
 
-def families_full_train(families, kernels, phase, part="b"):
+def families_full_train(families, kernels, phase, part="b", after=None):
     """17(b) and 18(b): each family at full width and depth
     (``family_train_state``) takes FAM_TRAIN_STEPS steps on a seeded batch of
     TRAIN_BATCH images of FLAGSHIP_HW in each of bf16 (as configured) and
     f32, in turns: every loss finite, K1 and K2 launched TRAIN_K[family]
     times a step; the median of steps 2-6, the stage split with its host
-    syncs, the step's peak memory. Returns each family's kernel launches as
-    the counters read after its steps, the medians and the weights (by
-    family) for the trainer."""
+    syncs, the step's peak memory; then ``after(family, dtype, run, batch)``
+    when given (``run``: the model, optimizer, schedule, train state and
+    step). Returns each family's kernel launches as the counters read after
+    its steps, the medians and the weights (by family) for the trainer."""
     import torch
 
     from jtsm_tpu_torch.engine import create_train_state, make_train_step
@@ -4202,6 +4238,8 @@ def families_full_train(families, kernels, phase, part="b"):
                 + " ".join(f"{k}={v:.3f}" for k, v in stage_ms.items())
                 + " | host syncs " + " ".join(f"{k}={n}" for k, n in syncs.items())
                 + f" | losses {', '.join(f'{k}={v.item():.5g}' for k, v in metrics.items())}")
+            if after is not None:
+                after(family, d, runs[d], batch)
         del runs, model, optimizer, state
     return launches, med, states
 
@@ -5960,6 +5998,596 @@ def phase_c4_trident_fpn(kernels, gen, baseline):
     return rows, launches, by_model, {**latency, **trd_latency}, {**steps, **trd_steps}, trainer
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: Cascade R-CNN, the deformable ResNet and Fast R-CNN
+# ---------------------------------------------------------------------------
+
+# the models of phase 23: their Python builders and titles, K1's launches a
+# request (the cascade pools its boxes once a stage, then the detections
+# for the mask head; the dconv Mask R-CNN boxes and masks; Fast R-CNN its
+# proposals) and (K1, K2) a train step (three box stages and the mask
+# branch; boxes and masks; boxes)
+CASCADE_BUILDERS = {"cascade": "cascade_mask_rcnn_R_50_FPN_cfg", "dconv": "mask_rcnn_R_50_FPN_dconv_cfg",
+                    "fast_rcnn": "fast_rcnn_R_50_FPN_cfg"}
+CASCADE_K1 = {"cascade": 4, "dconv": 2, "fast_rcnn": 1}
+CASCADE_STAGE_LOSSES = [f"{k}_stage{s}" for s in range(3) for k in ("loss_box_reg", "loss_cls")]
+TRAIN_K.update(cascade=(4, 4), dconv=(2, 2), fast_rcnn=(1, 1))
+TRAIN_LOSSES.update(cascade=CASCADE_STAGE_LOSSES + ["loss_mask", "loss_rpn_cls", "loss_rpn_loc"],
+                    dconv=MASK_RCNN_LOSSES, fast_rcnn=["loss_box_reg", "loss_cls"])
+TRAIN_TITLES.update(cascade="Cascade Mask R-CNN R50-FPN", dconv="Mask R-CNN R50-FPN dconv c3-c5",
+                    fast_rcnn="Fast R-CNN R50-FPN")
+FAM_NARROW_LR.update(cascade=2e-4, dconv=2e-4, fast_rcnn=2e-4)
+# the combined yamls of 23(f): their Python builders and K1's launches a request
+COMBINED_BUILDERS = {"X-152 32x8d GN dconv cascade": "cascade_mask_rcnn_X_152_32x8d_FPN_IN5k_gn_dconv_cfg",
+                     "Panoptic FPN R-101 dconv cascade GN": "panoptic_fpn_R_101_dconv_cascade_gn_cfg"}
+CASCADE_ROUNDS = 4  # requests in each dtype
+CASCADE_STAGE_ROUNDS = 1
+CASCADE_TRAINER_SCENES = 8
+CASCADE_TRAINER_ITERS = 6  # the iteration timer starts after 3
+# seeded weights' gains: each box classifier and regressor (the cascade's
+# third stage keeps foreground at IoU 0.7, and no softmax saturates) and each
+# deformable block's offset kernel (at 1/sqrt(fan-in) a seeded ResNet's
+# offsets reach tens of pixels and nearly every tap samples off the map; at
+# 0.05 of it they are a few, as a trained model's)
+CASCADE_GAINS = {"cls_score.weight": 0.05, "bbox_pred.weight": 0.05, "conv2_offset.weight": 0.05}
+
+
+def cascade_cfg(name):
+    """A combined yaml's full-width config (23(f)), from its builder."""
+    from jtsm_tpu_torch import config
+
+    return getattr(config, COMBINED_BUILDERS[name])()
+
+
+def gained(state):
+    """``state`` with CASCADE_GAINS applied."""
+    return {k: v * next((g for s, g in CASCADE_GAINS.items() if k.endswith(s)), 1.0) for k, v in state.items()}
+
+
+def seeded_proposals(rng, image_sizes, k, gt_boxes=None, gt_valid=None):
+    """``k`` proposal slots an image, as a precomputed proposal file gives
+    them: each valid ground truth box jittered four times (by 5% of its
+    size), then boxes of 16-512 px (log-uniform) inside the image; the
+    scores descending. Returns (B, k, 4) and (B, k) float32."""
+    import numpy as np
+
+    b = len(image_sizes)
+    boxes = np.zeros((b, k, 4), np.float32)
+    for i, (h, w) in enumerate(image_sizes):
+        jit = np.zeros((0, 4))
+        if gt_boxes is not None:
+            g = gt_boxes[i][gt_valid[i]]
+            size = np.concatenate([g[:, 2:] - g[:, :2]] * 2, 1)
+            jit = np.concatenate([g + rng.normal(0, 0.05, g.shape) * size for _ in range(4)])[:k]
+        n = k - len(jit)
+        wh = np.exp(rng.uniform(np.log(16), np.log(512), (n, 2)))
+        xy = rng.uniform(0, 1, (n, 2)) * np.maximum([w, h] - wh, 1)
+        boxes[i] = np.clip(np.concatenate([jit, np.concatenate([xy, xy + wh], 1)]), 0, [w, h, w, h])
+    scores = np.sort(rng.normal(size=(b, k)), axis=1)[:, ::-1]
+    return boxes, np.ascontiguousarray(scores, dtype=np.float32)
+
+
+class DeformTimer:
+    """CUDA events around each deformable convolution of ``model``, forward
+    and (in a train step) backward, recorded as the stream reaches them (no
+    host sync), and the shapes of their products: ``read()`` after a
+    synchronize gives the milliseconds of each and the product shapes
+    (rows, K*K*Cin, Cout) for ``product_ms``."""
+
+    def __init__(self, model):
+        import torch
+
+        from jtsm_tpu_torch.layers import DeformConv
+
+        self.events = {"fwd": [], "bwd": []}
+        self.products = []
+        self.handles = []
+        for m in model.modules():
+            if not isinstance(m, DeformConv):
+                continue
+
+            def pre(mod, args):
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                self.events["fwd"].append([e])
+                x = args[0]
+                o, i, k, _ = mod.weight.shape
+                self.products.append((x.shape[0] * x.shape[2] * x.shape[3], k * k * i, o))
+
+            def post(mod, args, out):
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                self.events["fwd"][-1].append(e)
+
+            def bwd_pre(mod, grad_out):
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                self.events["bwd"].append([e])
+
+            def bwd_post(mod, grad_in, grad_out):
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                self.events["bwd"][-1].append(e)
+
+            self.handles += [m.register_forward_pre_hook(pre), m.register_forward_hook(post),
+                             m.register_full_backward_pre_hook(bwd_pre), m.register_full_backward_hook(bwd_post)]
+
+    def reset(self):
+        self.events = {"fwd": [], "bwd": []}
+        self.products = []
+
+    def read(self):
+        return {k: sum(a.elapsed_time(b) for a, b in v if b is not None) for k, v in self.events.items()}
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def product_ms(products, backward):
+    """The device milliseconds of the deformable convolutions' matrix
+    products alone (float32, as they run) at these shapes: one product
+    each in a forward, two more (the columns' and the kernel's gradients)
+    with ``backward``."""
+    import torch
+
+    total = 0.0
+    for rows, depth, out in sorted(set(products)):
+        n = products.count((rows, depth, out))
+        a = torch.randn((rows, depth), device=DEVICE)
+        w = torch.randn((depth, out), device=DEVICE)
+        g = torch.randn((rows, out), device=DEVICE)
+        total += n * cuda_time_ms(lambda: a @ w, 5, queued=True)
+        if backward:
+            total += n * (cuda_time_ms(lambda: g @ w.T, 5, queued=True) + cuda_time_ms(lambda: a.T @ g, 5, queued=True))
+        del a, w, g
+    return total
+
+
+def cascade_narrow_checks(kernels):
+    """Phase 23(a): the narrow cascade, dconv Mask R-CNN and Fast R-CNN
+    (``train_family_cfg``'s sampling: every anchor and proposal a slot, so
+    that no draw decides a loss; the ROI heads of the RPN models on the CPU's
+    proposals, ``shared_proposals``; Fast R-CNN on seeded proposals) on the
+    card against this machine's CPU: a request's detections (matched by
+    class, box and score), the dconv backbone's FPN maps, and one train step
+    (no clip) whose per-stage losses and update lie within max(1e-4 and
+    WSOD_UPDATE_TOL, SURFACE_NOISE x the CPU's float32-to-float64 gap):
+    phase 20(a)'s rule. These launches count in no main path's total."""
+    import numpy as np
+    import torch
+
+    from jtsm_tpu_torch.checkpoint import random_state_dict
+    from jtsm_tpu_torch.layers import exact_float32
+    from jtsm_tpu_torch.modeling import build_model
+
+    before = [k.launches for k in kernels]
+    failed = []
+    torch.backends.cudnn.deterministic = True
+    for name in CASCADE_BUILDERS:
+        cfg = train_family_cfg(name, narrow=True)
+        cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0  # random weights score below 0.05
+        batch = family_train_batch(cfg, 11, 2, FAM_NARROW_HW, cfg.TPU.MAX_GT_INSTANCES, 3)
+        batch["orig_sizes"] = np.array([[256, 352], [128, 176]], np.int32)
+        weights = gained(random_state_dict(build_model(cfg, device="cpu"), seed=1))
+        runs, recorded = {}, {}
+        for device, f64 in (("cpu", False), (DEVICE, False), ("cpu", True)):
+            model = build_model(cfg, device=device)
+            model.load_state_dict(weights)
+            if f64:
+                float64_model(model)
+            if model.proposal_generator is not None:
+                shared_proposals(model, recorded)
+            with torch.no_grad(), exact_float32():
+                feats = {k: v.double().cpu() for k, v in model._features(
+                    {k: v.astype(np.float64) if f64 and v.dtype == np.float32 else v
+                     for k, v in batch.items()})[0].items()}
+            det = None if f64 else {k: v.cpu() for k, v in model.inference(batch).items()}
+            runs[(device, f64)] = (det, feats, *steps_and_updates(cfg, model, batch, 1))
+            del model
+        (d_card, f_card, l_card, u_card), (d_cpu, f_cpu, l_cpu, u_cpu), (_, f64s, l64, u64) = (
+            runs[(DEVICE, False)], runs[("cpu", False)], runs[("cpu", True)])
+        d_cpu["upscale"] = torch.as_tensor(batch["orig_sizes"][:, 0] / batch["image_sizes"][:, 0])
+        m = match_family_outputs(d_card, d_cpu, cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST)
+        det_ok = m["boxes"] <= 1e-3 and m["scores"] <= 1e-4 and m["masks"] <= 1e-4 and m["matched"] > 0
+
+        def gap(a, b):
+            return max(float((a[k] - b[k]).abs().max() / b[k].abs().max()) for k in b)
+
+        feat_err, feat_gap = gap(f_card, f_cpu), gap(f_cpu, f64s)
+        feat_tol = max(1e-4, SURFACE_NOISE * feat_gap)
+
+        def rel(a, b):
+            return (max(abs(a[0][k] - b[0][k]) / max(abs(b[0][k]), 1e-12) for k in b[0]),
+                    float((a[1] - b[1]).norm() / b[1].norm()))
+
+        (loss_err, upd_err), (loss_gap, upd_gap) = rel((l_card[0], u_card[0]), (l_cpu[0], u_cpu[0])), rel(
+            (l_cpu[0], u_cpu[0]), (l64[0], u64[0]))
+        loss_tol, upd_tol = max(1e-4, SURFACE_NOISE * loss_gap), max(WSOD_UPDATE_TOL, SURFACE_NOISE * upd_gap)
+        log(f"[cascade_dconv] (a) {name} narrow ({cfg.MODEL.ROI_HEADS.NAME}, float32): card vs CPU: detections "
+            f"{m['matched']} matched by class, box and score, {m['at_cut']} at the cut, {m['suppressed']} "
+            f"suppressed on one side at the NMS threshold; boxes max_abs_err={m['boxes']:.3e} input px (tol 1e-3), "
+            f"scores {m['scores']:.3e} (tol 1e-4)" + (f", mask probabilities {m['masks']:.3e} (tol 1e-4)"
+                                                      if "masks" in d_cpu else "")
+            + f"; FPN maps rel_err {feat_err:.3e} (tol {feat_tol:.3e}); one step: losses rel_err {loss_err:.3e} "
+            f"(tol {loss_tol:.3e}), update L2 norm {float(u_cpu[0].norm()):.4g} rel_err {upd_err:.3e} (tol "
+            f"{upd_tol:.3e}); CPU float32 against float64: maps {feat_gap:.3e}, losses {loss_gap:.3e}, update "
+            f"{upd_gap:.3e}; losses " + ", ".join(f"{k}={v:.6g}" for k, v in l_cpu[0].items()))
+        if not (det_ok and feat_err <= feat_tol and loss_err <= loss_tol and upd_err <= upd_tol
+                and float(u_cpu[0].norm()) > 0 and all(math.isfinite(v) and v > 0 for v in l_card[0].values())):
+            failed.append(name)
+    torch.backends.cudnn.deterministic = False
+    if failed:
+        raise AssertionError(f"cascade_dconv narrow checks: the card disagrees with the CPU in {failed}")
+    got = {k.name: k.launches - n for k, n in zip(kernels, before)}
+    log(f"[cascade_dconv] (a) launches on the card in these checks (no main path's): {got}")
+    if not got[kernels[0].name] or not got[kernels[1].name]:
+        raise AssertionError("cascade_dconv narrow checks: K1 or K2 never launched on the card")
+
+
+def cascade_stages(family, model, req, measure, keep=None):
+    """One request through a model of phase 23 by stage, ``measure`` making
+    each call and returning its reading: the backbone (with the request's
+    copy to the card), the RPN head and its decode (or Fast R-CNN's
+    proposals from the request), then the cascade's ``stage0``-``stage2``
+    (each K1 on the current boxes, its head, the decode) and ``nms`` (the
+    mean probabilities, per-class NMS), or the box branch ``roi_box``; the
+    mask branch. ``keep`` receives the boxes each cascade stage pools."""
+    import torch
+
+    from jtsm_tpu_torch.layers import exact_float32
+
+    heads, rpn = model.roi_heads, model.proposal_generator
+    r = {}
+    readings = {}
+    with torch.no_grad(), exact_float32(model.compute_dtype == torch.float32):
+        readings["backbone"] = measure(lambda: r.update(zip(("feats", "sizes"), model._features(req))))
+        if rpn is None:
+            readings["proposals"] = measure(lambda: r.update(zip(("proposals", "scores"), model.batch_proposals(req))))
+        else:
+            readings["rpn_head"] = measure(lambda: r.update(zip(("anchors", "logits", "deltas"),
+                                                                rpn.head_outputs(r["feats"]))))
+            readings["rpn_decode"] = measure(lambda: r.update(zip(("proposals", "scores"), rpn.predict_proposals(
+                r["anchors"], r["logits"], r["deltas"], r["sizes"]))))
+        if family == "cascade":
+            r.update(boxes=r["proposals"], probs=[])
+
+            def stage(s):
+                if keep is not None:
+                    keep[s] = r["boxes"].detach().clone()
+                p, r["boxes"] = heads.run_stage(s, [r["feats"][f] for f in heads.in_features], r["boxes"],
+                                                r["sizes"])
+                r["probs"].append(p)
+
+            for s in range(heads.num_stages):
+                readings[f"stage{s}"] = measure(lambda s=s: stage(s))
+            readings["nms"] = measure(lambda: r.update(det=heads.combine(r["probs"], r["boxes"], r["scores"],
+                                                                         r["sizes"])))
+        else:
+            readings["roi_box"] = measure(lambda: r.update(det=heads.detect(r["feats"], r["proposals"], r["scores"],
+                                                                            r["sizes"])))
+        if heads.mask_on:
+            readings["mask"] = measure(lambda: heads.forward_with_given_boxes(r["feats"], r["det"]))
+    return readings
+
+
+def cascade_request(family, rng, hw, true_hw, cfg):
+    """Phase 15's request; Fast R-CNN's with PRECOMPUTED_PROPOSAL_TOPK_TEST
+    seeded proposals (``seeded_proposals``)."""
+    req = request(rng, hw, true_hw, true_hw)
+    if cfg.MODEL.LOAD_PROPOSALS:
+        req["proposals"], req["proposal_scores"] = seeded_proposals(rng, req["image_sizes"],
+                                                                    cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST)
+    return req
+
+
+def cascade_serve(kernel, keep):
+    """Phase 23(b): the cascade, the dconv Mask R-CNN and Fast R-CNN at full
+    width (seeded weights, ``random_state_dict`` with CASCADE_GAINS) serve
+    CASCADE_ROUNDS 800x1344 requests in each of bf16 and f32, in turns, K1
+    CASCADE_K1 times a request; then the stage split with its host syncs
+    and each stage's peak memory, and the dconv model's deformable
+    convolutions timed inside its requests (CUDA events) with their
+    products' share. ``keep`` receives the cascade's stage inputs of its
+    f32 stage split. Returns K1's launches by model and the mean latencies."""
+    import numpy as np
+    import torch
+
+    from jtsm_tpu_torch.checkpoint import random_state_dict
+    from jtsm_tpu_torch.engine import Predictor
+    from jtsm_tpu_torch.modeling import build_model
+
+    rng = np.random.default_rng(23)
+    h, w = FLAGSHIP_HW
+    launches, latency = {}, {}
+    for family in CASCADE_BUILDERS:
+        base = train_family_cfg(family)
+        warm = cascade_request(family, rng, (h, w), (h, w), base)
+        reqs = [cascade_request(family, rng, (h, w), (h, w), base),
+                cascade_request(family, rng, (h, w), (h - 50, w - 11), base)]
+        dtypes = (base.TPU.COMPUTE_DTYPE, "float32")
+        state = gained(random_state_dict(build_model(base, device="cpu"), seed=23))
+        predictors, mem = {}, {}
+        for d in dtypes:
+            c = base.clone()
+            c.TPU.COMPUTE_DTYPE = d
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            predictors[d] = Predictor(c, state)
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            predictors[d](warm)
+            torch.cuda.synchronize()
+            mem[d] = ((resident - before) / 2**30, (torch.cuda.max_memory_allocated() - resident) / 2**30)
+        timers = {d: DeformTimer(predictors[d].model) for d in dtypes} if family == "dconv" else {}
+        lat, deform = {d: [] for d in dtypes}, {d: [] for d in dtypes}
+        kernel.launches = 0
+        for i in range(CASCADE_ROUNDS):
+            for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+                before = kernel.launches
+                if d in timers:
+                    timers[d].reset()
+                t0 = time.perf_counter()
+                out = predictors[d](reqs[i % 2])
+                torch.cuda.synchronize()
+                lat[d].append((time.perf_counter() - t0) * 1e3)
+                if d in timers:
+                    deform[d].append(timers[d].read()["fwd"])
+                if kernel.launches - before != CASCADE_K1[family]:
+                    raise AssertionError(f"cascade_dconv {family} {d} request {i}: K1 launched "
+                                         f"{kernel.launches - before} times, not {CASCADE_K1[family]}")
+                n = base.TEST.DETECTIONS_PER_IMAGE
+                want = {"boxes": (1, n, 4), "scores": (1, n), "classes": (1, n), "valid": (1, n)}
+                if base.MODEL.MASK_ON:
+                    want["masks"] = (1, n, 28, 28)
+                if {k: tuple(v.shape) for k, v in out.items()} != want or not all(
+                        torch.isfinite(v.float()).all() for v in out.values()):
+                    raise AssertionError(f"cascade_dconv {family} {d} request {i}: outputs "
+                                         f"{ {k: tuple(v.shape) for k, v in out.items()} }, expected {want}")
+        launches[family] = kernel.launches
+        products = {d: list(t.products) for d, t in timers.items()}
+        for t in timers.values():
+            t.remove()
+        stage = {d: {} for d in dtypes}
+        for i in range(CASCADE_STAGE_ROUNDS):
+            for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+                got = cascade_stages(family, predictors[d].model, reqs[0], timed_peak,
+                                     keep if d == "float32" and family == "cascade" else None)
+                for k, v in got.items():
+                    stage[d].setdefault(k, []).append(v)
+        for d in dtypes:
+            syncs = cascade_stages(family, predictors[d].model, reqs[0], count_host_syncs)
+            latency[(family, d)] = sum(lat[d]) / len(lat[d])
+            text = ""
+            if family == "dconv":
+                dms = median(deform[d])
+                pms = product_ms(products[d], backward=False)
+                text = (f" | deformable convs ({len(products[d])} a request) device_ms median {dms:.3f} "
+                        f"({dms / median(lat[d]) * 100:.1f}% of the request), of it their products {pms:.3f} ms, "
+                        f"the bilinear gather and the rest {dms - pms:.3f} ms "
+                        f"({(dms - pms) / median(lat[d]) * 100:.1f}% of the request)")
+            log(f"[cascade_dconv] (b) {TRAIN_TITLES[family]} {h}x{w} {DTYPE_NAMES[d]}"
+                f"{' (TF32 off)' if d == 'float32' else ''}, seeded weights (seed 23), {CASCADE_ROUNDS} requests "
+                f"in turns: latency_ms={[round(x, 3) for x in lat[d]]} mean_ms={latency[(family, d)]:.3f} "
+                f"roi_align_fwd_launches {CASCADE_K1[family]} a request | stages_ms (median of "
+                f"{CASCADE_STAGE_ROUNDS}) "
+                + " ".join(f"{k}={median([x['ms'] for x in v]):.3f}" for k, v in stage[d].items())
+                + " | stage peak_gib " + " ".join(f"{k}={max(x['peak'] for x in v):.3f}" for k, v in stage[d].items())
+                + " | host syncs " + " ".join(f"{k}={n}" for k, n in syncs.items())
+                + f" | weights_gib={mem[d][0]:.3f} request_peak_gib={mem[d][1]:.3f}" + text)
+        del predictors
+    return launches, latency
+
+
+def dconv_step_share(family, d, run, batch):
+    """``families_full_train``'s hook for 23(c): two more steps of the dconv
+    model with its deformable convolutions timed (forward and backward,
+    CUDA events) beside the step, and their products' share."""
+    import torch
+
+    if family != "dconv":
+        return
+    model, _, _, state, step = run
+    timer = DeformTimer(model)
+    shares = []
+    for _ in range(2):
+        timer.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        shares.append(((time.perf_counter() - t0) * 1e3, timer.read()))
+    products = list(timer.products)
+    timer.remove()
+    step_ms, ev = shares[-1]
+    pms = product_ms(products, backward=True)
+    total = ev["fwd"] + ev["bwd"]
+    log(f"[cascade_dconv] (c) {TRAIN_TITLES[family]} train {DTYPE_NAMES[d]}: deformable convs ({len(products)} a "
+        f"step) device_ms forward {ev['fwd']:.3f} backward {ev['bwd']:.3f} in a {step_ms:.3f} ms step "
+        f"({total / step_ms * 100:.1f}%), of it their products (three a conv) {pms:.3f} ms, the bilinear gather, "
+        f"its scatter-add backward and the rest {total - pms:.3f} ms ({(total - pms) / step_ms * 100:.1f}% of the "
+        f"step)")
+
+
+def cascade_kernel_rows(gen, baseline, stage_boxes, fast_boxes):
+    """Phase 23(d): K1 and K2 against their plain versions at the new
+    launch sites, in float32 and bfloat16, over an 800x1344 pyramid (C=256):
+    the cascade's stage-1 and stage-2 pools (the boxes the f32 stage split
+    of 23(b) decoded, R=1000, P=7), a cascade train step's box pool (B=2,
+    2x512 rows, P=7, with K2; three a step) and Fast R-CNN's pool of 1000
+    seeded precomputed proposals. Returns the rows by site."""
+    import torch
+
+    from jtsm_tpu_torch.modeling.poolers import assign_boxes_to_levels
+
+    rows = {"stage": {}, "step": {}, "fast": {}}
+    scales = [1.0 / s for s in LEVEL_STRIDES]
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = dtype_tag(torch.empty(0, dtype=dtype))
+        pyr = flagship_pyramid(gen, dtype=dtype)
+        for s in (1, 2):
+            boxes = stage_boxes[s].reshape(-1, 4).float().contiguous()
+            bidx = torch.zeros(boxes.shape[0], dtype=torch.int32, device=DEVICE)
+            rows["stage"][f"fwd stage{s} {tag}"] = check_and_time_fwd(
+                f"cascade stage {s} {tag} (decoded boxes)", pyr, scales, boxes, bidx,
+                assign_boxes_to_levels(boxes, 2, 5), 7, baseline, "cascade_dconv")
+        boxes = torch.as_tensor(fast_boxes.reshape(-1, 4), device=DEVICE).contiguous()
+        bidx = torch.zeros(boxes.shape[0], dtype=torch.int32, device=DEVICE)
+        rows["fast"][f"fwd {tag}"] = check_and_time_fwd(
+            f"Fast R-CNN {tag} (precomputed proposals)", pyr, scales, boxes, bidx,
+            assign_boxes_to_levels(boxes, 2, 5), 7, baseline, "cascade_dconv")
+        del pyr
+        pyr2 = flagship_pyramid(gen, dtype=dtype, batch=TRAIN_BATCH)
+        boxes = spread_boxes(gen, TRAIN_BATCH * 512)
+        bidx = torch.arange(TRAIN_BATCH, device=DEVICE, dtype=torch.int32).repeat_interleave(512)
+        levels = assign_boxes_to_levels(boxes, 2, 5)
+        site = f"cascade train stage {tag} B={TRAIN_BATCH} R={TRAIN_BATCH}x512"
+        rows["step"][f"fwd {tag}"] = check_and_time_fwd(site, pyr2, scales, boxes, bidx, levels, 7, baseline,
+                                                        "cascade_dconv")
+        rows["step"][f"bwd {tag}"] = check_and_time_bwd(site, pyr2, scales, boxes, bidx, levels, 7, gen, baseline,
+                                                        "cascade_dconv")
+        del pyr2
+    return rows
+
+
+def cascade_trainer(kernels, state):
+    """Phase 23(e): the cascade (bf16, as configured) through
+    ``DefaultTrainer`` on CASCADE_TRAINER_SCENES in-memory COCO scenes of
+    SCORE_HW, the yaml's train scales and the flip, IMS_PER_BATCH
+    TRAIN_BATCH, from 23(c)'s seeded weights: K1 and K2 four times an
+    iteration, every loss finite. Returns the launches and the run."""
+    import tempfile
+
+    from jtsm_tpu_torch.data.datasets.synthetic import register_synthetic_coco
+    from jtsm_tpu_torch.engine import DefaultTrainer
+
+    name = "chip_smoke_cascade_train"
+    register_synthetic_coco(name, num=CASCADE_TRAINER_SCENES, seed=5, image_hw=SCORE_HW)
+    cfg = train_family_cfg("cascade")
+    cfg.DATASETS.TRAIN = (name,)
+    cfg.SOLVER.IMS_PER_BATCH = TRAIN_BATCH
+    cfg.SOLVER.MAX_ITER = CASCADE_TRAINER_ITERS
+    cfg.SOLVER.CHECKPOINT_PERIOD = 10 * CASCADE_TRAINER_ITERS
+    cfg.TEST.EVAL_PERIOD = 0
+    cfg.MODEL.WEIGHTS = ""
+    cfg.SEED = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cascade_") as tmp:
+        cfg.OUTPUT_DIR = tmp
+        trainer, rec, got, peak = run_trainer(DefaultTrainer, cfg, kernels, state)
+        check_launches("cascade trainer", rec, dict(zip([k.name for k in kernels], TRAIN_K["cascade"])))
+        metrics = read_metrics(tmp)
+        if [m["iteration"] for m in metrics] != list(range(CASCADE_TRAINER_ITERS)) or not all(
+                math.isfinite(m[k]) for m in metrics[1:] for k in m if k.startswith("loss")):
+            raise AssertionError(f"cascade trainer: metrics.json {metrics[-1]}")
+        loader = trainer.data_loader
+        run = dict(s_iter=median(iteration_times(trainer, "time", 1)),
+                   data_time=median(iteration_times(trainer, "data_time", 1)), peak=peak,
+                   loader=loader.busy_seconds / loader.batches, launches=got)
+        log(f"[cascade_dconv] (e) Cascade Mask R-CNN R50-FPN {cfg.TPU.COMPUTE_DTYPE} through DefaultTrainer: "
+            f"{CASCADE_TRAINER_SCENES} in-memory COCO scenes {SCORE_HW[0]}x{SCORE_HW[1]}, short sides "
+            f"{tuple(cfg.INPUT.MIN_SIZE_TRAIN)} (max {cfg.INPUT.MAX_SIZE_TRAIN}) and the flip, IMS_PER_BATCH "
+            f"{TRAIN_BATCH}, {CASCADE_TRAINER_ITERS} iterations: s/iter median {run['s_iter']:.4f} data_time median "
+            f"{run['data_time']:.4f} loader s/batch {run['loader']:.4f} launches {got} peak_mem_gib {peak:.3f} "
+            f"| losses at the last iteration "
+            + ", ".join(f"{k}={v:.5g}" for k, v in metrics[-1].items() if k.startswith("loss")))
+        del trainer
+    return got, run
+
+
+def combined_requests(kernel):
+    """Phase 23(f): the two combined yamls at full width in bf16 (weights
+    from the JAX package's initialisers under ``torch.manual_seed(23)``: the
+    offset kernels zero, as detectron2 and the JAX package start them), a
+    warm-up request and one timed 800x1344 request each: K1 four times a
+    request (three stages and the masks), every output finite. Returns K1's
+    launches and the latencies."""
+    import numpy as np
+    import torch
+
+    from jtsm_tpu_torch.modeling import build_model
+
+    rng = np.random.default_rng(24)
+    h, w = FLAGSHIP_HW
+    launches, latency = 0, {}
+    for name in COMBINED_BUILDERS:
+        cfg = cascade_cfg(name)
+        torch.manual_seed(23)
+        t0 = time.perf_counter()
+        model = build_model(cfg)
+        build_s = time.perf_counter() - t0
+        params = sum(p.numel() for p in model.parameters())
+        req = request(rng, (h, w), (h, w), (h, w))
+        before = kernel.launches
+        model.inference(req)  # warm-up
+        torch.cuda.synchronize()
+        warm = kernel.launches - before
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = model.inference(req)
+        torch.cuda.synchronize()
+        latency[name] = (time.perf_counter() - t0) * 1e3
+        got = kernel.launches - before - warm
+        launches += kernel.launches - before
+        finite = all(torch.isfinite(v.float()).all() for v in out.values() if torch.is_tensor(v))
+        log(f"[cascade_dconv] (f) {name} ({cfg.TPU.COMPUTE_DTYPE}, {params / 1e6:.1f}M parameters, built in "
+            f"{build_s:.1f}s) {h}x{w}: request_ms={latency[name]:.3f} peak_gib "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} K1 launches {got} outputs "
+            + " ".join(f"{k}{tuple(v.shape)}" for k, v in out.items() if torch.is_tensor(v))
+            + f" valid {int(out['valid'].sum())}")
+        if got != 4 or warm != 4 or not finite or type(model.roi_heads).__name__ != "CascadeROIHeads":
+            raise AssertionError(f"cascade_dconv {name}: K1 launched {got} times (not 4) or outputs not finite")
+        del model, out
+    return launches, latency
+
+
+def phase_cascade_dconv(kernels, gen, baseline):
+    """Phase 23: Cascade Mask R-CNN, the dconv Mask R-CNN and Fast R-CNN.
+    (a) the three narrow models on the card against the CPU; (b) each at
+    800x1344 served by stage (the dconv model's deformable convolutions
+    timed); (d) K1 and K2 at the cascade's stage pools, its train step and
+    Fast R-CNN's proposals; (c) their train steps (median of steps 2-6, the
+    dconv step's deformable share); (e) the cascade through
+    ``DefaultTrainer``; (f) the X-152 and Panoptic FPN R-101 dconv cascades,
+    one bf16 request each. The plain ROIAlign raises on the card. Returns
+    the kernel rows by site, each kernel's launches on (b), (c), (e) and (f),
+    those by model, the latencies, the step times and the trainer's run."""
+    import numpy as np
+
+    from jtsm_tpu_torch.ops import roi_align
+
+    routed = roi_align.roi_align_multilevel_plain_autograd
+
+    def plain_on_cpu_only(features, scales, boxes, *a, **k):
+        if boxes.device.type != "cpu":
+            raise AssertionError("the plain ROIAlign ran on the card in phase 23")
+        return routed(features, scales, boxes, *a, **k)
+
+    roi_align.roi_align_multilevel_plain_autograd = plain_on_cpu_only
+    keep = {}
+    try:
+        cascade_narrow_checks(kernels)
+        serve_launches, latency = cascade_serve(kernels[0], keep)
+        fast = seeded_proposals(np.random.default_rng(25), [FLAGSHIP_HW],
+                                train_family_cfg("fast_rcnn").DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST)[0]
+        rows = cascade_kernel_rows(gen, baseline, keep, fast)
+        train_launches, steps, states = families_full_train(tuple(CASCADE_BUILDERS), kernels, "cascade_dconv", "c",
+                                                            after=dconv_step_share)
+        trainer_launches, trainer = cascade_trainer(kernels, states["cascade"])
+        combined_launches, combined_latency = combined_requests(kernels[0])
+    finally:
+        roi_align.roi_align_multilevel_plain_autograd = routed
+    names = [k.name for k in kernels]
+    by_model = {f: dict(train_launches[f]) for f in CASCADE_BUILDERS}
+    for f in CASCADE_BUILDERS:
+        by_model[f][names[0]] += serve_launches[f]
+    for n in names:
+        by_model["cascade"][n] += trainer_launches[n]
+    by_model["combined"] = {names[0]: combined_launches, names[1]: 0}
+    launches = {n: sum(m[n] for m in by_model.values()) for n in names}
+    return rows, launches, by_model, latency, combined_latency, steps, trainer
+
+
 def kernel_line(kernel, launches, rows, f32_errs):
     """One entry of the kernels JSON line. ``ms``, ``plain_ms`` and
     ``bound_ms`` keep their long-standing meaning: the float32 box and mask
@@ -6214,6 +6842,15 @@ def main(argv=None) -> int:
     c4_rows, c4_all, c4_sites, c4_lat, c4_steps, c4_trainer_run = run_phase(
         "c4_trident_fpn", phase_c4_trident_fpn, KERNELS, gen, baseline)
 
+    # 23. Cascade Mask R-CNN, the dconv Mask R-CNN and Fast R-CNN: the narrow
+    # models on the card against the CPU; the three served and trained at
+    # full width (the deformable convolutions' share timed); K1 and K2 at the
+    # cascade's stage pools, its train step and Fast R-CNN's proposals; the
+    # cascade through DefaultTrainer; the X-152 and Panoptic FPN R-101 dconv
+    # cascades served once each
+    cd_rows, cd_all, cd_sites, cd_lat, cd_combined_lat, cd_steps, cd_trainer_run = run_phase(
+        "cascade_dconv", phase_cascade_dconv, KERNELS, gen, baseline)
+
     # per served request K1 pools boxes (R=1000, P=7) and masks (R=100,
     # P=14); per train step K1 and K2 pool and unpool boxes (R=1024, P=7)
     # and masks (R=256, P=14); per JTSM request K1 pools masks on one level
@@ -6231,11 +6868,11 @@ def main(argv=None) -> int:
                    + jtsm_launches + jt_launches[KERNEL.name] + js_launches + tta_launches + tc_launches[KERNEL.name]
                    + fam_launches + wsod_launches[KERNEL.name] + dense_launches[KERNEL.name]
                    + ft_launches[KERNEL.name] + ts_launches[KERNEL.name] + zoo_launches_[KERNEL.name]
-                   + csc_launches[KERNEL.name] + c4_all[KERNEL.name])
+                   + csc_launches[KERNEL.name] + c4_all[KERNEL.name] + cd_all[KERNEL.name])
     k2_launches = (sum(t[0][BWD_KERNEL.name] for t in train.values()) + jt_launches[BWD_KERNEL.name]
                    + tc_launches[BWD_KERNEL.name] + wsod_launches[BWD_KERNEL.name] + dense_launches[BWD_KERNEL.name]
                    + ft_launches[BWD_KERNEL.name] + ts_launches[BWD_KERNEL.name] + zoo_launches_[BWD_KERNEL.name]
-                   + csc_launches[BWD_KERNEL.name] + c4_all[BWD_KERNEL.name])
+                   + csc_launches[BWD_KERNEL.name] + c4_all[BWD_KERNEL.name] + cd_all[BWD_KERNEL.name])
     bwd = {k[4:]: v for k, v in tres.items() if k.startswith("bwd ")}
     kernels = [
         kernel_line(KERNEL, k1_launches, res, [r["err"] for n, r in res.items() if "f32" in n]),
@@ -6446,6 +7083,25 @@ def main(argv=None) -> int:
         for site in ("c4", "trd", "wsr_fpn"):
             line[f"{site}_launches"] = c4_sites[site][line["name"]]
         line["c4_trident_fpn_launches"] = c4_all[line["name"]]
+    # the rows of phase 23(d) over an 800x1344 pyramid (C=256, P=7): the
+    # cascade's stage-1 and stage-2 pools (R=1000 decoded boxes), its train
+    # step's box pool (B=2, 2x512, K1 and K2; three a step) and Fast R-CNN's
+    # 1000 precomputed proposals. cascade_launches, dconv_launches and
+    # fast_rcnn_launches: each model's launches on phase 23's main paths
+    # (serve, train and, for the cascade, the trainer), combined_launches
+    # K1's under 23(f), cascade_dconv_launches all of them
+    for line, kind in ((kernels[0], "fwd"), (kernels[1], "bwd")):
+        for site, prefix in (("stage", "cascade"), ("step", "cascade_step"), ("fast", "fast_rcnn")):
+            for key, row in cd_rows[site].items():
+                if not key.startswith(kind + " "):
+                    continue
+                tag = f"{prefix}_" + key[len(kind) + 1:].replace(" ", "_")
+                line.update({f"{tag}_max_abs_err": row["err"], f"{tag}_ms": row["times"]["new"]["ms"],
+                             f"{tag}_device_ms": row["times"]["new"]["device_ms"], f"{tag}_plain_ms": row["plain_ms"],
+                             f"{tag}_bound_ms": row["bound_ms"], f"{tag}_bound_by": row["bound_by"]})
+        for site in ("cascade", "dconv", "fast_rcnn", "combined"):
+            line[f"{site}_launches"] = cd_sites[site][line["name"]]
+        line["cascade_dconv_launches"] = cd_all[line["name"]]
     # the trainers' launches (phase 14): Mask R-CNN at NUM_WORKERS 0 and 4,
     # the resumed run, the JTSM flagship, the gate's kernel run
     for line in kernels:
@@ -6499,6 +7155,12 @@ def main(argv=None) -> int:
         + "; train step median ms " + " ".join(f"{name} {DTYPE_NAMES[d]}={ms:.3f}" for (name, d), ms in c4_steps.items())
         + f"; C4 trainer s/iter {c4_trainer_run['s_iter']:.4f} data_time {c4_trainer_run['data_time']:.4f} peak_gib "
         f"{c4_trainer_run['peak']:.3f}; launches {c4_all} by model {c4_sites} | {card}")
+    log("[cascade_dconv] request mean ms " + " ".join(
+        f"{name} {DTYPE_NAMES[d]}={ms:.3f}" for (name, d), ms in cd_lat.items())
+        + "; combined yamls bf16 request ms " + " ".join(f"{name}={ms:.3f};" for name, ms in cd_combined_lat.items())
+        + " train step median ms " + " ".join(f"{name} {DTYPE_NAMES[d]}={ms:.3f}" for (name, d), ms in cd_steps.items())
+        + f"; cascade trainer s/iter {cd_trainer_run['s_iter']:.4f} data_time {cd_trainer_run['data_time']:.4f} "
+        f"peak_gib {cd_trainer_run['peak']:.3f}; launches {cd_all} by model {cd_sites} | {card}")
     log(f"[done] {time.perf_counter() - t_run:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -23,7 +23,11 @@ inverts the JAX package's ``checkpoint/c2_model_loading.py:231-285``
   ``weight``, a group norm's ``norm/GroupNorm_0/scale``, a layer norm's
   ``norm/LayerNorm_0/scale`` and a batch norm's ``norm/scale`` ->
   ``norm.weight``, a batch norm's ``batch_stats`` ``mean`` and ``var`` ->
-  ``norm.running_mean`` and ``norm.running_var``);
+  ``norm.running_mean`` and ``norm.running_var``, the deformable block's
+  ``conv2/kernel`` (K, K, I, O) -> ``conv2.weight`` and its ``conv2_norm``
+  -> ``conv2.norm``, the cascade's ``box_head_stage{s}`` and
+  ``box_predictor_stage{s}`` -> ``box_head.{s}`` and ``box_predictor.{s}``,
+  detectron2's ``nn.ModuleList`` keys);
   the WSL modules keep their flax names: VGG16's ``backbone.conv1_1`` to
   ``backbone.conv5_3`` (an ``MRRPConv``'s one shared kernel among them),
   the ASPP head of WSJDS (``roi_heads.sem_seg_head.aspp.conv1x1``, ...,
@@ -78,8 +82,13 @@ def _d2_module_path(path: Tuple[str, ...]) -> list:
     for p in path:
         m = re.match(r"^(res\d)_block(\d+)$", p)
         tower = re.match(r"^(cls_subnet|bbox_subnet)(\d+)$", p)
+        stage = re.match(r"^(box_head|box_predictor)_stage(\d+)$", p)
         if m:
             out.extend(m.groups())
+        elif stage:
+            out.extend(stage.groups())
+        elif p == "conv2_norm":
+            out.extend(["conv2", "norm"])
         elif tower and out == ["head"]:
             out.extend([tower.group(1), str(2 * int(tower.group(2)))])
         elif p == "head" and out in (["proposal_generator"], ["proposal_generator", "rpn"]):

@@ -707,3 +707,127 @@ def faster_rcnn_R_50_C4_voc_cfg(narrow: bool = False) -> CN:
     cfg.SOLVER.MAX_ITER = 18000
     cfg.SOLVER.WARMUP_ITERS = 100
     return c4_narrow(cfg) if narrow else cfg
+
+
+def cascade_narrow(cfg: CN) -> CN:
+    """The narrow form of an FPN detector of the cascade slice, after
+    ``tests/modeling/test_cascade_dcn_tta.py::_cascade_cfg``: the gates'
+    narrow bottleneck R50 (32 channels to the FPN, so that the deformable
+    stages stay bottlenecks), no weights and every stage training, 32 and 16
+    proposals before and after NMS in training and serving, anchors of 16 to
+    256 px, 3 classes, 8 ROI slots an image, a 32-wide single-fc box head and
+    a 32-wide single-conv mask head, scenes at short side 128 in two
+    buckets, float32, the gates' solver and no expected results."""
+    cfg = _narrow_gate(cfg, "", [])
+    m = cfg.MODEL
+    m.WEIGHTS = ""
+    _rpn_gate_topk(cfg, (32, 16), (32, 16))
+    m.ANCHOR_GENERATOR.SIZES = [[16], [32], [64], [128], [256]]
+    m.ROI_HEADS.NUM_CLASSES = 3
+    m.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 8
+    m.ROI_BOX_HEAD.NUM_FC = 1
+    m.ROI_BOX_HEAD.FC_DIM = 32
+    m.ROI_BOX_HEAD.CONV_DIM = 32
+    m.ROI_MASK_HEAD.NUM_CONV = 1
+    m.ROI_MASK_HEAD.CONV_DIM = 32
+    cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TRAIN = 16
+    cfg.DATASETS.PRECOMPUTED_PROPOSAL_TOPK_TEST = 16
+    cfg.TEST.AUG.ENABLED = False
+    cfg.TEST.EVAL_PERIOD = 0
+    return cfg
+
+
+def cascade_mask_rcnn_R_50_FPN_cfg(narrow: bool = False) -> CN:
+    """``configs/Misc/cascade_mask_rcnn_R_50_FPN_1x.yaml`` over
+    ``Base-RCNN-FPN.yaml``, set in Python: ``mask_rcnn_R_50_FPN_cfg`` with
+    ``CascadeROIHeads`` (class-agnostic regression) and 2000 proposals in
+    training. ``narrow``: its narrow form (``cascade_narrow``)."""
+    cfg = mask_rcnn_R_50_FPN_cfg()
+    cfg.MODEL.ROI_HEADS.NAME = "CascadeROIHeads"
+    cfg.MODEL.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG = True
+    cfg.MODEL.RPN.POST_NMS_TOPK_TRAIN = 2000
+    return cascade_narrow(cfg) if narrow else cfg
+
+
+def mask_rcnn_R_50_FPN_dconv_cfg(narrow: bool = False) -> CN:
+    """``configs/Misc/mask_rcnn_R_50_FPN_1x_dconv_c3-c5.yaml``, set in
+    Python: ``mask_rcnn_R_50_FPN_cfg`` with deformable convolutions (DCNv1)
+    in res3-res5. ``narrow``: its narrow form (``cascade_narrow``)."""
+    cfg = mask_rcnn_R_50_FPN_cfg()
+    cfg.MODEL.RESNETS.DEFORM_ON_PER_STAGE = [False, True, True, True]
+    cfg.MODEL.RESNETS.DEFORM_MODULATED = False
+    return cascade_narrow(cfg) if narrow else cfg
+
+
+def fast_rcnn_R_50_FPN_cfg(narrow: bool = False) -> CN:
+    """``configs/COCO-Detection/fast_rcnn_R_50_FPN_1x.yaml``, set in Python:
+    the R-50 FPN box detector on precomputed proposals (no RPN: the
+    DATASETS.PROPOSAL_FILES_* pickles, PRECOMPUTED_PROPOSAL_TOPK_* of them
+    an image). ``narrow``: its narrow form (``cascade_narrow``)."""
+    cfg = mask_rcnn_R_50_FPN_cfg()
+    m = cfg.MODEL
+    m.MASK_ON = False
+    m.LOAD_PROPOSALS = True
+    m.PROPOSAL_GENERATOR.NAME = "PrecomputedProposals"
+    cfg.DATASETS.PROPOSAL_FILES_TRAIN = (
+        "detectron2://COCO-Detection/rpn_R_50_FPN_1x/137258492/coco_2017_train_box_proposals_21bc3a.pkl",)
+    cfg.DATASETS.PROPOSAL_FILES_TEST = (
+        "detectron2://COCO-Detection/rpn_R_50_FPN_1x/137258492/coco_2017_val_box_proposals_ee0dad.pkl",)
+    cfg.DATALOADER.NUM_WORKERS = 2
+    return cascade_narrow(cfg) if narrow else cfg
+
+
+def cascade_mask_rcnn_X_152_32x8d_FPN_IN5k_gn_dconv_cfg() -> CN:
+    """``configs/Misc/cascade_mask_rcnn_X_152_32x8d_FPN_IN5k_gn_dconv.yaml``,
+    set in Python: the cascade on ResNeXt-152 32x8d (the stride on the 3x3,
+    GN) with deformable convolutions in res3-res5 (dense, as the JAX
+    package builds them, ``DeformBottleneckBlock``), a GN FPN, a 4-conv GN
+    box head and an 8-conv GN mask head."""
+    cfg = cascade_mask_rcnn_R_50_FPN_cfg()
+    m = cfg.MODEL
+    m.WEIGHTS = "detectron2://ImageNetPretrained/FAIR/X-152-32x8d-IN5k.pkl"
+    r = m.RESNETS
+    r.STRIDE_IN_1X1 = False
+    r.NUM_GROUPS = 32
+    r.WIDTH_PER_GROUP = 8
+    r.DEPTH = 152
+    r.DEFORM_ON_PER_STAGE = [False, True, True, True]
+    r.NORM = "GN"
+    m.FPN.NORM = "GN"
+    m.ROI_BOX_HEAD.NUM_CONV = 4
+    m.ROI_BOX_HEAD.NUM_FC = 1
+    m.ROI_BOX_HEAD.NORM = "GN"
+    m.ROI_MASK_HEAD.NUM_CONV = 8
+    m.ROI_MASK_HEAD.NORM = "GN"
+    s = cfg.SOLVER
+    s.IMS_PER_BATCH = 128
+    s.STEPS = (35000, 45000)
+    s.MAX_ITER = 50000
+    s.BASE_LR = 0.16
+    cfg.INPUT.MIN_SIZE_TRAIN = (640, 864)
+    cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING = "range"
+    cfg.INPUT.MAX_SIZE_TRAIN = 1440
+    cfg.TEST.EVAL_PERIOD = 2500
+    return cfg
+
+
+def panoptic_fpn_R_101_dconv_cascade_gn_cfg() -> CN:
+    """``configs/Misc/panoptic_fpn_R_101_dconv_cascade_gn_3x.yaml``, set in
+    Python: ``panoptic_fpn_R_50_cfg`` on R-101 with deformable convolutions
+    in res3-res5, the cascade (class-agnostic regression, 2000 proposals in
+    training) and a GN mask head."""
+    cfg = panoptic_fpn_R_50_cfg()
+    m = cfg.MODEL
+    m.WEIGHTS = "detectron2://ImageNetPretrained/MSRA/R-101.pkl"
+    m.RESNETS.DEPTH = 101
+    m.RESNETS.DEFORM_ON_PER_STAGE = [False, True, True, True]
+    m.ROI_HEADS.NAME = "CascadeROIHeads"
+    m.ROI_BOX_HEAD.CLS_AGNOSTIC_BBOX_REG = True
+    m.ROI_MASK_HEAD.NORM = "GN"
+    m.RPN.POST_NMS_TOPK_TRAIN = 2000
+    s = cfg.SOLVER
+    s.STEPS = (105000, 125000)
+    s.MAX_ITER = 135000
+    s.IMS_PER_BATCH = 32
+    s.BASE_LR = 0.04
+    return cfg

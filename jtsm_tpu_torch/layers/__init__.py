@@ -8,6 +8,7 @@ from .batch_norm import (
     batch_statistics,
     get_norm,
 )
+from .deform_conv import DeformConv, ModulatedDeformConv, deform_conv2d
 from .shape_spec import ShapeSpec
 from .wrappers import (
     Conv2d,
@@ -24,6 +25,9 @@ from .wrappers import (
 __all__ = [
     "ASPP",
     "Conv2d",
+    "DeformConv",
+    "ModulatedDeformConv",
+    "deform_conv2d",
     "ConvTranspose2d",
     "FrozenBatchNorm2d",
     "LayerNormCF",

@@ -18,7 +18,8 @@ blocks (R18/R34) take the stride but not the dilation, as the JAX package's
 ``BasicBlock`` is built (``backbone/resnet.py:337-355``). Both blocks take
 a call-time ``dilation`` that replaces their own on the same weights (the
 multi-rate trunk of ``wsl/modeling/resnet_wsl.py`` runs res5 at three).
-Deformable blocks wait for a later slice.
+DEFORM_ON_PER_STAGE puts ``DeformBottleneckBlock`` in a bottleneck stage
+(basic blocks ignore it, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import Conv2d, ShapeSpec, compute_dtype, get_norm
+from ...layers import Conv2d, DeformConv, ModulatedDeformConv, ShapeSpec, compute_dtype, get_norm
 
 _DEPTH_TO_BLOCKS = {
     18: [2, 2, 2, 2],
@@ -131,6 +132,86 @@ class BottleneckBlock(nn.Module):
         return F.relu(out + shortcut)
 
 
+def _zeros(weight: torch.Tensor, fan_in: int, fan_out: int) -> None:
+    weight.zero_()
+
+
+class DeformBottleneckBlock(nn.Module):
+    """The bottleneck with a deformable 3x3 ``conv2`` (reference
+    resnet.py:214), as the JAX package builds it (``backbone/resnet.py:174-260``):
+
+    * ``conv2_offset``, a 3x3 convolution with bias and a zero kernel at
+      ``stride_3x3`` on ``conv1``'s output, gives 18 offsets (27 with the
+      DCNv2 mask's 9 logits after them);
+    * ``conv2`` (``DeformConv`` or ``ModulatedDeformConv``, its norm
+      ``conv2.norm``, the JAX package's ``conv2_norm``) runs at stride 1 on
+      ``conv1``'s output subsampled by ``stride_3x3`` (``[::s, ::s]``;
+      detectron2 samples the whole map at stride s), and is dense: the JAX
+      ``DeformConv`` has no groups, so NUM_GROUPS does not reach it;
+    * under DEFORM_NUM_GROUPS g > 1 ``conv2_offset`` has g times the
+      channels and DCNv2 reads the first 27 of them (the JAX package slices
+      them so); DCNv1 with g > 1 fails in the JAX package (its offsets do
+      not reshape to 9 taps) and raises here at build.
+
+    The deformable ``conv2`` returns float32 under bfloat16 compute, as in
+    the JAX package (``layers.deform_conv``); its norm and ReLU run in it and
+    ``conv3`` casts back."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        bottleneck_channels: int,
+        stride: int = 1,
+        num_groups: int = 1,
+        norm: str = "FrozenBN",
+        stride_in_1x1: bool = True,
+        compute_dtype: torch.dtype = torch.float32,
+        dilation: int = 1,
+        deform_modulated: bool = False,
+        deform_num_groups: int = 1,
+    ):
+        super().__init__()
+        if deform_num_groups > 1 and not deform_modulated:
+            raise ValueError(
+                f"DEFORM_NUM_GROUPS {deform_num_groups} without DEFORM_MODULATED: the JAX package reads the "
+                f"{18 * deform_num_groups} offsets as one group's 9 (dy, dx) pairs and fails")
+        stride_1x1, self.stride_3x3 = (stride, 1) if stride_in_1x1 else (1, stride)
+        self.shortcut = _shortcut(in_channels, out_channels, stride, norm, compute_dtype)
+        self.conv1 = Conv2d(
+            in_channels, bottleneck_channels, kernel_size=1, stride=stride_1x1, bias=False,
+            norm=get_norm(norm, bottleneck_channels), activation=F.relu, compute_dtype=compute_dtype,
+        )
+        self.conv2_offset = Conv2d(
+            bottleneck_channels, (27 if deform_modulated else 18) * deform_num_groups, kernel_size=3,
+            stride=self.stride_3x3, padding=dilation, dilation=dilation, compute_dtype=compute_dtype,
+            kernel_init=_zeros,
+        )
+        deform = ModulatedDeformConv if deform_modulated else DeformConv
+        self.conv2 = deform(
+            bottleneck_channels, bottleneck_channels, kernel_size=3, dilation=dilation,
+            norm=get_norm(norm, bottleneck_channels), compute_dtype=compute_dtype,
+        )
+        self.conv3 = Conv2d(
+            bottleneck_channels, out_channels, kernel_size=1, bias=False,
+            norm=get_norm(norm, out_channels), compute_dtype=compute_dtype,
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv1(x)
+        offsets = self.conv2_offset(out)
+        s = self.stride_3x3
+        if s > 1:
+            out = out[:, :, ::s, ::s]
+        if self.conv2.modulated:
+            out = self.conv2(out, offsets[:, :18], offsets[:, 18:27])
+        else:
+            out = self.conv2(out, offsets)
+        out = self.conv3(F.relu(out))
+        shortcut = x if self.shortcut is None else self.shortcut(x)
+        return F.relu(out + shortcut)
+
+
 class ResNet(nn.Module):
     def __init__(
         self,
@@ -146,6 +227,9 @@ class ResNet(nn.Module):
         compute_dtype: torch.dtype = torch.float32,
         res5_dilation: int = 1,
         stem: nn.Module | None = None,
+        deform_on_per_stage: Sequence[bool] = (False, False, False, False),
+        deform_modulated: bool = False,
+        deform_num_groups: int = 1,
     ):
         super().__init__()
         self.freeze_at = freeze_at
@@ -174,6 +258,11 @@ class ResNet(nn.Module):
                 stride = first_stride if b == 0 else 1
                 if is_basic:
                     block = BasicBlock(in_channels, out_channels, stride, norm, compute_dtype)
+                elif idx < len(deform_on_per_stage) and deform_on_per_stage[idx]:
+                    block = DeformBottleneckBlock(
+                        in_channels, out_channels, bottleneck_channels, stride, num_groups, norm,
+                        stride_in_1x1, compute_dtype, dilation, deform_modulated, deform_num_groups,
+                    )
                 else:
                     block = BottleneckBlock(
                         in_channels, out_channels, bottleneck_channels, stride,
@@ -216,8 +305,6 @@ def build_resnet_backbone(cfg, stem: nn.Module | None = None, cls: type = ResNet
     WSL backbones' 2x2 pool), ``cls`` the class (the multi-rate trunk), and
     ``overrides`` replace or add constructor arguments."""
     r = cfg.MODEL.RESNETS
-    if any(r.DEFORM_ON_PER_STAGE):
-        raise NotImplementedError("deformable ResNets are not ported yet")
     args = dict(
         depth=r.DEPTH,
         stem_out_channels=r.STEM_OUT_CHANNELS,
@@ -231,5 +318,8 @@ def build_resnet_backbone(cfg, stem: nn.Module | None = None, cls: type = ResNet
         compute_dtype=compute_dtype(cfg),
         res5_dilation=r.RES5_DILATION,
         stem=stem,
+        deform_on_per_stage=tuple(r.DEFORM_ON_PER_STAGE),
+        deform_modulated=r.DEFORM_MODULATED,
+        deform_num_groups=r.DEFORM_NUM_GROUPS,
     )
     return cls(**{**args, **overrides})

@@ -52,7 +52,7 @@ class PanopticFPN(GeneralizedRCNN):
         with exact_float32(self.compute_dtype == torch.float32):
             features, image_sizes = self._features(batch)
             sem_logits = self.sem_seg_head(features)
-            proposals, proposal_scores, _ = self.proposal_generator(image_sizes, features)
+            proposals, proposal_scores, _ = self.propose(batch, image_sizes, features)
             detections = self.roi_heads(features, proposals, proposal_scores, image_sizes)
             out = detector_postprocess_batched(detections, image_sizes, self.orig_sizes(batch, image_sizes))
             out.update(upsampled_sem_seg(sem_logits, batch["image"].shape[1:3]))
@@ -64,7 +64,8 @@ class PanopticFPN(GeneralizedRCNN):
         features, image_sizes = self._features(batch)
         targets = self.targets(batch)
         losses = self.sem_seg_head.losses(self.sem_seg_head(features), targets["gt_sem_seg"])
-        rpn_losses, roi_losses = self.instance_losses(features, image_sizes, targets, generator)
+        rpn_losses, roi_losses = self.instance_losses(features, image_sizes, targets, generator,
+                                                      self.batch_proposals(batch))
         losses.update({k: v * self.instance_loss_weight for k, v in roi_losses.items()})
         losses.update(rpn_losses)
         return losses

@@ -19,7 +19,10 @@ KEYPOINT_ON ``keypoints`` (B, D, K, 4) (x, y, logit, probability); given
 (:meth:`GeneralizedRCNN.inference`). In train mode (``model.train()``): the
 loss dict ``loss_rpn_cls``, ``loss_rpn_loc``, ``loss_cls``,
 ``loss_box_reg`` and, with MASK_ON, ``loss_mask``, with KEYPOINT_ON
-``loss_keypoint``. ``inference`` serves as in eval mode in either mode
+``loss_keypoint`` (under CascadeROIHeads ``loss_cls_stage{s}`` and
+``loss_box_reg_stage{s}``). Under PrecomputedProposals (Fast R-CNN) there is
+no RPN: the batch's ``proposals`` (B, K, 4) and ``proposal_scores`` (B, K,
+-inf in unused slots) go to the ROI heads, and there are no RPN losses. ``inference`` serves as in eval mode in either mode
 (``serving``). Trainable batch norms normalise with the batch's statistics
 only under ``layers.batch_statistics`` (the train step, PreciseBN); a
 train-mode forward outside it takes the running statistics, as the JAX
@@ -41,7 +44,7 @@ with TF32 off for matrix products and cuDNN (``exact_float32``).
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -148,7 +151,7 @@ class GeneralizedRCNN(BackboneModel):
             features, image_sizes = self._features(batch)
             if "detected_boxes" in batch:
                 return self.roi_heads.forward_with_given_boxes(features, self.given_detections(batch))
-            proposals, proposal_scores, _ = self.proposal_generator(image_sizes, features)
+            proposals, proposal_scores, _ = self.propose(batch, image_sizes, features)
             detections = self.roi_heads(features, proposals, proposal_scores, image_sizes)
             return detector_postprocess_batched(detections, image_sizes, self.orig_sizes(batch, image_sizes))
 
@@ -162,15 +165,46 @@ class GeneralizedRCNN(BackboneModel):
         if not self.training:
             return self.inference(batch)
         features, image_sizes = self._features(batch)
-        rpn_losses, roi_losses = self.instance_losses(features, image_sizes, self.targets(batch), generator)
+        rpn_losses, roi_losses = self.instance_losses(features, image_sizes, self.targets(batch), generator,
+                                                      self.batch_proposals(batch))
         return {**rpn_losses, **roi_losses}
 
-    def instance_losses(self, features, image_sizes, targets, generator=None):
+    def batch_proposals(self, batch: Dict) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """Without a proposal generator (PrecomputedProposals), the batch's
+        ``proposals`` (B, K, 4) and ``proposal_scores`` (B, K), -inf in
+        unused slots, on the model's device (JAX ``rcnn.py:93-104``); else
+        None."""
+        if self.proposal_generator is not None:
+            return None
+        if "proposals" not in batch:
+            raise ValueError("PrecomputedProposals: the batch has no proposals (MODEL.LOAD_PROPOSALS and "
+                             "DATASETS.PROPOSAL_FILES_* put them there)")
+        dev = self.device
+        return (torch.as_tensor(batch["proposals"], dtype=torch.float32, device=dev),
+                torch.as_tensor(batch["proposal_scores"], dtype=torch.float32, device=dev))
+
+    def propose(self, batch: Dict, image_sizes: torch.Tensor, features: Dict[str, torch.Tensor]):
+        """Serving's proposals, their scores and (empty) losses: the RPN's,
+        or the batch's (``batch_proposals``)."""
+        given = self.batch_proposals(batch)
+        if given is not None:
+            return (*given, {})
+        return self.proposal_generator(image_sizes, features)
+
+    def instance_losses(self, features, image_sizes, targets, generator=None, proposals=None):
         """The RPN's losses and the ROI heads' losses of one train step on
-        ``features``, sampling with draws from ``generator``."""
-        proposals, proposal_scores, rpn_losses = self.proposal_generator(
-            image_sizes, features, targets["gt_boxes"], targets["gt_valid"], generator
-        )
+        ``features``, sampling with draws from ``generator``. ``proposals``
+        (boxes and scores, ``batch_proposals``) replace the RPN's, which
+        a model without a proposal generator must be given; it has no RPN
+        losses."""
+        if proposals is not None:
+            (proposals, proposal_scores), rpn_losses = proposals, {}
+        elif self.proposal_generator is None:
+            raise ValueError("a model without a proposal generator trains on the batch's proposals")
+        else:
+            proposals, proposal_scores, rpn_losses = self.proposal_generator(
+                image_sizes, features, targets["gt_boxes"], targets["gt_valid"], generator
+            )
         roi_losses = self.roi_heads(features, proposals, proposal_scores, image_sizes, targets, generator)
         return rpn_losses, roi_losses
 

@@ -200,8 +200,12 @@ class RPN(nn.Module):
         }
 
 
-def build_proposal_generator(cfg, input_shape: Dict[str, ShapeSpec]) -> RPN:
+def build_proposal_generator(cfg, input_shape: Dict[str, ShapeSpec]) -> Optional[RPN]:
+    """The RPN, or None for ``PrecomputedProposals``: the model then takes
+    the batch's ``proposals`` (JAX ``rpn.py:359-365``)."""
     name = cfg.MODEL.PROPOSAL_GENERATOR.NAME
+    if name == "PrecomputedProposals":
+        return None
     if name != "RPN":
         raise NotImplementedError(f"proposal generator {name!r} is not ported yet")
     return RPN(cfg, input_shape)

@@ -166,19 +166,22 @@ class StandardROIHeads(nn.Module):
             detections["keypoints"] = keypoint_rcnn_inference(heatmaps, boxes).reshape(b, d, -1, 4)
         return detections
 
-    def sample(self, proposals, proposal_scores, targets, generator) -> Dict[str, torch.Tensor]:
+    def sample(self, proposals, proposal_scores, targets, generator, matcher: Optional[Matcher] = None,
+               append_gt: Optional[bool] = None) -> Dict[str, torch.Tensor]:
         """``BATCH_SIZE_PER_IMAGE`` slots an image (``sample_proposals``),
         with the positive, negative and slot-order draws from
-        ``generator``."""
+        ``generator``; ``matcher`` and ``append_gt`` (a cascade stage's)
+        default to the heads' own."""
+        matcher = self.proposal_matcher if matcher is None else matcher
+        append_gt = self.proposal_append_gt if append_gt is None else append_gt
         b, k = proposals.shape[:2]
-        n = k + targets["gt_boxes"].shape[1] if self.proposal_append_gt else k
+        n = k + targets["gt_boxes"].shape[1] if append_gt else k
         u_pos, u_neg, u_tie = (torch.rand((b, n), generator=generator, device=proposals.device) for _ in range(3))
         return sample_proposals(
             proposals, proposal_scores, targets["gt_boxes"], targets["gt_classes"],
             targets["gt_valid"], u_pos, u_neg, u_tie,
             num_classes=self.num_classes, batch_size_per_image=self.batch_size_per_image,
-            positive_fraction=self.positive_fraction, matcher=self.proposal_matcher,
-            append_gt=self.proposal_append_gt,
+            positive_fraction=self.positive_fraction, matcher=matcher, append_gt=append_gt,
         )
 
     def _forward_train(self, features, proposals, proposal_scores, targets, generator):
@@ -263,11 +266,16 @@ class StandardROIHeads(nn.Module):
 
 
 def build_roi_heads(cfg, input_shape: Dict[str, ShapeSpec]) -> nn.Module:
-    """The ROI heads named by ROI_HEADS.NAME: ``StandardROIHeads``, the C4
-    ``Res5ROIHeads``, or its WSL name ``WSRes5ROIHeads``."""
+    """The ROI heads named by ROI_HEADS.NAME: ``StandardROIHeads``,
+    ``CascadeROIHeads``, the C4 ``Res5ROIHeads``, or its WSL name
+    ``WSRes5ROIHeads``."""
     name = cfg.MODEL.ROI_HEADS.NAME
     if name == "StandardROIHeads":
         return StandardROIHeads(cfg, input_shape)
+    if name == "CascadeROIHeads":
+        from .cascade_rcnn import CascadeROIHeads
+
+        return CascadeROIHeads(cfg, input_shape)
     if name == "Res5ROIHeads":
         from .res5_roi_heads import Res5ROIHeads
 

@@ -37,10 +37,11 @@ class WSLStem(nn.Module):
 
 def build_wsl_resnet_backbone(cfg, **overrides) -> ResNet:
     """The ResNet of MODEL.RESNETS on the WSL stem; ``overrides`` go to
-    ``build_resnet_backbone``."""
+    ``build_resnet_backbone``. DEFORM_ON_PER_STAGE is not read, as the JAX
+    package's ``WSLResNet`` builders do not read it."""
     r = cfg.MODEL.RESNETS
     stem = WSLStem(3, r.STEM_OUT_CHANNELS, r.NORM, compute_dtype(cfg))
-    return build_resnet_backbone(cfg, stem=stem, **overrides)
+    return build_resnet_backbone(cfg, stem=stem, **{"deform_on_per_stage": (), **overrides})
 
 
 def build_wsl_resnet_v2_backbone(cfg) -> ResNet:

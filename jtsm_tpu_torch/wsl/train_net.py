@@ -9,8 +9,10 @@ Training runs ``Trainer``: ``engine.DefaultTrainer`` with the WSL train
 loader (MCG proposals with their superpixels, ``build_wsl_train_loader``)
 and WSL.ITER_SIZE mini-batches to an update (the mean of their
 gradients, as the JAX package's ``optax.MultiSteps``; SOLVER.MAX_ITER
-counts mini-batches, the schedule counts updates). The CPG batch
-transform of the CSC heads is not ported (those heads are not).
+counts mini-batches, the schedule counts updates). Under the CSC heads
+its ``SimpleTrainer.batch_transform`` is the class-peak-gradient pass
+(``wsl.modeling.wsjds.make_cpg_batch_transform``), which adds each batch's
+``cpg`` maps inside ``data_time``, as the JAX package's trainer does.
 
 ``--eval-only`` builds the model on the card (or ``--device``) from the
 WSL config, loads MODEL.WEIGHTS (or with ``--resume`` the newest

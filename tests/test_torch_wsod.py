@@ -309,13 +309,11 @@ def test_wsr_solver_doubles_the_bias_rate_without_decay():
 
 
 def test_unported_pieces_raise():
-    """The pieces that stay unported say so at build: the cascade's heads
-    and precomputed proposals under ``GeneralizedRCNN``, and an MRRP stage
-    plain1 of the multi-rate VGG16."""
+    """The pieces that stay unported say so at build: an RPN head of several
+    convolutions (MODEL.RPN.CONV_DIMS) and an MRRP stage plain1 of the
+    multi-rate VGG16."""
     for builder, opts, what in (
-            (faster_rcnn_R_50_C4_cfg, ["MODEL.ROI_HEADS.NAME", "CascadeROIHeads"], "CascadeROIHeads"),
-            (faster_rcnn_R_50_C4_cfg, ["MODEL.PROPOSAL_GENERATOR.NAME", "PrecomputedProposals"],
-             "PrecomputedProposals"),
+            (faster_rcnn_R_50_C4_cfg, ["MODEL.RPN.CONV_DIMS", "[64, 64]"], "RPN head of several convs"),
             (uwsod_V_16_DC5_cfg, ["MODEL.MRRP.MRRP_STAGE", "plain1"], "plain1")):
         cfg = builder(narrow=True)
         cfg.merge_from_list(opts)
