@@ -126,10 +126,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    detections matched, boxes within 1e-3 px, scores and re-run mask
    probabilities within 1e-4, bbox AP within 0.02;
 14. train_cli: the port trains as its command line does. (a) Mask R-CNN
-   R50-FPN at full width in bfloat16 (random weights from phase 4's seed;
-   from scratch the JAX package's initialisers, which the port uses,
-   diverge within 20 iterations without a pretrained backbone or a clip)
-   through
+   R50-FPN at full width in bfloat16 (phase 4's seed, the FrozenBN
+   statistics calibrated by ``family_train_state``: from the raw seeded
+   backbone the bf16 losses can reach NaN within 20 iterations) through
    ``engine.DefaultTrainer`` built from the config object, on 16
    in-memory synthetic COCO scenes of 480x640 with polygon masks, the
    yaml's augmentation (short side chosen from 640-800, max 1333, the
@@ -347,8 +346,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
    times a step), the dconv step's deformable share; (e) the cascade
    through ``DefaultTrainer`` (K1 and K2 4 times an iteration); (f) the
    X-152 32x8d GN dconv cascade and the Panoptic FPN R-101 dconv cascade
-   GN, one bf16 request each. Any phase that fails logs ``[<phase>] FAILED: <type>: <message>`` and its
-   traceback, and the run ends there with a non-zero exit.
+   GN, one bf16 request each;
+24. lvis_city: Mask R-CNN R50-FPN on LVIS v1 (1203 classes,
+   SCORE_THRESH_TEST 0.0001, 300 detections) and on Cityscapes (8 classes,
+   1024x2048 images, the added 1024x2048 bucket), seeded weights. (a) LVIS
+   serves 4 800x1344 requests in each of bf16 and f32, in turns, K1 twice a
+   request, the stage split (``box``, the ``sort`` of the R*K candidates to
+   1024, ``nms``, ``mask``) with host syncs and peak memory, and one f32
+   request on the card against this machine's CPU, detections matched by
+   (proposal, class); (b) LVIS train steps (2 images at 800x1344, median of
+   steps 2-6); (c) LVIS through ``DefaultTrainer`` (in-memory LVIS-form
+   scenes, the repeat-factor sampler), then the Mask R-CNN gate carried
+   onto LVIS's classes scored by ``LVISEvaluator`` on the card against the
+   CPU (every number within 0.02); (d) the same for Cityscapes at 1024x2048
+   (requests, one against the CPU, steps, the trainer,
+   ``CityscapesInstanceEvaluator``); (e) K1 against its plain version at
+   the LVIS mask pooler (R=300), K1 and K2 over the 1024x2048 pyramid at
+   the serving and train poolers. Any phase that fails logs ``[<phase>]
+   FAILED: <type>: <message>`` and its traceback, and the run ends there
+   with a non-zero exit.
 
 The last three lines are {"kernels": [...]} (``kernel_line`` says which
 times; ``l1_*`` are K1's single-level rows of phase 10, ``jt_*`` K1's and
@@ -382,7 +398,11 @@ them; ``cascade_stage{1,2}_*``, ``cascade_step_*`` and ``fast_rcnn_*``
 their rows at phase 23(d)'s sites, ``cascade_launches``,
 ``dconv_launches``, ``fast_rcnn_launches`` and ``combined_launches`` each
 model's launches on phase 23's main paths, ``cascade_dconv_launches`` all
-of them),
+of them; ``lvis_mask_*`` K1's rows at phase 24(e)'s LVIS mask pooler,
+``city_serve_box_*``, ``city_serve_mask_*``, ``city_train_box_*`` and
+``city_train_mask_*`` K1's and K2's rows over the 1024x2048 pyramid,
+``lvis_launches`` and ``city_launches`` each model's launches on phase 24's
+main paths, ``lvis_city_launches`` all of them),
 the card's name and power limit as
 nvidia-smi gives them, and {"ok": true, "device": {...}}. Needs one card, torch, numpy and pytest;
 imports nothing of JAX. Without a card, or outside a checkout of the
@@ -551,22 +571,22 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flagship_pyramid(gen, c=256, dtype=None, batch=1):
+def flagship_pyramid(gen, c=256, dtype=None, batch=1, hw=FLAGSHIP_HW):
     import torch
 
-    h, w = FLAGSHIP_HW
+    h, w = hw
     return [
         torch.randn((batch, h // s, w // s, c), generator=gen, device=DEVICE, dtype=torch.float32).to(dtype)
         for s in LEVEL_STRIDES
     ]
 
 
-def spread_boxes(gen, r):
-    """Boxes of log-uniform size from 8 to 800 px over the image: the FPN
-    rule assigns them to all four levels."""
+def spread_boxes(gen, r, hw=FLAGSHIP_HW):
+    """Boxes of log-uniform size from 8 to 800 px over an image of ``hw``:
+    the FPN rule assigns them to all four levels."""
     import torch
 
-    h, w = FLAGSHIP_HW
+    h, w = hw
     size = torch.exp(torch.empty(r, 2, device=DEVICE).uniform_(math.log(8), math.log(800), generator=gen))
     xy = torch.rand(r, 2, generator=gen, device=DEVICE) * torch.tensor([w, h], device=DEVICE) - size / 4
     return torch.cat([xy, xy + size], dim=1).contiguous()
@@ -2604,11 +2624,11 @@ def bare_steps(cfg, model, batches):
     return times
 
 
-def phase_train_cli(kernels, flagship_state, jtsm_state):
+def phase_train_cli(kernels, jtsm_state):
     """Phase 14: the port trains through its trainers, as its command line
     does. (a) Mask R-CNN R50-FPN at full width in bf16 (``DefaultTrainer``,
-    phase 4's random weights) on in-memory synthetic COCO scenes, at
-    NUM_WORKERS 0 and 4; (b) resume
+    phase 4's seed through ``family_train_state``) on in-memory synthetic
+    COCO scenes, at NUM_WORKERS 0 and 4; (b) resume
     from its iteration-9 checkpoint; (c) the JTSM flagship through the WSL
     trainer, ITER_SIZE 4; (d) the Mask R-CNN gate (float32) through the
     trainer with K1/K2 and with the plain ROIAlign. Returns the launches of
@@ -2661,18 +2681,22 @@ def phase_train_cli(kernels, flagship_state, jtsm_state):
             return cfg
 
         base = mask_rcnn_R_50_FPN_cfg()
+        # phase 4's seed with the FrozenBN statistics calibrated: from the raw
+        # seeded ResNet (res3-res5 maps of spread near 100) the bf16 losses of
+        # the NUM_WORKERS 4 run reached NaN at iteration 18 in one run on an H100
+        # and stayed finite in others (K2's atomics and cuDNN vary the path)
+        start = family_train_state(base, seed=0)
         log(f"[train_cli] (a) Mask R-CNN R50-FPN {base.TPU.COMPUTE_DTYPE} through DefaultTrainer on {TC_SCENES} "
             f"synthetic scenes {SCORE_HW}, INPUT.MIN_SIZE_TRAIN {tuple(base.INPUT.MIN_SIZE_TRAIN)} "
             f"({base.INPUT.MIN_SIZE_TRAIN_SAMPLING}), MAX_SIZE_TRAIN {base.INPUT.MAX_SIZE_TRAIN}, flip "
             f"{base.INPUT.RANDOM_FLIP}, {TC_ITERS} iterations, CHECKPOINT_PERIOD {TC_PERIOD} | cut: IMS_PER_BATCH "
             f"{TRAIN_BATCH} (the reference's {base.SOLVER.IMS_PER_BATCH} is 8 cards x {TRAIN_BATCH}); MAX_ITER "
-            f"{TC_ITERS}; random weights from phase 4's seed (from scratch the JAX package's initialisers, the "
-            "port's, diverge within 20 iterations without a pretrained backbone or a clip)")
+            f"{TC_ITERS}; phase 4's seed with calibrated FrozenBN statistics (family_train_state; from the raw "
+            "seeded backbone the bf16 losses can reach NaN within 20 iterations)")
         runs = {}
         for workers in TC_WORKERS:
             out = os.path.join(tmp, f"mrcnn_w{workers}")
-            trainer, rec, launches, peak = run_trainer(DefaultTrainer, mrcnn_cfg(out, workers), kernels,
-                                                       flagship_state)
+            trainer, rec, launches, peak = run_trainer(DefaultTrainer, mrcnn_cfg(out, workers), kernels, start)
             check_launches(f"mask rcnn trainer (NUM_WORKERS {workers})", rec, dict.fromkeys(names, 2))
             add(launches)
             metrics = read_metrics(out)
@@ -3931,6 +3955,8 @@ def train_family_cfg(family, narrow=False):
     from jtsm_tpu_torch import config
     from jtsm_tpu_torch.config import semantic_R_50_FPN_cfg
 
+    if family in LVIS_CITY_BUILDERS and not narrow:
+        return getattr(config, LVIS_CITY_BUILDERS[family])()
     if family in C4_BUILDERS or family in CASCADE_BUILDERS:
         builder = getattr(config, C4_BUILDERS.get(family) or CASCADE_BUILDERS[family])
         if not narrow:
@@ -4111,7 +4137,7 @@ def family_train_stages(family, model, optimizer, schedule, state, batch, measur
         if family != "semantic":
             stages["rpn"] = rpn
         if family in ("keypoint_rcnn", "panoptic_fpn") + SURFACE_FAMILIES + tuple(C4_BUILDERS) + tuple(
-                CASCADE_BUILDERS):
+                CASCADE_BUILDERS) + tuple(LVIS_CITY_BUILDERS):
             stages["roi_heads"] = roi_heads
     stages.update(backward=backward, sgd=sgd)
     with exact_float32(model.compute_dtype == torch.float32), batch_statistics():
@@ -4168,7 +4194,7 @@ def families_narrow_checks(families, kernels):
     return got
 
 
-def families_full_train(families, kernels, phase, part="b", after=None):
+def families_full_train(families, kernels, phase, part="b", after=None, hw=FLAGSHIP_HW):
     """17(b) and 18(b): each family at full width and depth
     (``family_train_state``) takes FAM_TRAIN_STEPS steps on a seeded batch of
     TRAIN_BATCH images of FLAGSHIP_HW in each of bf16 (as configured) and
@@ -4188,7 +4214,7 @@ def families_full_train(families, kernels, phase, part="b", after=None):
     for family in families:
         base = train_family_cfg(family)
         dtypes = (base.TPU.COMPUTE_DTYPE, "float32")
-        batch = family_train_batch(base, 17, TRAIN_BATCH, FLAGSHIP_HW, base.TPU.MAX_GT_INSTANCES, 8)
+        batch = family_train_batch(base, 17, TRAIN_BATCH, hw, base.TPU.MAX_GT_INSTANCES, 8)
         t0 = time.perf_counter()
         states[family] = family_train_state(base, seed=17)
         log(f"[{phase}] {family}: seeded full-width weights in {time.perf_counter() - t0:.1f}s")
@@ -4231,7 +4257,7 @@ def families_full_train(families, kernels, phase, part="b", after=None):
             stage_ms = family_train_stages(family, model, optimizer, schedule, state, batch, timed_ms)
             syncs = family_train_stages(family, model, optimizer, schedule, state, batch, count_host_syncs)
             log(f"[{phase}] ({part}) {TRAIN_TITLES[family]} train {DTYPE_NAMES[d]}"
-                f"{' (TF32 off)' if d == 'float32' else ''}, {TRAIN_BATCH} images {FLAGSHIP_HW[0]}x{FLAGSHIP_HW[1]}, "
+                f"{' (TF32 off)' if d == 'float32' else ''}, {TRAIN_BATCH} images {hw[0]}x{hw[1]}, "
                 f"seeded weights (seed 17): step_ms={[round(t, 3) for t in times[d]]} "
                 f"median_of_steps_2_to_{FAM_TRAIN_STEPS}_ms={med[(family, d)]:.3f} step_peak_gib={peak[d]:.3f} "
                 f"launches a step K1={want[0]} K2={want[1]} | stages_ms "
@@ -6588,6 +6614,393 @@ def phase_cascade_dconv(kernels, gen, baseline):
     return rows, launches, by_model, latency, combined_latency, steps, trainer
 
 
+LVIS_CITY_BUILDERS = {"lvis": "mask_rcnn_R_50_FPN_lvis_cfg", "city": "mask_rcnn_R_50_FPN_cityscapes_cfg"}
+CITY_HW = (1024, 2048)  # a Cityscapes image
+LVIS_CITY_HW = {"lvis": FLAGSHIP_HW, "city": CITY_HW}
+TRAIN_K.update(lvis=(2, 2), city=(2, 2))
+TRAIN_LOSSES.update(lvis=MASK_RCNN_LOSSES, city=MASK_RCNN_LOSSES)
+TRAIN_TITLES.update(lvis="Mask R-CNN R50-FPN LVIS v1 (1203 classes)", city="Mask R-CNN R50-FPN Cityscapes (8 classes)")
+LVIS_CITY_ROUNDS = 4  # requests in each dtype
+LVIS_CITY_STAGE_ROUNDS = 1
+LVIS_CITY_TRAINER_SCENES = {"lvis": 8, "city": 4}
+LVIS_CITY_TRAINER_ITERS = 5  # the iteration timer starts after 3
+LVIS_CITY_GATE_SCENES = 8  # the Mask R-CNN gate's scenes (seed 0), which it was trained on
+LVIS_CITY_AP_TOL = 0.02  # phase 9's: the card's AP against the CPU's
+
+
+def lvis_city_stages(model, req, measure):
+    """One request through a Mask R-CNN by stage, ``measure`` making each
+    call and returning its reading: the backbone (with the request's copy to
+    the card), the RPN head and its decode, ``box`` (K1 over every proposal
+    and the box head), ``sort`` (softmax, decode and clip per class, the
+    threshold and the top 1024 of the R*K (proposal, class) candidates),
+    ``nms`` (class-aware NMS, the top DETECTIONS_PER_IMAGE) and ``mask`` (K1
+    over the detections, the mask head). Returns the readings and the
+    outputs (``r``)."""
+    import torch
+
+    from jtsm_tpu_torch.layers import exact_float32
+    from jtsm_tpu_torch.modeling.roi_heads.fast_rcnn import fast_rcnn_candidates, fast_rcnn_select
+
+    heads, rpn = model.roi_heads, model.proposal_generator
+    r, readings = {}, {}
+    with torch.no_grad(), exact_float32(model.compute_dtype == torch.float32):
+        readings["backbone"] = measure(lambda: r.update(zip(("feats", "sizes"), model._features(req))))
+        readings["rpn_head"] = measure(lambda: r.update(zip(("anchors", "logits", "deltas"),
+                                                            rpn.head_outputs(r["feats"]))))
+        readings["rpn_decode"] = measure(lambda: r.update(zip(("proposals", "prop_scores"), rpn.predict_proposals(
+            r["anchors"], r["logits"], r["deltas"], r["sizes"]))))
+        readings["box"] = measure(lambda: r.update(zip(("cls", "box_deltas"),
+                                                       heads.box_outputs(r["feats"], r["proposals"]))))
+        readings["sort"] = measure(lambda: r.update(cand=fast_rcnn_candidates(
+            r["cls"], r["box_deltas"], r["proposals"], torch.isfinite(r["prop_scores"]), r["sizes"],
+            heads.box2box_transform, heads.num_classes, heads.score_thresh)))
+        readings["nms"] = measure(lambda: r.update(det=fast_rcnn_select(
+            *r["cand"][:3], heads.nms_thresh, heads.detections_per_image, cand_idx=r["cand"][3])))
+        readings["mask"] = measure(lambda: r["det"].update(heads.forward_with_given_boxes(r["feats"], r["det"])))
+    return readings, r
+
+
+def lvis_city_card_against_cpu(family, state, req):
+    """24(a) and 24(d): one float32 request of the full-width model on the
+    card and on this machine's CPU, the ROI heads of both on the card's
+    proposals (``shared_proposals``' reason): the box head's class
+    probabilities within 1e-4 of their scale, then the detections matched by their (proposal, class)
+    pair (``match_family_outputs`` with the pair as the class: a pair on one
+    side only must score at the cut of the 1024 candidates or of the
+    DETECTIONS_PER_IMAGE kept), boxes within 1e-3 input px, scores within
+    1e-4 of their scale, masks within 1e-4. At seeded weights nearly every
+    one of the R*K candidates passes SCORE_THRESH_TEST 0.0001 with nearly
+    equal scores, so the cut is crowded."""
+    import torch
+
+    from jtsm_tpu_torch.modeling import build_model
+
+    cfg = train_family_cfg(family)
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    runs = {}
+    proposals = None
+    for device in (DEVICE, "cpu"):
+        model = build_model(cfg, device=device)
+        model.load_state_dict(state)
+        model.eval()
+
+        def measure(fn):
+            fn()
+
+        if proposals is not None:
+            rpn = model.proposal_generator
+            predict = rpn.predict_proposals
+            rpn.predict_proposals = lambda *a, **k: tuple(t.to(device) for t in proposals)
+        t0 = time.perf_counter()
+        _, r = lvis_city_stages(model, req, measure)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if proposals is None:
+            proposals = (r["proposals"].cpu(), r["prop_scores"].cpu())
+        else:
+            rpn.predict_proposals = predict
+        det = {k: v.cpu() for k, v in r["det"].items()}
+        probs = torch.softmax(r["cls"].float(), -1).cpu()
+        runs[device] = (det, probs, seconds, int(torch.isfinite(r["cand"][0]).sum()))
+        del model, r
+    (card, p_card, s_card, n_card), (host, p_cpu, s_cpu, n_cpu) = runs[DEVICE], runs["cpu"]
+    prob_scale = float(p_cpu.abs().max())
+    prob_err = float((p_card - p_cpu).abs().max()) / prob_scale
+    host["upscale"] = torch.as_tensor(req["orig_sizes"][:, 0] / req["image_sizes"][:, 0])
+    paired = [dict(d, classes=d["pairs"]) for d in (card, host)]
+    m = match_family_outputs(paired[0], paired[1], cfg.MODEL.ROI_HEADS.NMS_THRESH_TEST)
+    n = cfg.TEST.DETECTIONS_PER_IMAGE
+    log(f"[lvis_city] ({'a' if family == 'lvis' else 'd'}) {TRAIN_TITLES[family]} {req['image_sizes'][0].tolist()} "
+        f"f32 (TF32 off), one request, the card against the CPU ({s_cpu:.1f}s there) on the card's proposals: "
+        f"class probabilities max_err={prob_err:.3e} of their scale {prob_scale:.4f} (tol 1e-4); candidates above SCORE_THRESH_TEST "
+        f"{cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST} kept {n_card} / {n_cpu} of {p_card.shape[1]}x"
+        f"{p_card.shape[2] - 1}; detections ({n} slots) {m['matched']} matched by (proposal, class), "
+        f"{m['at_cut']} at the cut, {m['suppressed']} suppressed on one side at the NMS threshold; boxes "
+        f"max_abs_err={m['boxes']:.3e} input px (tol 1e-3), scores {m['scores']:.3e} (tol 1e-4), mask "
+        f"probabilities {m['masks']:.3e} (tol 1e-4)")
+    if not (prob_err <= 1e-4 and m["matched"] >= n // 2 and m["boxes"] <= 1e-3 and m["scores"] <= 1e-4
+            and m["masks"] <= 1e-4):
+        raise AssertionError(f"lvis_city {family}: the card's request disagrees with the CPU's")
+
+
+def lvis_city_serve(kernel, family, keep):
+    """24(a) and 24(d): the full-width model (seeded weights,
+    ``random_state_dict`` with CASCADE_GAINS) serves LVIS_CITY_ROUNDS
+    requests of LVIS_CITY_HW in each of bf16 and f32, in turns, K1 twice a
+    request (the box and the mask pooler; the plain version raises on the
+    card); then the stage split (``lvis_city_stages``) with its host syncs
+    and each stage's peak memory; then one request on the card against the
+    CPU. ``keep`` receives the f32 stage split's detection boxes (the mask
+    pooler's input). Returns K1's launches and the mean latencies."""
+    import numpy as np
+    import torch
+
+    from jtsm_tpu_torch.checkpoint import random_state_dict
+    from jtsm_tpu_torch.engine import Predictor
+    from jtsm_tpu_torch.modeling import build_model
+
+    rng = np.random.default_rng(24)
+    h, w = LVIS_CITY_HW[family]
+    base = train_family_cfg(family)
+    warm = request(rng, (h, w), (h, w), (h, w))
+    reqs = [request(rng, (h, w), (h, w), (h, w)), request(rng, (h, w), (h - 50, w - 11), (h - 50, w - 11))]
+    dtypes = (base.TPU.COMPUTE_DTYPE, "float32")
+    state = gained(random_state_dict(build_model(base, device="cpu"), seed=24))
+    predictors, mem = {}, {}
+    for d in dtypes:
+        c = base.clone()
+        c.TPU.COMPUTE_DTYPE = d
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        predictors[d] = Predictor(c, state)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        predictors[d](warm)
+        torch.cuda.synchronize()
+        mem[d] = ((resident - before) / 2**30, (torch.cuda.max_memory_allocated() - resident) / 2**30)
+    n = base.TEST.DETECTIONS_PER_IMAGE
+    want = {"boxes": (1, n, 4), "scores": (1, n), "classes": (1, n), "valid": (1, n), "masks": (1, n, 28, 28)}
+    lat = {d: [] for d in dtypes}
+    kernel.launches = 0
+    for i in range(LVIS_CITY_ROUNDS):
+        for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+            before = kernel.launches
+            t0 = time.perf_counter()
+            out = predictors[d](reqs[i % 2])
+            torch.cuda.synchronize()
+            lat[d].append((time.perf_counter() - t0) * 1e3)
+            if kernel.launches - before != 2:
+                raise AssertionError(f"lvis_city {family} {d} request {i}: K1 launched {kernel.launches - before} "
+                                     "times, not 2")
+            if {k: tuple(v.shape) for k, v in out.items()} != want or not all(
+                    torch.isfinite(v.float()).all() for v in out.values()):
+                raise AssertionError(f"lvis_city {family} {d} request {i}: outputs "
+                                     f"{ {k: tuple(v.shape) for k, v in out.items()} }, expected {want}")
+    launches = kernel.launches
+    stage, latency = {d: {} for d in dtypes}, {}
+    for i in range(LVIS_CITY_STAGE_ROUNDS):
+        for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+            got, r = lvis_city_stages(predictors[d].model, reqs[0], timed_peak)
+            if d == "float32":
+                keep[family] = r["det"]["boxes"].reshape(-1, 4).float().contiguous()
+            for k, v in got.items():
+                stage[d].setdefault(k, []).append(v)
+    part = "a" if family == "lvis" else "d"
+    for d in dtypes:
+        syncs, _ = lvis_city_stages(predictors[d].model, reqs[0], count_host_syncs)
+        latency[(family, d)] = sum(lat[d]) / len(lat[d])
+        log(f"[lvis_city] ({part}) {TRAIN_TITLES[family]} {h}x{w} {DTYPE_NAMES[d]}"
+            f"{' (TF32 off)' if d == 'float32' else ''}, seeded weights (seed 24), {LVIS_CITY_ROUNDS} requests in "
+            f"turns: latency_ms={[round(x, 3) for x in lat[d]]} mean_ms={latency[(family, d)]:.3f} "
+            f"roi_align_fwd_launches 2 a request ({n} detections) | stages_ms (median of {LVIS_CITY_STAGE_ROUNDS}) "
+            + " ".join(f"{k}={median([x['ms'] for x in v]):.3f}" for k, v in stage[d].items())
+            + " | stage peak_gib " + " ".join(f"{k}={max(x['peak'] for x in v):.3f}" for k, v in stage[d].items())
+            + " | host syncs " + " ".join(f"{k}={n_}" for k, n_ in syncs.items())
+            + f" | weights_gib={mem[d][0]:.3f} request_peak_gib={mem[d][1]:.3f}")
+    del predictors
+    lvis_city_card_against_cpu(family, state, reqs[0])
+    return launches, latency
+
+
+def lvis_city_kernel_rows(gen, baseline, keep):
+    """24(e): K1 and K2 against their plain versions at the new launch
+    sites, in float32 and bfloat16, C=256: K1 at the LVIS mask pooler (the
+    300 detection boxes of 24(a)'s f32 stage split, P=14, over an 800x1344
+    pyramid); over a 1024x2048 pyramid (Cityscapes) K1 at the serving box
+    (R=1000, P=7) and mask (R=100, P=14) poolers, and K1 and K2 at the train
+    step's box (B=2, R=2x512, P=7) and mask (B=2, R=2x128, P=14) poolers.
+    Returns the rows by site."""
+    import torch
+
+    from jtsm_tpu_torch.modeling.poolers import assign_boxes_to_levels
+
+    rows = {site: {} for site in ("lvis_mask", "city_serve_box", "city_serve_mask", "city_train_box",
+                                  "city_train_mask")}
+    scales = [1.0 / s for s in LEVEL_STRIDES]
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = dtype_tag(torch.empty(0, dtype=dtype))
+        pyr = flagship_pyramid(gen, dtype=dtype)
+        boxes = keep["lvis"]
+        bidx = torch.zeros(boxes.shape[0], dtype=torch.int32, device=DEVICE)
+        rows["lvis_mask"][f"fwd {tag}"] = check_and_time_fwd(
+            f"LVIS mask pooler {tag} (R={boxes.shape[0]} detections)", pyr, scales, boxes, bidx,
+            assign_boxes_to_levels(boxes, 2, 5), 14, baseline, "lvis_city")
+        del pyr
+        for batch, parts in ((1, (("city_serve_box", 1000, 7), ("city_serve_mask", 100, 14))),
+                             (TRAIN_BATCH, (("city_train_box", 512, 7), ("city_train_mask", 128, 14)))):
+            pyr = flagship_pyramid(gen, dtype=dtype, batch=batch, hw=CITY_HW)
+            for site, per_image, p in parts:
+                boxes = spread_boxes(gen, batch * per_image, hw=CITY_HW)
+                bidx = torch.arange(batch, device=DEVICE, dtype=torch.int32).repeat_interleave(per_image)
+                levels = assign_boxes_to_levels(boxes, 2, 5)
+                name = f"{site} {tag} B={batch} R={batch}x{per_image} {CITY_HW[0]}x{CITY_HW[1]}"
+                rows[site][f"fwd {tag}"] = check_and_time_fwd(name, pyr, scales, boxes, bidx, levels, p, baseline,
+                                                              "lvis_city")
+                if batch > 1:
+                    rows[site][f"bwd {tag}"] = check_and_time_bwd(name, pyr, scales, boxes, bidx, levels, p, gen,
+                                                                  baseline, "lvis_city")
+            del pyr
+    return rows
+
+
+def lvis_city_trainer(kernels, family, state):
+    """24(c) and 24(d): the full-width model (bf16, as configured) through
+    ``DefaultTrainer`` on in-memory scenes (LVIS: LVIS_CITY_TRAINER_SCENES
+    of SCORE_HW in LVIS's json form, the repeat-factor sampler at
+    REPEAT_THRESHOLD 0.001; Cityscapes: 1024x2048 scenes with their
+    polygons), the yaml's train scales and the flip, IMS_PER_BATCH
+    TRAIN_BATCH, from 24(b)'s seeded weights: K1 and K2 twice an iteration,
+    every loss finite. Returns the launches and the run."""
+    import tempfile
+
+    from jtsm_tpu_torch.data.datasets.synthetic_cityscapes import register_synthetic_cityscapes
+    from jtsm_tpu_torch.data.datasets.synthetic_lvis import register_synthetic_lvis
+    from jtsm_tpu_torch.engine import DefaultTrainer
+
+    name = f"chip_smoke_{family}_train"
+    if family == "lvis":
+        register_synthetic_lvis(name, num=LVIS_CITY_TRAINER_SCENES[family], seed=5, image_hw=SCORE_HW)
+    else:
+        register_synthetic_cityscapes(name, num=LVIS_CITY_TRAINER_SCENES[family], seed=5, image_hw=CITY_HW)
+    cfg = train_family_cfg(family)
+    cfg.DATASETS.TRAIN = (name,)
+    cfg.SOLVER.IMS_PER_BATCH = TRAIN_BATCH
+    cfg.SOLVER.MAX_ITER = LVIS_CITY_TRAINER_ITERS
+    cfg.SOLVER.CHECKPOINT_PERIOD = 10 * LVIS_CITY_TRAINER_ITERS
+    cfg.TEST.EVAL_PERIOD = 0
+    cfg.MODEL.WEIGHTS = ""
+    cfg.SEED = 0
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{family}_") as tmp:
+        cfg.OUTPUT_DIR = tmp
+        trainer, rec, got, peak = run_trainer(DefaultTrainer, cfg, kernels, state)
+        check_launches(f"{family} trainer", rec, dict(zip([k.name for k in kernels], TRAIN_K[family])))
+        metrics = read_metrics(tmp)
+        if [m["iteration"] for m in metrics] != list(range(LVIS_CITY_TRAINER_ITERS)) or not all(
+                math.isfinite(m[k]) for m in metrics[1:] for k in m if k.startswith("loss")):
+            raise AssertionError(f"{family} trainer: metrics.json {metrics[-1]}")
+        loader = trainer.data_loader
+        sampler = type(loader.sampler).__name__
+        if sampler != cfg.DATALOADER.SAMPLER_TRAIN:
+            raise AssertionError(f"{family} trainer: sampler {sampler}, not {cfg.DATALOADER.SAMPLER_TRAIN}")
+        run = dict(s_iter=median(iteration_times(trainer, "time", 1)),
+                   data_time=median(iteration_times(trainer, "data_time", 1)), peak=peak,
+                   loader=loader.busy_seconds / loader.batches, launches=got)
+        log(f"[lvis_city] ({'c' if family == 'lvis' else 'd'}) {TRAIN_TITLES[family]} {cfg.TPU.COMPUTE_DTYPE} through "
+            f"DefaultTrainer ({sampler}, REPEAT_THRESHOLD {cfg.DATALOADER.REPEAT_THRESHOLD}): "
+            f"{LVIS_CITY_TRAINER_SCENES[family]} in-memory scenes, short sides {tuple(cfg.INPUT.MIN_SIZE_TRAIN)} "
+            f"(max {cfg.INPUT.MAX_SIZE_TRAIN}) and the flip, IMS_PER_BATCH {TRAIN_BATCH}, {LVIS_CITY_TRAINER_ITERS} "
+            f"iterations: s/iter median {run['s_iter']:.4f} data_time median {run['data_time']:.4f} loader s/batch "
+            f"{run['loader']:.4f} launches {got} peak_mem_gib {peak:.3f} | losses at the last iteration "
+            + ", ".join(f"{k}={v:.5g}" for k, v in metrics[-1].items() if k.startswith("loss")))
+        del trainer
+    return got, run
+
+
+def lvis_city_gate_scores(kernel, family):
+    """24(c) and 24(d): the Mask R-CNN gate carried onto the family's
+    classes (``checkpoint.select_class_rows``: COCO's 80 as LVIS 1-80 of
+    1203, or Cityscapes' 8 as the COCO classes their scenes are painted as)
+    scored on its own 8 scenes (seed 0) in LVIS's form (``LVISEvaluator``,
+    SCORE_THRESH_TEST 0.0001, 300 detections) or Cityscapes' form
+    (``CityscapesInstanceEvaluator``), float32, on the card and on this
+    machine's CPU: every number within LVIS_CITY_AP_TOL. Returns K1's
+    launches on the card."""
+    import torch
+
+    from jtsm_tpu_torch.checkpoint import load_gate_ckpt, select_class_rows, variables_to_state_dict
+    from jtsm_tpu_torch.config import mask_rcnn_gate_cfg
+    from jtsm_tpu_torch.data.datasets.cityscapes import CITYSCAPES_THING_CLASSES
+    from jtsm_tpu_torch.data.datasets.synthetic import COCO_80
+    from jtsm_tpu_torch.data.datasets.synthetic_cityscapes import CITY_TO_COCO, register_synthetic_cityscapes
+    from jtsm_tpu_torch.data.datasets.synthetic_lvis import register_synthetic_lvis
+    from jtsm_tpu_torch.engine import test
+    from jtsm_tpu_torch.evaluation import CityscapesInstanceEvaluator, LVISEvaluator
+    from jtsm_tpu_torch.modeling import build_model
+
+    cfg = mask_rcnn_gate_cfg()
+    name = f"chip_smoke_{family}_gate"
+    gate = variables_to_state_dict(load_gate_ckpt(os.path.join(REPO, cfg.MODEL.WEIGHTS)))
+    if family == "lvis":
+        register_synthetic_lvis(name, num=LVIS_CITY_GATE_SCENES, seed=0)
+        rows, classes, evaluator = list(range(80)), 1203, LVISEvaluator
+        cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0001
+        cfg.TEST.DETECTIONS_PER_IMAGE = 300
+    else:
+        register_synthetic_cityscapes(name, num=LVIS_CITY_GATE_SCENES, seed=0)
+        rows, classes, evaluator = [COCO_80.index(CITY_TO_COCO[c]) for c in CITYSCAPES_THING_CLASSES], 8, \
+            CityscapesInstanceEvaluator
+    cfg.MODEL.ROI_HEADS.NUM_CLASSES = classes
+    cfg.DATASETS.TEST = (name,)
+    weights = select_class_rows(gate, rows, classes)
+    results, launches = {}, 0
+    for device in (DEVICE, "cpu"):
+        model = build_model(cfg, device=device)
+        model.load_state_dict(weights)
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        results[device] = test(cfg, model, evaluators=[evaluator(name)])
+        seconds = time.perf_counter() - t0
+        if device != "cpu":
+            launches = kernel.launches
+            if launches != 2 * LVIS_CITY_GATE_SCENES:
+                raise AssertionError(f"{family} gate: K1 launched {launches} times for {LVIS_CITY_GATE_SCENES} images")
+        log(f"[lvis_city] ({'c' if family == 'lvis' else 'd'}) the Mask R-CNN gate on {classes} classes "
+            f"({evaluator.__name__}, {LVIS_CITY_GATE_SCENES} scenes, f32) on {device} in {seconds:.1f}s: "
+            + "; ".join(f"{t} " + " ".join(f"{k}={v:.4f}" for k, v in m.items()) for t, m in results[device].items()))
+        del model
+    diff = max(abs(v - results["cpu"][t][k]) for t, m in results[DEVICE].items() for k, v in m.items()
+               if not (math.isnan(v) and math.isnan(results["cpu"][t][k])))
+    log(f"[lvis_city] the {family} gate's numbers, card against CPU: largest difference {diff:.4f} "
+        f"(tol {LVIS_CITY_AP_TOL})")
+    if not diff <= LVIS_CITY_AP_TOL or results[DEVICE].keys() != results["cpu"].keys():
+        raise AssertionError(f"lvis_city {family} gate: the card's numbers differ from the CPU's by {diff}")
+    return launches
+
+
+def phase_lvis_city(kernels, gen, baseline):
+    """Phase 24: Mask R-CNN on LVIS v1 (1203 classes, 300 detections) and on
+    Cityscapes (8 classes, 1024x2048). (a) LVIS requests at 800x1344 by
+    stage, one on the card against the CPU; (b) LVIS train steps; (c) LVIS
+    through ``DefaultTrainer`` (the repeat-factor sampler), and the gate on
+    LVIS's classes scored by ``LVISEvaluator`` on the card against the CPU;
+    (d) the same for Cityscapes at 1024x2048 (requests, steps, the trainer,
+    ``CityscapesInstanceEvaluator``); (e) K1 and K2 at the new launch sites.
+    The plain ROIAlign raises on the card. Returns the kernel rows by site,
+    each kernel's launches by model (serve, train steps, trainer, gate
+    scoring), the latencies and the step times."""
+    from jtsm_tpu_torch.ops import roi_align
+
+    routed = roi_align.roi_align_multilevel_plain_autograd
+
+    def plain_on_cpu_only(features, scales, boxes, *a, **k):
+        if boxes.device.type != "cpu":
+            raise AssertionError("the plain ROIAlign ran on the card in phase 24")
+        return routed(features, scales, boxes, *a, **k)
+
+    roi_align.roi_align_multilevel_plain_autograd = plain_on_cpu_only
+    names = [k.name for k in kernels]
+    keep, by_model, latency, steps, trainers = {}, {}, {}, {}, {}
+    try:
+        for family in LVIS_CITY_BUILDERS:
+            serve_launches, lat = lvis_city_serve(kernels[0], family, keep)
+            latency.update(lat)
+            train_launches, med, states = families_full_train(
+                (family,), kernels, "lvis_city", "b" if family == "lvis" else "d", hw=LVIS_CITY_HW[family])
+            steps.update(med)
+            trainer_launches, trainers[family] = lvis_city_trainer(kernels, family, states[family])
+            gate_launches = lvis_city_gate_scores(kernels[0], family)
+            by_model[family] = {n: train_launches[family][n] + trainer_launches[n] for n in names}
+            by_model[family][names[0]] += serve_launches + gate_launches
+        rows = lvis_city_kernel_rows(gen, baseline, keep)
+    finally:
+        roi_align.roi_align_multilevel_plain_autograd = routed
+    launches = {n: sum(m[n] for m in by_model.values()) for n in names}
+    return rows, launches, by_model, latency, steps, trainers
+
+
 def kernel_line(kernel, launches, rows, f32_errs):
     """One entry of the kernels JSON line. ``ms``, ``plain_ms`` and
     ``bound_ms`` keep their long-standing meaning: the float32 box and mask
@@ -6787,7 +7200,7 @@ def main(argv=None) -> int:
 
     # 14. training as the command line trains: both flagships through their
     # trainers, resume, and the gate through the trainer against plain
-    tc_launches, tc_runs, tc_jtsm = run_phase("train_cli", phase_train_cli, KERNELS, state, jtsm_state)
+    tc_launches, tc_runs, tc_jtsm = run_phase("train_cli", phase_train_cli, KERNELS, jtsm_state)
 
     # 15. the other core meta-architectures: their gates on the card against
     # the CPU, each served at full width by stage, K1 at the keypoint
@@ -6851,6 +7264,14 @@ def main(argv=None) -> int:
     cd_rows, cd_all, cd_sites, cd_lat, cd_combined_lat, cd_steps, cd_trainer_run = run_phase(
         "cascade_dconv", phase_cascade_dconv, KERNELS, gen, baseline)
 
+    # 24. Mask R-CNN on LVIS v1 (1203 classes, 300 detections) and on
+    # Cityscapes (1024x2048): served by stage (one request on the card
+    # against the CPU), trained, through DefaultTrainer, the gate scored by
+    # LVISEvaluator and CityscapesInstanceEvaluator on the card against the
+    # CPU; K1 at the LVIS mask pooler, K1 and K2 over the 1024x2048 pyramid
+    lc_rows, lc_all, lc_sites, lc_lat, lc_steps, lc_trainers = run_phase(
+        "lvis_city", phase_lvis_city, KERNELS, gen, baseline)
+
     # per served request K1 pools boxes (R=1000, P=7) and masks (R=100,
     # P=14); per train step K1 and K2 pool and unpool boxes (R=1024, P=7)
     # and masks (R=256, P=14); per JTSM request K1 pools masks on one level
@@ -6868,11 +7289,12 @@ def main(argv=None) -> int:
                    + jtsm_launches + jt_launches[KERNEL.name] + js_launches + tta_launches + tc_launches[KERNEL.name]
                    + fam_launches + wsod_launches[KERNEL.name] + dense_launches[KERNEL.name]
                    + ft_launches[KERNEL.name] + ts_launches[KERNEL.name] + zoo_launches_[KERNEL.name]
-                   + csc_launches[KERNEL.name] + c4_all[KERNEL.name] + cd_all[KERNEL.name])
+                   + csc_launches[KERNEL.name] + c4_all[KERNEL.name] + cd_all[KERNEL.name] + lc_all[KERNEL.name])
     k2_launches = (sum(t[0][BWD_KERNEL.name] for t in train.values()) + jt_launches[BWD_KERNEL.name]
                    + tc_launches[BWD_KERNEL.name] + wsod_launches[BWD_KERNEL.name] + dense_launches[BWD_KERNEL.name]
                    + ft_launches[BWD_KERNEL.name] + ts_launches[BWD_KERNEL.name] + zoo_launches_[BWD_KERNEL.name]
-                   + csc_launches[BWD_KERNEL.name] + c4_all[BWD_KERNEL.name] + cd_all[BWD_KERNEL.name])
+                   + csc_launches[BWD_KERNEL.name] + c4_all[BWD_KERNEL.name] + cd_all[BWD_KERNEL.name]
+                   + lc_all[BWD_KERNEL.name])
     bwd = {k[4:]: v for k, v in tres.items() if k.startswith("bwd ")}
     kernels = [
         kernel_line(KERNEL, k1_launches, res, [r["err"] for n, r in res.items() if "f32" in n]),
@@ -7102,6 +7524,25 @@ def main(argv=None) -> int:
         for site in ("cascade", "dconv", "fast_rcnn", "combined"):
             line[f"{site}_launches"] = cd_sites[site][line["name"]]
         line["cascade_dconv_launches"] = cd_all[line["name"]]
+    # the rows of phase 24(e), C=256: the LVIS mask pooler (R=300 detections,
+    # P=14, over an 800x1344 pyramid; K1 only) and, over a 1024x2048 pyramid,
+    # the Cityscapes serving box (R=1000, P=7) and mask (R=100, P=14) poolers
+    # and the train step's box (B=2, 2x512, P=7) and mask (B=2, 2x128, P=14)
+    # poolers with K2. lvis_launches and city_launches: each model's
+    # launches on phase 24's main paths (serve, train, trainer, the gate's
+    # scoring on the card), lvis_city_launches all of them
+    for line, kind in ((kernels[0], "fwd"), (kernels[1], "bwd")):
+        for site, site_rows in lc_rows.items():
+            for key, row in site_rows.items():
+                if not key.startswith(kind + " "):
+                    continue
+                tag = f"{site}_" + key[len(kind) + 1:]
+                line.update({f"{tag}_max_abs_err": row["err"], f"{tag}_ms": row["times"]["new"]["ms"],
+                             f"{tag}_device_ms": row["times"]["new"]["device_ms"], f"{tag}_plain_ms": row["plain_ms"],
+                             f"{tag}_bound_ms": row["bound_ms"], f"{tag}_bound_by": row["bound_by"]})
+        for site in ("lvis", "city"):
+            line[f"{site}_launches"] = lc_sites[site][line["name"]]
+        line["lvis_city_launches"] = lc_all[line["name"]]
     # the trainers' launches (phase 14): Mask R-CNN at NUM_WORKERS 0 and 4,
     # the resumed run, the JTSM flagship, the gate's kernel run
     for line in kernels:
@@ -7161,6 +7602,12 @@ def main(argv=None) -> int:
         + " train step median ms " + " ".join(f"{name} {DTYPE_NAMES[d]}={ms:.3f}" for (name, d), ms in cd_steps.items())
         + f"; cascade trainer s/iter {cd_trainer_run['s_iter']:.4f} data_time {cd_trainer_run['data_time']:.4f} "
         f"peak_gib {cd_trainer_run['peak']:.3f}; launches {cd_all} by model {cd_sites} | {card}")
+    log("[lvis_city] request mean ms " + " ".join(
+        f"{name} {DTYPE_NAMES[d]}={ms:.3f}" for (name, d), ms in lc_lat.items())
+        + "; train step median ms " + " ".join(f"{name} {DTYPE_NAMES[d]}={ms:.3f}" for (name, d), ms in lc_steps.items())
+        + "; trainers " + " ".join(f"{name}: s/iter {r['s_iter']:.4f} data_time {r['data_time']:.4f} peak_gib "
+                                   f"{r['peak']:.3f};" for name, r in lc_trainers.items())
+        + f" launches {lc_all} by model {lc_sites} | {card}")
     log(f"[done] {time.perf_counter() - t_run:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -192,3 +192,32 @@ def random_state_dict(model: torch.nn.Module, seed: int, keys=None) -> Dict[str,
             a = rng.normal(0.0, 1.0 / np.sqrt(fan_in), shape)
         state[key] = torch.from_numpy(a.astype(np.float32))
     return state
+
+
+def select_class_rows(state: Dict[str, torch.Tensor], rows, num_classes: int,
+                      absent_logit: float = -20.0) -> Dict[str, torch.Tensor]:
+    """``state`` (a detector's, class-specific box regression) with its box
+    and mask predictors remade for ``num_classes``: class k takes the old
+    class ``rows[k]`` for k < len(rows); every other class gets zero weights
+    and the classification bias ``absent_logit`` (so that it scores under
+    any usual threshold); the background row stays last. Used to carry a
+    trained detector's classes onto a dataset with other class ids (the
+    Mask R-CNN gate onto LVIS and Cityscapes scenes)."""
+    out = dict(state)
+
+    def remade(t: torch.Tensor, per: int, fill: float) -> torch.Tensor:
+        new = torch.full((num_classes * per,) + tuple(t.shape[1:]), fill, dtype=t.dtype)
+        for k, r in enumerate(rows):
+            new[k * per: (k + 1) * per] = t[r * per: (r + 1) * per]
+        return new
+
+    for leaf in ("weight", "bias"):
+        cls = state[f"roi_heads.box_predictor.cls_score.{leaf}"]
+        fill = absent_logit if leaf == "bias" else 0.0
+        out[f"roi_heads.box_predictor.cls_score.{leaf}"] = torch.cat([remade(cls[:-1], 1, fill), cls[-1:]])
+        key = f"roi_heads.box_predictor.bbox_pred.{leaf}"
+        out[key] = remade(state[key], 4, 0.0)
+        key = f"roi_heads.mask_head.predictor.{leaf}"
+        if key in state:
+            out[key] = remade(state[key], 1, 0.0)
+    return out

@@ -831,3 +831,52 @@ def panoptic_fpn_R_101_dconv_cascade_gn_cfg() -> CN:
     s.IMS_PER_BATCH = 32
     s.BASE_LR = 0.04
     return cfg
+
+
+def mask_rcnn_R_50_FPN_lvis_cfg(version: str = "v1") -> CN:
+    """``configs/LVISv1-InstanceSegmentation/mask_rcnn_R_50_FPN_1x.yaml``
+    (``version`` "v1", 1203 classes) or its ``LVISv0.5`` sibling ("v0.5",
+    1230), set in Python: ``mask_rcnn_R_50_FPN_cfg`` at SCORE_THRESH_TEST
+    0.0001 and 300 detections an image, trained on the repeat-factor
+    sampler at REPEAT_THRESHOLD 0.001."""
+    classes = {"v1": 1203, "v0.5": 1230}[version]
+    cfg = mask_rcnn_R_50_FPN_cfg()
+    cfg.MODEL.ROI_HEADS.NUM_CLASSES = classes
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0001
+    cfg.TEST.DETECTIONS_PER_IMAGE = 300
+    cfg.DATASETS.TRAIN = (f"lvis_{version}_train",)
+    cfg.DATASETS.TEST = (f"lvis_{version}_val",)
+    cfg.DATALOADER.SAMPLER_TRAIN = "RepeatFactorTrainingSampler"
+    cfg.DATALOADER.REPEAT_THRESHOLD = 0.001
+    return cfg
+
+
+CITYSCAPES_BUCKET = [1024, 2048]
+
+
+def mask_rcnn_R_50_FPN_cityscapes_cfg() -> CN:
+    """``configs/Cityscapes/mask_rcnn_R_50_FPN.yaml``, set in Python: the
+    R50-FPN Mask R-CNN with 8 classes on 1024x2048 images (short side 1024
+    when serving, one of 800-1024 in steps of 32 in training, long side at
+    most 2048), IMS_PER_BATCH 8 at BASE_LR 0.01. TPU.IMAGE_BUCKETS gains
+    ``CITYSCAPES_BUCKET``: the default buckets (the largest 1344x1344) hold
+    no 1024x2048 image, so the yaml as it is raises in the port (a
+    ValueError naming the size) and cannot batch in the JAX package."""
+    cfg = mask_rcnn_R_50_FPN_cfg()
+    cfg.MODEL.ROI_HEADS.NUM_CLASSES = 8
+    cfg.DATASETS.TRAIN = ("cityscapes_fine_instance_seg_train",)
+    cfg.DATASETS.TEST = ("cityscapes_fine_instance_seg_val",)
+    i = cfg.INPUT
+    i.MIN_SIZE_TRAIN = (800, 832, 864, 896, 928, 960, 992, 1024)
+    i.MIN_SIZE_TRAIN_SAMPLING = "choice"
+    i.MIN_SIZE_TEST = 1024
+    i.MAX_SIZE_TRAIN = 2048
+    i.MAX_SIZE_TEST = 2048
+    s = cfg.SOLVER
+    s.BASE_LR = 0.01
+    s.STEPS = (18000,)
+    s.MAX_ITER = 24000
+    s.IMS_PER_BATCH = 8
+    cfg.TEST.EVAL_PERIOD = 8000
+    cfg.TPU.IMAGE_BUCKETS = cfg.TPU.IMAGE_BUCKETS + [CITYSCAPES_BUCKET]
+    return cfg

@@ -1,8 +1,10 @@
-"""COCO metadata (reference: detectron2/data/datasets/builtin_meta.py; JAX
-package ``data/datasets/builtin_meta.py:7,143,185,198``). The category table is
-the public COCO panoptic list; the instance splits use its 80 things, the
-separated panoptic splits its 53 stuff classes too; the person keypoint
-splits name the 17 COCO keypoints."""
+"""COCO and ADE20K metadata (reference:
+detectron2/data/datasets/builtin_meta.py; JAX package
+``data/datasets/builtin_meta.py:7,143,185,198,225,253``). The category table
+is the public COCO panoptic list; the instance splits use its 80 things, the
+separated panoptic splits its 53 stuff classes too, the standard panoptic
+splits all 133 in one id space; the person keypoint splits name the 17 COCO
+keypoints; the ADE20K semantic splits the 150 SceneParse150 classes."""
 
 # fmt: off
 COCO_CATEGORIES = [
@@ -218,6 +220,20 @@ def _get_builtin_metadata(dataset_name: str):
         return _get_coco_instances_meta()
     if dataset_name == "coco_panoptic_separated":
         return _get_coco_panoptic_separated_meta()
+    if dataset_name == "coco_panoptic_standard":
+        # one contiguous id space over all 133 categories; thing_* and
+        # stuff_* both list every category
+        thing_map, stuff_map = {}, {}
+        for i, cat in enumerate(COCO_CATEGORIES):
+            (thing_map if cat["isthing"] else stuff_map)[cat["id"]] = i
+        return {
+            "thing_classes": [k["name"] for k in COCO_CATEGORIES],
+            "thing_colors": [k["color"] for k in COCO_CATEGORIES],
+            "stuff_classes": [k["name"] for k in COCO_CATEGORIES],
+            "stuff_colors": [k["color"] for k in COCO_CATEGORIES],
+            "thing_dataset_id_to_contiguous_id": thing_map,
+            "stuff_dataset_id_to_contiguous_id": stuff_map,
+        }
     if dataset_name == "coco_person":
         return {
             "thing_classes": ["person"],
@@ -225,4 +241,42 @@ def _get_builtin_metadata(dataset_name: str):
             "keypoint_flip_map": COCO_PERSON_KEYPOINT_FLIP_MAP,
             "keypoint_connection_rules": KEYPOINT_CONNECTION_RULES,
         }
-    raise KeyError(f"No built-in metadata for dataset {dataset_name} in the port yet")
+    raise KeyError(f"No built-in metadata for dataset {dataset_name}")
+
+
+# the ADE20K-150 semantic classes (SceneParse150's public list); label 255 is
+# ignored
+ADE20K_SEM_SEG_CATEGORIES = [
+    "wall", "building", "sky", "floor", "tree", "ceiling", "road, route", "bed",
+    "window ", "grass", "cabinet", "sidewalk, pavement", "person", "earth, ground",
+    "door", "table", "mountain, mount", "plant", "curtain", "chair", "car", "water",
+    "painting, picture", "sofa", "shelf", "house", "sea", "mirror", "rug", "field",
+    "armchair", "seat", "fence", "desk", "rock, stone", "wardrobe, closet, press",
+    "lamp", "tub", "rail", "cushion", "base, pedestal, stand", "box",
+    "column, pillar", "signboard, sign", "chest of drawers, chest, bureau, dresser",
+    "counter", "sand", "sink", "skyscraper", "fireplace", "refrigerator, icebox",
+    "grandstand, covered stand", "path", "stairs", "runway",
+    "case, display case, showcase, vitrine",
+    "pool table, billiard table, snooker table", "pillow", "screen door, screen",
+    "stairway, staircase", "river", "bridge, span", "bookcase", "blind, screen",
+    "coffee table", "toilet, can, commode, crapper, pot, potty, stool, throne",
+    "flower", "book", "hill", "bench", "countertop", "stove", "palm, palm tree",
+    "kitchen island", "computer", "swivel chair", "boat", "bar", "arcade machine",
+    "hovel, hut, hutch, shack, shanty", "bus", "towel", "light", "truck", "tower",
+    "chandelier", "awning, sunshade, sunblind", "street lamp", "booth", "tv",
+    "plane", "dirt track", "clothes", "pole", "land, ground, soil",
+    "bannister, banister, balustrade, balusters, handrail",
+    "escalator, moving staircase, moving stairway",
+    "ottoman, pouf, pouffe, puff, hassock", "bottle", "buffet, counter, sideboard",
+    "poster, posting, placard, notice, bill, card", "stage", "van", "ship",
+    "fountain", "conveyer belt, conveyor belt, conveyer, conveyor, transporter",
+    "canopy", "washer, automatic washer, washing machine", "plaything, toy",
+    "pool", "stool", "barrel, cask", "basket, handbasket", "falls", "tent", "bag",
+    "minibike, motorbike", "cradle", "oven", "ball", "food, solid food",
+    "step, stair", "tank, storage tank", "trade name", "microwave", "pot",
+    "animal", "bicycle", "lake", "dishwasher", "screen", "blanket, cover",
+    "sculpture", "hood, exhaust hood", "sconce", "vase", "traffic light", "tray",
+    "trash can", "fan", "pier", "crt screen", "plate", "monitor",
+    "bulletin board", "shower", "radiator", "glass, drinking glass", "clock",
+    "flag",
+]

@@ -1,8 +1,10 @@
 """COCO-format instance datasets, read from the json with no pycocotools,
-and sem-seg ground truth paired with images by name (reference:
+sem-seg ground truth paired with images by name, and any registered
+dataset written back as a COCO dict (reference:
 detectron2/data/datasets/coco.py:30 ``load_coco_json``, :209
-``load_sem_seg``, :449 ``register_coco_instances``; JAX package
-``data/datasets/coco.py:24,95,133``)."""
+``load_sem_seg``, :306 ``convert_to_coco_dict``, :415
+``convert_to_coco_json``, :449 ``register_coco_instances``; JAX package
+``data/datasets/coco.py:24,95,133,142,201``)."""
 
 from __future__ import annotations
 
@@ -11,6 +13,8 @@ import logging
 import os
 from collections import defaultdict
 from typing import Dict, List, Optional, Union
+
+import numpy as np
 
 from ...structures import BoxMode
 from ..catalog import DatasetCatalog, MetadataCatalog
@@ -117,3 +121,79 @@ def register_coco_instances(name: str, metadata: dict, json_file: Union[str, Dic
     assert isinstance(name, str), name
     DatasetCatalog.register(name, lambda: load_coco_json(json_file, image_root, name))
     MetadataCatalog.get(name).set(json_file=json_file, image_root=image_root, evaluator_type="coco", **metadata)
+
+
+def convert_to_coco_dict(dataset_name: str) -> Dict:
+    """The COCO dict of a registered dataset's records: the images, every
+    annotation with its box as XYWH (rounded to 3 decimals), its area (the
+    box's), ``iscrowd``, the dataset's own category id and, where the record
+    has them, its segmentation and keypoints; the categories of
+    ``thing_classes``. Image ids are the records' (their index where a
+    record has none). Only 4-dim boxes: the rotated (XYWHA) form waits for
+    the rotated family (ROADMAP)."""
+    dataset_dicts = DatasetCatalog.get(dataset_name)
+    metadata = MetadataCatalog.get(dataset_name)
+    if hasattr(metadata, "thing_dataset_id_to_contiguous_id"):
+        reverse = {v: k for k, v in metadata.thing_dataset_id_to_contiguous_id.items()}
+        reverse_id = reverse.__getitem__
+    else:
+        reverse_id = lambda contiguous_id: contiguous_id  # noqa: E731
+    categories = [{"id": reverse_id(i), "name": name} for i, name in enumerate(metadata.thing_classes)]
+    coco_images, coco_annotations = [], []
+    for image_dict in dataset_dicts:
+        coco_image = {
+            "id": image_dict.get("image_id", len(coco_images)),
+            "width": int(image_dict["width"]),
+            "height": int(image_dict["height"]),
+            "file_name": str(image_dict["file_name"]),
+        }
+        coco_images.append(coco_image)
+        for annotation in image_dict.get("annotations", []):
+            bbox = annotation["bbox"]
+            if isinstance(bbox, np.ndarray):
+                bbox = bbox.tolist()
+            if len(bbox) != 4:
+                raise NotImplementedError(f"{dataset_name}: a {len(bbox)}-dim box; rotated (XYWHA) boxes wait for "
+                                          "the rotated family (ROADMAP)")
+            bbox = BoxMode.convert(bbox, annotation["bbox_mode"], BoxMode.XYWH_ABS)
+            coco_annotation = {
+                "id": len(coco_annotations) + 1,
+                "image_id": coco_image["id"],
+                "bbox": [round(float(x), 3) for x in bbox],
+                "area": float(abs(bbox[2] * bbox[3])),
+                "iscrowd": int(annotation.get("iscrowd", 0)),
+                "category_id": int(reverse_id(annotation["category_id"])),
+            }
+            if "segmentation" in annotation:
+                coco_annotation["segmentation"] = annotation["segmentation"]
+            if "keypoints" in annotation:
+                kpts = np.asarray(annotation["keypoints"]).reshape(-1).tolist()
+                coco_annotation["keypoints"] = kpts
+                coco_annotation["num_keypoints"] = sum(k > 0 for k in kpts[2::3])
+            coco_annotations.append(coco_annotation)
+    return {
+        "info": {"description": "Automatically generated COCO json file."},
+        "images": coco_images,
+        "annotations": coco_annotations,
+        "categories": categories,
+        "licenses": None,
+    }
+
+
+def convert_to_coco_json(dataset_name: str, output_file: str, allow_cached: bool = True) -> None:
+    """Writes ``convert_to_coco_dict(dataset_name)`` to ``output_file``
+    (through a temporary file and ``os.replace``, so that a reader never
+    sees half a file); with ``allow_cached`` an existing file is kept."""
+    d = os.path.dirname(output_file)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    if os.path.exists(output_file) and allow_cached:
+        logger.warning(f"Using previously cached COCO format annotations at '{output_file}'. "
+                       "You need to clear the cache file if your dataset has been modified.")
+        return
+    logger.info(f"Converting annotations of dataset '{dataset_name}' to COCO format ...")
+    coco_dict = convert_to_coco_dict(dataset_name)
+    tmp_file = output_file + ".tmp"
+    with open(tmp_file, "w") as f:
+        json.dump(coco_dict, f)
+    os.replace(tmp_file, output_file)

@@ -34,10 +34,13 @@ from ..checkpoint import DetectionCheckpointer, PeriodicCheckpointer
 from ..data import DatasetCatalog, MetadataCatalog, build_detection_test_loader, build_detection_train_loader
 from ..data.detection_utils import record_image
 from ..evaluation import (
+    CityscapesInstanceEvaluator,
+    CityscapesSemSegEvaluator,
     COCOEvaluator,
     COCOPanopticEvaluator,
     COCOProposalEvaluator,
     DatasetEvaluators,
+    LVISEvaluator,
     PascalVOCDetectionEvaluator,
     SemSegEvaluator,
     inference_on_dataset,
@@ -70,8 +73,12 @@ def build_evaluator(cfg, dataset_name: str, timings: Optional[Dict[str, float]] 
     ``coco_panoptic_seg`` set also gets; ``SemSegEvaluator`` on ``sem_seg``
     and ``coco_panoptic_seg``; ``COCOPanopticEvaluator`` on
     ``coco_panoptic_seg``; ``PascalVOCDetectionEvaluator`` (AP and CorLoc)
-    on ``pascal_voc``. Results are written under OUTPUT_DIR/inference.
-    One evaluator is returned alone, several as ``DatasetEvaluators``."""
+    on ``pascal_voc``; ``LVISEvaluator`` on ``lvis``;
+    ``CityscapesInstanceEvaluator`` on ``cityscapes_instance`` and
+    ``CityscapesSemSegEvaluator`` on ``cityscapes_sem_seg``. Results are
+    written under OUTPUT_DIR/inference. One evaluator is returned alone,
+    several as ``DatasetEvaluators``; a type with none raises, as in the
+    JAX package (``cityscapes_panoptic_seg`` among them: ROADMAP §3)."""
     output_dir = os.path.join(cfg.OUTPUT_DIR, "inference")
     evaluator_type = MetadataCatalog.get(dataset_name).get("evaluator_type", "coco")
     evaluators = []
@@ -86,8 +93,15 @@ def build_evaluator(cfg, dataset_name: str, timings: Optional[Dict[str, float]] 
         evaluators.append(COCOPanopticEvaluator(dataset_name, output_dir=output_dir, timings=timings))
     if evaluator_type == "pascal_voc":
         evaluators.append(PascalVOCDetectionEvaluator(dataset_name, timings=timings))
+    if evaluator_type == "lvis":
+        evaluators.append(LVISEvaluator(dataset_name, output_dir=output_dir, timings=timings))
+    if evaluator_type == "cityscapes_instance":
+        evaluators.append(CityscapesInstanceEvaluator(dataset_name))
+    if evaluator_type == "cityscapes_sem_seg":
+        evaluators.append(CityscapesSemSegEvaluator(dataset_name))
     if not evaluators:
-        raise NotImplementedError(f"no evaluator ported yet for {dataset_name} ({evaluator_type})")
+        raise NotImplementedError(f"No evaluator for dataset {dataset_name} with type {evaluator_type}: the JAX "
+                                  "package's build_evaluator has none either")
     return evaluators[0] if len(evaluators) == 1 else DatasetEvaluators(evaluators)
 
 

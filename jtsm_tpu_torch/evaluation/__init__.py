@@ -1,11 +1,14 @@
 """Evaluation of the model's outputs (JAX package ``evaluation/``): COCO
-boxes, masks and keypoints, the proposals' recall, semantic segmentation and
-panoptic quality, Pascal VOC AP and CorLoc, the scoring slices' output
-side. The other evaluators wait (ROADMAP)."""
+boxes, masks and keypoints, the proposals' recall, LVIS, Cityscapes
+instances and semantics, semantic segmentation and panoptic quality, Pascal
+VOC AP and CorLoc. The rotated COCO evaluator waits for the rotated family
+(ROADMAP)."""
 
+from .cityscapes_evaluation import CityscapesInstanceEvaluator, CityscapesSemSegEvaluator
 from .coco_evaluation import COCOEvaluator, COCOProposalEvaluator, batched_outputs_to_coco_json
 from .cocoeval import COCOEval, oks_iou
 from .evaluator import DatasetEvaluator, DatasetEvaluators, inference_on_dataset
+from .lvis_evaluation import LVISEval, LVISEvaluator
 from .panoptic_evaluation import COCOPanopticEvaluator, pq_compute_single_image
 from .pascal_voc_evaluation import PascalVOCDetectionEvaluator
 from .sem_seg_evaluation import SemSegEvaluator
@@ -16,8 +19,12 @@ __all__ = [
     "COCOEvaluator",
     "COCOPanopticEvaluator",
     "COCOProposalEvaluator",
+    "CityscapesInstanceEvaluator",
+    "CityscapesSemSegEvaluator",
     "DatasetEvaluator",
     "DatasetEvaluators",
+    "LVISEval",
+    "LVISEvaluator",
     "PascalVOCDetectionEvaluator",
     "SemSegEvaluator",
     "batched_outputs_to_coco_json",

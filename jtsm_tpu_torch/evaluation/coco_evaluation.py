@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..data.catalog import MetadataCatalog
-from ..data.datasets.coco import load_json
+from ..data.datasets.coco import convert_to_coco_dict, load_json
 from ..data.rle import rle_string_encode
 from ..ops.paste_masks import paste_masks
 from .cocoeval import COCOEval
@@ -83,7 +83,8 @@ def batched_outputs_to_coco_json(
         no_paste = _numpy(outputs["no_paste"]).astype(bool)
     results = []
     for i in range(scores.shape[0]):
-        img_id = int(image_ids[i])
+        img_id = image_ids[i]
+        img_id = str(img_id) if isinstance(img_id, str) else int(img_id)  # Cityscapes' ids are strings
         h, w = int(orig_sizes[i][0]), int(orig_sizes[i][1])
         slots = np.nonzero(valid[i])[0]
         rles = None
@@ -124,7 +125,9 @@ def batched_outputs_to_coco_json(
 class COCOEvaluator(DatasetEvaluator):
     """bbox AP, segm AP when the model emits masks and keypoints AP (OKS
     with ``kpt_oks_sigmas``, COCO's when empty) when it emits keypoints,
-    against the dataset's COCO json. ``timings`` (optional) gathers the
+    against the dataset's COCO json, or, for a dataset registered without
+    one, its records converted (``convert_to_coco_dict``, JAX package
+    ``coco_evaluation.py:151-156``). ``timings`` (optional) gathers the
     seconds of ``paste``, ``encode`` and ``eval``."""
 
     def __init__(self, dataset_name: str, output_dir: Optional[str] = None,
@@ -134,10 +137,11 @@ class COCOEvaluator(DatasetEvaluator):
         self._metadata = MetadataCatalog.get(dataset_name)
         self._timings = timings
         if not hasattr(self._metadata, "json_file"):
-            raise NotImplementedError(
-                f"'{dataset_name}' has no COCO json; converting dataset dicts to COCO is not ported yet"
-            )
-        self._coco_gt = load_json(self._metadata.json_file)
+            logger.info(f"'{dataset_name}' is not registered by `register_coco_instances`. "
+                        "Converting it to COCO format ...")
+            self._coco_gt = convert_to_coco_dict(dataset_name)
+        else:
+            self._coco_gt = load_json(self._metadata.json_file)
         self._do_masks = False
         self._do_keypoints = False
         self._predictions: List[dict] = []

@@ -105,15 +105,18 @@ def oks_iou(dets_kpts: List, gts: List[dict], sigmas: Optional[np.ndarray] = Non
 
 class COCOEval:
     """Detections against a COCO-format ground-truth dict. ``kpt_oks_sigmas``
-    (keypoints only): the per-keypoint sigmas, COCO's when empty."""
+    (keypoints only): the per-keypoint sigmas, COCO's when empty;
+    ``max_dets``: the detection caps per (image, category), the last one
+    the cap of the AP numbers (LVIS: 300)."""
 
-    def __init__(self, gt_dataset: Dict, iou_type: str = "bbox", kpt_oks_sigmas=None):
+    def __init__(self, gt_dataset: Dict, iou_type: str = "bbox", kpt_oks_sigmas=None,
+                 max_dets: Sequence[int] = MAX_DETS):
         if iou_type not in ("bbox", "segm", "keypoints"):
             raise NotImplementedError(f"COCO {iou_type!r} evaluation is not ported yet")
         self.iou_type = iou_type
         self.oks_sigmas = (np.asarray(kpt_oks_sigmas, dtype=np.float64)
                            if kpt_oks_sigmas is not None and len(kpt_oks_sigmas) else OKS_SIGMAS)
-        self.max_dets = MAX_DETS
+        self.max_dets = tuple(max_dets)
         self.imgs = {img["id"]: img for img in gt_dataset["images"]}
         self.cat_ids = sorted(c["id"] for c in gt_dataset.get("categories", []))
         self._gts = defaultdict(list)

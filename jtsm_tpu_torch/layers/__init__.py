@@ -8,6 +8,7 @@ from .batch_norm import (
     batch_statistics,
     get_norm,
 )
+from .blocks import CNNBlockBase, DepthwiseSeparableConv2d
 from .deform_conv import DeformConv, ModulatedDeformConv, deform_conv2d
 from .shape_spec import ShapeSpec
 from .wrappers import (
@@ -24,7 +25,9 @@ from .wrappers import (
 
 __all__ = [
     "ASPP",
+    "CNNBlockBase",
     "Conv2d",
+    "DepthwiseSeparableConv2d",
     "DeformConv",
     "ModulatedDeformConv",
     "deform_conv2d",

@@ -31,26 +31,34 @@ from .proposal_utils import find_top_rpn_proposals, topk_stable
 
 
 class StandardRPNHead(nn.Module):
-    """3x3 conv -> (objectness 1x1, deltas 1x1), shared across levels."""
+    """3x3 conv(s) -> (objectness 1x1, deltas 1x1), shared across levels.
+    One entry in ``conv_dims`` builds ``conv`` (detectron2's name); several
+    build ``conv0``, ``conv1``, ... in a chain (MODEL.RPN.CONV_DIMS; JAX
+    ``rpn.py:44-60``), under the JAX package's names, which its weights
+    carry over by (detectron2 nests them as ``conv.conv{i}``). An entry of
+    -1 keeps the head's input width, as in the JAX package."""
 
     def __init__(self, in_channels: int, num_anchors: int, box_dim: int = 4, conv_dims=(-1,),
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if len(conv_dims) != 1:
-            raise NotImplementedError("an RPN head of several convs is not ported yet")
-        out_c = in_channels if conv_dims[0] == -1 else conv_dims[0]
         dt = compute_dtype
-        self.conv = Conv2d(in_channels, out_c, kernel_size=3, padding=1, activation=F.relu, kernel_init=normal(0.01),
-                           compute_dtype=dt)
-        self.objectness_logits = Conv2d(out_c, num_anchors, kernel_size=1, compute_dtype=dt,
-                                        kernel_init=normal(0.01))
-        self.anchor_deltas = Conv2d(out_c, num_anchors * box_dim, kernel_size=1, compute_dtype=dt,
+        self.conv_names = ["conv"] if len(conv_dims) == 1 else [f"conv{i}" for i in range(len(conv_dims))]
+        cur = in_channels
+        for name, cd in zip(self.conv_names, conv_dims):
+            out_c = in_channels if cd == -1 else cd
+            setattr(self, name, Conv2d(cur, out_c, kernel_size=3, padding=1, activation=F.relu,
+                                       kernel_init=normal(0.01), compute_dtype=dt))
+            cur = out_c
+        self.objectness_logits = Conv2d(cur, num_anchors, kernel_size=1, compute_dtype=dt, kernel_init=normal(0.01))
+        self.anchor_deltas = Conv2d(cur, num_anchors * box_dim, kernel_size=1, compute_dtype=dt,
                                     kernel_init=normal(0.01))
 
     def forward(self, features: List[torch.Tensor]):
         logits, deltas = [], []
         for x in features:
-            t = self.conv(x)
+            t = x
+            for name in self.conv_names:
+                t = getattr(self, name)(t)
             logits.append(self.objectness_logits(t))
             deltas.append(self.anchor_deltas(t))
         return logits, deltas

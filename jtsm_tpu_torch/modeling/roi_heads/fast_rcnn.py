@@ -76,7 +76,7 @@ def fast_rcnn_losses(
     return {"loss_cls": loss_cls, "loss_box_reg": loss_box}
 
 
-def fast_rcnn_inference(
+def fast_rcnn_candidates(
     scores: torch.Tensor,  # (B, R, K+1) logits
     deltas: torch.Tensor,  # (B, R, K*4) or (B, R, 4)
     proposal_boxes: torch.Tensor,  # (B, R, 4)
@@ -85,12 +85,13 @@ def fast_rcnn_inference(
     box2box_transform: Box2BoxTransform,
     num_classes: int,
     score_thresh: float,
-    nms_thresh: float,
-    topk_per_image: int,
     nms_candidates: int = 1024,
-) -> Dict[str, torch.Tensor]:
-    """Per image: softmax, decode and clip per class, threshold, top
-    ``nms_candidates``, class-aware NMS, top ``topk_per_image``."""
+):
+    """Per image: softmax, decode and clip per class, threshold, then the
+    top ``nms_candidates`` of the R*K (proposal, class) scores (a stable
+    sort: ties keep the lower index). Returns their scores (-inf where none
+    passed), boxes, classes and flat indices (proposal * K + class), each
+    (B, C, ...)."""
     b, r = scores.shape[:2]
     probs = torch.softmax(scores, dim=-1)[..., :num_classes]  # (B, R, K)
     size = image_sizes.to(torch.float32)[:, None, None, :]
@@ -114,7 +115,16 @@ def fast_rcnn_inference(
     cand_scores, cand_idx = topk_stable(flat_scores, c)
     cand_boxes = torch.gather(flat_boxes, 1, cand_idx[..., None].expand(b, c, 4))
     cand_classes = (cand_idx % num_classes).to(torch.int32)
+    return cand_scores, cand_boxes, cand_classes, cand_idx
 
+
+def fast_rcnn_select(cand_scores: torch.Tensor, cand_boxes: torch.Tensor, cand_classes: torch.Tensor,
+                     nms_thresh: float, topk_per_image: int, cand_idx=None) -> Dict[str, torch.Tensor]:
+    """Class-aware NMS over the candidates, then the top ``topk_per_image``
+    (zero-padded past the candidates) as (B, D) detections; with
+    ``cand_idx``, each detection's flat (proposal, class) index too
+    (``pairs``)."""
+    b, c = cand_scores.shape
     keep = batched_nms_mask(cand_boxes, cand_scores, cand_classes, nms_thresh)
     final_scores = torch.where(keep, cand_scores, torch.full_like(cand_scores, float("-inf")))
     k = min(topk_per_image, c)
@@ -126,6 +136,8 @@ def fast_rcnn_inference(
         "classes": torch.gather(cand_classes, 1, top_i),
         "valid": valid,
     }
+    if cand_idx is not None:
+        out["pairs"] = torch.gather(cand_idx, 1, top_i)
     if topk_per_image > k:
         pad = topk_per_image - k
         out = {
@@ -133,3 +145,26 @@ def fast_rcnn_inference(
             for key, v in out.items()
         }
     return out
+
+
+def fast_rcnn_inference(
+    scores: torch.Tensor,  # (B, R, K+1) logits
+    deltas: torch.Tensor,  # (B, R, K*4) or (B, R, 4)
+    proposal_boxes: torch.Tensor,  # (B, R, 4)
+    proposal_valid: torch.Tensor,  # (B, R)
+    image_sizes: torch.Tensor,  # (B, 2)
+    box2box_transform: Box2BoxTransform,
+    num_classes: int,
+    score_thresh: float,
+    nms_thresh: float,
+    topk_per_image: int,
+    nms_candidates: int = 1024,
+) -> Dict[str, torch.Tensor]:
+    """Per image: softmax, decode and clip per class, threshold, top
+    ``nms_candidates``, class-aware NMS, top ``topk_per_image``. The
+    candidate budget is the JAX package's (``fast_rcnn.py:109,136-137``);
+    detectron2 keeps every candidate above the threshold (ROADMAP §3)."""
+    cand_scores, cand_boxes, cand_classes, _ = fast_rcnn_candidates(
+        scores, deltas, proposal_boxes, proposal_valid, image_sizes, box2box_transform, num_classes, score_thresh,
+        nms_candidates)
+    return fast_rcnn_select(cand_scores, cand_boxes, cand_classes, nms_thresh, topk_per_image)

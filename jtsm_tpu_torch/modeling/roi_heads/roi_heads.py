@@ -123,14 +123,10 @@ class StandardROIHeads(nn.Module):
     ) -> Dict[str, torch.Tensor]:
         """The box branch in eval mode: the box pooler over all B*K
         proposals, the box head, and per-class NMS to (B, D) detections."""
-        feats = [features[f] for f in self.in_features]
-        b, k = proposals.shape[:2]
-        batch_idx = torch.arange(b, dtype=torch.int32, device=proposals.device)
-        box_feats = self.box_pooler(feats, proposals.reshape(b * k, 4), batch_idx.repeat_interleave(k))
-        scores, deltas = self.box_predictor(self.box_head(box_feats))
+        scores, deltas = self.box_outputs(features, proposals)
         return fast_rcnn_inference(
-            scores.reshape(b, k, -1),
-            deltas.reshape(b, k, -1),
+            scores,
+            deltas,
             proposals,
             torch.isfinite(proposal_scores),
             image_sizes,
@@ -140,6 +136,16 @@ class StandardROIHeads(nn.Module):
             self.nms_thresh,
             self.detections_per_image,
         )
+
+    def box_outputs(self, features: Dict[str, torch.Tensor], proposals: torch.Tensor):
+        """The box pooler over all B*K proposals and the box head: (B, K, C+1)
+        class logits and (B, K, C*4) (or 4, class-agnostic) deltas."""
+        feats = [features[f] for f in self.in_features]
+        b, k = proposals.shape[:2]
+        batch_idx = torch.arange(b, dtype=torch.int32, device=proposals.device)
+        box_feats = self.box_pooler(feats, proposals.reshape(b * k, 4), batch_idx.repeat_interleave(k))
+        scores, deltas = self.box_predictor(self.box_head(box_feats))
+        return scores.reshape(b, k, -1), deltas.reshape(b, k, -1)
 
     def forward_with_given_boxes(
         self, features: Dict[str, torch.Tensor], detections: Dict[str, torch.Tensor]

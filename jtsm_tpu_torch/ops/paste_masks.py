@@ -16,6 +16,12 @@ array holds at most ``CHUNK_BYTES`` (32 MiB); a chunk keeps about eight
 such arrays alive at its peak (weights, gathered values, sums), about 256
 MiB on the device. The flagship's 100 detections at 480x640 (2.4 MB per
 detection and array) go in chunks of 13.
+
+``paste_masks_in_image`` is the JAX package's other paste
+(``ops/paste_masks.py:21-56``), which no scoring path of either package
+calls: separable bilinear weights with the sample positions clamped into
+the mask (its edge cells replicated up to one cell outside it), as two
+float32 products a detection.
 """
 
 from __future__ import annotations
@@ -70,3 +76,28 @@ def paste_masks(masks: torch.Tensor, boxes: torch.Tensor, h: int, w: int) -> tor
         acc = acc + term(y1i, x1i, fy, fx, vy1, vx1)
         out[start: start + k] = acc >= 0.5
     return out
+
+
+def _edge_axis_weights(lo: torch.Tensor, hi: torch.Tensor, size: int, s: int) -> torch.Tensor:
+    """(N, size, s) bilinear weights of the mask cells for each image pixel
+    along one axis, for boxes spanning [lo, hi): positions clamped into
+    [0, s - 1], zero beyond one cell outside the mask."""
+    pos = torch.arange(size, dtype=torch.float32, device=lo.device)
+    c = (pos[None, :] + 0.5 - lo[:, None]) / torch.clamp(hi - lo, min=1e-6)[:, None] * s - 0.5
+    cell = torch.arange(s, dtype=torch.float32, device=lo.device)
+    w = torch.clamp(1.0 - (c.clamp(0.0, s - 1.0)[:, :, None] - cell).abs(), min=0.0)
+    inside = (c > -1.0) & (c < s)
+    return w * inside[:, :, None].to(w.dtype)
+
+
+def paste_masks_in_image(masks: torch.Tensor, boxes: torch.Tensor, image_shape, threshold: float = 0.5):
+    """(N, S, S) mask probabilities in (N, 4) XYXY boxes -> (N, H, W) bool
+    masks (probability at least ``threshold``), or the float32 probabilities
+    where ``threshold`` < 0."""
+    h, w = image_shape
+    s = masks.shape[-1]
+    boxes = boxes.to(torch.float32)
+    wy = _edge_axis_weights(boxes[:, 1], boxes[:, 3], h, s)
+    wx = _edge_axis_weights(boxes[:, 0], boxes[:, 2], w, s)
+    out = torch.matmul(torch.matmul(wy, masks.to(torch.float32)), wx.transpose(1, 2))
+    return out >= threshold if threshold >= 0 else out

@@ -24,7 +24,9 @@ class BoxMode(IntEnum):
     def convert(box: np.ndarray, from_mode: "BoxMode", to_mode: "BoxMode") -> np.ndarray:
         """(N, 4) boxes from one absolute mode to another (reference
         boxes.py:35): the array as it is when the modes agree, else float64;
-        only XYXY_ABS and XYWH_ABS are ported."""
+        only XYXY_ABS and XYWH_ABS are ported: the rotated XYWHA_ABS waits
+        for the rotated family (ROADMAP), and the relative modes raise, as
+        in the JAX package."""
         if from_mode == to_mode:
             return box
         arr = np.asarray(box, dtype=np.float64)
@@ -33,7 +35,11 @@ class BoxMode(IntEnum):
             return np.stack([a, b, a + c, b + d], axis=-1)
         if (from_mode, to_mode) == (BoxMode.XYXY_ABS, BoxMode.XYWH_ABS):
             return np.stack([a, b, c - a, d - b], axis=-1)
-        raise NotImplementedError(f"BoxMode.convert from {from_mode} to {to_mode} is not ported yet")
+        if BoxMode.XYWHA_ABS in (from_mode, to_mode):
+            raise NotImplementedError(f"BoxMode.convert from {from_mode!r} to {to_mode!r}: the rotated (XYWHA) "
+                                      "conversions wait for the rotated family (ROADMAP)")
+        raise NotImplementedError(f"BoxMode.convert from {from_mode!r} to {to_mode!r}: relative modes are not "
+                                  "supported")
 
 
 def box_area(boxes: torch.Tensor) -> torch.Tensor:

@@ -74,7 +74,8 @@ def build_evaluator(cfg, dataset_name: str, timings: Optional[Dict[str, float]] 
     if evaluator_type == "pascal_voc":
         return PascalVOCDetectionEvaluator(dataset_name, timings=timings)
     if evaluator_type not in ("coco", "coco_panoptic_seg"):
-        raise NotImplementedError(f"no evaluator ported yet for {dataset_name} ({evaluator_type})")
+        raise NotImplementedError(f"No evaluator for dataset {dataset_name} with type {evaluator_type}: the JAX "
+                                  "WSL command has none either (its list of evaluators is empty)")
     evaluators = [COCOEvaluator(dataset_name, output_dir=output_folder, timings=timings)]
     if evaluator_type == "coco_panoptic_seg":
         evaluators.append(SemSegEvaluator(dataset_name, output_dir=output_folder, timings=timings))

@@ -132,12 +132,13 @@ def float64_gradients(cfg, state, batch):
     return {n: p.grad.numpy() for n, p in tm.named_parameters()}
 
 
-def check_model(cfg, batch, seed=0, deform=False, f64_noise=False):
+def check_model(cfg, batch, seed=0, deform=False, f64_noise=False, tol_px=TOL_PX, tol_rel=TOL_REL):
     """``cfg``'s model in both packages from the same seeded weights: the
     serving detections (and masks) of ``batch``'s images, one train step's
     losses and every parameter's gradient. With ``f64_noise`` the gradients
     are held together, within the larger of TOL_REL and F64_NOISE times the
-    port's own float32-to-float64 gap. Returns the JAX losses and the port's
+    port's own float32-to-float64 gap. ``tol_px`` and ``tol_rel`` hold the
+    boxes and the scores and masks. Returns the JAX losses and the port's
     model."""
     jm = jax_build_model(_jax_cfg(cfg))
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -153,12 +154,12 @@ def check_model(cfg, batch, seed=0, deform=False, f64_noise=False):
     per_px = (batch["orig_sizes"] / batch["image_sizes"]).astype(np.float64)[:, None, [1, 0, 1, 0]]
     px = float((np.abs(_np(got["boxes"]) - np.asarray(want["boxes"])) / per_px).max())
     print("boxes px", px)
-    assert px <= TOL_PX
+    assert px <= tol_px
     for k in ("scores", "masks"):
         if k in want:
             err = _rel(np.asarray(want[k]), _np(got[k]))
             print(k, err)
-            assert err <= TOL_REL, k
+            assert err <= tol_rel, k
 
     tm.train()
     losses = tm(batch, generator=torch.Generator().manual_seed(0))

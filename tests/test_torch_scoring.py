@@ -105,10 +105,10 @@ def test_cli_without_eval_only_names_what_is_missing():
     """Without --eval-only the command trains (tests/test_torch_trainer.py);
     a train option that is not ported yet stops it with its name."""
     proc = subprocess.run([sys.executable, "-m", "jtsm_tpu_torch.tools.train_net", "--device", "cpu",
-                           "--config-file", GATE_YAML, "MODEL.RPN.CONV_DIMS", "[32, 32]"],
+                           "--config-file", GATE_YAML, "MODEL.ANCHOR_GENERATOR.NAME", "RotatedAnchorGenerator"],
                           cwd=ROOT, capture_output=True, text=True, timeout=300, env=dict(os.environ, PYTHONPATH=ROOT))
     assert proc.returncode != 0
-    assert "an RPN head of several convs is not ported yet" in proc.stderr
+    assert "anchor generator 'RotatedAnchorGenerator' is not ported yet" in proc.stderr
 
 
 def test_bf16_outputs_reach_the_paste_in_float32():

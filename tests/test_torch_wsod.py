@@ -309,11 +309,12 @@ def test_wsr_solver_doubles_the_bias_rate_without_decay():
 
 
 def test_unported_pieces_raise():
-    """The pieces that stay unported say so at build: an RPN head of several
-    convolutions (MODEL.RPN.CONV_DIMS) and an MRRP stage plain1 of the
+    """The pieces that stay unported say so at build: the rotated anchor
+    generator (ROADMAP queue 1 item 7e) and an MRRP stage plain1 of the
     multi-rate VGG16."""
     for builder, opts, what in (
-            (faster_rcnn_R_50_C4_cfg, ["MODEL.RPN.CONV_DIMS", "[64, 64]"], "RPN head of several convs"),
+            (faster_rcnn_R_50_C4_cfg, ["MODEL.ANCHOR_GENERATOR.NAME", "RotatedAnchorGenerator"],
+             "anchor generator 'RotatedAnchorGenerator' is"),
             (uwsod_V_16_DC5_cfg, ["MODEL.MRRP.MRRP_STAGE", "plain1"], "plain1")):
         cfg = builder(narrow=True)
         cfg.merge_from_list(opts)
