@@ -281,7 +281,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (never for ContextLocNet), then the stage split (backbone, attend,
    pool or loop_pool, dan, heads, nms) with its host syncs and each
    stage's peak memory; (c) its train step at IMS_PER_BATCH 4 in both, in
-   turns (median of steps 2-6; K1 once a step, 4 times for Cascade OICR,
+   turns (median of steps 2-4; K1 once a step, 4 times for Cascade OICR,
    never for ContextLocNet; K2 under each K1 launch where the map trains:
    VGG16's, GAM's), the stage split (..., merge and label for CMIL, losses,
    backward, sgd) with each stage's peak memory (``loop_pool``'s is
@@ -305,7 +305,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    proposals), in turns, K1 once a request, then the stage split
    (backbone, rpn, pool, dan, heads, nms, seg) with its host syncs and
    peak memory; (c) its train step at IMS_PER_BATCH 4 in both (median of
-   steps 2-6), the CSC heads' CPG pass before each step (K1 once and K2
+   steps 2-4), the CSC heads' CPG pass before each step (K1 once and K2
    once a backward where the map trains), its own ``cpg`` stage beside
    the step's; (e) csc_V_16 through the WSL trainer with WSL.CSC_MAX_ITER
    crossed (the maps, then the plain MIL loss) and uwsod_V_16 (no proposal
@@ -362,7 +362,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (requests, one against the CPU, steps, the trainer,
    ``CityscapesInstanceEvaluator``); (e) K1 against its plain version at
    the LVIS mask pooler (R=300), K1 and K2 over the 1024x2048 pyramid at
-   the serving and train poolers. Any phase that fails logs ``[<phase>]
+   the serving and train poolers;
+25. rotated: the rotated family (RRPN, RROIHeads, rotated ROIAlign, rotated
+   IoU and NMS, RotatedCOCOEvaluator) on ``rotated_faster_rcnn_R_50_cfg()``,
+   a rotated Faster R-CNN R50 (res4, 45 anchors a cell, 80 classes); no
+   Pallas kernel lies on its path (XLA in the JAX package, plain PyTorch
+   in the port), so K1 and K2 must launch no time and the plain ROIAlign
+   raises if it runs. (a) on the card against this machine's CPU: the
+   rotated IoU of 2000 boxes and the rotated pooler (f32 and bf16), the
+   narrow model's (``tests/modeling/test_rotated.py``'s) detections and
+   one train step's losses, and 8 synthetic rotated scenes scored by
+   ``RotatedCOCOEvaluator`` through ``engine.test``; (b) the full-width
+   model (``family_train_state``'s seeded weights) serves 8 800x1344
+   requests in each of bf16 and f32, in turns, then the stage split
+   (``backbone``, ``rrpn_head``, ``rrpn_decode``, ``pool``, ``box``,
+   ``nms``) with host syncs and peak memory; (c) 3 train steps of 2 images
+   at 800x1344 in each (median of steps 2-3, the stage split); (d) the
+   rotated IoU and the whole rotated NMS timed alone on the pre-NMS boxes
+   of a request (6000) and of a train image (12000), and the rotated pooler
+   at the serving head's shape. Any phase that fails logs ``[<phase>]
    FAILED: <type>: <message>`` and its traceback, and the run ends there
    with a non-zero exit.
 
@@ -402,7 +420,8 @@ of them; ``lvis_mask_*`` K1's rows at phase 24(e)'s LVIS mask pooler,
 ``city_serve_box_*``, ``city_serve_mask_*``, ``city_train_box_*`` and
 ``city_train_mask_*`` K1's and K2's rows over the 1024x2048 pyramid,
 ``lvis_launches`` and ``city_launches`` each model's launches on phase 24's
-main paths, ``lvis_city_launches`` all of them),
+main paths, ``lvis_city_launches`` all of them; ``rotated_launches`` their
+launches on phase 25's paths, 0),
 the card's name and power limit as
 nvidia-smi gives them, and {"ok": true, "device": {...}}. Needs one card, torch, numpy and pytest;
 imports nothing of JAX. Without a card, or outside a checkout of the
@@ -3957,6 +3976,8 @@ def train_family_cfg(family, narrow=False):
 
     if family in LVIS_CITY_BUILDERS and not narrow:
         return getattr(config, LVIS_CITY_BUILDERS[family])()
+    if family == "rotated":
+        return config.rotated_faster_rcnn_R_50_cfg() if not narrow else rotated_narrow_cfg()
     if family in C4_BUILDERS or family in CASCADE_BUILDERS:
         builder = getattr(config, C4_BUILDERS.get(family) or CASCADE_BUILDERS[family])
         if not narrow:
@@ -4136,7 +4157,7 @@ def family_train_stages(family, model, optimizer, schedule, state, batch, measur
                 model.sem_seg_head(r["feats"]), r["t"]["gt_sem_seg"]))
         if family != "semantic":
             stages["rpn"] = rpn
-        if family in ("keypoint_rcnn", "panoptic_fpn") + SURFACE_FAMILIES + tuple(C4_BUILDERS) + tuple(
+        if family in ("keypoint_rcnn", "panoptic_fpn", "rotated") + SURFACE_FAMILIES + tuple(C4_BUILDERS) + tuple(
                 CASCADE_BUILDERS) + tuple(LVIS_CITY_BUILDERS):
             stages["roi_heads"] = roi_heads
     stages.update(backward=backward, sgd=sgd)
@@ -4151,13 +4172,35 @@ def families_narrow_checks(families, kernels):
     the same weights on one seeded batch of 2 images of FAM_NARROW_HW:
     each step's losses within FAM_LOSS_TOL relative, each update (the
     parameters' change, float64 on the CPU) within FAM_UPDATE_TOL of its
-    norm; the total loss falls at each step. These launches compare the
-    card with the CPU and count in no main path's total."""
-    from jtsm_tpu_torch.checkpoint import load_gate_ckpt, variables_to_state_dict
-    from jtsm_tpu_torch.modeling import build_model
+    norm; the total loss falls at each step. The card runs cuDNN's
+    deterministic algorithms here, as the other phases' narrow checks do:
+    with its own choice, a third RetinaNet update once came 3.459e-3 off
+    the CPU's, against 1.6e-5 in four runs of the check alone. These
+    launches compare the card with the CPU and count in no main path's
+    total."""
+    import torch
 
     before = [k.launches for k in kernels]
     failed = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _families_narrow_steps(families, failed)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if failed:
+        raise AssertionError(f"narrow train checks: the card disagrees with the CPU, or the loss rose, in {failed}")
+    got = {k.name: k.launches - n for k, n in zip(kernels, before)}
+    log(f"[train checks] launches on the card in these checks (no main path's): {got}")
+    return got
+
+
+def _families_narrow_steps(families, failed):
+    """The steps and checks of ``families_narrow_checks``; the families that
+    fail go into ``failed``."""
+    from jtsm_tpu_torch.checkpoint import load_gate_ckpt, variables_to_state_dict
+    from jtsm_tpu_torch.modeling import build_model
+
     for family in families:
         cfg = train_family_cfg(family, narrow=True)
         weights = variables_to_state_dict(load_gate_ckpt(os.path.join(REPO, cfg.MODEL.WEIGHTS)))
@@ -4187,19 +4230,16 @@ def families_narrow_checks(families, kernels):
                 and min(norms) > 0 and max(upd_errs) <= FAM_UPDATE_TOL and falls
                 and all(math.isfinite(v) for x in l_card for v in x.values())):
             failed.append(family)
-    if failed:
-        raise AssertionError(f"narrow train checks: the card disagrees with the CPU, or the loss rose, in {failed}")
-    got = {k.name: k.launches - n for k, n in zip(kernels, before)}
-    log(f"[train checks] launches on the card in these checks (no main path's): {got}")
-    return got
 
 
-def families_full_train(families, kernels, phase, part="b", after=None, hw=FLAGSHIP_HW):
+def families_full_train(families, kernels, phase, part="b", after=None, hw=FLAGSHIP_HW, steps=None,
+                        make_batch=None):
     """17(b) and 18(b): each family at full width and depth
-    (``family_train_state``) takes FAM_TRAIN_STEPS steps on a seeded batch of
+    (``family_train_state``) takes ``steps`` (FAM_TRAIN_STEPS) steps on a
+    seeded batch (``make_batch``, ``family_train_batch``'s signature) of
     TRAIN_BATCH images of FLAGSHIP_HW in each of bf16 (as configured) and
     f32, in turns: every loss finite, K1 and K2 launched TRAIN_K[family]
-    times a step; the median of steps 2-6, the stage split with its host
+    times a step; the median of steps 2 on, the stage split with its host
     syncs, the step's peak memory; then ``after(family, dtype, run, batch)``
     when given (``run``: the model, optimizer, schedule, train state and
     step). Returns each family's kernel launches as the counters read after
@@ -4214,7 +4254,7 @@ def families_full_train(families, kernels, phase, part="b", after=None, hw=FLAGS
     for family in families:
         base = train_family_cfg(family)
         dtypes = (base.TPU.COMPUTE_DTYPE, "float32")
-        batch = family_train_batch(base, 17, TRAIN_BATCH, hw, base.TPU.MAX_GT_INSTANCES, 8)
+        batch = (make_batch or family_train_batch)(base, 17, TRAIN_BATCH, hw, base.TPU.MAX_GT_INSTANCES, 8)
         t0 = time.perf_counter()
         states[family] = family_train_state(base, seed=17)
         log(f"[{phase}] {family}: seeded full-width weights in {time.perf_counter() - t0:.1f}s")
@@ -4231,7 +4271,7 @@ def families_full_train(families, kernels, phase, part="b", after=None, hw=FLAGS
         for k in kernels:
             k.launches = 0
         want = list(TRAIN_K[family])
-        for i in range(FAM_TRAIN_STEPS):
+        for i in range(steps or FAM_TRAIN_STEPS):
             for d in dtypes if i % 2 == 0 else dtypes[::-1]:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -4259,7 +4299,8 @@ def families_full_train(families, kernels, phase, part="b", after=None, hw=FLAGS
             log(f"[{phase}] ({part}) {TRAIN_TITLES[family]} train {DTYPE_NAMES[d]}"
                 f"{' (TF32 off)' if d == 'float32' else ''}, {TRAIN_BATCH} images {hw[0]}x{hw[1]}, "
                 f"seeded weights (seed 17): step_ms={[round(t, 3) for t in times[d]]} "
-                f"median_of_steps_2_to_{FAM_TRAIN_STEPS}_ms={med[(family, d)]:.3f} step_peak_gib={peak[d]:.3f} "
+                f"median_of_steps_2_to_{steps or FAM_TRAIN_STEPS}_ms={med[(family, d)]:.3f} "
+                f"step_peak_gib={peak[d]:.3f} "
                 f"launches a step K1={want[0]} K2={want[1]} | stages_ms "
                 + " ".join(f"{k}={v:.3f}" for k, v in stage_ms.items())
                 + " | host syncs " + " ".join(f"{k}={n}" for k, n in syncs.items())
@@ -4847,7 +4888,7 @@ ZOO_NARROW = ("pcl_gam_WSR_18", "oicr_SP_WSR_18", "oicr_CA_WSR_18", "contextlocn
 # (it was 8 requests and 2 stage rounds)
 ZOO_ROUNDS = 4  # requests in each dtype
 ZOO_STAGE_ROUNDS = 1
-ZOO_TRAIN_STEPS = 6  # each dtype, in turns; the medians take steps 2-6
+ZOO_TRAIN_STEPS = 4  # each dtype, in turns; the medians take steps 2-4 (cut from 6 to make room for phase 25)
 ZOO_TRAINER_SCENES = 8
 ZOO_TRAINER_ITERS = 8  # 2 updates of CMIL WSR-18's ITER_SIZE 4
 # 20(a): one step from the narrow models' seeded weights, no clip
@@ -5190,7 +5231,7 @@ CSC_CASES = ("csc_WSR_18", "csc_V_16", "csc_oicr_V_16", "csc_oicr_reg_last_V_16"
 CSC_NARROW = ("csc_WSR_18", "csc_oicr_V_16", "wsjds_crf_V_16", "uwsod_V_16")
 CSC_ROUNDS = 4  # requests in each dtype
 CSC_STAGE_ROUNDS = 1
-CSC_TRAIN_STEPS = 6  # each dtype, in turns; the medians take steps 2-6
+CSC_TRAIN_STEPS = 4  # each dtype, in turns; the medians take steps 2-4 (cut from 6 to make room for phase 25)
 CSC_TRAINER_SCENES = 8
 CSC_TRAINER_ITERS = {"csc_V_16": 6, "uwsod_V_16": 4}
 CSC_TRAINER_MAX_ITER = 2  # csc_V_16's WSL.CSC_MAX_ITER in 21(e): the maps for iterations 0-2, then none
@@ -7001,6 +7042,385 @@ def phase_lvis_city(kernels, gen, baseline):
     return rows, launches, by_model, latency, steps, trainers
 
 
+ROTATED_ROUNDS = 8  # requests in each dtype, in turns
+ROTATED_STAGE_ROUNDS = 1
+ROTATED_TRAIN_STEPS = 3  # each dtype, in turns; the medians take steps 2-3
+ROTATED_SCENES = 8  # synthetic rotated scenes scored on the card and on the CPU
+ROTATED_GAINS = {"cls_score.weight": 0.05, "bbox_pred.weight": 0.05, "anchor_deltas.weight": 0.05}
+ROTATED_IOU_REPS = 3
+ROTATED_POOL_REPS = 5
+# card against CPU: the IoU and the float32 pooler as the CPU tests hold the
+# port to the JAX package (tests/test_torch_rotated.py), the bf16 pooler
+# within one bfloat16 step at 2, detections within 1e-3 px and 1e-4, the
+# narrow step's losses within 1e-4 relative, AP within phase 9's 0.02
+ROTATED_TOL = {"iou": 1e-5, "pool": 1e-5, "pool_bf16": 2.0 ** -6, "px": 1e-3, "score": 1e-4, "loss": 1e-4,
+               "ap": 0.02}
+ROTATED_LOSSES = ["loss_box_reg", "loss_cls", "loss_rpn_cls", "loss_rpn_loc"]
+TRAIN_K.update(rotated=(0, 0))
+TRAIN_LOSSES.update(rotated=ROTATED_LOSSES)
+TRAIN_TITLES.update(rotated="rotated Faster R-CNN R50 (RRPN, RROIHeads)")
+
+
+def rotated_narrow_cfg():
+    """``rotated_faster_rcnn_R_50_cfg(narrow=True)`` (the model of
+    ``tests/modeling/test_rotated.py``) in the sampling regime in which the
+    card and the CPU sample the same slots: every anchor an RRPN slot, every
+    proposal an ROI slot, at positive fraction 1.0; detections scored from
+    0."""
+    from jtsm_tpu_torch.config import rotated_faster_rcnn_R_50_cfg
+
+    cfg = rotated_faster_rcnn_R_50_cfg(narrow=True)
+    m = cfg.MODEL
+    m.RPN.BATCH_SIZE_PER_IMAGE = 8192
+    m.RPN.POSITIVE_FRACTION = 1.0
+    m.ROI_HEADS.BATCH_SIZE_PER_IMAGE = m.RPN.POST_NMS_TOPK_TRAIN
+    m.ROI_HEADS.POSITIVE_FRACTION = 1.0
+    m.ROI_HEADS.SCORE_THRESH_TEST = 0.0
+    return cfg
+
+
+def rotated_train_batch(cfg, seed, b, hw, g, valid):
+    """``b`` seeded images of ``hw`` with ``valid`` rotated ground truth boxes
+    (cx, cy, w, h, angle) in ``g`` slots (the rest zero), sides 4-50% of
+    the shorter side, any angle, classes within NUM_CLASSES."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    boxes = np.zeros((b, g, 5), np.float32)
+    boxes[:, :valid, 0] = rng.uniform(0.1, 0.9, (b, valid)) * w
+    boxes[:, :valid, 1] = rng.uniform(0.1, 0.9, (b, valid)) * h
+    boxes[:, :valid, 2:4] = rng.uniform(0.04, 0.5, (b, valid, 2)) * min(h, w)
+    boxes[:, :valid, 4] = rng.uniform(-90, 90, (b, valid))
+    return {
+        "image": rng.uniform(0, 255, (b, h, w, 3)).astype(np.float32),
+        "image_sizes": np.array([[h, w]] * b, np.int32),
+        "orig_sizes": np.array([[h, w]] * b, np.int32),
+        "gt_boxes": boxes,
+        "gt_classes": rng.integers(0, cfg.MODEL.ROI_HEADS.NUM_CLASSES, (b, g)).astype(np.int32),
+        "gt_valid": np.arange(g)[None].repeat(b, 0) < valid,
+    }
+
+
+def random_rotated_boxes(rng, n, hw, sides):
+    import numpy as np
+
+    b = np.zeros((n, 5), np.float32)
+    b[:, 0] = rng.uniform(0, hw[1], n)
+    b[:, 1] = rng.uniform(0, hw[0], n)
+    b[:, 2:4] = rng.uniform(*sides, (n, 2))
+    b[:, 4] = rng.uniform(-180, 180, n)
+    return b
+
+
+def match_rotated(card, host):
+    """Each image's valid detections matched one to one by class and box
+    (the nearest; the angle in degrees modulo 360): the largest box gap and
+    score gap (of the host scores' largest), and the number matched; raises
+    where the counts of valid detections differ."""
+    import numpy as np
+
+    cb, cs, cc, cv = (card[k].detach().cpu().numpy() for k in ("boxes", "scores", "classes", "valid"))
+    hb, hs, hc, hv = (host[k].detach().cpu().numpy() for k in ("boxes", "scores", "classes", "valid"))
+    scale = max(float(np.abs(hs).max()), 1e-30)
+    px, score, n = 0.0, 0.0, 0
+    for i in range(hb.shape[0]):
+        if cv[i].sum() != hv[i].sum():
+            raise AssertionError(f"rotated: image {i} holds {cv[i].sum()} detections on the card, {hv[i].sum()} on "
+                                 "the CPU")
+        free = set(np.nonzero(cv[i])[0].tolist())
+        for j in np.nonzero(hv[i])[0]:
+            def gap(k):
+                d = np.abs(cb[i, k] - hb[i, j]).astype(np.float64)
+                d[4] = abs((cb[i, k, 4] - hb[i, j, 4] + 180.0) % 360.0 - 180.0)
+                return float(d.max())
+
+            cands = [k for k in free if cc[i, k] == hc[i, j]]
+            if not cands:
+                raise AssertionError(f"rotated: no detection of class {hc[i, j]} left on the card in image {i}")
+            k = min(cands, key=gap)
+            free.remove(k)
+            px, score, n = max(px, gap(k)), max(score, abs(float(cs[i, k] - hs[i, j])) / scale), n + 1
+    return px, score, n
+
+
+def rotated_ap(results):
+    return " ".join(f"{k}={results['bbox'][k]:.4f}" for k in ("AP", "AP50", "AP75", "AR100"))
+
+
+def rotated_narrow_checks(card):
+    """25(a): on the card against this machine's CPU, the rotated IoU of 2000
+    seeded boxes against themselves, the rotated pooler over a seeded
+    (2, 50, 84, 256) map at the full-width head's geometry (P=7, scale
+    1/16, sampling 2; 500 boxes) in float32 and bfloat16, the narrow
+    model's detections of a two-image request and one train step's losses
+    (seeded weights with ROTATED_GAINS, every anchor and proposal a slot),
+    and ROTATED_SCENES synthetic rotated scenes scored by
+    ``RotatedCOCOEvaluator`` through ``engine.test``."""
+    import numpy as np
+    import torch
+
+    from jtsm_tpu_torch.checkpoint import random_state_dict
+    from jtsm_tpu_torch.data.datasets.synthetic_rotated import register_synthetic_rotated
+    from jtsm_tpu_torch.engine import test
+    from jtsm_tpu_torch.evaluation import RotatedCOCOEvaluator
+    from jtsm_tpu_torch.layers import exact_float32
+    from jtsm_tpu_torch.modeling import build_model
+    from jtsm_tpu_torch.ops.roi_align_rotated import roi_align_rotated_batched
+    from jtsm_tpu_torch.structures.rotated_boxes import pairwise_iou_rotated
+
+    rng = np.random.default_rng(25)
+    boxes = torch.from_numpy(random_rotated_boxes(rng, 2000, FLAGSHIP_HW, (16, 400)))
+    iou = {dev: pairwise_iou_rotated(boxes.to(dev), boxes.to(dev)).cpu() for dev in (DEVICE, "cpu")}
+    errs = {"iou": float((iou[DEVICE] - iou["cpu"]).abs().max())}
+    feat = torch.from_numpy(rng.normal(size=(2, 50, 84, 256)).astype(np.float32))
+    rois = torch.from_numpy(random_rotated_boxes(rng, 500, FLAGSHIP_HW, (16, 400)))
+    bidx = torch.from_numpy(rng.integers(0, 2, 500).astype(np.int32))
+    for key, dt in (("pool", torch.float32), ("pool_bf16", torch.bfloat16)):
+        out = {dev: roi_align_rotated_batched(feat.to(dev, dt), rois.to(dev), bidx.to(dev), 7, 1 / 16, 2).float().cpu()
+               for dev in (DEVICE, "cpu")}
+        errs[key] = float((out[DEVICE] - out["cpu"]).abs().max())
+    cfg = rotated_narrow_cfg()
+    state = {k: v * next((g for s, g in ROTATED_GAINS.items() if k.endswith(s)), 1.0)
+             for k, v in random_state_dict(build_model(cfg, device="cpu"), 25).items()}
+    batch = rotated_train_batch(cfg, 25, 2, (64, 64), 3, 2)
+    req = {k: v for k, v in batch.items() if not k.startswith("gt_")}
+    name = "chip_smoke_rotated"
+    register_synthetic_rotated(name, num=ROTATED_SCENES, seed=25)
+    cfg.DATASETS.TEST = (name,)
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        model = build_model(cfg, device=dev)
+        model.load_state_dict(state)
+        t0 = time.perf_counter()
+        det = model.inference(req)
+        model.train()
+        with exact_float32(True):
+            gen = torch.Generator(device=dev).manual_seed(0)
+            losses = {k: v.item() for k, v in model(batch, generator=gen).items()}
+        model.eval()
+        results = test(cfg, model, evaluators=[RotatedCOCOEvaluator(name)])
+        runs[dev] = (det, losses, results, time.perf_counter() - t0)
+        del model
+    (det_c, loss_c, res_c, s_c), (det_h, loss_h, res_h, s_h) = runs[DEVICE], runs["cpu"]
+    px, score, n = match_rotated(det_c, det_h)
+    errs.update(px=px, score=score, loss=max(abs(loss_c[k] - v) / max(abs(v), 1e-12) for k, v in loss_h.items()),
+                ap=max(abs(v - res_h["bbox"][k]) for k, v in res_c["bbox"].items()
+                       if not (math.isnan(v) and math.isnan(res_h["bbox"][k]))))
+    log(f"[rotated] (a) card against CPU ({card}): rotated IoU of 2000 boxes max_abs_err={errs['iou']:.3e} (tol "
+        f"{ROTATED_TOL['iou']:g}); rotated pooler (2, 50, 84, 256), R=500, P=7, sampling 2, f32 "
+        f"max_abs_err={errs['pool']:.3e} (tol {ROTATED_TOL['pool']:g}), bf16 {errs['pool_bf16']:.3e} (tol "
+        f"{ROTATED_TOL['pool_bf16']:g}); narrow model (f32, TF32 off, 64x64, seeded weights) in {s_c:.1f}s on the "
+        f"card and {s_h:.1f}s on the CPU: {n} detections matched by class and box, boxes max_abs_err={px:.3e} "
+        f"(tol {ROTATED_TOL['px']:g}), scores {score:.3e} (tol {ROTATED_TOL['score']:g}); one train step's losses "
+        f"rel_err={errs['loss']:.3e} (tol {ROTATED_TOL['loss']:g}) "
+        + ", ".join(f"{k}={v:.6g}" for k, v in loss_h.items())
+        + f"; {ROTATED_SCENES} synthetic rotated scenes scored: card " + rotated_ap(res_c) + " | CPU "
+        + rotated_ap(res_h) + f" | largest difference {errs['ap']:.3g} (tol {ROTATED_TOL['ap']})")
+    failed = [k for k, tol in ROTATED_TOL.items() if not errs[k] <= tol]
+    if failed or sorted(loss_h) != ROTATED_LOSSES or n == 0:
+        raise AssertionError(f"rotated narrow checks: the card disagrees with the CPU in {failed}")
+
+
+def rotated_stages(model, req, measure):
+    """One request through the rotated model by stage, ``measure`` making each
+    call and returning its reading: the backbone (with the request's copy to
+    the card), the RRPN head, its decode (top PRE_NMS_TOPK_TEST, decode,
+    rotated NMS, the top POST_NMS_TOPK_TEST), the rotated pooler over every
+    proposal, the box head and predictor, ``nms`` (softmax, decode, the top
+    512 (proposal, class) candidates, class-aware rotated NMS, the top
+    DETECTIONS_PER_IMAGE). Returns the readings and the outputs (``r``)."""
+    import torch
+
+    from jtsm_tpu_torch.layers import exact_float32
+
+    heads, rpn = model.roi_heads, model.proposal_generator
+    r, readings = {}, {}
+    with torch.no_grad(), exact_float32(model.compute_dtype == torch.float32):
+        readings["backbone"] = measure(lambda: r.update(zip(("feats", "sizes"), model._features(req))))
+        readings["rrpn_head"] = measure(lambda: r.update(zip(("anchors", "logits", "deltas"),
+                                                             rpn.head_outputs(r["feats"]))))
+        readings["rrpn_decode"] = measure(lambda: r.update(zip(("proposals", "prop_scores"), rpn.predict_proposals(
+            r["anchors"], r["logits"], r["deltas"], r["sizes"]))))
+        readings["pool"] = measure(lambda: r.update(pooled=heads.pool(r["feats"], r["proposals"])))
+        readings["box"] = measure(lambda: r.update(zip(("cls", "box_deltas"), heads.box_outputs(
+            r["pooled"], r["proposals"].shape[1]))))
+        readings["nms"] = measure(lambda: r.update(det=heads.inference(
+            r["cls"], r["box_deltas"], r["proposals"], torch.isfinite(r["prop_scores"]))))
+    return readings, r
+
+
+def rotated_serve(kernels, state, card):
+    """25(b): the full-width model (``family_train_state``'s weights,
+    SCORE_THRESH_TEST 0) serves ROTATED_ROUNDS requests of one 800x1344 image
+    in each of bf16 (as configured) and f32, in turns: 100 finite 5-dim detections, neither K1
+    nor K2 launched; then the stage split (``rotated_stages``) with its host
+    syncs and each stage's peak memory. Returns the launches, the mean
+    latencies, the f32 request's pre-NMS boxes (PRE_NMS_TOPK_TEST of them)
+    and its proposals."""
+    import numpy as np
+    import torch
+
+    from jtsm_tpu_torch.engine import Predictor
+
+    rng = np.random.default_rng(25)
+    h, w = FLAGSHIP_HW
+    base = train_family_cfg("rotated")
+    # at seeded weights no class probability reaches the configured 0.05 (81
+    # nearly even classes), and the detection NMS would see no candidate
+    base.MODEL.ROI_HEADS.SCORE_THRESH_TEST = 0.0
+    warm = request(rng, (h, w), (h, w), (h, w))
+    reqs = [request(rng, (h, w), (h, w), (h, w)), request(rng, (h, w), (h - 50, w - 11), (h - 50, w - 11))]
+    dtypes = (base.TPU.COMPUTE_DTYPE, "float32")
+    predictors, mem = {}, {}
+    for d in dtypes:
+        c = base.clone()
+        c.TPU.COMPUTE_DTYPE = d
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        predictors[d] = Predictor(c, state)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        predictors[d](warm)
+        torch.cuda.synchronize()
+        mem[d] = ((resident - before) / 2**30, (torch.cuda.max_memory_allocated() - resident) / 2**30)
+    n = base.TEST.DETECTIONS_PER_IMAGE
+    want = {"boxes": (1, n, 5), "scores": (1, n), "classes": (1, n), "valid": (1, n)}
+    lat = {d: [] for d in dtypes}
+    for k in kernels:
+        k.launches = 0
+    for i in range(ROTATED_ROUNDS):
+        for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+            t0 = time.perf_counter()
+            out = predictors[d](reqs[i % 2])
+            torch.cuda.synchronize()
+            lat[d].append((time.perf_counter() - t0) * 1e3)
+            if {k: tuple(v.shape) for k, v in out.items()} != want or not all(
+                    torch.isfinite(v.float()).all() for v in out.values()):
+                raise AssertionError(f"rotated {d} request {i}: outputs "
+                                     f"{ {k: tuple(v.shape) for k, v in out.items()} }, expected {want}")
+    launches = {k.name: k.launches for k in kernels}
+    stage, latency, kept = {d: {} for d in dtypes}, {}, {}
+    for i in range(ROTATED_STAGE_ROUNDS):
+        for d in dtypes if i % 2 == 0 else dtypes[::-1]:
+            got, r = rotated_stages(predictors[d].model, reqs[0], timed_peak)
+            for k, v in got.items():
+                stage[d].setdefault(k, []).append(v)
+            if d == "float32":
+                rpn = predictors[d].model.proposal_generator
+                with torch.no_grad():
+                    kept["pre_nms"] = rpn.decode_top(r["anchors"], r["logits"], r["deltas"])[1][0]
+                kept["valid"] = int(r["det"]["valid"].sum())
+    for d in dtypes:
+        syncs, _ = rotated_stages(predictors[d].model, reqs[0], count_host_syncs)
+        latency[("rotated", d)] = sum(lat[d]) / len(lat[d])
+        log(f"[rotated] (b) {TRAIN_TITLES['rotated']} {h}x{w} {DTYPE_NAMES[d]}"
+            f"{' (TF32 off)' if d == 'float32' else ''}, {base.MODEL.ROI_HEADS.NUM_CLASSES} classes, seeded weights "
+            f"(seed 25), {ROTATED_ROUNDS} requests in turns: latency_ms={[round(x, 3) for x in lat[d]]} "
+            f"mean_ms={latency[('rotated', d)]:.3f} | stages_ms (median of {ROTATED_STAGE_ROUNDS}) "
+            + " ".join(f"{k}={median([x['ms'] for x in v]):.3f}" for k, v in stage[d].items())
+            + " | stage peak_gib " + " ".join(f"{k}={max(x['peak'] for x in v):.3f}" for k, v in stage[d].items())
+            + " | host syncs " + " ".join(f"{k}={n_}" for k, n_ in syncs.items())
+            + f" | weights_gib={mem[d][0]:.3f} request_peak_gib={mem[d][1]:.3f} | {card}")
+    log(f"[rotated] (b) launches over the requests {launches} (none expected); f32 stage split: "
+        f"{kept['valid']} valid detections of {n}")
+    del predictors
+    return launches, latency, kept["pre_nms"]
+
+
+def rotated_op_times(boxes_by_n, card):
+    """25(d): the rotated IoU (``pairwise_iou_rotated``, the boxes against
+    themselves) and the whole rotated NMS (``nms_rotated_mask`` at
+    RPN.NMS_THRESH) timed alone with CUDA events (ROTATED_IOU_REPS calls,
+    host syncs included) on the pre-NMS boxes of a request (6000) and of a
+    train step's image (12000), with the share of pairs that overlap and the
+    peak memory; then the rotated pooler at the serving head's shape (R=1000,
+    (1, 50, 84, 1024), P=7, sampling 2) in f32 and bf16. Returns the times."""
+    import numpy as np
+    import torch
+
+    from jtsm_tpu_torch.ops.nms import nms_rotated_mask
+    from jtsm_tpu_torch.ops.roi_align_rotated import roi_align_rotated_batched
+    from jtsm_tpu_torch.structures.rotated_boxes import pairwise_iou_rotated
+
+    times = {}
+    for n, boxes in boxes_by_n.items():
+        boxes = boxes.float().contiguous()
+        scores = torch.linspace(1.0, 0.0, boxes.shape[0], device=boxes.device)
+        peak = timed_peak(lambda: times.update({("overlap", n): float((pairwise_iou_rotated(boxes, boxes) > 0)
+                                                                     .float().mean())}))["peak"]
+        times[("iou", n)] = cuda_time_ms(lambda: pairwise_iou_rotated(boxes, boxes), ROTATED_IOU_REPS)
+        times[("nms", n)] = cuda_time_ms(lambda: nms_rotated_mask(boxes, scores, 0.7), ROTATED_IOU_REPS)
+        m = boxes.shape[0]
+        log(f"[rotated] (d) rotated IoU {m}x{m} (pre-NMS boxes of a {'request' if n == 6000 else 'train image'}): "
+            f"{times[('iou', n)]:.3f} ms, {times[('overlap', n)]:.4f} of the pairs overlap, peak_gib={peak:.3f}; "
+            f"the whole rotated NMS at 0.7: {times[('nms', n)]:.3f} ms (mean of {ROTATED_IOU_REPS}, CUDA events) "
+            f"| {card}")
+    rng = np.random.default_rng(26)
+    rois = torch.from_numpy(random_rotated_boxes(rng, 1000, FLAGSHIP_HW, (16, 400))).to(DEVICE)
+    bidx = torch.zeros(1000, dtype=torch.int32, device=DEVICE)
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        feat = torch.randn((1, 50, 84, 1024), device=DEVICE, dtype=dt)
+        times[("pool", tag)] = cuda_time_ms(lambda: roi_align_rotated_batched(feat, rois, bidx, 7, 1 / 16, 2),
+                                            ROTATED_POOL_REPS)
+        log(f"[rotated] (d) rotated pooler {tag} R=1000 (1, 50, 84, 1024) P=7 sampling 2: "
+            f"{times[('pool', tag)]:.3f} ms (mean of {ROTATED_POOL_REPS}, CUDA events) | {card}")
+    return times
+
+
+def phase_rotated(kernels, card):
+    """Phase 25: the rotated family (RRPN, RROIHeads, rotated ROIAlign,
+    rotated IoU and NMS, RotatedCOCOEvaluator) on a rotated Faster R-CNN R50.
+    (a) the narrow model, the IoU and the pooler on the card against the
+    CPU, and synthetic rotated scenes scored on both; (b) the full-width
+    model serves 800x1344 requests by stage; (c) it takes ROTATED_TRAIN_STEPS
+    steps of 2 images at 800x1344 in each dtype (``families_full_train``);
+    (d) the IoU, the NMS and the pooler timed alone. No Pallas kernel lies
+    on this path (XLA in the JAX package, plain PyTorch in the port): K1 and
+    K2 must launch no time, and the plain ROIAlign raises if it runs.
+    Returns the launches, latencies, step medians and op times."""
+    from jtsm_tpu_torch.ops import roi_align
+
+    routed = roi_align.roi_align_multilevel_plain_autograd
+
+    def plain_never(*a, **k):
+        raise AssertionError("the plain ROIAlign ran in phase 25")
+
+    roi_align.roi_align_multilevel_plain_autograd = plain_never
+    names = [k.name for k in kernels]
+    for k in kernels:
+        k.launches = 0
+    kept = {}
+
+    def keep_train_boxes(family, dtype, run, batch):
+        import torch
+
+        if dtype != "float32":
+            return
+        model = run[0]
+        with torch.no_grad():
+            feats, _ = model._features(batch)
+            rpn = model.proposal_generator
+            kept[12000] = rpn.decode_top(*rpn.head_outputs(feats))[1][0]
+
+    try:
+        rotated_narrow_checks(card)
+        narrow = {k.name: k.launches for k in kernels}
+        state = family_train_state(train_family_cfg("rotated"), seed=25)
+        serve, latency, kept[6000] = rotated_serve(kernels, state, card)
+        del state
+        train, steps, _ = families_full_train(("rotated",), kernels, "rotated", "c", after=keep_train_boxes,
+                                              steps=ROTATED_TRAIN_STEPS, make_batch=rotated_train_batch)
+        times = rotated_op_times({n: kept[n] for n in (6000, 12000)}, card)
+    finally:
+        roi_align.roi_align_multilevel_plain_autograd = routed
+    launches = {n: narrow[n] + serve[n] + train["rotated"][n] for n in names}
+    if any(launches.values()):
+        raise AssertionError(f"rotated: K1 or K2 launched on the rotated path: {launches}")
+    return launches, latency, steps, times
+
+
 def kernel_line(kernel, launches, rows, f32_errs):
     """One entry of the kernels JSON line. ``ms``, ``plain_ms`` and
     ``bound_ms`` keep their long-standing meaning: the float32 box and mask
@@ -7271,6 +7691,13 @@ def main(argv=None) -> int:
     # CPU; K1 at the LVIS mask pooler, K1 and K2 over the 1024x2048 pyramid
     lc_rows, lc_all, lc_sites, lc_lat, lc_steps, lc_trainers = run_phase(
         "lvis_city", phase_lvis_city, KERNELS, gen, baseline)
+
+    # 25. the rotated family (RRPN, RROIHeads, rotated ROIAlign, IoU and NMS,
+    # RotatedCOCOEvaluator): the narrow model, the IoU and the pooler on the
+    # card against the CPU, synthetic rotated scenes scored on both; the
+    # full-width rotated Faster R-CNN R50 served and trained by stage; the
+    # IoU, NMS and pooler timed alone; K1 and K2 launch no time
+    rot_launches, rot_lat, rot_steps, rot_times = run_phase("rotated", phase_rotated, KERNELS, card)
 
     # per served request K1 pools boxes (R=1000, P=7) and masks (R=100,
     # P=14); per train step K1 and K2 pool and unpool boxes (R=1024, P=7)
@@ -7543,6 +7970,10 @@ def main(argv=None) -> int:
         for site in ("lvis", "city"):
             line[f"{site}_launches"] = lc_sites[site][line["name"]]
         line["lvis_city_launches"] = lc_all[line["name"]]
+    # phase 25's main paths (the rotated model's requests and train steps, the
+    # narrow checks): K1 and K2 launch no time there
+    for line in kernels:
+        line["rotated_launches"] = rot_launches[line["name"]]
     # the trainers' launches (phase 14): Mask R-CNN at NUM_WORKERS 0 and 4,
     # the resumed run, the JTSM flagship, the gate's kernel run
     for line in kernels:
@@ -7608,6 +8039,14 @@ def main(argv=None) -> int:
         + "; trainers " + " ".join(f"{name}: s/iter {r['s_iter']:.4f} data_time {r['data_time']:.4f} peak_gib "
                                    f"{r['peak']:.3f};" for name, r in lc_trainers.items())
         + f" launches {lc_all} by model {lc_sites} | {card}")
+    log("[rotated] request mean ms " + " ".join(
+        f"{name} {DTYPE_NAMES[d]}={ms:.3f}" for (name, d), ms in rot_lat.items())
+        + "; train step median ms "
+        + " ".join(f"{name} {DTYPE_NAMES[d]}={ms:.3f}" for (name, d), ms in rot_steps.items())
+        + "; rotated IoU ms " + " ".join(f"{n}x{n}={rot_times[('iou', n)]:.3f}" for n in (6000, 12000))
+        + "; rotated NMS ms " + " ".join(f"{n}={rot_times[('nms', n)]:.3f}" for n in (6000, 12000))
+        + "; rotated pooler ms " + " ".join(f"{t}={rot_times[('pool', t)]:.3f}" for t in ("f32", "bf16"))
+        + f"; launches {rot_launches} | {card}")
     log(f"[done] {time.perf_counter() - t_run:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -27,7 +27,9 @@ inverts the JAX package's ``checkpoint/c2_model_loading.py:231-285``
   ``conv2/kernel`` (K, K, I, O) -> ``conv2.weight`` and its ``conv2_norm``
   -> ``conv2.norm``, the cascade's ``box_head_stage{s}`` and
   ``box_predictor_stage{s}`` -> ``box_head.{s}`` and ``box_predictor.{s}``,
-  detectron2's ``nn.ModuleList`` keys);
+  detectron2's ``nn.ModuleList`` keys, and ``RROIHeads``' own ``cls_score``
+  and ``bbox_pred`` -> ``roi_heads.box_predictor.cls_score`` and
+  ``.bbox_pred``, detectron2's names);
   the WSL modules keep their flax names: VGG16's ``backbone.conv1_1`` to
   ``backbone.conv5_3`` (an ``MRRPConv``'s one shared kernel among them),
   the ASPP head of WSJDS (``roi_heads.sem_seg_head.aspp.conv1x1``, ...,
@@ -93,6 +95,8 @@ def _d2_module_path(path: Tuple[str, ...]) -> list:
             out.extend([tower.group(1), str(2 * int(tower.group(2)))])
         elif p == "head" and out in (["proposal_generator"], ["proposal_generator", "rpn"]):
             out.append("rpn_head")
+        elif p in ("cls_score", "bbox_pred") and out == ["roi_heads"]:  # RROIHeads' predictor
+            out.extend(["box_predictor", p])
         else:
             out.append(p)
     return out

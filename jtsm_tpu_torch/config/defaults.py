@@ -682,6 +682,62 @@ def faster_rcnn_R_50_C4_cfg(narrow: bool = False) -> CN:
     return c4_narrow(cfg) if narrow else cfg
 
 
+def rotated_faster_rcnn_R_50_cfg(narrow: bool = False) -> CN:
+    """A rotated Faster R-CNN R50: ``faster_rcnn_R_50_C4_cfg`` (over
+    ``configs/COCO-Detection/faster_rcnn_R_50_C4_1x.yaml``) with the
+    overrides of ``tests/modeling/test_rotated.py:41-66`` at full width:
+    the ResNet's res4 into ``RRPN`` with ``RotatedAnchorGenerator`` (the
+    default sizes and ratios at angles -90, 0, 90: 45 anchors a cell) and
+    into ``RROIHeads`` (``FastRCNNConvFCHead``, two 1024-wide fcs, rotated
+    ROIAlign at 7x7), 80 classes, box weights (1, 1, 1, 1, 1) for the RPN
+    and (10, 10, 5, 5, 1) for the heads. No yaml names it. ``narrow``: the
+    JAX test's own tiny model (R-18 with RES2_OUT_CHANNELS 64, every stage
+    training, 32-px anchors, 32 proposals before NMS and 16 after it, 8 ROI
+    slots, one 32-wide fc, 3 classes) on 64x64 images, float32."""
+    cfg = faster_rcnn_R_50_C4_cfg()
+    m = cfg.MODEL
+    m.RESNETS.OUT_FEATURES = ["res4"]
+    m.PROPOSAL_GENERATOR.NAME = "RRPN"
+    m.RPN.IN_FEATURES = ["res4"]
+    m.RPN.BBOX_REG_WEIGHTS = (1.0, 1.0, 1.0, 1.0, 1.0)
+    m.ANCHOR_GENERATOR.NAME = "RotatedAnchorGenerator"
+    m.ANCHOR_GENERATOR.ANGLES = [[-90, 0, 90]]
+    m.ROI_HEADS.NAME = "RROIHeads"
+    m.ROI_HEADS.IN_FEATURES = ["res4"]
+    m.ROI_HEADS.NUM_CLASSES = 80
+    bh = m.ROI_BOX_HEAD
+    bh.NAME = "FastRCNNConvFCHead"
+    bh.NUM_FC = 2
+    bh.FC_DIM = 1024
+    bh.POOLER_RESOLUTION = 7
+    bh.POOLER_TYPE = "ROIAlignRotated"
+    bh.BBOX_REG_WEIGHTS = (10.0, 10.0, 5.0, 5.0, 1.0)
+    if not narrow:
+        return cfg
+    m.WEIGHTS = ""
+    m.BACKBONE.FREEZE_AT = 0
+    m.RESNETS.DEPTH = 18
+    m.RESNETS.RES2_OUT_CHANNELS = 64
+    r = m.RPN
+    r.PRE_NMS_TOPK_TRAIN, r.POST_NMS_TOPK_TRAIN = 32, 16
+    r.PRE_NMS_TOPK_TEST, r.POST_NMS_TOPK_TEST = 32, 16
+    m.ANCHOR_GENERATOR.SIZES = [[32]]
+    m.ANCHOR_GENERATOR.ASPECT_RATIOS = [[1.0]]
+    m.ROI_HEADS.NUM_CLASSES = 3
+    m.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 8
+    bh.NUM_FC = 1
+    bh.FC_DIM = 32
+    cfg.INPUT.MIN_SIZE_TRAIN = (64,)
+    cfg.INPUT.MAX_SIZE_TRAIN = 64
+    cfg.INPUT.MIN_SIZE_TEST = 64
+    cfg.INPUT.MAX_SIZE_TEST = 64
+    cfg.TPU.IMAGE_BUCKETS = [[64, 64]]
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TEST.AUG.ENABLED = False
+    cfg.TEST.EVAL_PERIOD = 0
+    return cfg
+
+
 def mask_rcnn_R_50_C4_cfg(narrow: bool = False) -> CN:
     """``configs/COCO-InstanceSegmentation/mask_rcnn_R_50_C4_1x.yaml`` over
     ``Base-RCNN-C4.yaml``, set in Python: ``faster_rcnn_R_50_C4_cfg`` with

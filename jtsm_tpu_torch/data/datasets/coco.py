@@ -129,8 +129,8 @@ def convert_to_coco_dict(dataset_name: str) -> Dict:
     box's), ``iscrowd``, the dataset's own category id and, where the record
     has them, its segmentation and keypoints; the categories of
     ``thing_classes``. Image ids are the records' (their index where a
-    record has none). Only 4-dim boxes: the rotated (XYWHA) form waits for
-    the rotated family (ROADMAP)."""
+    record has none). A rotated 5-dim box stays XYWHA_ABS (reference
+    coco.py:341; JAX package ``coco.py:175-176``), its area w * h."""
     dataset_dicts = DatasetCatalog.get(dataset_name)
     metadata = MetadataCatalog.get(dataset_name)
     if hasattr(metadata, "thing_dataset_id_to_contiguous_id"):
@@ -152,10 +152,8 @@ def convert_to_coco_dict(dataset_name: str) -> Dict:
             bbox = annotation["bbox"]
             if isinstance(bbox, np.ndarray):
                 bbox = bbox.tolist()
-            if len(bbox) != 4:
-                raise NotImplementedError(f"{dataset_name}: a {len(bbox)}-dim box; rotated (XYWHA) boxes wait for "
-                                          "the rotated family (ROADMAP)")
-            bbox = BoxMode.convert(bbox, annotation["bbox_mode"], BoxMode.XYWH_ABS)
+            to_mode = BoxMode.XYWH_ABS if len(bbox) == 4 else BoxMode.XYWHA_ABS
+            bbox = BoxMode.convert(bbox, annotation["bbox_mode"], to_mode)
             coco_annotation = {
                 "id": len(coco_annotations) + 1,
                 "image_id": coco_image["id"],

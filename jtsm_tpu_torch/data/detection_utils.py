@@ -156,17 +156,21 @@ def transform_instance_annotations(annotation: dict, transforms, image_size: Tup
                                    keypoint_hflip_indices: Optional[np.ndarray] = None) -> dict:
     """One annotation through ``transforms`` in place (reference
     detection_utils.py:260): its box, as the envelope of its transformed
-    corners clipped to the image of ``image_size`` (h, w), in XYXY_ABS;
-    its polygons point by point; an RLE segmentation decoded and
-    transformed as a mask (bool); its keypoints
-    (``transform_keypoint_annotations``)."""
+    corners clipped to the image of ``image_size`` (h, w), in XYXY_ABS (a
+    rotated XYWHA_ABS box through ``apply_rotated_box``, unclipped and in
+    its own mode, JAX package ``detection_utils.py:139-144``); its polygons
+    point by point; an RLE segmentation decoded and transformed as a mask
+    (bool); its keypoints (``transform_keypoint_annotations``)."""
     if isinstance(transforms, (tuple, list)):
         transforms = T.TransformList(transforms)
-    bbox = BoxMode.convert(annotation["bbox"], annotation["bbox_mode"], BoxMode.XYXY_ABS)
-    bbox = transforms.apply_box(np.array([bbox]))[0]
-    bbox = np.minimum(bbox, list(image_size + image_size)[::-1])
-    annotation["bbox"] = np.maximum(bbox, 0)
-    annotation["bbox_mode"] = BoxMode.XYXY_ABS
+    if annotation["bbox_mode"] == BoxMode.XYWHA_ABS:
+        annotation["bbox"] = transforms.apply_rotated_box(np.asarray([annotation["bbox"]], dtype=np.float64))[0]
+    else:
+        bbox = BoxMode.convert(annotation["bbox"], annotation["bbox_mode"], BoxMode.XYXY_ABS)
+        bbox = transforms.apply_box(np.array([bbox]))[0]
+        bbox = np.minimum(bbox, list(image_size + image_size)[::-1])
+        annotation["bbox"] = np.maximum(bbox, 0)
+        annotation["bbox_mode"] = BoxMode.XYXY_ABS
     if "segmentation" in annotation:
         segm = annotation["segmentation"]
         if isinstance(segm, list):
@@ -255,14 +259,39 @@ def annotations_to_instances(annos: List[dict], image_size: Tuple[int, int],
     return target
 
 
+def annotations_to_instances_rotated(annos: List[dict], image_size: Tuple[int, int]) -> Instances:
+    """Transformed rotated annotations as ``Instances`` (reference
+    detection_utils.py:431; JAX package ``detection_utils.py:237``):
+    ``gt_boxes`` (N, 5) float32 XYWHA, clipped to the (h, w) image only
+    where within 1 degree of axis-aligned (``RotatedBoxes.clip``'s rule, in
+    numpy), and ``gt_classes`` (N,) int64."""
+    boxes = (np.stack([np.asarray(o["bbox"], dtype=np.float32) for o in annos]) if annos
+             else np.zeros((0, 5), np.float32))
+    h, w = image_size
+    a = (boxes[:, 4] + 180.0) % 360.0 - 180.0
+    x1 = np.clip(boxes[:, 0] - boxes[:, 2] / 2.0, 0, w)
+    y1 = np.clip(boxes[:, 1] - boxes[:, 3] / 2.0, 0, h)
+    x2 = np.clip(boxes[:, 0] + boxes[:, 2] / 2.0, 0, w)
+    y2 = np.clip(boxes[:, 1] + boxes[:, 3] / 2.0, 0, h)
+    clipped = np.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1, boxes[:, 4]], axis=-1)
+    target = Instances(image_size)
+    target.gt_boxes = np.where((np.abs(a) <= 1.0)[:, None], clipped, boxes).astype(np.float32)
+    target.gt_classes = np.asarray([int(o["category_id"]) for o in annos], dtype=np.int64)
+    return target
+
+
 def filter_empty_instances(instances: Instances, by_box: bool = True, by_mask: bool = True,
                            box_threshold: float = 1e-5) -> Instances:
     """The instances whose box is wider and taller than ``box_threshold``
-    and whose mask is not empty (reference detection_utils.py:460)."""
+    (a rotated (N, 5) box by its own width and height) and whose mask is
+    not empty (reference detection_utils.py:460)."""
     keep = []
     if by_box:
         b = instances.gt_boxes
-        keep.append(((b[:, 2] - b[:, 0]) > box_threshold) & ((b[:, 3] - b[:, 1]) > box_threshold))
+        if b.shape[-1] == 5:
+            keep.append((b[:, 2] > box_threshold) & (b[:, 3] > box_threshold))
+        else:
+            keep.append(((b[:, 2] - b[:, 0]) > box_threshold) & ((b[:, 3] - b[:, 1]) > box_threshold))
     if instances.has("gt_masks") and by_mask:
         gm = instances.gt_masks
         keep.append(gm.nonempty() if isinstance(gm, PolygonMasks) else gm.reshape(len(gm), -1).any(axis=1))

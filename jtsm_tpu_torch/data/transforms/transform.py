@@ -163,6 +163,13 @@ class Transform:
     def apply_segmentation(self, segmentation: np.ndarray) -> np.ndarray:
         return self.apply_image(segmentation)
 
+    def apply_rotated_box(self, rotated_boxes: np.ndarray) -> np.ndarray:
+        """(N, 5) XYWHA boxes. Only the transforms with a well-defined
+        action on a rotated rectangle define it (NoOp, resize, horizontal
+        flip; reference transform.py:307,323; JAX package
+        ``transform.py:37``); the others raise."""
+        raise NotImplementedError(f"apply_rotated_box is not defined for {type(self).__name__}")
+
 
 class TransformList(Transform):
     def __init__(self, transforms: Sequence[Transform]):
@@ -185,6 +192,11 @@ class TransformList(Transform):
             seg = t.apply_segmentation(seg)
         return seg
 
+    def apply_rotated_box(self, rotated_boxes):
+        for t in self.transforms:
+            rotated_boxes = t.apply_rotated_box(rotated_boxes)
+        return rotated_boxes
+
     def __len__(self):
         return len(self.transforms)
 
@@ -198,6 +210,9 @@ class NoOpTransform(Transform):
 
     def apply_coords(self, coords):
         return coords
+
+    def apply_rotated_box(self, rotated_boxes):
+        return rotated_boxes
 
 
 class HFlipTransform(Transform):
@@ -221,6 +236,14 @@ class HFlipTransform(Transform):
         x1 = self.width - box[:, 0]
         box[:, 0], box[:, 2] = x0, x1
         return box
+
+    def apply_rotated_box(self, rotated_boxes):
+        """The centre mirrored and the angle negated (reference
+        transform.py:307)."""
+        rb = np.asarray(rotated_boxes, dtype=np.float64).reshape(-1, 5).copy()
+        rb[:, 0] = self.width - rb[:, 0]
+        rb[:, 4] = -rb[:, 4]
+        return rb
 
 
 class VFlipTransform(Transform):
@@ -267,6 +290,21 @@ class ResizeTransform(Transform):
         if seg.dtype == np.uint8 or seg.dtype == bool:
             return resize_nearest(seg, self.new_h, self.new_w)
         return resize_nearest(seg.astype(np.float32), self.new_h, self.new_w)
+
+    def apply_rotated_box(self, rotated_boxes):
+        """Each box refit under the anisotropic scale (reference
+        transform.py:323; ``RotatedBoxes.scale``'s arithmetic in float64)."""
+        rb = np.asarray(rotated_boxes, dtype=np.float64).reshape(-1, 5).copy()
+        sx = self.new_w * 1.0 / self.w
+        sy = self.new_h * 1.0 / self.h
+        theta = rb[:, 4] * np.pi / 180.0
+        c, s = np.cos(theta), np.sin(theta)
+        rb[:, 0] *= sx
+        rb[:, 1] *= sy
+        rb[:, 2] *= np.sqrt((sx * c) ** 2 + (sy * s) ** 2)
+        rb[:, 3] *= np.sqrt((sx * s) ** 2 + (sy * c) ** 2)
+        rb[:, 4] = np.arctan2(sx * s, sy * c) * 180.0 / np.pi
+        return rb
 
 
 class CropTransform(Transform):

@@ -74,6 +74,9 @@ def batched_outputs_to_coco_json(
     (x, y, 2) triples. ``timings`` (optional) gathers the seconds of the
     ``paste`` and the ``encode``."""
     boxes, scores = _numpy(outputs["boxes"]), _numpy(outputs["scores"])
+    if boxes.shape[-1] != 4:
+        raise ValueError(f"COCO results take 4-dim boxes, not {boxes.shape[-1]}: score a rotated model with "
+                         "evaluation.RotatedCOCOEvaluator (the JAX package's build_evaluator picks none either)")
     classes, valid = _numpy(outputs["classes"]), _numpy(outputs["valid"]).astype(bool)
     masks = _tensor(outputs.get("masks")) if with_masks else None
     masks_full = _tensor(outputs.get("masks_full")) if with_masks else None

@@ -11,6 +11,8 @@ from .batch_norm import (
 from .blocks import CNNBlockBase, DepthwiseSeparableConv2d
 from .deform_conv import DeformConv, ModulatedDeformConv, deform_conv2d
 from .shape_spec import ShapeSpec
+from ..ops.nms import batched_nms_rotated, nms_rotated
+from ..ops.roi_align_rotated import ROIAlignRotated, roi_align_rotated
 from .wrappers import (
     Conv2d,
     ConvTranspose2d,
@@ -30,6 +32,8 @@ __all__ = [
     "DepthwiseSeparableConv2d",
     "DeformConv",
     "ModulatedDeformConv",
+    "ROIAlignRotated",
+    "batched_nms_rotated",
     "deform_conv2d",
     "ConvTranspose2d",
     "FrozenBatchNorm2d",
@@ -45,6 +49,8 @@ __all__ = [
     "GroupNorm32",
     "interpolate_bilinear",
     "interpolate_nearest",
+    "nms_rotated",
     "normal",
+    "roi_align_rotated",
     "variance_scaling",
 ]

@@ -1,5 +1,6 @@
 """Anchor generation (reference: detectron2/modeling/anchor_generator.py:81
-``DefaultAnchorGenerator``; JAX package ``modeling/anchor_generator.py``).
+``DefaultAnchorGenerator``, :230 ``RotatedAnchorGenerator``; JAX package
+``modeling/anchor_generator.py``).
 
 Anchors depend only on the feature shapes: they are computed with numpy and
 kept per (grid sizes, device)."""
@@ -46,11 +47,13 @@ class DefaultAnchorGenerator:
     def __init__(self, sizes, aspect_ratios, strides, offset: float = 0.0):
         self.strides = list(strides)
         n = len(self.strides)
-        sizes = _broadcast_params(sizes, n, "sizes")
-        aspect_ratios = _broadcast_params(aspect_ratios, n, "aspect_ratios")
-        self.cell_anchors = [generate_cell_anchors(s, a) for s, a in zip(sizes, aspect_ratios)]
+        self.cell_anchors = self._make_cells(_broadcast_params(sizes, n, "sizes"),
+                                             _broadcast_params(aspect_ratios, n, "aspect_ratios"))
         self.offset = offset
         self._cache: Dict[Tuple, List[torch.Tensor]] = {}
+
+    def _make_cells(self, sizes, aspect_ratios) -> List[np.ndarray]:
+        return [generate_cell_anchors(s, a) for s, a in zip(sizes, aspect_ratios)]
 
     @classmethod
     def from_config(cls, cfg, input_shape):
@@ -65,8 +68,13 @@ class DefaultAnchorGenerator:
     def num_anchors(self) -> List[int]:
         return [len(c) for c in self.cell_anchors]
 
+    @staticmethod
+    def _shifts(sx: np.ndarray, sy: np.ndarray) -> np.ndarray:
+        """Each location's shift of a cell anchor: (HW, box_dim)."""
+        return np.stack([sx, sy, sx, sy], axis=1)
+
     def __call__(self, grid_sizes: List[Tuple[int, int]], device) -> List[torch.Tensor]:
-        """Per level (Hi * Wi * A, 4) anchors, location-major."""
+        """Per level (Hi * Wi * A, box_dim) anchors, location-major."""
         key = (tuple(grid_sizes), str(device))
         if key not in self._cache:
             anchors = []
@@ -75,16 +83,58 @@ class DefaultAnchorGenerator:
                     (np.arange(w, dtype=np.float32) + self.offset) * stride,
                     (np.arange(h, dtype=np.float32) + self.offset) * stride,
                 )
-                sx, sy = shift_x.reshape(-1), shift_y.reshape(-1)
-                shifts = np.stack([sx, sy, sx, sy], axis=1)
-                a = (shifts[:, None, :] + cell[None, :, :]).reshape(-1, 4)
+                shifts = self._shifts(shift_x.reshape(-1), shift_y.reshape(-1))
+                a = (shifts[:, None, :] + cell[None, :, :]).reshape(-1, self.box_dim)
                 anchors.append(torch.from_numpy(a).to(device))
             self._cache[key] = anchors
         return self._cache[key]
 
 
-def build_anchor_generator(cfg, input_shape) -> DefaultAnchorGenerator:
+class RotatedAnchorGenerator(DefaultAnchorGenerator):
+    """(cx, cy, w, h, angle) anchors: every size, aspect ratio and angle
+    at each location (JAX :107; reference :230), angles innermost."""
+
+    box_dim = 5
+
+    def __init__(self, sizes, aspect_ratios, strides, angles, offset: float = 0.0):
+        self.angles = _broadcast_params(angles, len(strides), "angles")
+        super().__init__(sizes, aspect_ratios, strides, offset)
+
+    def _make_cells(self, sizes, aspect_ratios) -> List[np.ndarray]:
+        return [self._cell_anchors(s, a, ang) for s, a, ang in zip(sizes, aspect_ratios, self.angles)]
+
+    @classmethod
+    def from_config(cls, cfg, input_shape):
+        return cls(
+            sizes=cfg.MODEL.ANCHOR_GENERATOR.SIZES,
+            aspect_ratios=cfg.MODEL.ANCHOR_GENERATOR.ASPECT_RATIOS,
+            strides=[x.stride for x in input_shape],
+            angles=cfg.MODEL.ANCHOR_GENERATOR.ANGLES,
+            offset=cfg.MODEL.ANCHOR_GENERATOR.OFFSET,
+        )
+
+    @staticmethod
+    def _cell_anchors(sizes, aspect_ratios, angles) -> np.ndarray:
+        anchors = []
+        for size in sizes:
+            area = size**2.0
+            for ar in aspect_ratios:
+                w = math.sqrt(area / ar)
+                anchors.extend([0, 0, w, ar * w, a] for a in angles)
+        return np.asarray(anchors, dtype=np.float32)
+
+    @staticmethod
+    def _shifts(sx: np.ndarray, sy: np.ndarray) -> np.ndarray:
+        zeros = np.zeros_like(sx)
+        return np.stack([sx, sy, zeros, zeros, zeros], axis=1)
+
+
+def build_anchor_generator(cfg, input_shape):
+    """The generator named by MODEL.ANCHOR_GENERATOR.NAME:
+    ``DefaultAnchorGenerator`` or ``RotatedAnchorGenerator``."""
     name = cfg.MODEL.ANCHOR_GENERATOR.NAME
+    if name == "RotatedAnchorGenerator":
+        return RotatedAnchorGenerator.from_config(cfg, input_shape)
     if name != "DefaultAnchorGenerator":
         raise NotImplementedError(f"anchor generator {name!r} is not ported yet")
     return DefaultAnchorGenerator.from_config(cfg, input_shape)

@@ -7,12 +7,14 @@ Input contract, the JAX package's batch dict:
   image:        (B, H, W, 3) float, raw pixel scale, channel order per cfg
   image_sizes:  (B, 2) int true (h, w) inside the padded canvas
   orig_sizes:   (B, 2) int original sizes (boxes are mapped back to them)
-  gt_boxes:     (B, G, 4) float             (training)
+  gt_boxes:     (B, G, 4) float             (training; (B, G, 5) rotated
+                                             (cx, cy, w, h, angle) under RRPN)
   gt_classes:   (B, G) int                  (training)
   gt_valid:     (B, G) bool                 (training)
   gt_mask_crops:(B, G, M, M) bool           (training, MASK_ON)
 Output in eval mode: fixed (B, D) detections with a ``valid`` mask: ``boxes``
-(B, D, 4), ``scores`` (B, D), ``classes`` (B, D) int32, ``valid`` (B, D)
+(B, D, 4) (a rotated model's, RRPN and RROIHeads, (B, D, 5) (cx, cy, w, h,
+angle), its proposals too), ``scores`` (B, D), ``classes`` (B, D) int32, ``valid`` (B, D)
 bool and, with MASK_ON, ``masks`` (B, D, S, S) ROI probabilities, with
 KEYPOINT_ON ``keypoints`` (B, D, K, 4) (x, y, logit, probability); given
 ``detected_boxes``, only the per-box branches

@@ -8,6 +8,7 @@ from typing import Dict
 import torch
 
 from ..structures.boxes import clip_boxes
+from ..structures.rotated_boxes import scale_rotated
 
 
 def detector_postprocess_batched(
@@ -17,18 +18,23 @@ def detector_postprocess_batched(
 ) -> Dict[str, torch.Tensor]:
     """Rescale boxes from network-input to original-image coordinates, clip
     them there, and mark boxes that clipped to empty invalid (where there is
-    a ``valid``). Keypoints (B, D, K, 4) follow the boxes' scale in x and y.
+    a ``valid``). Rotated (..., 5) boxes are refit under the anisotropic
+    scale (``structures.rotated_boxes.scale_rotated``) and neither clipped
+    nor invalidated, as in the JAX package (``postprocessing.py:31-45``).
+    Keypoints (B, D, K, 4) follow the boxes' scale in x and y.
     Masks stay (D, S, S) ROI probabilities; ``ops.paste_masks`` pastes them
     into the image."""
     scale = orig_sizes.to(torch.float32) / image_sizes.to(torch.float32).clamp(min=1.0)
     sy = scale[:, 0][:, None]
     sx = scale[:, 1][:, None]
     b = detections["boxes"]
-    boxes = torch.stack([b[..., 0] * sx, b[..., 1] * sy, b[..., 2] * sx, b[..., 3] * sy], dim=-1)
-    boxes = clip_boxes(boxes, orig_sizes.to(torch.float32)[:, None, :])
     out = dict(detections)
-    out["boxes"] = boxes
-    if "valid" in out:
+    if b.shape[-1] == 5:
+        out["boxes"] = scale_rotated(b, sx, sy)
+    else:
+        boxes = torch.stack([b[..., 0] * sx, b[..., 1] * sy, b[..., 2] * sx, b[..., 3] * sy], dim=-1)
+        out["boxes"] = boxes = clip_boxes(boxes, orig_sizes.to(torch.float32)[:, None, :])
+    if "valid" in out and b.shape[-1] == 4:
         nonempty = (boxes[..., 2] > boxes[..., 0]) & (boxes[..., 3] > boxes[..., 1])
         out["valid"] = out["valid"] & nonempty
     if "keypoints" in out:

@@ -73,6 +73,9 @@ class RPN(nn.Module):
         shapes = [input_shape[f] for f in self.in_features]
         self.anchor_generator = build_anchor_generator(cfg, shapes)
         num_anchors = self.anchor_generator.num_anchors
+        if self.anchor_generator.box_dim != 4:
+            raise ValueError("the RPN takes 4-dim anchors: MODEL.ANCHOR_GENERATOR.NAME 'RotatedAnchorGenerator' goes "
+                             "with MODEL.PROPOSAL_GENERATOR.NAME 'RRPN'")
         if len(set(num_anchors)) != 1:
             raise ValueError("all levels must share one anchor count")
         self.rpn_head = StandardRPNHead(
@@ -208,12 +211,16 @@ class RPN(nn.Module):
         }
 
 
-def build_proposal_generator(cfg, input_shape: Dict[str, ShapeSpec]) -> Optional[RPN]:
-    """The RPN, or None for ``PrecomputedProposals``: the model then takes
-    the batch's ``proposals`` (JAX ``rpn.py:359-365``)."""
+def build_proposal_generator(cfg, input_shape: Dict[str, ShapeSpec]) -> Optional[nn.Module]:
+    """The RPN, the rotated ``RRPN``, or None for ``PrecomputedProposals``:
+    the model then takes the batch's ``proposals`` (JAX ``rpn.py:359-365``)."""
     name = cfg.MODEL.PROPOSAL_GENERATOR.NAME
     if name == "PrecomputedProposals":
         return None
+    if name == "RRPN":
+        from .rrpn import RRPN
+
+        return RRPN(cfg, input_shape)
     if name != "RPN":
         raise NotImplementedError(f"proposal generator {name!r} is not ported yet")
     return RPN(cfg, input_shape)

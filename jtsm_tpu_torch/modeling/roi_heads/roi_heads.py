@@ -273,8 +273,8 @@ class StandardROIHeads(nn.Module):
 
 def build_roi_heads(cfg, input_shape: Dict[str, ShapeSpec]) -> nn.Module:
     """The ROI heads named by ROI_HEADS.NAME: ``StandardROIHeads``,
-    ``CascadeROIHeads``, the C4 ``Res5ROIHeads``, or its WSL name
-    ``WSRes5ROIHeads``."""
+    ``CascadeROIHeads``, the C4 ``Res5ROIHeads``, its WSL name
+    ``WSRes5ROIHeads``, or the rotated ``RROIHeads``."""
     name = cfg.MODEL.ROI_HEADS.NAME
     if name == "StandardROIHeads":
         return StandardROIHeads(cfg, input_shape)
@@ -290,4 +290,8 @@ def build_roi_heads(cfg, input_shape: Dict[str, ShapeSpec]) -> nn.Module:
         from ...wsl.modeling.roi_heads_wsl import WSRes5ROIHeads
 
         return WSRes5ROIHeads(cfg, input_shape)
+    if name == "RROIHeads":
+        from .rotated_fast_rcnn import RROIHeads
+
+        return RROIHeads(cfg, input_shape)
     raise NotImplementedError(f"ROI heads {name!r} are not ported yet")

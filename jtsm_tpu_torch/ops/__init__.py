@@ -1,5 +1,5 @@
-from .box_regression import Box2BoxTransform
-from .nms import batched_nms_mask, nms_mask
+from .box_regression import Box2BoxTransform, Box2BoxTransformRotated
+from .nms import batched_nms_mask, batched_nms_rotated_mask, nms_mask, nms_rotated_mask
 from .roi_align import (
     roi_align_batched,
     roi_align_multilevel,
@@ -9,8 +9,11 @@ from .roi_align import (
 
 __all__ = [
     "Box2BoxTransform",
+    "Box2BoxTransformRotated",
     "batched_nms_mask",
+    "batched_nms_rotated_mask",
     "nms_mask",
+    "nms_rotated_mask",
     "roi_align_batched",
     "roi_align_multilevel",
     "roi_align_multilevel_backward_plain",

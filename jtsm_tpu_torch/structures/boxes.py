@@ -4,6 +4,7 @@ detectron2/structures/boxes.py:185 ``clip``, :199 ``nonempty``, :369
 
 from __future__ import annotations
 
+import math
 from enum import IntEnum
 
 import numpy as np
@@ -21,25 +22,47 @@ class BoxMode(IntEnum):
     XYWHA_ABS = 4
 
     @staticmethod
-    def convert(box: np.ndarray, from_mode: "BoxMode", to_mode: "BoxMode") -> np.ndarray:
-        """(N, 4) boxes from one absolute mode to another (reference
-        boxes.py:35): the array as it is when the modes agree, else float64;
-        only XYXY_ABS and XYWH_ABS are ported: the rotated XYWHA_ABS waits
-        for the rotated family (ROADMAP), and the relative modes raise, as
-        in the JAX package."""
+    def convert(box, from_mode: "BoxMode", to_mode: "BoxMode"):
+        """Boxes from one absolute mode to another (reference boxes.py:35,
+        JAX package ``structures/boxes.py:35-90``): the input as it is when
+        the modes agree; else an (N, 4) or (N, 5) array comes back in its own
+        dtype, a 4- or 5-long list or tuple as its own type. XYWHA_ABS
+        (cx, cy, w, h, angle in degrees, counter-clockwise) converts to
+        XYXY_ABS as the envelope of the rotated box, and XYWH_ABS to XYWHA_ABS
+        at angle 0; the relative modes raise, as in the JAX package."""
         if from_mode == to_mode:
             return box
-        arr = np.asarray(box, dtype=np.float64)
-        a, b, c, d = (arr[..., i] for i in range(4))
-        if (from_mode, to_mode) == (BoxMode.XYWH_ABS, BoxMode.XYXY_ABS):
-            return np.stack([a, b, a + c, b + d], axis=-1)
-        if (from_mode, to_mode) == (BoxMode.XYXY_ABS, BoxMode.XYWH_ABS):
-            return np.stack([a, b, c - a, d - b], axis=-1)
-        if BoxMode.XYWHA_ABS in (from_mode, to_mode):
-            raise NotImplementedError(f"BoxMode.convert from {from_mode!r} to {to_mode!r}: the rotated (XYWHA) "
-                                      "conversions wait for the rotated family (ROADMAP)")
-        raise NotImplementedError(f"BoxMode.convert from {from_mode!r} to {to_mode!r}: relative modes are not "
-                                  "supported")
+        if BoxMode.XYXY_REL in (from_mode, to_mode) or BoxMode.XYWH_REL in (from_mode, to_mode):
+            raise NotImplementedError(f"BoxMode.convert from {from_mode!r} to {to_mode!r}: relative modes are not "
+                                      "supported")
+        single_box = isinstance(box, (list, tuple))
+        if single_box and len(box) not in (4, 5):
+            raise ValueError("BoxMode.convert takes a 4- or 5-long list or tuple, or an (N, 4) or (N, 5) array")
+        arr = np.array(box, dtype=np.float64)[None, :] if single_box else np.asarray(box, dtype=np.float64)
+        if (from_mode, to_mode) == (BoxMode.XYWHA_ABS, BoxMode.XYXY_ABS):
+            if arr.shape[-1] != 5:
+                raise ValueError("The last dimension of input shape must be 5 for XYWHA format")
+            cx, cy, w, h, a = (arr[..., i] for i in range(5))
+            theta = a * math.pi / 180.0
+            c, s = np.abs(np.cos(theta)), np.abs(np.sin(theta))
+            new_w, new_h = c * w + s * h, c * h + s * w
+            out = np.stack([cx - new_w / 2.0, cy - new_h / 2.0, cx + new_w / 2.0, cy + new_h / 2.0], axis=-1)
+        elif (from_mode, to_mode) == (BoxMode.XYWH_ABS, BoxMode.XYWHA_ABS):
+            x, y, w, h = (arr[..., i] for i in range(4))
+            out = np.stack([x + w / 2.0, y + h / 2.0, w, h, np.zeros_like(x)], axis=-1)
+        elif (from_mode, to_mode) == (BoxMode.XYWH_ABS, BoxMode.XYXY_ABS):
+            a, b, c, d = (arr[..., i] for i in range(4))
+            out = np.stack([a, b, a + c, b + d], axis=-1)
+        elif (from_mode, to_mode) == (BoxMode.XYXY_ABS, BoxMode.XYWH_ABS):
+            a, b, c, d = (arr[..., i] for i in range(4))
+            out = np.stack([a, b, c - a, d - b], axis=-1)
+        else:
+            raise NotImplementedError(f"Conversion from BoxMode {from_mode!r} to {to_mode!r} is not supported yet")
+        if single_box:
+            return type(box)(out[0].tolist())
+        if isinstance(box, np.ndarray):
+            return out.astype(box.dtype)
+        return out
 
 
 def box_area(boxes: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,8 @@ adds, held against the JAX package on the CPU:
 * ``convert_to_coco_dict`` on instance records (XYWH and XYXY boxes,
   polygons, RLE, keypoints, crowds, records without ``image_id``) equal to
   the JAX package's; ``convert_to_coco_json``'s cache and its write through
-  a temporary file; a rotated box raises with a message;
+  a temporary file; a rotated box as the JAX package converts it, and the
+  conversion it lacks raising with a message;
 * ``COCOEvaluator`` on a dataset registered without a COCO json (Cityscapes
   records) equal to the JAX package's;
 * ``load_coco_panoptic_json`` and ``register_coco_panoptic`` (the standard
@@ -150,15 +151,27 @@ def test_convert_to_coco_json_caches_and_writes_atomically(tmp_path, monkeypatch
 
 
 def test_rotated_boxes_raise_with_a_message():
+    """A rotated (XYWHA) box converts as the JAX package converts it (the
+    rotated family is ported): ``convert_to_coco_dict`` keeps it 5-dim,
+    ``BoxMode`` gives its XYXY envelope; the conversion the JAX package
+    lacks, XYWHA to XYWH, raises with a message on both sides."""
     name = "torch_convert_rotated"
-    DatasetCatalog.register(name, lambda: [{"file_name": "r.jpg", "image_id": 1, "height": 10, "width": 10,
-                                            "annotations": [{"bbox": [5, 5, 4, 2, 30], "bbox_mode": BoxMode.XYWHA_ABS,
-                                                             "category_id": 0}]}])
+    records = [{"file_name": "r.jpg", "image_id": 1, "height": 10, "width": 10,
+                "annotations": [{"bbox": [5, 5, 4, 2, 30], "bbox_mode": BoxMode.XYWHA_ABS, "category_id": 0}]}]
+    DatasetCatalog.register(name, lambda: copy.deepcopy(records))
     MetadataCatalog.get(name).set(thing_classes=["a"])
-    with pytest.raises(NotImplementedError, match="rotated"):
-        convert_to_coco_dict(name)
-    with pytest.raises(NotImplementedError, match="rotated"):
-        BoxMode.convert([[5, 5, 4, 2, 30]], BoxMode.XYWHA_ABS, BoxMode.XYXY_ABS)
+    jax_records = copy.deepcopy(records)
+    jax_records[0]["annotations"][0]["bbox_mode"] = JaxBoxMode.XYWHA_ABS
+    JaxDatasetCatalog.register(name, lambda: copy.deepcopy(jax_records))
+    JaxMetadataCatalog.get(name).set(thing_classes=["a"])
+    got = convert_to_coco_dict(name)
+    assert got == jax_convert(name) and got["annotations"][0]["bbox"] == [5, 5, 4, 2, 30]
+    np.testing.assert_array_equal(BoxMode.convert(np.array([[5, 5, 4, 2, 30]]), BoxMode.XYWHA_ABS, BoxMode.XYXY_ABS),
+                                  JaxBoxMode.convert(np.array([[5, 5, 4, 2, 30]]), JaxBoxMode.XYWHA_ABS,
+                                                     JaxBoxMode.XYXY_ABS))
+    for mode in (BoxMode, JaxBoxMode):
+        with pytest.raises(NotImplementedError, match="not supported"):
+            mode.convert([5, 5, 4, 2, 30], mode.XYWHA_ABS, mode.XYWH_ABS)
 
 
 def test_coco_evaluator_converts_a_dataset_without_json_as_jax():

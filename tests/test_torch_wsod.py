@@ -49,7 +49,7 @@ from jtsm_tpu.wsl.modeling import wsod_zoo as jax_zoo
 from jtsm_tpu_torch.checkpoint import variables_to_state_dict
 from jtsm_tpu_torch.config import (
     WSOD_HEADS,
-    faster_rcnn_R_50_C4_cfg,
+    semantic_R_50_FPN_cfg,
     uwsod_V_16_DC5_cfg,
     wsl_cfg,
     wsod_V_16_DC5_cfg,
@@ -309,14 +309,13 @@ def test_wsr_solver_doubles_the_bias_rate_without_decay():
 
 
 def test_unported_pieces_raise():
-    """The pieces that stay unported say so at build: the rotated anchor
-    generator (ROADMAP queue 1 item 7e) and an MRRP stage plain1 of the
-    multi-rate VGG16."""
-    for builder, opts, what in (
-            (faster_rcnn_R_50_C4_cfg, ["MODEL.ANCHOR_GENERATOR.NAME", "RotatedAnchorGenerator"],
-             "anchor generator 'RotatedAnchorGenerator' is"),
-            (uwsod_V_16_DC5_cfg, ["MODEL.MRRP.MRRP_STAGE", "plain1"], "plain1")):
-        cfg = builder(narrow=True)
+    """The pieces that stay unported say so at build: DeepLab's sem-seg head
+    ``ASPPHead`` under ``SemanticSegmentor`` (a project, ROADMAP queue 1
+    item 8) and an MRRP stage plain1 of the multi-rate VGG16."""
+    for make_cfg, opts, what in (
+            (semantic_R_50_FPN_cfg, ["MODEL.SEM_SEG_HEAD.NAME", "ASPPHead"], "sem-seg head 'ASPPHead' is"),
+            (lambda: uwsod_V_16_DC5_cfg(narrow=True), ["MODEL.MRRP.MRRP_STAGE", "plain1"], "plain1")):
+        cfg = make_cfg()
         cfg.merge_from_list(opts)
         with pytest.raises(NotImplementedError, match=f"{what}.* not ported yet"):
             build_model(cfg, device="cpu")
